@@ -1,5 +1,6 @@
 // Shared helpers of the attention kernels: element loads/stores in the two
-// operand types (float32, bfloat16) and the online-softmax shift rule.
+// operand types (float32, bfloat16), asynchronous copies, and the
+// online-softmax shift rule.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -31,6 +32,22 @@ __device__ __forceinline__ void tt_load8(const __nv_bfloat16* p, float* out) {
     out[2 * i] = f.x;
     out[2 * i + 1] = f.y;
   }
+}
+
+// 16-byte asynchronous copy from global to shared memory (cp.async, which
+// bypasses L1), and the group commit / wait that order such copies.
+__device__ __forceinline__ void tt_cp_async16(void* smem, const void* gmem) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+__device__ __forceinline__ void tt_cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void tt_cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // The online-softmax fold of tpuserver/ops/flash.py::_online_softmax_fold:

@@ -115,11 +115,13 @@ def load_library():
     declared (pointers and the stream as ``void*``, strides as int64)."""
     lib = ctypes.CDLL(str(build()))
     lib.tt_decode_attention.argtypes = (
-        [_int, _ptr, _ptr, _ptr, _ptr, _ptr]
-        + [_int] * 5 + [_i64] * 10 + [ctypes.c_float, _ptr])
+        [_int, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr] + [_int] * 6
+        + [ctypes.POINTER(_i64), ctypes.c_float, _ptr])
     lib.tt_decode_attention.restype = _int
     lib.tt_flash_attention.argtypes = (
         [_int, _ptr, _ptr, _ptr, _ptr] + [_int] * 7
         + [ctypes.POINTER(_i64), ctypes.c_float, _ptr])
     lib.tt_flash_attention.restype = _int
+    lib.tt_flash_tile_product.argtypes = [_ptr] * 6
+    lib.tt_flash_tile_product.restype = _int
     return lib

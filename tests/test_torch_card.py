@@ -37,11 +37,12 @@ def _row_rel_err(out, ref):
     return (diff / scale).max().item()
 
 
-@pytest.mark.parametrize("d,causal", [(128, True), (128, False),
-                                      (64, True), (64, False)])
-def test_flash_kernel_matches_plain_on_card(cuda, d, causal):
+@pytest.mark.parametrize("t,d,causal", [
+    (200, 128, True), (200, 128, False), (200, 64, True), (200, 64, False),
+    (384, 128, True), (384, 128, False)])
+def test_flash_kernel_matches_plain_on_card(cuda, t, d, causal):
     gen = torch.Generator(device=cuda).manual_seed(0)
-    q, k, v = (torch.randn(2, 200, hh, d, device=cuda, generator=gen).to(
+    q, k, v = (torch.randn(2, t, hh, d, device=cuda, generator=gen).to(
         torch.bfloat16) for hh in (8, 2, 2))
     before = tflash.flash_attention.launches
     out = tflash.flash_attention(q, k, v, causal=causal, block_q=8,
@@ -84,6 +85,70 @@ def test_decode_kernel_matches_plain_on_card(cuda, dtype, h, hkv, d):
     short = tflash.decode_attention_reference(
         q, kc, vc, torch.where(lengths > 256, lengths - 256, lengths))
     assert _row_rel_err(short, ref) > CARD_TOL[dtype]
+
+
+def test_wgmma_tile_product_matches_torch_on_card(cuda):
+    """The two products the flash kernel is built on, alone: TMA's
+    128-byte swizzle must match the wgmma descriptors (K-major for Q and
+    K, transposed for V).  S is exact products summed in fp32; O takes
+    the kernel's own bf16(S), so both limits are summation order only."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v = (torch.randn(64, 128, device=cuda, generator=gen).to(
+        torch.bfloat16) for _ in range(3))
+    s, o = tflash.flash_tile_product(q, k, v)
+    torch.cuda.synchronize()
+    s_ref = q.float() @ k.float().T
+    o_ref = s.to(torch.bfloat16).float() @ v.float()
+    assert _row_rel_err(s, s_ref) <= 1e-5
+    assert _row_rel_err(o, o_ref) <= 1e-5
+    # a V read untransposed, or a swizzle off by one chunk, is far out
+    assert _row_rel_err(s.to(torch.bfloat16).float() @ v.float().roll(
+        1, dims=1), o_ref) > 1e-2
+
+
+# the split's edges at the 8B shapes: lengths 1, 15, 16, 17 are shorter
+# than the 33 splits of one stream; 16-key split and 64-key tile edges;
+# a ragged batch with a 0; B 34, where one split per (row, kv head) is
+# chosen
+@pytest.mark.parametrize("lengths", [
+    (1,), (15,), (16,), (17,), (63,), (64,), (65,), (576,), (4096,),
+    (3, 0, 1000, 4096), (77,) * 34],
+    ids=lambda x: "x".join(str(n) for n in x[:4]) + (
+        "_b{}".format(len(x)) if len(x) > 4 else ""))
+def test_split_decode_matches_both_plain_versions_on_card(cuda, lengths):
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    b, h, hkv, d, s = len(lengths), 32, 8, 128, 4096
+    q = torch.randn(b, h, d, device=cuda, generator=gen).to(torch.bfloat16)
+    kc = torch.randn(b, s, hkv, d, device=cuda, generator=gen).to(
+        torch.bfloat16)
+    vc = torch.randn(b, s, hkv, d, device=cuda, generator=gen).to(
+        torch.bfloat16)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    n_split = tflash.decode_splits(b, hkv, s, tflash._sm_count(q.device))
+    if b == 34:
+        assert n_split == 1
+    out = tflash.decode_attention(q, kc, vc, lens)
+    again = tflash.decode_attention(q, kc, vc, lens)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    for ref in (tflash.decode_attention_reference(q, kc, vc, lens),
+                tflash.decode_attention_split_reference(q, kc, vc, lens,
+                                                        n_split)):
+        assert _row_rel_err(out, ref) <= CARD_TOL[torch.bfloat16]
+    for i, n in enumerate(lengths):
+        if n == 0:
+            assert not out[i].any()
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernel_repeats_bit_identically_on_card(cuda, causal):
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    q, k, v = (torch.randn(1, 512, hh, 128, device=cuda, generator=gen).to(
+        torch.bfloat16) for hh in (32, 8, 8))
+    out = tflash.flash_attention(q, k, v, causal=causal)
+    again = tflash.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
 
 
 def test_cuda_wrappers_raise_without_a_library(cuda, monkeypatch, tmp_path):

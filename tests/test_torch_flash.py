@@ -118,6 +118,46 @@ def test_decode_attention_matches_jax(b, h, hkv, s, d, lengths, block_k,
             assert not out[i].any()
 
 
+@pytest.mark.parametrize("n_split", [1, 2, 7, 64])
+def test_decode_split_reference_matches_jax(n_split):
+    """The split-K model of the decode kernel against the Pallas kernel:
+    rows of length 0, shorter than n_split, ragged and full."""
+    rng = np.random.RandomState(9)
+    b, h, hkv, s, d = 5, 8, 4, 256, 16
+    q = rng.randn(b, h, d).astype(np.float32)
+    kc = rng.randn(b, s, hkv, d).astype(np.float32)
+    vc = rng.randn(b, s, hkv, d).astype(np.float32)
+    lens = np.asarray([0, 3, 17, 77, 256], np.int32)
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(a, "float32") for a in (q, kc, vc))
+    ref = jflash.decode_attention(jq, jk, jv, jnp.asarray(lens), block_k=32)
+    out = tflash.decode_attention_split_reference(
+        tq, tk, tv, torch.from_numpy(lens), n_split)
+    assert out.shape == (b, h, d)
+    _close(ref, out, "float32")
+    assert not out[0].any()
+
+
+def test_decode_split_ranges_cover_each_row_once():
+    lens = torch.tensor([0, 1, 15, 16, 17, 63, 64, 65, 576, 4096])
+    for n_split in (1, 2, 7, 33, 64):
+        lo, hi = tflash._split_ranges(lens, n_split)
+        assert torch.equal(lo[:, 0], torch.zeros_like(lens))
+        assert torch.equal(hi[:, -1], lens)
+        assert torch.equal(lo[:, 1:], hi[:, :-1])
+        assert bool(((lo % 16 == 0) | (lo == hi)).all())
+
+
+@pytest.mark.parametrize("b,h_kv,s,want", [
+    (1, 8, 4096, 33),    # one 8B stream: 264 blocks on 132 SMs
+    (34, 8, 4096, 1),    # B * Hkv >= 264: one block per (row, kv head)
+    (4, 8, 512, 8),      # at least 64 cache keys a split
+    (1, 1, 8192, 64),    # at most 64 splits
+    (2, 2, 32, 1),       # a cache shorter than 64 keys
+])
+def test_decode_splits_rule(b, h_kv, s, want):
+    assert tflash.decode_splits(b, h_kv, s, 132) == want
+
+
 def test_decode_attention_errors_match_jax():
     q = torch.zeros(1, 6, 8)
     with pytest.raises(ValueError, match="multiple of kv heads"):
@@ -133,6 +173,22 @@ def test_decode_attention_errors_match_jax():
                                 jnp.zeros((1, 48, 2, 8)),
                                 jnp.zeros((1, 48, 2, 8)),
                                 jnp.ones((1,), jnp.int32), block_k=32)
+
+
+def test_flash_tile_product_plain_version_and_shape_check():
+    """The tile check's plain products on the CPU (its kernel runs in
+    tests/test_torch_card.py), against numpy in float32."""
+    rng = np.random.RandomState(10)
+    q, k, v = (rng.randn(64, 128).astype(np.float32) for _ in range(3))
+    tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
+    s, o = tflash.flash_tile_product(tq, tk, tv)
+    s_ref = tq.float().numpy() @ tk.float().numpy().T
+    np.testing.assert_allclose(s.numpy(), s_ref, rtol=1e-5, atol=1e-4)
+    p = torch.from_numpy(s_ref).to(torch.bfloat16).float().numpy()
+    np.testing.assert_allclose(o.numpy(), p @ tv.float().numpy(),
+                               rtol=1e-4, atol=1e-3)
+    with pytest.raises(ValueError, match=r"\[64, 128\]"):
+        tflash.flash_tile_product(tq[:32], tk, tv)
 
 
 def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
