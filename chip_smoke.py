@@ -8,7 +8,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
 2. build: compile the port's CUDA kernels from ``src/python/tpuserver_torch/
    csrc`` (into ``build/tpuserver_torch``), print the build seconds;
 3. kernels: each kernel against its plain PyTorch version on the card at
-   Llama-3-8B shapes, with the stated tolerances (decode also against the
+   Llama-3-8B shapes (flash at every prefill length phases 4 and 4b give
+   it), with the stated tolerances (decode also against the
    plain model of its split-K), and timed beside its bound, its plain
    version and one PyTorch library call (for single-row decode also SDPA
    over the live prefix alone);
@@ -16,11 +17,20 @@ Phases, in order; any failure exits non-zero and prints no result line:
    ``llama3_8b`` (full width and depth, random weights from a seed,
    ``max_seq`` 4096) three ``/generate_stream`` requests over a socket,
    with the kernels' launch counts read around them;
+4b. serve_batched: the same weights behind ``LlamaGenerateModel(
+   max_slots=8)`` (continuous batching over a paged KV pool): 12
+   concurrent ``/generate_stream`` requests over 8 slots, then the same 12
+   in reverse arrival order, which must stream the same tokens per prompt;
+   the ``id:`` lines' ``seq`` gap-free; the kernels' launch counts read
+   around both rounds; one batched paged step's logits for a 512-token
+   prompt in slot 3 against the single-stream decode step; peak device
+   memory;
 5. model check: the 512-token prompt's last-position prefill logits
    through the kernels against the same model through the plain
    attention versions, and the greedy tokens of both;
-6. profile: one prefill and one decode chunk under ``torch.profiler``,
-   device time by kernel class beside the wall time.
+6. profile: one prefill, one decode chunk and one batched paged step (8
+   live rows near length 600) under ``torch.profiler``, device time by
+   kernel class (the page gather apart) beside the wall time.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -58,6 +68,15 @@ TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 LOGITS_TOL = 0.25
 
 SEED = 0
+
+# the batched decode shape timed in phase 3 and profiled in phase 6: 8
+# live slots near length 600
+BATCHED_LENGTHS = tuple(600 - 7 * i for i in range(8))
+# prompt lengths of phase 4b's requests, four of each; phase 3 checks the
+# flash kernel at every one whose admission prefill it runs
+BATCHED_PROMPT_LENGTHS = (512, 256, 77)
+# phase 6's wall-time samples per step
+WALL_REPS = 5
 
 
 def log(*args):
@@ -249,13 +268,15 @@ def _decode_case(torch, F, fl, dev, gen, lengths, s, h, hkv, d, dtype, timed,
             q, kc, vc, lens), 20, flush)
         row["library_ms"] = _time_ms(torch, lambda: F.scaled_dot_product_attention(
             qt, ke, ve, attn_mask=mask), 200, flush)
-        if b == 1:
-            # SDPA over the live prefix only: the masked call above reads
-            # the whole padded cache
-            kl, vl = ke[:, :, :lengths[0]], ve[:, :, :lengths[0]]
-            row["library_live_ms"] = _time_ms(
-                torch, lambda: F.scaled_dot_product_attention(qt, kl, vl),
-                200, flush)
+        # SDPA over the live prefix only (the longest row's, masked for
+        # the shorter rows): the masked call above reads the whole padded
+        # cache
+        live_s = max(lengths)
+        kl, vl = ke[:, :, :live_s], ve[:, :, :live_s]
+        live_mask = None if b == 1 else mask[..., :live_s]
+        row["library_live_ms"] = _time_ms(
+            torch, lambda: F.scaled_dot_product_attention(
+                qt, kl, vl, attn_mask=live_mask), 200, flush)
         isz = q.element_size()
         live = sum(lengths)
         nbytes = (2 * live * hkv * d + 2 * b * h * d) * isz + 4 * b
@@ -265,11 +286,19 @@ def _decode_case(torch, F, fl, dev, gen, lengths, s, h, hkv, d, dtype, timed,
     return row
 
 
+def _flash_admissions(llama, cfg, max_seq, lengths):
+    """The prefill lengths at which the scheduler's admissions of prompts
+    of ``lengths`` tokens run the flash kernel (the rest prefill dense)."""
+    padded = (llama.prefill_bucket(cfg, max_seq, n) for n in lengths)
+    return [t for t in padded if None not in llama._flash_blocks(t, cfg)]
+
+
 def phase_kernels(torch):
     """Every kernel against its plain version; returns the timed rows of
     the main path's shapes and the largest error, by kernel name."""
     import torch.nn.functional as F
 
+    from tpuserver_torch.models import llama
     from tpuserver_torch.ops import flash as fl
 
     dev = torch.device("cuda")
@@ -280,8 +309,12 @@ def phase_kernels(torch):
     h, hkv, d, s = 32, 8, 128, 4096
     timed = {}
     rows = []
+    # causal at every flash prefill length of the served paths: phase 4's
+    # 512-token prompt and each tileable admission of phase 4b
+    prefill_ts = sorted({512, *_flash_admissions(
+        llama, llama.llama3_8b(), s, BATCHED_PROMPT_LENGTHS)})
     for b, t, causal, dtype, hh, kk, dd in (
-            (1, 512, True, bf16, h, hkv, d),
+            *((1, t, True, bf16, h, hkv, d) for t in prefill_ts),
             (1, 512, False, bf16, h, hkv, d),
             (1, 2048, True, bf16, h, hkv, d),
             (1, 2048, False, bf16, h, hkv, d),
@@ -306,14 +339,21 @@ def phase_kernels(torch):
             ((4096,), s, bf16, h, hkv, d),
             ((77, 1000, 4096, 0), s, bf16, h, hkv, d),
             ((77,) * 34, s, bf16, h, hkv, d),  # B * Hkv >= 2 waves: 1 split
+            # the batched step's shape: 8 slots, ragged, inert rows at 1
+            ((1, 77, 1, 600, 4096, 1, 3000, 1), s, bf16, h, hkv, d),
+            (BATCHED_LENGTHS, s, bf16, h, hkv, d),
             ((40, 17), 64, f32, 6, 2, 16)):
         main = lengths == (576,)
+        batched = lengths == BATCHED_LENGTHS
         row = _decode_case(torch, F, fl, dev, gen, lengths, ss, hh, kk, dd,
-                           dtype, main or lengths == (4096,), flush)
+                           dtype, main or batched or lengths == (4096,),
+                           flush)
         row["kernel"] = "decode_attention"
         rows.append(row)
         if main:
             timed["decode_attention"] = row
+        if batched:
+            timed["decode_attention_batched"] = row
         if len(lengths) == 34 and row["n_split"] != 1:
             fail("decode_splits chose {} splits for B 34 (want 1)".format(
                 row["n_split"]))
@@ -358,7 +398,7 @@ def phase_kernels(torch):
 
 def _stream(port, prompt, max_tokens):
     """POST one /generate_stream request; returns (tokens, ttft_s,
-    decode tokens/s, saw_final)."""
+    decode tokens/s, saw_final, the events' ``id:`` values)."""
     import http.client
 
     body = json.dumps({"inputs": [
@@ -374,9 +414,11 @@ def _stream(port, prompt, max_tokens):
     if resp.status != 200:
         fail("generate_stream answered {}: {}".format(
             resp.status, resp.read()[:500]))
-    tokens, stamps, final = [], [], False
+    tokens, stamps, final, ids = [], [], False, []
     for raw in resp:
         line = raw.decode("utf-8").strip()
+        if line.startswith("id: "):
+            ids.append(line[len("id: "):])
         if not line.startswith("data: "):
             continue
         event = json.loads(line[len("data: "):])
@@ -392,7 +434,7 @@ def _stream(port, prompt, max_tokens):
     ttft = stamps[0] - t0 if stamps else float("nan")
     rate = ((len(stamps) - 1) / (stamps[-1] - stamps[0])
             if len(stamps) > 1 else float("nan"))
-    return tokens, ttft, rate, final
+    return tokens, ttft, rate, final, ids
 
 
 def phase_serve(torch, np):
@@ -416,13 +458,14 @@ def phase_serve(torch, np):
     rng = np.random.RandomState(SEED)
     long_prompt = rng.randint(0, cfg.vocab, 512)
     short_prompt = rng.randint(0, cfg.vocab, 77)
-    runs = []
+    runs, rates = [], []
     try:
         fl.reset_launch_counts()
         for name, prompt, n in (("flash_prefill", long_prompt, 64),
                                 ("dense_prefill", short_prompt, 32),
                                 ("repeat", long_prompt, 64)):
-            tokens, ttft, rate, final = _stream(http.port, prompt, n)
+            tokens, ttft, rate, final, _ = _stream(http.port, prompt, n)
+            rates.append(rate)
             log("request {}: prompt {} tokens, {} tokens streamed, ttft "
                 "{:.1f} ms, decode {:.1f} tokens/s".format(
                     name, len(prompt), len(tokens), ttft * 1e3, rate))
@@ -444,7 +487,225 @@ def phase_serve(torch, np):
     if launches["decode_attention"] < cfg.n_layers * 95:
         fail("decode kernel launched {} times (want >= {})".format(
             launches["decode_attention"], cfg.n_layers * 95))
-    return model, core, long_prompt, launches
+    return model, core, long_prompt, launches, runs[0], rates
+
+
+# -- phase 4b: continuous batching -------------------------------------------
+
+
+def _batched_round(port, prompts, budgets, order):
+    """Send every request in ``order``, 50 ms apart, each on its own
+    thread; returns ({index: (tokens, ttft, rate, final, ids)}, wall s)."""
+    import threading
+
+    results, errors = {}, []
+
+    def one(i):
+        try:
+            results[i] = _stream(port, prompts[i], budgets[i])
+        except SystemExit as e:  # fail() inside a worker thread
+            errors.append(e)
+
+    threads = []
+    t0 = time.monotonic()
+    for i in order:
+        threads.append(threading.Thread(target=one, args=(i,), daemon=True))
+        threads[-1].start()
+        time.sleep(0.05)
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.monotonic() - t0
+    if errors or len(results) != len(prompts):
+        fail("batched round: {} of {} streams completed".format(
+            len(results), len(prompts)))
+    return results, wall
+
+
+def phase_serve_batched(torch, np, model1, long_prompt, single_tokens,
+                        single_rates):
+    """``llama3_8b`` behind ``LlamaGenerateModel(max_slots=8)`` on phase
+    4's weights: 12 concurrent streams over 8 slots (four 512-token
+    prompts and four of 256 through the flash kernel, four of 77 dense;
+    budgets 24-64, so slots retire at different steps and the last four
+    admit mid-flight), then the same 12 in reverse arrival order.  Checks
+    gap-free ``seq``, final markers, identical tokens per prompt in both
+    rounds and the kernels' launches; then one batched paged step of the
+    512-token prompt in slot 3 against the single-stream decode step.
+    Returns (launch counts, the batched step phase 6 profiles)."""
+    from tpuserver_torch.core import InferenceServer
+    from tpuserver_torch.http_server import HttpServer
+    from tpuserver_torch.models import llama
+    from tpuserver_torch.models.llama_serving import LlamaGenerateModel
+    from tpuserver_torch.ops import flash as fl
+
+    cfg = model1._cfg
+    params = model1._ensure_params()
+    max_seq, slots = 4096, 8
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    model = LlamaGenerateModel(cfg=cfg, max_seq=max_seq, max_slots=slots,
+                               params=params, device="cuda")
+    model.warmup()
+    if model._ensure_params()["embed"].data_ptr() != \
+            params["embed"].data_ptr():
+        fail("the batched model copied the weights instead of sharing them")
+    core = InferenceServer([model])
+    http = HttpServer(core, port=0).start()
+    rng = np.random.RandomState(SEED + 1)
+    lengths = BATCHED_PROMPT_LENGTHS * 4
+    prompts = [rng.randint(0, cfg.vocab, n) for n in lengths]
+    prompts[0] = long_prompt  # phase 4's prompt: greedy agreement reported
+    budgets = [64, 24, 40, 32, 56, 28, 48, 36, 44, 24, 60, 32]
+    tileable = len(_flash_admissions(llama, cfg, max_seq, lengths))
+    rounds = []
+    try:
+        fl.reset_launch_counts()
+        steps0 = model.scheduler_stats()["steps"]
+        for name, order in (("forward", range(12)),
+                            ("reverse", range(11, -1, -1))):
+            results, wall = _batched_round(http.port, prompts, budgets,
+                                           list(order))
+            total = 0
+            for i in order:
+                tokens, ttft, rate, final, ids = results[i]
+                total += len(tokens)
+                seqs = [int(x.rsplit("/", 1)[1]) for x in ids]
+                log("batched {} request {}: prompt {} tokens, {} tokens "
+                    "streamed, ttft {:.1f} ms, decode {:.1f} tokens/s, "
+                    "final {}, seq 0..{} gap-free {}".format(
+                        name, i, len(prompts[i]), len(tokens), ttft * 1e3,
+                        rate, final, len(seqs) - 1,
+                        seqs == list(range(len(tokens)))))
+                if len(tokens) != budgets[i] or not final:
+                    fail("batched request {}: {} events (want {}), final "
+                         "marker {}".format(i, len(tokens), budgets[i],
+                                            final))
+                if seqs != list(range(len(tokens))) or len({
+                        x.rsplit("/", 1)[0] for x in ids}) != 1:
+                    fail("batched request {}: id lines {}".format(i, ids))
+            log("batched {} round: {} tokens in {:.3f} s, aggregate {:.1f} "
+                "tokens/s against single-stream decode rates {}".format(
+                    name, total, wall, total / wall,
+                    ["{:.1f}".format(r) for r in single_rates]))
+            rounds.append({i: results[i][0] for i in order})
+        torch.cuda.synchronize()
+        steps = model.scheduler_stats()["steps"] - steps0
+        launches = {"flash_attention": fl.flash_attention.launches,
+                    "decode_attention": fl.decode_attention.launches}
+        stats = model.scheduler_stats()
+    finally:
+        http.stop()
+        core.close()
+    log("serve_batched: kernel launches", json.dumps(launches),
+        "batched steps", steps, "tileable admissions", 2 * tileable,
+        "scheduler", json.dumps(stats))
+    same = [rounds[0][i] == rounds[1][i] for i in range(12)]
+    agree = sum(a == b for a, b in zip(rounds[0][0], single_tokens))
+    log("serve_batched: rows identical across arrival orders: {}/12; "
+        "greedy agreement of the 512-token prompt with the single-stream "
+        "path: {}/{} tokens (reported, not required)".format(
+            sum(same), agree, len(single_tokens)))
+    if not all(same):
+        fail("a prompt streamed other tokens in reverse arrival order: "
+             "{}".format([i for i, ok in enumerate(same) if not ok]))
+    if launches["decode_attention"] < cfg.n_layers * steps:
+        fail("decode kernel launched {} times (want >= {})".format(
+            launches["decode_attention"], cfg.n_layers * steps))
+    if launches["flash_attention"] < cfg.n_layers * 2 * tileable:
+        fail("flash kernel launched {} times (want >= {})".format(
+            launches["flash_attention"], cfg.n_layers * 2 * tileable))
+    if stats["live_streams"] != 0 or (
+            stats["pages_free"] != stats["pages_total"]):
+        fail("the batched run leaked slots or pages: {}".format(stats))
+
+    # one batched step of the 512-token prompt in slot 3 (every other row
+    # inert) against the single-stream decode step at the same position
+    fns = llama.make_scheduler_fns(cfg, max_seq, slots, device="cuda")
+    ppseq, n_pages = fns["pages_per_seq"], fns["n_pages"]
+    n = len(long_prompt)
+    tokens_in = torch.tensor(long_prompt, dtype=torch.long,
+                             device="cuda")[None, :]
+    with torch.inference_mode():
+        cache = llama.init_kv_cache(cfg, 1, max_seq, "cuda")
+        logits1, cache = llama.prefill(params, cache, tokens_in, cfg)
+        pages, logits_all = fns["init_cache"](), fns["init_logits"]()
+        slot_logits, slot_cache = fns["prefill"](
+            params, fns["init_slot_cache"](), long_prompt[None, :], n)
+        tables = np.full((slots, ppseq), n_pages, np.int32)
+        tables[3] = np.arange(3 * ppseq, 4 * ppseq)
+        pages, logits_all = fns["admit"](pages, logits_all, slot_cache,
+                                         slot_logits, tables[3], 3)
+        del slot_cache
+        positions = np.full((slots,), max_seq, np.int32)
+        active = np.zeros((slots,), bool)
+        active[3] = True
+        no_force = np.zeros((slots,), np.int32)
+        single, batched = [], []
+        for step in range(16):
+            tok = torch.argmax(logits1, dim=-1)
+            single.append(int(tok[0]))
+            logits1, cache = llama.decode_step(params, cache, tok, n + step,
+                                               cfg)
+            positions[3] = n + step
+            toks, _, logits_all, pages = fns["step"](
+                params, pages, logits_all, tables, positions, active,
+                no_force, no_force.astype(bool))
+            batched.append(int(np.asarray(toks)[3]))
+            if step == 0:
+                if not (torch.isfinite(logits_all[3]).all()
+                        and logits_all.shape == (slots, cfg.vocab)):
+                    fail("batched-step logits not finite or of the wrong "
+                         "shape")
+                err = (logits_all[3] - logits1[0]).abs().max().item()
+                inert = logits_all[[0, 1, 2, 4, 5, 6, 7]].abs().max().item()
+        del cache
+        # the state phase 6 profiles: 8 live rows near length 600 over
+        # random K/V (a step's cost does not depend on the values)
+        pages.normal_(generator=torch.Generator(device="cuda").manual_seed(
+            SEED))
+    agree16 = sum(a == b for a, b in zip(single, batched))
+    log("serve_batched: slot-3 batched-step logits max |batched - single| "
+        "= {:.4g} (tolerance {}); inert rows' logits stay {}; first 16 "
+        "greedy tokens agree: {}/16".format(err, LOGITS_TOL, inert,
+                                            agree16))
+    if not err <= LOGITS_TOL:
+        fail("batched-step logits differ from the single-stream step by "
+             "{}".format(err))
+    if inert != 0.0:
+        fail("an inert row's logits moved")
+
+    prof_tables = np.arange(slots * ppseq, dtype=np.int32).reshape(
+        slots, ppseq)
+    prof_pos = np.array(BATCHED_LENGTHS, np.int32) - 1
+    prof_active = np.ones((slots,), bool)
+    state = {"pages": pages, "logits": logits_all}
+
+    def dispatch():
+        toks, lps, state["logits"], state["pages"] = fns["step"](
+            params, state["pages"], state["logits"], prof_tables, prof_pos,
+            prof_active, no_force, no_force.astype(bool))
+        return toks, lps
+
+    def batched_step():
+        toks, lps = dispatch()
+        return np.asarray(toks), np.asarray(lps)
+
+    def pipelined_steps(n=4):
+        # the scheduler's one-deep pipeline: step i+1 is dispatched
+        # before step i's tokens are fetched
+        inflight = dispatch()
+        for _ in range(n - 1):
+            current = dispatch()
+            np.asarray(inflight[0]), np.asarray(inflight[1])
+            inflight = current
+        return np.asarray(inflight[0]), np.asarray(inflight[1])
+
+    torch.cuda.synchronize()
+    log("serve_batched: peak device memory {:.3f} GiB (weights, phase 4's "
+        "model and this phase)".format(
+            torch.cuda.max_memory_allocated() / 2 ** 30))
+    return launches, {"batched_step_8": batched_step,
+                      "batched_steps_8_x4_pipelined": pipelined_steps}
 
 
 # -- phase 5: model check ----------------------------------------------------
@@ -495,16 +756,24 @@ def _kernel_class(name):
     if "flash_attention" in name:
         return "flash_attention"
     low = name.lower()
+    if "indexselect" in low or "vectorized_gather" in low:
+        # the paged step's per-layer gather of each row's pages
+        # (index_select, two launches a layer); the embedding lookup of
+        # the step's 8 tokens (one launch, 64 KB) lands here too
+        return "page_gather"
     if any(k in low for k in ("gemm", "gemv", "cutlass", "xmma", "nvjet",
                               "matmul")):
         return "matmul"
     return "other"
 
 
-def phase_profile(torch, model, prompt):
+def phase_profile(torch, model, prompt, batched_steps):
     """One 512-token prefill and one 8-token decode chunk of the served
-    model: wall time (no profiler), device kernel time by class and the
-    top kernels (torch.profiler), and the device's busy share."""
+    model, and ``batched_steps`` (name -> function: one batched paged
+    step, and four in the scheduler's pipeline, fetched): wall time (no
+    profiler; the median of ``WALL_REPS`` runs, each kept), device kernel
+    time by class and the top kernels
+    (torch.profiler), and the device's busy share."""
     from torch.profiler import ProfilerActivity, profile
 
     from tpuserver_torch.models import llama
@@ -519,14 +788,20 @@ def phase_profile(torch, model, prompt):
             "prefill_512": lambda: llama.prefill(params, cache, tokens, cfg),
             "decode_chunk_8": lambda: llama.decode_chunk(
                 params, cache, logits, tokens.shape[1], cfg, 8),
+            **batched_steps,
         }
         for name, fn in steps.items():
             fn()
-            torch.cuda.synchronize()
-            t0 = time.monotonic()
-            fn()
-            torch.cuda.synchronize()
-            wall_ms = (time.monotonic() - t0) * 1e3
+            # the host's clock moves far more than device time between
+            # machines: keep every sample, rate by the median
+            walls = []
+            for _ in range(WALL_REPS):
+                torch.cuda.synchronize()
+                t0 = time.monotonic()
+                fn()
+                torch.cuda.synchronize()
+                walls.append((time.monotonic() - t0) * 1e3)
+            wall_ms = sorted(walls)[WALL_REPS // 2]
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA],
                          acc_events=True) as prof:
@@ -546,7 +821,8 @@ def phase_profile(torch, model, prompt):
                 kernels.append((dev_us / 1e3, ev.count, ev.key[:80]))
             device_ms = sum(by_class.values())
             out[name] = {
-                "wall_ms": wall_ms, "device_ms": device_ms,
+                "wall_ms": wall_ms, "wall_ms_samples": walls,
+                "device_ms": device_ms,
                 "busy_share": device_ms / wall_ms if wall_ms else None,
                 "device_ms_by_class": by_class,
                 "top_kernels": sorted(kernels, reverse=True)[:6],
@@ -568,21 +844,35 @@ def main():
     log("nvidia-smi:", smi)
     phase_build()
     rows = phase_kernels(torch)
-    model, core, prompt, launches = phase_serve(torch, np)
+    model, core, prompt, launches, tokens, rates = phase_serve(torch, np)
+    batched_launches, batched_steps = phase_serve_batched(
+        torch, np, model, prompt, tokens, rates)
     phase_model_check(torch, model, prompt)
-    phase_profile(torch, model, prompt)
+    phase_profile(torch, model, prompt, batched_steps)
     core.close()
 
     kernels = []
-    for kname, src, replaces in (
+    # each kernel once per path: the single-stream serve (phase 4, timed
+    # at one row) and the batched serve (phase 4b; decode timed at the
+    # batched shape, flash at the same 512-token prefill)
+    for kname, src, replaces, path, timed_as, counts in (
             ("flash_attention", "src/python/tpuserver_torch/csrc/"
-             "flash_attention.cu", "src/python/tpuserver/ops/flash.py:139"),
+             "flash_attention.cu", "src/python/tpuserver/ops/flash.py:139",
+             "serve", "flash_attention", launches),
             ("decode_attention", "src/python/tpuserver_torch/csrc/"
-             "decode_attention.cu", "src/python/tpuserver/ops/flash.py:263")):
-        row = rows["timed"][kname]
+             "decode_attention.cu", "src/python/tpuserver/ops/flash.py:263",
+             "serve", "decode_attention", launches),
+            ("flash_attention", "src/python/tpuserver_torch/csrc/"
+             "flash_attention.cu", "src/python/tpuserver/ops/flash.py:139",
+             "serve_batched", "flash_attention", batched_launches),
+            ("decode_attention", "src/python/tpuserver_torch/csrc/"
+             "decode_attention.cu", "src/python/tpuserver/ops/flash.py:263",
+             "serve_batched", "decode_attention_batched",
+             batched_launches)):
+        row = rows["timed"][timed_as]
         kernels.append({
             "name": kname, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": launches[kname],
+            "replaces": replaces, "path": path, "launches": counts[kname],
             "max_abs_err": rows["max_err"][kname],
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],

@@ -6,12 +6,14 @@ decoupled (streaming) execution — a slim copy of ``tpuserver/core.py``'s
 """
 
 import threading
+import time
 
 import numpy as np
 
 from tpuserver_torch.errors import (
     BadRequest,
     ModelNotFound,
+    RequestTimedOut,
     ServerUnavailable,
     TorchServeError,
 )
@@ -32,6 +34,11 @@ _WIRE_DTYPES = {
     np.dtype(np.float64): "FP64",
 }
 _NP_DTYPES = {v: k for k, v in _WIRE_DTYPES.items()}
+
+#: a model's response dict may carry per-response parameters under this
+#: key (the scheduled path's ``generation_id`` and ``seq``); the core
+#: moves them to ``InferResponse.parameters``
+RESPONSE_PARAMS_KEY = "__response_parameters__"
 
 
 def wire_to_np_dtype(datatype):
@@ -65,17 +72,23 @@ class InferRequest:
         self.id = request_id
         self.inputs = inputs or {}  # name -> np.ndarray
         self.parameters = parameters or {}
+        # time.monotonic() bound from the 'timeout' parameter, set by
+        # InferenceServer.infer_stream; the scheduler expires by it
+        self.deadline = None
 
 
 class InferResponse:
     """Transport-agnostic inference response; ``outputs`` is a list of
-    (spec dict name/datatype/shape, np.ndarray)."""
+    (spec dict name/datatype/shape, np.ndarray); ``parameters`` the
+    per-response parameters (``generation_id``, ``seq``)."""
 
-    def __init__(self, model_name, model_version, request_id, outputs):
+    def __init__(self, model_name, model_version, request_id, outputs,
+                 parameters=None):
         self.model_name = model_name
         self.model_version = model_version
         self.id = request_id
         self.outputs = outputs
+        self.parameters = parameters or {}
 
 
 class Model:
@@ -170,16 +183,29 @@ class InferenceServer:
             raise ServerUnavailable("Model '{}' is not ready".format(name))
         return model
 
+    @staticmethod
+    def _model_healthy(model):
+        """A model may expose ``healthy()`` (the continuous-batching
+        scheduler's state); absent means healthy."""
+        probe = getattr(model, "healthy", None)
+        return probe is None or bool(probe())
+
     def server_ready(self):
+        """True while serving and every ready model is healthy."""
         with self._lock:
-            return not self._closed
+            if self._closed:
+                return False
+            models = [m for n, m in self._models.items()
+                      if self._ready.get(n, False)]
+        return all(self._model_healthy(m) for m in models)
 
     def model_ready(self, name, version=""):
         with self._lock:
             model = self._models.get(name)
-            return (model is not None and not self._closed
-                    and version in ("", model.version)
-                    and self._ready.get(name, False))
+            ready = (model is not None and not self._closed
+                     and version in ("", model.version)
+                     and self._ready.get(name, False))
+        return ready and self._model_healthy(model)
 
     def server_metadata(self):
         return {"name": SERVER_NAME, "version": SERVER_VERSION,
@@ -191,18 +217,48 @@ class InferenceServer:
     def model_config(self, name, version=""):
         return self._get_model(name, version).config_dict()
 
+    @staticmethod
+    def _resolve_deadline(request):
+        """The request's ``timeout`` parameter (microseconds) as a
+        ``time.monotonic()`` deadline on ``request.deadline``."""
+        t = request.parameters.get("timeout")
+        if t:
+            try:
+                request.deadline = time.monotonic() + int(t) / 1e6
+            except (TypeError, ValueError):
+                raise BadRequest(
+                    "request parameter 'timeout' must be an integer "
+                    "microsecond count (got {!r})".format(t))
+
+    @staticmethod
+    def _check_deadline(deadline, when):
+        if deadline is not None and time.monotonic() >= deadline:
+            raise RequestTimedOut(
+                "request deadline expired {} execution".format(when))
+
     def infer_stream(self, request):
         """Execute a decoupled request; yields one InferResponse per
         response the model produces.  Failures inside the model surface
-        as TorchServeError (a typed one passes through, ValueError is a
-        400, anything else a 500)."""
+        as TorchServeError (a typed one, such as the scheduler's 429 shed
+        or 503 shutdown, passes through, ValueError is a 400, anything
+        else a 500).  A response produced past the request's
+        deadline ends the stream with a 504."""
         model = self._get_model(request.model_name, request.model_version)
         if not model.decoupled:
             raise BadRequest(
                 "model '{}' is not a decoupled model".format(model.name))
+        self._resolve_deadline(request)
+        self._check_deadline(request.deadline, "before")
         declared = {t.name: t for t in model.outputs}
         try:
             for out in model.execute_stream(dict(request.inputs), request):
+                # a token produced past the deadline belongs to a request
+                # whose client has stopped waiting
+                self._check_deadline(request.deadline, "during")
+                params = None
+                if RESPONSE_PARAMS_KEY in out:
+                    out = dict(out)
+                    params = out.pop(RESPONSE_PARAMS_KEY)
                 outputs = []
                 for name, array in out.items():
                     array = np.asarray(array)
@@ -212,7 +268,7 @@ class InferenceServer:
                     outputs.append(({"name": name, "datatype": datatype,
                                      "shape": list(array.shape)}, array))
                 yield InferResponse(model.name, model.version, request.id,
-                                    outputs)
+                                    outputs, params)
         except TorchServeError:
             raise
         except ValueError as e:

@@ -39,3 +39,29 @@ class ServerUnavailable(TorchServeError):
 
     def __init__(self, msg):
         super().__init__(msg, code=503)
+
+
+class TooManyRequests(TorchServeError):
+    """Admission was shed (the scheduler's queue is full, or the KV page
+    pool is exhausted) — HTTP 429.  ``retry_after`` is the seconds the
+    ``Retry-After`` header asks the client to wait."""
+
+    def __init__(self, msg, retry_after=1):
+        super().__init__(msg, code=429)
+        self.retry_after = retry_after
+
+
+class SlotPoisoned(TorchServeError):
+    """The generation's own decode output went non-finite; its slot was
+    quarantined while co-batched generations go on — HTTP 422."""
+
+    def __init__(self, msg):
+        super().__init__(msg, code=422)
+
+
+class RequestTimedOut(TorchServeError):
+    """The request's deadline (its ``timeout`` parameter) passed before
+    or during the generation — HTTP 504."""
+
+    def __init__(self, msg):
+        super().__init__(msg, code=504)

@@ -14,8 +14,11 @@ Routes::
 ``parameters``).  ``/generate`` answers one JSON object whose outputs
 carry a leading step axis; ``/generate_stream`` answers server-sent
 events over chunked transfer: one ``data:`` event per response, then
-``data: {"final": true}``.  An error after the stream started arrives
-in-band as ``data: {"error": ...}``.
+``data: {"final": true}``.  A response of the continuous-batching path
+carries its ``generation_id`` and ``seq`` as the event's ``parameters``
+and as an ``id: <generation_id>/<seq>`` line before its ``data:`` line.
+An error after the stream started arrives in-band as ``data: {"error":
+...}``.  A shed request (429) is answered with a ``Retry-After`` header.
 """
 
 import json
@@ -74,16 +77,19 @@ class _Handler(BaseHTTPRequestHandler):
 
     # -- framing -------------------------------------------------------------
 
-    def _send(self, code, body=b"", content_type="application/json"):
+    def _send(self, code, body=b"", content_type="application/json",
+              headers=()):
         self.send_response(code)
         self.send_header("Content-Type", content_type)
         self.send_header("Content-Length", str(len(body)))
+        for name, value in headers:
+            self.send_header(name, value)
         self.end_headers()
         if body:
             self.wfile.write(body)
 
-    def _send_json(self, obj, code=200):
-        self._send(code, json.dumps(obj).encode("utf-8"))
+    def _send_json(self, obj, code=200, headers=()):
+        self._send(code, json.dumps(obj).encode("utf-8"), headers=headers)
 
     def _read_json(self):
         n = int(self.headers.get("Content-Length") or 0)
@@ -115,7 +121,10 @@ class _Handler(BaseHTTPRequestHandler):
         try:
             self._dispatch_path(method)
         except TorchServeError as e:
-            self._send_json({"error": str(e)}, e.code)
+            retry_after = getattr(e, "retry_after", None)
+            headers = (("Retry-After", str(int(retry_after))),) \
+                if retry_after is not None else ()
+            self._send_json({"error": str(e)}, e.code, headers)
         except (BrokenPipeError, ConnectionResetError):
             self.close_connection = True
 
@@ -178,8 +187,17 @@ class _Handler(BaseHTTPRequestHandler):
                 if not started:
                     self._start_events()
                     started = True
-                self._chunk(b"data: " + json.dumps(
-                    _response_json(resp)).encode("utf-8") + b"\n\n")
+                payload = _response_json(resp)
+                event = b""
+                if resp.parameters:
+                    payload["parameters"] = resp.parameters
+                    gen_id = resp.parameters.get("generation_id")
+                    seq = resp.parameters.get("seq")
+                    if gen_id is not None and seq is not None:
+                        event = "id: {}/{}\n".format(gen_id, seq).encode(
+                            "utf-8")
+                self._chunk(event + b"data: " + json.dumps(payload).encode(
+                    "utf-8") + b"\n\n")
         except TorchServeError as e:
             if not started:
                 raise

@@ -16,14 +16,22 @@ Pieces:
 - ``forward`` (teacher-forcing logits)
 - ``init_kv_cache`` / ``prefill`` / ``decode_step`` / ``decode_chunk``
   for token-by-token serving
+- continuous batching: the slotted step (``batched_decode_step``,
+  ``scheduler_step``, ``scheduler_admit``, ``scheduler_extract``), the
+  paged KV pool (``init_paged_kv_cache``, ``paged_batched_decode_step``,
+  ``paged_scheduler_step``, ``paged_admit``, ``paged_gather``), the
+  admission prefills (``prefill_bucket``, ``prefill_to_length``,
+  ``prefill_span``) and the scheduler's bundle (``make_scheduler_fns``)
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from tpuserver_torch import resolve_device
 from tpuserver_torch.ops import decode_attention, flash_attention
 
 
@@ -307,12 +315,16 @@ def _run_cached(params, cache, x, positions, write_pos, lengths, cfg):
 
 def _attend_cached(q, cache_k, cache_v, q_pos, length, n_rep):
     """q: [B, Tq, H, D] against cache [B, S, Hkv, D], masking cache
-    positions >= ``length`` and (causally) > the query's own position
-    ``q_pos`` [B, Tq].  Plain float32 attention."""
+    positions >= ``length`` (an int, or a per-row [B] tensor when the
+    continuous-batching step decodes rows at different positions) and
+    (causally) > the query's own position ``q_pos`` [B, Tq].  Plain
+    float32 attention."""
     k = _expand_kv(cache_k, n_rep).float()
     v = _expand_kv(cache_v, n_rep).float()
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k) / np.sqrt(q.shape[-1])
     k_idx = torch.arange(k.shape[1], device=q.device)[None, None, None, :]
+    if isinstance(length, torch.Tensor):
+        length = length.reshape(-1, 1, 1, 1)  # per-row valid prefixes
     mask = (k_idx >= length) | (k_idx > q_pos[:, None, :, None])
     s = s.masked_fill(mask, float("-inf"))
     p = torch.softmax(s, dim=-1)
@@ -363,3 +375,455 @@ def decode_chunk(params, cache, logits, pos, cfg, chunk):
         logps.append(logp.gather(-1, token[:, None])[:, 0])
         logits, cache = decode_step(params, cache, token, pos + i, cfg)
     return torch.stack(tokens), torch.stack(logps), logits, cache
+
+
+# -- continuous batching (the slotted decode step) ---------------------------
+
+
+def prefill_bucket(cfg, max_seq, true_len):
+    """The padded length the scheduler prefills a ``true_len`` prompt
+    at: the next power of two (min 8, capped at ``max_seq``), UNLESS
+    padding would change which prefill attention path runs.
+
+    With ``attn_impl="kernel"`` the flash kernel runs only at lengths
+    ``_flash_blocks`` tiles; padding a dense-length prompt to a tileable
+    bucket would change the admission prefill's arithmetic against the
+    single-stream path's exact-length prefill, and a near-tie in the
+    first token's logits could flip the greedy argmax.  Such lengths
+    prefill exactly instead; everything on the dense path buckets."""
+    bucket = 8
+    while bucket < true_len:
+        bucket <<= 1
+    bucket = min(bucket, max_seq)
+    if bucket == true_len or cfg.attn_impl != "kernel":
+        return bucket
+
+    def dense(T):
+        return None in _flash_blocks(T, cfg)
+
+    return bucket if dense(true_len) and dense(bucket) else true_len
+
+
+def prefill_to_length(params, cache, tokens, true_len, cfg):
+    """Prefill a PADDED prompt [B, T] from position 0, returning the
+    logits at ``true_len - 1`` (and the cache, updated in place).
+
+    Causal attention makes the padding harmless: position ``true_len -
+    1`` attends only positions <= itself, and the padding rows' K/V
+    (written at ``true_len..T-1``) sit past the slot's length, masked
+    until decode steps overwrite them."""
+    B, T = tokens.shape
+    positions = torch.arange(T, device=tokens.device)[None, :].expand(B, T)
+    x = params["embed"][tokens]
+    x, cache = _run_cached(params, cache, x, positions, 0, T, cfg)
+    x = _rms_norm(x, params["norm"], cfg.norm_eps)
+    logits = (x[:, true_len - 1, :] @ params["lm_head"]).float()
+    return logits, cache
+
+
+def _live_lengths(positions, max_seq):
+    """(live [S] bool, lengths [S] int32) of a batched step.  Rows at the
+    sentinel position ``max_seq`` hold no live request; their length is
+    1, not ``max_seq``: the decode kernel reads only each row's valid
+    prefix, and an empty slot must not stream its whole dead cache every
+    step (length 0 would give a zero row; the one position attended is
+    discarded with the row's output)."""
+    live = positions < max_seq
+    lengths = torch.where(live, positions + 1, torch.ones_like(positions))
+    return live, lengths.to(torch.int32)
+
+
+def batched_decode_step(params, cache, tokens, positions, cfg):
+    """One decode token per cache SLOT at per-slot positions: the compute
+    heart of the continuous-batching scheduler (``tpuserver_torch.
+    scheduler``).
+
+    ``cache`` [L, 2, S, max_seq, Hkv, D] holds one in-flight generation
+    per row; ``tokens`` [S] are the rows' next input tokens and
+    ``positions`` [S] their write positions.  Each row's K/V lands at its
+    own position and attention masks each row to its own valid prefix
+    (``positions + 1``).  Rows holding no live request carry the sentinel
+    position ``max_seq``: their cache is left as it was (JAX drops those
+    writes with ``mode="drop"``; here the row's last position is written
+    back with what it holds, since an out-of-bounds write on the card is
+    a device-side assert).
+
+    Returns (logits [S, vocab] fp32, cache updated in place).  Per-row
+    math does not depend on the other rows, so a row's tokens do not
+    depend on its slot or its neighbours."""
+    S = tokens.shape[0]
+    max_seq = cache.shape[3]
+    positions = positions.long()
+    live, lengths = _live_lengths(positions, max_seq)
+    write_pos = positions.clamp(max=max_seq - 1)
+    rows = torch.arange(S, device=tokens.device)
+    keep = live[:, None, None]
+    q_pos = positions[:, None]
+    n_rep = cfg.n_heads // cfg.n_kv_heads
+    block_k = _decode_block(max_seq)
+    decode_kernel = block_k is not None and cfg.decode_impl == "auto"
+    x = params["embed"][tokens][:, None, :]  # [S, 1, Dm]
+
+    for i, layer in enumerate(params["layers"]):
+        def attn_fn(q, k, v, i=i):
+            for j, new in ((0, k), (1, v)):
+                old = cache[i, j, rows, write_pos]
+                cache[i, j, rows, write_pos] = torch.where(
+                    keep, new[:, 0].to(cache.dtype), old)
+            if decode_kernel:
+                # the decode kernel takes per-row lengths: continuous
+                # batching is its natural shape
+                out = decode_attention(q[:, 0], cache[i, 0], cache[i, 1],
+                                       lengths, block_k=block_k)
+                return out[:, None]
+            return _attend_cached(q, cache[i, 0], cache[i, 1], q_pos,
+                                  lengths, n_rep)
+
+        x = _block(layer, x, q_pos, cfg, attn_fn)
+    x = _rms_norm(x, params["norm"], cfg.norm_eps)
+    logits = (x[:, 0, :] @ params["lm_head"]).float()
+    return logits, cache
+
+
+def _sample(logits_all, forced, forced_mask):
+    """Greedy token per row, or the row's ``forced`` token where
+    ``forced_mask`` says so, with its log-probability."""
+    logp = torch.log_softmax(logits_all, dim=-1)
+    greedy = torch.argmax(logits_all, dim=-1)
+    tokens = torch.where(forced_mask, forced.long(), greedy)
+    return tokens, logp.gather(-1, tokens[:, None])[:, 0]
+
+
+def scheduler_step(params, cache, logits_all, positions, active, forced,
+                   forced_mask, cfg):
+    """One continuous-batching iteration over every cache slot.
+
+    Each slot's next token is sampled greedily from its ``logits_all``
+    row, or its ``forced`` token is taken where ``forced_mask`` is set;
+    the batched decode step then writes every active row's K/V at its
+    own position.  Inactive rows keep their previous logits.
+
+    Returns (tokens [S], logprobs [S], next logits [S, vocab], cache)."""
+    tokens, tok_logp = _sample(logits_all, forced, forced_mask)
+    new_logits, cache = batched_decode_step(params, cache, tokens, positions,
+                                            cfg)
+    new_logits = torch.where(active[:, None], new_logits, logits_all)
+    return tokens, tok_logp, new_logits, cache
+
+
+def scheduler_admit(cache, logits_all, slot_cache, slot_logits, slot):
+    """Admit one prefilled request into the slotted tensors, in place: its
+    [L, 2, 1, S, Hkv, D] cache into batch row ``slot`` and its next-token
+    logits [1, vocab] into ``logits_all`` row ``slot``."""
+    cache[:, :, slot] = slot_cache[:, :, 0].to(cache.dtype)
+    logits_all[slot] = slot_logits[0].to(logits_all.dtype)
+    return cache, logits_all
+
+
+def scheduler_extract(cache, slot):
+    """One slot's cache rows as a fresh [L, 2, 1, S, Hkv, D] tensor."""
+    return cache[:, :, slot:slot + 1].clone()
+
+
+# -- paged KV (block-granular cache pool) ------------------------------------
+
+
+def init_paged_kv_cache(cfg, n_pages, page_size, device, dtype=None):
+    """[L, 2, n_pages + 1, page_size, Hkv, D] zeros: the paged form of
+    :func:`init_kv_cache`.  A sequence's KV lives scattered across the
+    pages its page table names.  Page id ``n_pages`` is the sentinel and
+    the one extra page is its trash page: rows that hold no live request
+    write there, and nothing reads it (JAX's pool has no such page and
+    drops those writes with ``mode="drop"``, which has no counterpart
+    here: an out-of-bounds write on the card is a device-side assert)."""
+    return torch.zeros(
+        (cfg.n_layers, 2, n_pages + 1, page_size, cfg.n_kv_heads,
+         cfg.head_dim), dtype=dtype or cfg.dtype, device=device)
+
+
+def paged_batched_decode_step(params, pages, tokens, page_tables, positions,
+                              cfg):
+    """:func:`batched_decode_step` over a paged pool: one decode token per
+    sequence row, with each row's KV scattered across the physical pages
+    its ``page_tables`` row names.
+
+    ``pages`` is the pool from :func:`init_paged_kv_cache`;
+    ``page_tables`` [S, pages_per_seq] maps each row's logical pages to
+    physical ids (the sentinel ``n_pages`` for unreserved pages, never
+    read below the row's valid length and never written).  Per layer
+    the rows' pages are gathered (``index_select``) into the contiguous
+    [S, max_seq, Hkv, D] view the slotted step attends over: the same
+    values in the same order, so the step is bitwise equal to the slotted
+    one.  New K/V land at (``page_tables[s, positions[s] // page_size]``,
+    ``positions[s] % page_size``); rows at the sentinel position
+    ``max_seq`` write into the trash page.  Returns (logits [S, vocab]
+    fp32, pages updated in place)."""
+    S = tokens.shape[0]
+    n_pages, page = pages.shape[2] - 1, pages.shape[3]
+    ppseq = page_tables.shape[1]
+    max_seq = ppseq * page
+    positions = positions.long()
+    page_tables = page_tables.long()
+    live, lengths = _live_lengths(positions, max_seq)
+    logical = (positions // page).clamp(0, ppseq - 1)
+    phys = page_tables.gather(1, logical[:, None])[:, 0]
+    phys = torch.where(live, phys, torch.full_like(phys, n_pages))
+    offs = positions % page
+    # unreserved logical pages read a valid (arbitrary) page, never the
+    # trash page: all they contribute lies past the row's valid length
+    gather_ids = page_tables.clamp(0, n_pages - 1).reshape(-1)
+    q_pos = positions[:, None]
+    n_rep = cfg.n_heads // cfg.n_kv_heads
+    block_k = _decode_block(max_seq)
+    decode_kernel = block_k is not None and cfg.decode_impl == "auto"
+    x = params["embed"][tokens][:, None, :]  # [S, 1, Dm]
+
+    for i, layer in enumerate(params["layers"]):
+        def attn_fn(q, k, v, i=i):
+            pages[i, 0, phys, offs] = k[:, 0].to(pages.dtype)
+            pages[i, 1, phys, offs] = v[:, 0].to(pages.dtype)
+            tail = pages.shape[4:]
+            k_seq = pages[i, 0].index_select(0, gather_ids).view(
+                S, max_seq, *tail)
+            v_seq = pages[i, 1].index_select(0, gather_ids).view(
+                S, max_seq, *tail)
+            if decode_kernel:
+                # the gathered view is a plain contiguous cache: the
+                # decode kernel applies unchanged
+                out = decode_attention(q[:, 0], k_seq, v_seq, lengths,
+                                       block_k=block_k)
+                return out[:, None]
+            return _attend_cached(q, k_seq, v_seq, q_pos, lengths, n_rep)
+
+        x = _block(layer, x, q_pos, cfg, attn_fn)
+    x = _rms_norm(x, params["norm"], cfg.norm_eps)
+    logits = (x[:, 0, :] @ params["lm_head"]).float()
+    return logits, pages
+
+
+def paged_scheduler_step(params, pages, logits_all, page_tables, positions,
+                         active, forced, forced_mask, cfg):
+    """:func:`scheduler_step` on the paged pool: greedy-or-forced token
+    per row, then one :func:`paged_batched_decode_step`.  The page
+    indirection changes where K/V bytes live, never what they are."""
+    tokens, tok_logp = _sample(logits_all, forced, forced_mask)
+    new_logits, pages = paged_batched_decode_step(
+        params, pages, tokens, page_tables, positions, cfg)
+    new_logits = torch.where(active[:, None], new_logits, logits_all)
+    return tokens, tok_logp, new_logits, pages
+
+
+def _host_ids(ids):
+    """A page-id vector (numpy array, list or tensor) as numpy int64."""
+    if isinstance(ids, torch.Tensor):
+        ids = ids.cpu().numpy()
+    return np.asarray(ids, dtype=np.int64).reshape(-1)
+
+
+def _host_tensor(a, device):
+    """A host array as a tensor on ``device``.  On the card the copy goes
+    through pinned memory without waiting: a copy from pageable memory
+    would first wait for every step already in flight.  PyTorch's pinned
+    allocator keeps the staging block until the copy has run, so the
+    caller may reuse ``a`` at once."""
+    t = torch.from_numpy(np.array(a))  # a copy: the caller may mutate a
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t
+
+
+def paged_admit(pages, logits_all, slot_cache, slot_logits, dest_ids, slot):
+    """Admit one prefilled request into the paged pool, in place: the
+    single-row contiguous cache [L, 2, 1, max_seq, Hkv, D] splits into
+    ``pages_per_seq`` logical pages, and page ``d`` is copied to the
+    physical id ``dest_ids[d]``.  Sentinel ids (``n_pages``: unreserved
+    pages, and shared prefix pages that already live in the pool) are
+    left out on the host, where ``dest_ids`` lives, so only the reserved
+    pages are copied.  The row's next-token logits land in
+    ``logits_all`` row ``slot``."""
+    n_pages, page = pages.shape[2] - 1, pages.shape[3]
+    dest = _host_ids(dest_ids)
+    keep = np.flatnonzero((dest >= 0) & (dest < n_pages))
+    src = slot_cache.reshape(slot_cache.shape[0], 2, len(dest), page,
+                             *slot_cache.shape[4:])
+    if len(keep):
+        src_ids = _host_tensor(keep, pages.device)
+        dst_ids = _host_tensor(dest[keep], pages.device)
+        pages[:, :, dst_ids] = src.index_select(2, src_ids).to(pages.dtype)
+    logits_all[slot] = slot_logits[0].to(logits_all.dtype)
+    return pages, logits_all
+
+
+def paged_gather(pages, page_ids):
+    """One sequence's pages as a fresh single-row contiguous cache
+    [L, 2, 1, max_seq, Hkv, D]: the prefix-restore source a shared-prefix
+    admission prefills on top of.  Sentinel or unreserved ids gather as
+    zeros."""
+    n_pages, page = pages.shape[2] - 1, pages.shape[3]
+    ids = _host_ids(page_ids)
+    keep = np.flatnonzero((ids >= 0) & (ids < n_pages))
+    rows = torch.zeros((pages.shape[0], 2, len(ids)) + tuple(pages.shape[3:]),
+                       dtype=pages.dtype, device=pages.device)
+    if len(keep):
+        rows[:, :, _host_tensor(keep, pages.device)] = pages.index_select(
+            2, _host_tensor(ids[keep], pages.device))
+    return rows.reshape(pages.shape[0], 2, 1, len(ids) * page,
+                        *pages.shape[4:])
+
+
+def prefill_span(params, cache, tokens, start, logits_at, cfg):
+    """Prefill a token span [B, T] at positions ``start..start+T-1`` into
+    a single-row contiguous cache: the chunked-prefill and
+    shared-prefix-suffix building block.
+
+    K/V land at ``start`` and queries attend the cache's first ``start +
+    T`` positions under the causal mask, so a span on top of an
+    already-present prefix (earlier chunks, or a radix-cache restore)
+    computes what a from-zero prefill would.  The caller keeps
+    ``start + T <= max_seq`` and uses spans only where the flash kernel
+    is not in play (``make_scheduler_fns``'s ``span_safe``).
+
+    Returns the logits at span index ``logits_at`` and the cache,
+    updated in place."""
+    B, T = tokens.shape
+    positions = start + torch.arange(T, device=tokens.device)[None, :].expand(
+        B, T)
+    x = params["embed"][tokens]
+    x, cache = _run_cached(params, cache, x, positions, start, start + T,
+                           cfg)
+    x = _rms_norm(x, params["norm"], cfg.norm_eps)
+    logits = (x[:, logits_at, :] @ params["lm_head"]).float()
+    return logits, cache
+
+
+class _HostFetch:
+    """A step output's copy into pinned host memory, enqueued right after
+    the step: ``np.asarray`` of it waits for that copy alone.  A blocking
+    ``.cpu()`` at fetch time would instead queue behind the next step,
+    already dispatched, and serialise the scheduler's one-deep pipeline."""
+
+    def __init__(self, t):
+        self._event = None
+        if t.device.type == "cuda":
+            self._host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            self._host.copy_(t, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record()
+        else:
+            self._host = t
+
+    def __array__(self, dtype=None, copy=None):
+        if self._event is not None:
+            self._event.synchronize()
+        a = self._host.numpy()
+        return a if dtype is None else a.astype(dtype)
+
+
+def make_scheduler_fns(cfg, max_seq, max_slots, page_size=16, kv_pages=None,
+                       device=None):
+    """The function bundle of the continuous-batching scheduler, over a
+    paged KV pool on ``device`` (the card unless the caller asks for the
+    CPU).
+
+    The device cache is a page pool (:func:`init_paged_kv_cache`) rather
+    than ``max_slots`` contiguous rows: a sequence holds only the pages
+    its span needs, page tables map logical to physical pages, and the
+    scheduler's host-side allocator and radix tree
+    (``tpuserver_torch.paging``) decide who owns what.  ``kv_pages``
+    defaults to ``max_slots * max_seq / page_size``.  The functions
+    take their small integer inputs as host (numpy) arrays and stage
+    them to the device without waiting.
+
+    Returns a dict of:
+
+    - ``init_cache()`` — the page pool
+    - ``init_slot_cache()`` — a single-row contiguous cache for
+      prefill-on-admit (copied into pages by ``admit``)
+    - ``init_logits()`` — [max_slots, vocab] fp32 zeros
+    - ``prefill(params, slot_cache, tokens, true_len)`` — the one-shot
+      admission prefill (:func:`prefill_to_length`)
+    - ``prefill_span(params, slot_cache, tokens, start, logits_at)`` —
+      the chunked / shared-prefix-suffix prefill (:func:`prefill_span`)
+    - ``prefill_bucket(true_len)`` — the padded length to use
+    - ``step(params, pages, logits, page_tables, positions, active,
+      forced, forced_mask)`` — :func:`paged_scheduler_step`; its tokens
+      and logprobs come back as objects that ``np.asarray`` turns into
+      host arrays, waiting for this step's copy alone
+    - ``admit(pages, logits, slot_cache, slot_logits, dest_ids, slot)``
+      — :func:`paged_admit`
+    - ``gather(pages, page_ids)`` — :func:`paged_gather`, the
+      shared-prefix restore
+    - ``page_size`` / ``pages_per_seq`` / ``n_pages`` — the pool
+      geometry the scheduler's allocator mirrors
+    - ``span_safe`` — whether chunked or shared-prefix prefill keeps the
+      one-shot prefill's kernel choice (False where the flash kernel
+      prefills: a dense span against a one-shot flash pass could flip a
+      near-tie greedy argmax, the hazard :func:`prefill_bucket` guards,
+      so the scheduler prefills whole prompts there)
+    """
+    device = resolve_device(device)
+    page_size = int(page_size)
+    if page_size < 1 or max_seq % page_size:
+        raise ValueError(
+            "page_size must be >= 1 and divide max_seq (got page_size={}, "
+            "max_seq={}): a slot's cache row must stay [.., max_seq, ..] "
+            "for the single-row prefill".format(page_size, max_seq))
+    pages_per_seq = max_seq // page_size
+    n_pages = (int(kv_pages) if kv_pages is not None
+               else max_slots * pages_per_seq)
+    if n_pages < pages_per_seq:
+        raise ValueError(
+            "kv_pages={} cannot hold even one full-length sequence ({} "
+            "pages of {} tokens)".format(n_pages, pages_per_seq, page_size))
+
+    def tokens_in(tokens):
+        return _host_tensor(np.asarray(tokens, np.int64), device)
+
+    def init_cache():
+        return init_paged_kv_cache(cfg, n_pages, page_size, device)
+
+    def init_slot_cache():
+        return init_kv_cache(cfg, 1, max_seq, device)
+
+    def init_logits():
+        return torch.zeros((max_slots, cfg.vocab), dtype=torch.float32,
+                           device=device)
+
+    def prefill(params, slot_cache, tokens, true_len):
+        return prefill_to_length(params, slot_cache, tokens_in(tokens),
+                                 int(true_len), cfg)
+
+    def prefill_span_fn(params, slot_cache, tokens, start, logits_at):
+        return prefill_span(params, slot_cache, tokens_in(tokens),
+                            int(start), int(logits_at), cfg)
+
+    def step(params, pages, logits, page_tables, positions, active, forced,
+             forced_mask):
+        # one staged copy for all five control inputs
+        s = max_slots * pages_per_seq
+        packed = tokens_in(np.concatenate([
+            np.asarray(page_tables).reshape(-1), np.asarray(positions),
+            np.asarray(active), np.asarray(forced),
+            np.asarray(forced_mask)]))
+        tables_d = packed[:s].view(max_slots, pages_per_seq)
+        pos_d, active_d, forced_d, fmask_d = packed[s:].view(4, max_slots)
+        toks, logps, logits, pages = paged_scheduler_step(
+            params, pages, logits, tables_d, pos_d, active_d != 0, forced_d,
+            fmask_d != 0, cfg)
+        return _HostFetch(toks), _HostFetch(logps), logits, pages
+
+    return {
+        "init_cache": init_cache,
+        "init_slot_cache": init_slot_cache,
+        "init_logits": init_logits,
+        "prefill": prefill,
+        "prefill_span": prefill_span_fn,
+        "prefill_bucket": functools.partial(prefill_bucket, cfg, max_seq),
+        "step": step,
+        "admit": paged_admit,
+        "gather": paged_gather,
+        "page_size": page_size,
+        "pages_per_seq": pages_per_seq,
+        "n_pages": n_pages,
+        "span_safe": cfg.attn_impl != "kernel",
+    }

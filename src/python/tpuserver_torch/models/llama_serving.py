@@ -1,27 +1,36 @@
 """Decoupled llama generation serving model (the port of
-``tpuserver/models/llama_serving.py``'s single-stream path).
+``tpuserver/models/llama_serving.py``).
 
-One request carries the prompt ids; the model prefills a fresh KV cache
-in one batched pass (through the flash kernel at lengths
-``llama._flash_blocks`` tiles), then greedy-decodes in chunks of
-``decode_chunk`` tokens (each token's attention through the decode
-kernel) and streams one response per token.  A chunk runs on the card
-without a host sync; its tokens are fetched once at its end.
+One request carries the prompt ids and streams one response per token.
 
-Only ``max_slots=1`` is ported.  Continuous batching, the KV-cache
-park/resume region and the shared-memory token ring come in later
-slices of the port: requests asking for them get ``NotPortedYet``.
+- ``max_slots=1``: the single-stream path.  The model prefills a fresh
+  KV cache in one batched pass (through the flash kernel at lengths
+  ``llama._flash_blocks`` tiles), then greedy-decodes in chunks of
+  ``decode_chunk`` tokens (each token's attention through the decode
+  kernel).  A chunk runs on the card without a host sync; its tokens are
+  fetched once at its end.  One generation at a time holds the card.
+- ``max_slots>1``: continuous batching.  A ``DecodeScheduler`` runs one
+  batched decode step for up to ``max_slots`` concurrent generations
+  over a paged KV pool (``llama.make_scheduler_fns``), admitting waiting
+  requests mid-flight into freed slots.  Each response carries its
+  ``generation_id`` and 0-based ``seq`` as response parameters.
+
+The KV-cache park/resume region, stream resume and the shared-memory
+token ring come in later slices of the port: requests asking for them get
+``NotPortedYet``.
 """
 
 import threading
+import uuid
 
 import numpy as np
 import torch
 
 from tpuserver_torch import resolve_device
-from tpuserver_torch.core import Model, TensorSpec
+from tpuserver_torch.core import RESPONSE_PARAMS_KEY, Model, TensorSpec
 from tpuserver_torch.errors import NotPortedYet
 from tpuserver_torch.models import llama
+from tpuserver_torch.scheduler import DecodeScheduler
 
 #: request parameters of the JAX server that a later slice brings
 _LATER_PARAMETERS = ("kv_cache_region", "kv_cache_resume", "shm_ring_region",
@@ -51,18 +60,23 @@ class LlamaGenerateModel(Model):
     decode_chunk = 8
 
     def __init__(self, cfg=None, max_seq=512, decode_chunk=None,
-                 max_slots=1, params=None, seed=0, device=None):
+                 max_slots=1, params=None, seed=0, device=None,
+                 page_size=16, kv_pages=None):
         """``params``: weights to serve (a params dict of tensors, e.g.
-        from ``llama.params_from_jax``),
-        moved to ``device``; None draws random ones from ``seed`` at the
-        first request.  ``device`` defaults to the card (see
-        ``tpuserver_torch.resolve_device``)."""
+        from ``llama.params_from_jax``, or another model's, which is then
+        shared, not copied), moved to ``device``; None draws random ones
+        from ``seed`` at the first request.  ``device`` defaults to the
+        card (see ``tpuserver_torch.resolve_device``).
+
+        ``max_slots>1`` serves through a ``DecodeScheduler``;
+        ``page_size`` and ``kv_pages`` set its KV pool (default: room for
+        ``max_slots`` full-length sequences)."""
         self._device = resolve_device(device)
         self.device_kind = "gpu" if self._device.type == "cuda" else "cpu"
-        if max_slots != 1:
-            raise NotPortedYet(
-                "max_slots={}: continuous batching comes in a later slice "
-                "of the port (only max_slots=1 is served)".format(max_slots))
+        if max_slots < 1:
+            raise ValueError("max_slots must be >= 1 (got {})".format(
+                max_slots))
+        self._max_slots = int(max_slots)
         self._cfg = cfg or llama.tiny(vocab=2048)
         self._max_seq = int(max_seq)
         self._seed = seed
@@ -73,7 +87,16 @@ class LlamaGenerateModel(Model):
             self.decode_chunk = decode_chunk
         self._params = (_to_device(params, self._device)
                         if params is not None else None)
-        # one generation at a time: each holds a full-length KV cache
+        # the scheduler's bundle (stateless; built here so a bad page
+        # geometry fails at construction) and the scheduler, built at
+        # first use
+        self._fns = (llama.make_scheduler_fns(
+            self._cfg, self._max_seq, self._max_slots, page_size=page_size,
+            kv_pages=kv_pages, device=self._device)
+            if self._max_slots > 1 else None)
+        self._scheduler = None
+        # max_slots=1: one generation at a time (each holds a full-length
+        # KV cache); max_slots>1: guards building the scheduler
         self._lock = threading.Lock()
 
     def _ensure_params(self):
@@ -82,9 +105,21 @@ class LlamaGenerateModel(Model):
             self._params = llama.init_params(self._cfg, gen, self._device)
         return self._params
 
+    def _ensure_scheduler(self):
+        """The continuous-batching scheduler, built at first use (and
+        anew after ``close``)."""
+        with self._lock:
+            if self._scheduler is None:
+                self._scheduler = DecodeScheduler(
+                    self._fns, self._ensure_params(), self._max_slots,
+                    self._max_seq)
+            return self._scheduler
+
     def warmup(self):
         with self._lock:
             self._ensure_params()
+        if self._max_slots > 1:
+            self._ensure_scheduler()
 
     def execute_stream(self, inputs, request):
         for key in _LATER_PARAMETERS:
@@ -107,8 +142,59 @@ class LlamaGenerateModel(Model):
                 self._cfg.vocab))
         eos_id = request.parameters.get("eos_id")
         eos_id = int(eos_id) if eos_id is not None else None
+        if self._max_slots > 1:
+            yield from self._execute_scheduled(prompt, max_tokens, eos_id,
+                                               request)
+            return
         with self._lock:
             yield from self._generate(prompt, max_tokens, eos_id)
+
+    def _execute_scheduled(self, prompt, max_tokens, eos_id, request):
+        """Continuous-batching path: submit to the shared decode loop and
+        stream its per-step tokens back, each response carrying the
+        generation's id (the ``generation_id`` request parameter, or a
+        fresh one) and its 0-based ``seq``."""
+        scheduler = self._ensure_scheduler()
+        gen_id = str(request.parameters.get("generation_id")
+                     or uuid.uuid4().hex)
+        stream = scheduler.submit(prompt, max_tokens, eos_id=eos_id,
+                                  deadline=request.deadline)
+        try:
+            for seq, (token, logprob) in enumerate(stream):
+                yield {"TOKEN": np.array([token], dtype=np.int32),
+                       "LOGPROB": np.array([logprob], dtype=np.float32),
+                       RESPONSE_PARAMS_KEY: {"generation_id": gen_id,
+                                             "seq": seq}}
+        finally:
+            # a consumer that stops early retires the slot at once
+            stream.close()
+
+    def healthy(self):
+        """Readiness hook: False once the continuous-batching scheduler
+        is closed or its decode loop failed."""
+        scheduler = self._scheduler
+        return scheduler is None or scheduler.healthy
+
+    def scheduler_stats(self):
+        """The scheduler's ``stats()``, or None before its first use and
+        for ``max_slots=1``."""
+        scheduler = self._scheduler
+        return scheduler.stats() if scheduler is not None else None
+
+    def drain(self, timeout=30.0):
+        """Stop admission and let in-flight generations finish within
+        ``timeout`` seconds (no-op for ``max_slots=1``)."""
+        scheduler = self._scheduler
+        if scheduler is not None:
+            scheduler.drain(timeout)
+
+    def close(self):
+        """Stop the continuous-batching loop (no-op for ``max_slots=1``);
+        a later request builds a fresh scheduler."""
+        with self._lock:
+            scheduler, self._scheduler = self._scheduler, None
+        if scheduler is not None:
+            scheduler.close()
 
     @torch.inference_mode()
     def _generate_chunks(self, prompt, max_tokens):
@@ -149,6 +235,7 @@ class LlamaGenerateModel(Model):
                        "LOGPROB": np.array([logp], dtype=np.float32)}
                 if eos_id is not None and int(tok) == eos_id:
                     return
+
 
 def _to_device(tree, device):
     if isinstance(tree, dict):

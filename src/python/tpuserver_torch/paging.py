@@ -1,0 +1,296 @@
+"""Paged KV allocation + radix prefix caching (host-side bookkeeping):
+the port's copy of ``tpuserver/paging.py``, unchanged in behaviour.
+
+The continuous-batching scheduler (``tpuserver_torch.scheduler``) keeps
+its KV cache in a *paged* pool (vLLM's PagedAttention shape) with
+cross-request prefix reuse (SGLang's RadixAttention shape).  This module
+holds the two host-side structures behind it:
+
+- :class:`PageAllocator` — a free list over ``n_pages`` fixed-size
+  pages.  Admission reserves its whole potential span up front
+  (prompt + max_tokens, minus any shared prefix), so a generation can
+  never run out of pages mid-decode: exhaustion is a typed
+  admission-time signal, not a crash.
+- :class:`RadixPrefixCache` — a page-granular radix tree (each node
+  owns ONE physical page and is keyed by that page's ``page_size``
+  token ids).  Streams sharing a prompt prefix share the prefix's
+  physical pages (ref-counted while any live stream uses them);
+  retired streams donate their full pages back as *cached* entries
+  that later admissions hit instead of re-prefilling.  Unreferenced
+  branches evict LRU, leaves first, when the allocator runs short.
+
+Content addressing makes sharing safe: a page's K/V is a
+deterministic function of the token ids at its positions (greedy
+decode, absolute-position RoPE), so two prompts with identical token
+prefixes have identical prefix KV.
+
+Everything here is pure host bookkeeping — the decode loop thread is
+the only mutator, device tensors never enter this module.  ``stats``
+readers on other threads only see plain-int counters (atomic loads in
+CPython), never an iterating view.
+"""
+
+from collections import deque
+
+__all__ = ["PageAllocator", "RadixPrefixCache", "pages_for"]
+
+
+def pages_for(length, page_size):
+    """Pages needed to span ``length`` token positions."""
+    return -(-int(length) // int(page_size)) if length > 0 else 0
+
+
+class PageAllocator:
+    """Free-list allocator over ``n_pages`` physical KV pages.
+
+    ``alloc`` is all-or-nothing: a partial grant would leave the
+    caller holding pages it cannot use (the admission span is one
+    unit).  Page id ``n_pages`` is the scatter *sentinel* — the
+    pool's extra trash page, which takes the writes of rows that hold
+    no live request — and is never handed out.
+    """
+
+    def __init__(self, n_pages, page_size):
+        if n_pages < 1:
+            raise ValueError(
+                "need at least one KV page (got {})".format(n_pages))
+        if page_size < 1:
+            raise ValueError(
+                "page_size must be >= 1 (got {})".format(page_size))
+        self.n_pages = int(n_pages)
+        self.page_size = int(page_size)
+        self._free = deque(range(self.n_pages))
+
+    @property
+    def free_count(self):
+        return len(self._free)
+
+    def alloc(self, n):
+        """``n`` page ids, or None when the free list is short (the
+        caller evicts from the radix cache and retries, then sheds)."""
+        if n > len(self._free):
+            return None
+        return [self._free.popleft() for _ in range(n)]
+
+    def free(self, ids):
+        for page in ids:
+            self._free.append(page)
+
+
+class _RadixNode:
+    __slots__ = ("parent", "key", "page", "children", "ref", "last_used")
+
+    def __init__(self, parent, key, page):
+        self.parent = parent
+        self.key = key          # tuple of page_size token ids
+        self.page = page        # physical page id
+        self.children = {}      # key tuple -> _RadixNode
+        self.ref = 0            # live streams holding this page
+        self.last_used = 0      # logical LRU clock stamp
+
+
+class RadixPrefixCache:
+    """Page-granular radix tree over token-id sequences.
+
+    A node at depth ``d`` (root is depth 0, holds no page) owns the
+    physical page whose positions are ``[(d-1)*page_size,
+    d*page_size)`` for every sequence whose first ``d`` pages of
+    tokens match the root-to-node path.  Only loop-thread mutation;
+    the plain-int ``pages``/``unreferenced`` counters are safe for
+    racy stats reads.
+    """
+
+    def __init__(self, page_size):
+        self.page_size = int(page_size)
+        self._root = _RadixNode(None, None, None)
+        self._clock = 0
+        self.pages = 0          # nodes (= cached+pinned pages) in the tree
+        self.unreferenced = 0   # nodes with ref == 0 (pure cache)
+        # bumped on every structural change (insert adds a node, evict
+        # removes one): read-only consumers holding derived indices
+        # over the tree's content — the speculative n-gram drafter —
+        # compare it to decide when to rebuild.  Plain int: safe for
+        # racy reads like the other counters.
+        self.version = 0
+
+    # -- lookup / pinning --------------------------------------------------
+
+    def _tick(self):
+        self._clock += 1
+        return self._clock
+
+    def match(self, tokens):
+        """Longest page-aligned prefix of ``tokens`` present in the
+        tree: ``(path_nodes, page_ids)`` — empty lists on a cold
+        miss.  Does NOT pin; call :meth:`acquire` on the path before
+        any operation that could evict."""
+        p = self.page_size
+        node = self._root
+        path = []
+        for d in range(len(tokens) // p):
+            key = tuple(int(t) for t in tokens[d * p:(d + 1) * p])
+            child = node.children.get(key)
+            if child is None:
+                break
+            path.append(child)
+            node = child
+        return path, [n.page for n in path]
+
+    def continuation(self, tokens, limit):
+        """Cached continuation of the EXACT sequence ``tokens``: up to
+        ``limit`` token ids that previously-served sequences decoded
+        after this precise root-anchored context, or ``[]`` when the
+        context isn't cached that deep.
+
+        This is what makes the tree a draft model and not just a KV
+        store: for regenerate/extend traffic the live context is a
+        prefix of a donated sequence, and the exact-prefix walk is
+        unambiguous where any fixed-length n-gram is not (a run of
+        repeated tokens collides every n-gram key, but only one tree
+        path spells the full context).  Where the tree branches, the
+        most recently used child wins — recency is the same signal
+        LRU eviction trusts.
+
+        STRICTLY read-only: no pinning, no ref-count changes, no LRU
+        stamping (same contract as :meth:`iter_sequences`)."""
+        path, _ = self.match(tokens)
+        node = path[-1] if path else self._root
+        rem = [int(t) for t in tokens[len(path) * self.page_size:]]
+        out = []
+        while len(out) < limit:
+            best = None
+            for child in node.children.values():
+                if (list(child.key[:len(rem)]) == rem
+                        and (best is None
+                             or child.last_used > best.last_used)):
+                    best = child
+            if best is None:
+                break
+            out.extend(best.key[len(rem):])
+            node, rem = best, []
+        return out[:limit]
+
+    def acquire(self, nodes):
+        """Pin ``nodes`` (one ref each) so eviction cannot free pages
+        a live stream's page table points at."""
+        stamp = self._tick()
+        for node in nodes:
+            if node.ref == 0:
+                self.unreferenced -= 1
+            node.ref += 1
+            node.last_used = stamp
+
+    def release(self, nodes):
+        for node in nodes:
+            node.ref -= 1
+            if node.ref == 0:
+                self.unreferenced += 1
+                node.last_used = self._tick()
+
+    def iter_sequences(self):
+        """Yield every root-to-leaf token sequence in the tree, as a
+        flat list of ints (page keys concatenated in path order).
+
+        STRICTLY read-only: no pinning, no ref-count changes, no LRU
+        stamping — the speculative drafter walks cached content
+        without affecting what eviction may reclaim.  Caller must not
+        mutate the tree mid-iteration (the decode loop is the only
+        mutator, and it drives both)."""
+        stack = [(self._root, [])]
+        while stack:
+            node, prefix = stack.pop()
+            if node is not self._root:
+                prefix = prefix + list(node.key)
+            if not node.children:
+                if prefix:
+                    yield prefix
+                continue
+            for child in node.children.values():
+                stack.append((child, prefix))
+
+    # -- insertion ---------------------------------------------------------
+
+    def insert_tail(self, path, tokens, start_page, owned_ids, pin):
+        """Extend the tree below ``path`` (the already-matched node
+        list, possibly empty) with the full pages of ``tokens`` from
+        logical page ``start_page``, adopting pages from ``owned_ids``
+        (``owned_ids[i]`` is logical page ``start_page + i``).
+
+        A page whose key already exists in the tree is a concurrent
+        duplicate: the existing node wins and the owned page is
+        surrendered.  Returns ``(new_path_nodes, dup_entries,
+        freed_ids)`` where ``dup_entries`` is ``[(logical_page,
+        existing_page_id), ...]`` — the caller repoints its page
+        table — and ``freed_ids`` are the surrendered owned pages.
+        With ``pin`` the whole appended path (new and duplicate nodes
+        alike) is acquired."""
+        p = self.page_size
+        node = path[-1] if path else self._root
+        stamp = self._tick()
+        appended = []
+        dups = []
+        freed = []
+        for i, page in enumerate(owned_ids):
+            d = start_page + i
+            lo, hi = d * p, (d + 1) * p
+            if hi > len(tokens):
+                raise ValueError(
+                    "insert_tail past the known token prefix "
+                    "(page {} needs tokens [{}:{}), have {})".format(
+                        d, lo, hi, len(tokens)))
+            key = tuple(int(t) for t in tokens[lo:hi])
+            child = node.children.get(key)
+            if child is None:
+                child = _RadixNode(node, key, page)
+                child.last_used = stamp
+                node.children[key] = child
+                self.pages += 1
+                self.unreferenced += 1
+                self.version += 1
+            else:
+                dups.append((d, child.page))
+                freed.append(page)
+            appended.append(child)
+            node = child
+        if pin:
+            self.acquire(appended)
+        return appended, dups, freed
+
+    # -- eviction ----------------------------------------------------------
+
+    def evict(self, n):
+        """Free up to ``n`` pages by removing unpinned leaves in LRU
+        order (leaves first keeps every surviving node's path
+        intact).  One tree walk seeds a min-heap of evictable leaves;
+        a parent whose last child evicts becomes evictable and joins
+        the heap — O(tree + n log n), not a re-walk per page (the
+        admission path calls this under thrash).  Returns the freed
+        page ids — shorter than ``n`` when everything left is
+        pinned."""
+        if n <= 0:
+            return []
+        import heapq
+
+        heap = []
+        stack = [self._root]
+        while stack:
+            node = stack.pop()
+            stack.extend(node.children.values())
+            if (node is not self._root and not node.children
+                    and node.ref == 0):
+                heapq.heappush(heap, (node.last_used, id(node), node))
+        freed = []
+        while heap and len(freed) < n:
+            _, _, victim = heapq.heappop(heap)
+            parent = victim.parent
+            del parent.children[victim.key]
+            victim.parent = None
+            self.pages -= 1
+            self.unreferenced -= 1
+            self.version += 1
+            freed.append(victim.page)
+            if (parent is not self._root and not parent.children
+                    and parent.ref == 0):
+                heapq.heappush(heap, (parent.last_used, id(parent),
+                                      parent))
+        return freed

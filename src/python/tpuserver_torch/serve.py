@@ -1,10 +1,14 @@
 """Serve llama generation from the port over HTTP.
 
     python -m tpuserver_torch.serve --config llama3_8b --max-seq 4096 \\
-        --port 8000 [--device cuda] [--seed 0]
+        --port 8000 [--device cuda] [--seed 0] \\
+        [--max-slots 8 [--page-size 16] [--kv-pages N]]
 
-Weights are random, drawn from ``--seed`` on the device.  The server
-runs until interrupted (SIGINT/SIGTERM).
+Weights are random, drawn from ``--seed`` on the device.  With
+``--max-slots`` above 1, concurrent requests share one batched decode
+step over a paged KV pool of ``--kv-pages`` pages of ``--page-size``
+tokens (default: room for ``--max-slots`` full-length sequences).  The
+server runs until interrupted (SIGINT/SIGTERM).
 """
 
 import argparse
@@ -28,17 +32,27 @@ def main(argv=None):
     parser.add_argument("--device", default=None,
                         help="torch device (default: the card)")
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--max-slots", type=int, default=1,
+                        help="concurrent generations per batched decode "
+                             "step (1: one request at a time)")
+    parser.add_argument("--page-size", type=int, default=16,
+                        help="tokens per KV page (--max-slots > 1)")
+    parser.add_argument("--kv-pages", type=int, default=None,
+                        help="KV pool pages (--max-slots > 1; default "
+                             "max_slots * max_seq / page_size)")
     args = parser.parse_args(argv)
 
     device = resolve_device(args.device)
     model = LlamaGenerateModel(cfg=llama.PRESETS[args.config](),
                                max_seq=args.max_seq, seed=args.seed,
-                               device=device)
+                               device=device, max_slots=args.max_slots,
+                               page_size=args.page_size,
+                               kv_pages=args.kv_pages)
     model.warmup()
     core = InferenceServer([model])
     http = HttpServer(core, host=args.host, port=args.port).start()
-    print("serving {} on http://{} ({})".format(
-        args.config, http.url, device), flush=True)
+    print("serving {} on http://{} ({}, max_slots {})".format(
+        args.config, http.url, device, args.max_slots), flush=True)
     stop = threading.Event()
     for sig in (signal.SIGINT, signal.SIGTERM):
         signal.signal(sig, lambda *_: stop.set())

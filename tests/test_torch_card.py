@@ -169,3 +169,90 @@ def test_cuda_wrappers_raise_without_a_library(cuda, monkeypatch, tmp_path):
                           tflash.decode_attention.launches)
     finally:
         _build.load_library.cache_clear()
+
+
+# -- the continuous-batching shape: B = max_slots rows, ragged lengths -------
+
+
+def _batched_decode_inputs(cuda, seed, lengths, s=4096):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    b, h, hkv, d = len(lengths), 32, 8, 128
+    q = torch.randn(b, h, d, device=cuda, generator=gen).to(torch.bfloat16)
+    kc = torch.randn(b, s, hkv, d, device=cuda, generator=gen).to(
+        torch.bfloat16)
+    vc = torch.randn(b, s, hkv, d, device=cuda, generator=gen).to(
+        torch.bfloat16)
+    return q, kc, vc, torch.tensor(lengths, dtype=torch.int32, device=cuda)
+
+
+# 8 slots at the 8B shapes: live rows at 1, 77, 600, 4096 and 3000, and
+# inert rows, which the batched step gives length 1
+BATCHED_LENGTHS = (1, 77, 1, 600, 4096, 1, 3000, 1)
+
+
+def test_decode_kernel_at_the_batched_shape_matches_both_plain_versions(
+        cuda):
+    q, kc, vc, lens = _batched_decode_inputs(cuda, 6, BATCHED_LENGTHS)
+    n_split = tflash.decode_splits(8, 8, 4096, tflash._sm_count(q.device))
+    before = tflash.decode_attention.launches
+    out = tflash.decode_attention(q, kc, vc, lens)
+    torch.cuda.synchronize()
+    assert tflash.decode_attention.launches == before + 1
+    for ref in (tflash.decode_attention_reference(q, kc, vc, lens),
+                tflash.decode_attention_split_reference(q, kc, vc, lens,
+                                                        n_split)):
+        assert _row_rel_err(out, ref) <= CARD_TOL[torch.bfloat16]
+
+
+def test_decode_kernel_row_ignores_its_slot_and_neighbours(cuda):
+    """A row's output bits do not depend on its slot index or on the other
+    rows: permute the rows, and give the neighbours other data and other
+    lengths."""
+    q, kc, vc, lens = _batched_decode_inputs(cuda, 7, BATCHED_LENGTHS)
+    out = tflash.decode_attention(q, kc, vc, lens)
+    perm = torch.tensor([5, 2, 7, 0, 3, 6, 1, 4], device=cuda)
+    permuted = tflash.decode_attention(q[perm], kc[perm], vc[perm],
+                                       lens[perm])
+    assert torch.equal(permuted, out[perm])
+    q2, kc2, vc2, _ = _batched_decode_inputs(cuda, 8, BATCHED_LENGTHS)
+    lens2 = torch.tensor((4096, 5, 2000, 600, 17, 1, 64, 300),
+                         dtype=torch.int32, device=cuda)
+    for t, t2 in ((q2, q), (kc2, kc), (vc2, vc)):
+        t[3] = t2[3]  # row 3 (length 600) kept, every neighbour changed
+    mixed = tflash.decode_attention(q2, kc2, vc2, lens2)
+    torch.cuda.synchronize()
+    assert torch.equal(mixed[3], out[3])
+
+
+def test_paged_step_rows_ignore_their_slot_on_card(cuda):
+    """The whole batched paged step on the card (cuBLAS matmuls, the
+    decode kernel over the gathered view): permuting the slots permutes
+    the logits bit for bit."""
+    import dataclasses
+
+    from tpuserver_torch.models import llama
+
+    cfg = dataclasses.replace(
+        llama.tiny(vocab=2048), d_model=1024, n_heads=8, n_kv_heads=2,
+        d_ff=2048, dtype=torch.bfloat16, attn_impl="kernel")
+    params = llama.init_params(
+        cfg, torch.Generator(device=cuda).manual_seed(9), cuda)
+    max_seq, page, slots = 512, 16, 4
+    ppseq = max_seq // page
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    pages = llama.init_paged_kv_cache(cfg, slots * ppseq, page, cuda)
+    pages.normal_(generator=gen)
+    tables = torch.randperm(slots * ppseq, device=cuda, generator=gen).view(
+        slots, ppseq)
+    positions = torch.tensor([300, 7, max_seq, 511], device=cuda)
+    tokens = torch.tensor([5, 900, 17, 2047], device=cuda)
+    perm = torch.tensor([2, 0, 3, 1], device=cuda)
+    with torch.inference_mode():
+        logits, _ = llama.paged_batched_decode_step(
+            params, pages.clone(), tokens, tables, positions, cfg)
+        permuted, _ = llama.paged_batched_decode_step(
+            params, pages.clone(), tokens[perm], tables[perm],
+            positions[perm], cfg)
+    torch.cuda.synchronize()
+    assert torch.isfinite(logits).all()
+    assert torch.equal(permuted, logits[perm])

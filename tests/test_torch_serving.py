@@ -201,9 +201,34 @@ def test_config_reports_gpu_instance_group_for_the_card():
     assert model.config_dict()["instance_group"][0]["kind"] == "KIND_GPU"
 
 
-def test_max_slots_above_one_is_a_later_slice():
-    with pytest.raises(NotPortedYet, match="later slice"):
-        LlamaGenerateModel(max_slots=4, device="cpu")
+def test_max_slots_above_one_is_a_later_slice(served):
+    """``max_slots>1`` was a later slice of the port and now serves: on
+    the CPU, ``max_slots=4`` streams the single-stream path's tokens (and
+    the JAX model's: the ``served`` fixture is held against it above).
+    The request parameters of still later slices stay 501 there too."""
+    jcfg, tcfg = _cfgs()
+    np_params = jax.tree_util.tree_map(
+        np.asarray, jl.init_params(jax.random.PRNGKey(0), jcfg))
+    model = LlamaGenerateModel(
+        cfg=tcfg, max_seq=MAX_SEQ, max_slots=4,
+        params=tl.params_from_jax(np_params, "cpu"), device="cpu")
+    core = InferenceServer([model])
+    prompt = np.arange(1, 21)
+    try:
+        req = InferRequest("llama_generate", inputs={
+            "PROMPT_IDS": prompt.astype(np.int32),
+            "MAX_TOKENS": np.array([8], np.int32)})
+        tokens = [int(dict((s["name"], a) for s, a in r.outputs)["TOKEN"][0])
+                  for r in core.infer_stream(req)]
+        req.parameters = {"kv_cache_region": "r"}
+        with pytest.raises(NotPortedYet, match="later slice"):
+            list(core.infer_stream(req))
+    finally:
+        core.close()
+    _, text = _post(served, "/v2/models/llama_generate/generate",
+                    _body(prompt, 8))
+    assert tokens == json.loads(text)["outputs"][0]["data"]
+    assert model.scheduler_stats() is None  # closed with the core
 
 
 def test_closed_server_refuses_inference():
