@@ -8,8 +8,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
 2. build: compile the port's CUDA kernels from ``src/python/tpuserver_torch/
    csrc`` (into ``build/tpuserver_torch``), print the build seconds;
 3. kernels: each kernel against its plain PyTorch version on the card at
-   Llama-3-8B shapes (flash at every prefill length phases 4 and 4b give
-   it), with the stated tolerances (decode also against the
+   Llama-3-8B shapes (flash at every prefill length phases 4, 4b and 4c
+   give it; the lengths of 4c's re-admissions that depend on when a fault
+   hit are checked right after 4c), with the stated tolerances (decode
+   also against the
    plain model of its split-K), and timed beside its bound, its plain
    version and one PyTorch library call (for single-row decode also SDPA
    over the live prefix alone);
@@ -25,12 +27,27 @@ Phases, in order; any failure exits non-zero and prints no result line:
    around both rounds; one batched paged step's logits for a 512-token
    prompt in slot 3 against the single-stream decode step; peak device
    memory;
+4c. on the same weights, ``max_slots=8``: (a) one speculative verify
+   (``spec_step``, K 4) against five plain steps from phase 6's state,
+   bitwise, with full, partial and zero acceptance; (b) phase 4b's 12
+   prompts and 4 repetitive ones through ``spec_tokens=0`` and ``4``,
+   identical tokens per prompt; (c) self-healing: after an undisturbed
+   round of 8 streams, one round where a step raises once and one where
+   it stalls on the host for 3 x ``step_timeout_s``, then on a
+   ``spec_tokens=4`` model one where the speculative verify stalls, each
+   ending in exactly one restart, gap-free ``seq``s and the undisturbed
+   tokens up to the fault (the watchdog set at construction, as
+   ``serve.py --step-timeout-s`` sets it); (d) an SSE client that drops and reconnects with
+   ``Last-Event-ID``, a completed tail replayed twice, an unknown id
+   answered 404; launch counts read around (b) and around (c) and (d);
 5. model check: the 512-token prompt's last-position prefill logits
    through the kernels against the same model through the plain
    attention versions, and the greedy tokens of both;
-6. profile: one prefill, one decode chunk and one batched paged step (8
-   live rows near length 600) under ``torch.profiler``, device time by
-   kernel class (the page gather apart) beside the wall time.
+6. profile: one prefill, one decode chunk, one batched paged step (8
+   live rows near length 600), four in the scheduler's pipeline, and one
+   speculative verify (K 4) beside the five plain steps it stands for,
+   under ``torch.profiler``: device time by kernel class (the page gather
+   apart) beside the wall time.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -75,6 +92,21 @@ BATCHED_LENGTHS = tuple(600 - 7 * i for i in range(8))
 # prompt lengths of phase 4b's requests, four of each; phase 3 checks the
 # flash kernel at every one whose admission prefill it runs
 BATCHED_PROMPT_LENGTHS = (512, 256, 77)
+# phase 4c's fault rounds: a step fails when a 600-token prompt's row is
+# at position HEAL_TRIGGER_POS, which has it admitted again (prompt +
+# history prefilled) at HEAL_TRIGGER_POS - 1 = 640 tokens, a flash length
+HEAL_PROMPT_LENGTHS = (600, 512, 256, 77) * 2
+HEAL_BUDGET = 48
+HEAL_TRIGGER_POS = 641
+READMIT_LENGTH = HEAL_TRIGGER_POS - 1
+# phase 4c: the watchdog's limit, and the injected host stall
+STEP_TIMEOUT_S = 1.0
+HANG_S = 3 * STEP_TIMEOUT_S
+SPEC_K = 4
+# phase 4c's speculative fault round: 512-token repetitive prompts; the
+# verify stalls once a row has reached SPEC_HEAL_TRIGGER_POS
+SPEC_HEAL_BUDGET = 32
+SPEC_HEAL_TRIGGER_POS = 512 + 12
 # phase 6's wall-time samples per step
 WALL_REPS = 5
 
@@ -310,9 +342,12 @@ def phase_kernels(torch):
     timed = {}
     rows = []
     # causal at every flash prefill length of the served paths: phase 4's
-    # 512-token prompt and each tileable admission of phase 4b
-    prefill_ts = sorted({512, *_flash_admissions(
-        llama, llama.llama3_8b(), s, BATCHED_PROMPT_LENGTHS)})
+    # 512-token prompt, each tileable admission of phases 4b and 4c, and
+    # the re-admission length phase 4c's fault rounds produce (the others
+    # it produces are checked after it, by phase_flash_lengths)
+    prefill_ts = sorted({512, READMIT_LENGTH, *_flash_admissions(
+        llama, llama.llama3_8b(), s,
+        BATCHED_PROMPT_LENGTHS + HEAL_PROMPT_LENGTHS)})
     for b, t, causal, dtype, hh, kk, dd in (
             *((1, t, True, bf16, h, hkv, d) for t in prefill_ts),
             (1, 512, False, bf16, h, hkv, d),
@@ -320,12 +355,16 @@ def phase_kernels(torch):
             (1, 2048, False, bf16, h, hkv, d),
             (2, 256, True, bf16, 16, 8, 64)):  # Llama-3.2-1B head dim
         main = (t == 512 and causal and dtype == bf16)
+        readmit = (t == READMIT_LENGTH and b == 1)
         row = _flash_case(torch, F, fl, dev, gen, b, t, hh, kk, dd, causal,
-                          dtype, main or (t == 2048 and causal), flush)
+                          dtype, main or readmit or (t == 2048 and causal),
+                          flush)
         row["kernel"] = "flash_attention"
         rows.append(row)
         if main:
             timed["flash_attention"] = row
+        if readmit:
+            timed["flash_attention_readmission"] = row
     n_sms = fl._sm_count(dev)
     for lengths, ss, dtype, hh, kk, dd in (
             ((576,), s, bf16, h, hkv, d),    # the main path's longest decode
@@ -390,15 +429,50 @@ def phase_kernels(torch):
     for row in rows:
         max_err[row["kernel"]] = max(max_err.get(row["kernel"], 0.0),
                                      row["max_abs_err"])
-    return {"timed": timed, "max_err": max_err}
+    return {"timed": timed, "max_err": max_err,
+            "flash_lengths": set(prefill_ts)}
+
+
+def phase_flash_lengths(torch, rows, lengths):
+    """Phase 3, continued: the flash kernel against its plain version at
+    every prefill length a later phase ran through it that phase 3 did
+    not check (phase 4c's re-admissions depend on when a fault hit)."""
+    import torch.nn.functional as F
+
+    from tpuserver_torch.models import llama
+    from tpuserver_torch.ops import flash as fl
+
+    cfg = llama.llama3_8b()
+    new = sorted(t for t in set(lengths) - rows["flash_lengths"]
+                 if None not in llama._flash_blocks(t, cfg))
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    for t in new:
+        row = _flash_case(torch, F, fl, dev, gen, 1, t, 32, 8, 128, True,
+                          torch.bfloat16, False, None)
+        row["kernel"] = "flash_attention"
+        log("kernel_case:", json.dumps(row))
+        if not row["row_rel_err"] <= TOL["bfloat16"] or any(
+                not e > TOL["bfloat16"]
+                for e in row["planted_fault_err"].values()):
+            fail("flash kernel at prefill length {}: {}".format(t, row))
+        rows["max_err"]["flash_attention"] = max(
+            rows["max_err"]["flash_attention"], row["max_abs_err"])
+        rows["flash_lengths"].add(t)
+    log("phase 3 (continued): flash held at later prefill lengths {} "
+        "(every length a phase ran through the kernel: {})".format(
+            new, sorted(rows["flash_lengths"])))
 
 
 # -- phase 4: serve ----------------------------------------------------------
 
 
-def _stream(port, prompt, max_tokens):
-    """POST one /generate_stream request; returns (tokens, ttft_s,
-    decode tokens/s, saw_final, the events' ``id:`` values)."""
+def _sse(port, prompt, max_tokens, last_event_id=None, stop_after=None):
+    """POST one /generate_stream request (with a ``Last-Event-ID`` header
+    when given; the connection closes after ``stop_after`` events).
+    Returns (status, events, final marker seen, POST time): each event
+    is (its ``id:`` value, token, logprob, arrival time); for a status
+    other than 200, the error body instead of the events."""
     import http.client
 
     body = json.dumps({"inputs": [
@@ -406,35 +480,52 @@ def _stream(port, prompt, max_tokens):
          "data": [int(t) for t in prompt]},
         {"name": "MAX_TOKENS", "datatype": "INT32", "shape": [1],
          "data": [max_tokens]}]})
+    headers = {"Content-Type": "application/json"}
+    if last_event_id:
+        headers["Last-Event-ID"] = last_event_id
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
-    t0 = time.monotonic()
-    conn.request("POST", "/v2/models/llama_generate/generate_stream", body,
-                 {"Content-Type": "application/json"})
-    resp = conn.getresponse()
-    if resp.status != 200:
-        fail("generate_stream answered {}: {}".format(
-            resp.status, resp.read()[:500]))
-    tokens, stamps, final, ids = [], [], False, []
-    for raw in resp:
-        line = raw.decode("utf-8").strip()
-        if line.startswith("id: "):
-            ids.append(line[len("id: "):])
-        if not line.startswith("data: "):
-            continue
-        event = json.loads(line[len("data: "):])
-        if event.get("final"):
-            final = True
-            break
-        if "error" in event:
-            fail("in-band stream error: {}".format(event["error"]))
-        out = {o["name"]: o["data"] for o in event["outputs"]}
-        tokens.append(int(out["TOKEN"][0]))
-        stamps.append(time.monotonic())
-    conn.close()
+    try:
+        t0 = time.monotonic()
+        conn.request("POST", "/v2/models/llama_generate/generate_stream",
+                     body, headers)
+        resp = conn.getresponse()
+        if resp.status != 200:
+            return resp.status, resp.read()[:500], False, t0
+        events, final, last_id = [], False, None
+        for raw in resp:
+            line = raw.decode("utf-8").strip()
+            if line.startswith("id: "):
+                last_id = line[len("id: "):]
+            if not line.startswith("data: "):
+                continue
+            event = json.loads(line[len("data: "):])
+            if event.get("final"):
+                final = True
+                break
+            if "error" in event:
+                fail("in-band stream error: {}".format(event["error"]))
+            out = {o["name"]: o["data"] for o in event["outputs"]}
+            events.append((last_id, int(out["TOKEN"][0]),
+                           float(out["LOGPROB"][0]), time.monotonic()))
+            if len(events) == stop_after:
+                break
+        return 200, events, final, t0
+    finally:
+        conn.close()
+
+
+def _stream(port, prompt, max_tokens):
+    """POST one /generate_stream request; returns (tokens, ttft_s,
+    decode tokens/s, saw_final, the events' ``id:`` values)."""
+    status, events, final, t0 = _sse(port, prompt, max_tokens)
+    if status != 200:
+        fail("generate_stream answered {}: {}".format(status, events))
+    stamps = [e[3] for e in events]
     ttft = stamps[0] - t0 if stamps else float("nan")
     rate = ((len(stamps) - 1) / (stamps[-1] - stamps[0])
             if len(stamps) > 1 else float("nan"))
-    return tokens, ttft, rate, final, ids
+    return ([e[1] for e in events], ttft, rate, final,
+            [e[0] for e in events if e[0] is not None])
 
 
 def phase_serve(torch, np):
@@ -531,7 +622,8 @@ def phase_serve_batched(torch, np, model1, long_prompt, single_tokens,
     gap-free ``seq``, final markers, identical tokens per prompt in both
     rounds and the kernels' launches; then one batched paged step of the
     512-token prompt in slot 3 against the single-stream decode step.
-    Returns (launch counts, the batched step phase 6 profiles)."""
+    Returns (launch counts, the batched steps phase 6 profiles, the
+    batched state phase 4c starts from, the prompts and budgets)."""
     from tpuserver_torch.core import InferenceServer
     from tpuserver_torch.http_server import HttpServer
     from tpuserver_torch.models import llama
@@ -705,7 +797,402 @@ def phase_serve_batched(torch, np, model1, long_prompt, single_tokens,
         "model and this phase)".format(
             torch.cuda.max_memory_allocated() / 2 ** 30))
     return launches, {"batched_step_8": batched_step,
-                      "batched_steps_8_x4_pipelined": pipelined_steps}
+                      "batched_steps_8_x4_pipelined": pipelined_steps}, {
+        "fns": fns, "state": state, "tables": prof_tables,
+        "positions": prof_pos}, prompts, budgets
+
+
+# -- phase 4c: speculative verify, self-healing, resume -----------------------
+
+
+def phase_spec_step(torch, np, cfg, params, batched):
+    """(a) One ``spec_step`` (K = 4) against five plain ``step``s from the
+    same state: 8 rows at lengths 551-600 (phase 6's state).  Rows 0-3
+    draft the plain chain's own continuation (accept 4), rows 4-5 the
+    same wrong at index 1 (accept 1), rows 6-7 nothing (accept 0).
+    Tokens, logprobs and the selected logits must equal the plain
+    chain's at each row's depth bit for bit, and rows 0-3's gathered
+    pages the chain's pages.  Returns the functions phase 6 profiles: one
+    ``spec_step`` and the five plain steps it stands for, each fetched,
+    on phase 6's state."""
+    from tpuserver_torch.ops import flash as fl
+
+    fns, state = batched["fns"], batched["state"]
+    tables, pos0 = batched["tables"], batched["positions"]
+    slots, k = len(pos0), SPEC_K
+    active = np.ones((slots,), bool)
+    no_force = np.zeros((slots,), np.int32)
+    with torch.inference_mode():
+        pages, logits, chain = state["pages"].clone(), state[
+            "logits"].clone(), []
+        for j in range(k + 1):
+            toks, lps, logits, pages = fns["step"](
+                params, pages, logits, tables, pos0 + j, active, no_force,
+                no_force.astype(bool))
+            chain.append((np.asarray(toks), np.asarray(lps),
+                          logits.clone()))
+        ref = np.stack([c[0] for c in chain])  # [k+1, slots]
+        draft = np.ascontiguousarray(ref[1:].T).astype(np.int32)
+        draft[4:6, 1] = (draft[4:6, 1] + 1) % cfg.vocab
+        draft_len = np.array([k] * 6 + [0] * 2, np.int32)
+        spec_pages = state["pages"].clone()
+        torch.cuda.synchronize()
+        before = fl.decode_attention.launches
+        toks, lps, acc, final, spec_pages = fns["spec_step"](
+            params, spec_pages, state["logits"].clone(), tables, pos0,
+            active, no_force, no_force.astype(bool), draft, draft_len)
+        toks, lps, acc = np.asarray(toks), np.asarray(lps), np.asarray(acc)
+        torch.cuda.synchronize()
+        launches = fl.decode_attention.launches - before
+        want = [k] * 4 + [1] * 2 + [0] * 2
+        bad = []
+        if acc.tolist() != want:
+            bad.append("accept {} (want {})".format(acc.tolist(), want))
+        for i, depth in enumerate(acc.tolist()):
+            for j in range(depth + 1):
+                if toks[i, j] != chain[j][0][i] or lps[i, j] != chain[j][1][i]:
+                    bad.append("row {} token/logprob {}".format(i, j))
+            if not torch.equal(final[i], chain[depth][2][i]):
+                bad.append("row {} logits at depth {}".format(i, depth))
+        for i in range(4):
+            if not torch.equal(fns["gather"](spec_pages, tables[i]),
+                               fns["gather"](pages, tables[i])):
+                bad.append("row {} gathered pages".format(i))
+        del pages, spec_pages, chain
+    torch.cuda.empty_cache()
+    log("spec_step (a): accept {} (want {}), decode launches {} (want >= "
+        "{})".format(acc.tolist(), want, launches, cfg.n_layers * (k + 1)))
+    if bad:
+        fail("spec_step differs from the plain chain: {}".format(bad))
+    if launches < cfg.n_layers * (k + 1):
+        fail("spec_step launched the decode kernel {} times".format(
+            launches))
+
+    def spec_step():
+        out = fns["spec_step"](params, state["pages"], state["logits"],
+                               tables, pos0, active, no_force,
+                               no_force.astype(bool), draft, draft_len)
+        return [np.asarray(t) for t in out[:3]]
+
+    def plain_steps():
+        # what the verify stands for: k + 1 plain steps, fetched at the end
+        logits = state["logits"]
+        for j in range(k + 1):
+            toks, lps, logits, _ = fns["step"](
+                params, state["pages"], logits, tables, pos0 + j, active,
+                no_force, no_force.astype(bool))
+        return np.asarray(toks), np.asarray(lps)
+
+    return {"spec_step_8_k4": spec_step, "plain_steps_8_x5": plain_steps}
+
+
+def _serving(cfg, params, **kwargs):
+    """A max_slots=8 ``LlamaGenerateModel`` on the shared weights, its
+    core and HTTP server (started)."""
+    from tpuserver_torch.core import InferenceServer
+    from tpuserver_torch.http_server import HttpServer
+    from tpuserver_torch.models.llama_serving import LlamaGenerateModel
+
+    model = LlamaGenerateModel(cfg=cfg, max_seq=4096, max_slots=8,
+                               params=params, device="cuda", **kwargs)
+    core = InferenceServer([model])
+    return model, core, HttpServer(core, port=0).start()
+
+
+def phase_serve_spec(torch, np, cfg, params, prompts, budgets):
+    """(b) Phase 4b's 12 prompts and 4 repetitive 512-token prompts (a
+    32-token pattern, tiled) through ``spec_tokens=0`` and then
+    ``spec_tokens=4``: each prompt's tokens must be the same.  Returns the
+    spec round's launch counts."""
+    from tpuserver_torch.ops import flash as fl
+
+    prompts = list(prompts) + _repetitive_prompts(np, cfg.vocab, 4)
+    budgets = [max(16, b // 2) for b in budgets] + [32] * 4
+    rounds = {}
+    for spec in (0, SPEC_K):
+        model, core, http = _serving(cfg, params, spec_tokens=spec)
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            fl.reset_launch_counts()
+            results, wall = _batched_round(http.port, prompts, budgets,
+                                           range(len(prompts)))
+            torch.cuda.synchronize()
+            launches = {"flash_attention": fl.flash_attention.launches,
+                        "decode_attention": fl.decode_attention.launches}
+            stats = model.scheduler_stats()
+        finally:
+            http.stop()
+            core.close()
+        total = sum(len(r[0]) for r in results.values())
+        log("serve_spec (b) spec_tokens={}: {} tokens in {:.3f} s, aggregate "
+            "{:.1f} tokens/s; launches {}; peak device memory {:.3f} GiB; "
+            "scheduler {}".format(
+                spec, total, wall, total / wall, json.dumps(launches),
+                torch.cuda.max_memory_allocated() / 2 ** 30,
+                json.dumps(stats)))
+        for i, r in results.items():
+            if len(r[0]) != budgets[i] or not r[3] or [
+                    int(x.rsplit("/", 1)[1]) for x in r[4]] != list(
+                        range(budgets[i])):
+                fail("serve_spec request {}: {} tokens, final {}, ids "
+                     "{}".format(i, len(r[0]), r[3], r[4]))
+        rounds[spec] = (results, launches, stats)
+    same = [rounds[0][0][i][0] == rounds[SPEC_K][0][i][0]
+            for i in range(len(prompts))]
+    launches, stats = rounds[SPEC_K][1], rounds[SPEC_K][2]
+    log("serve_spec (b): prompts identical between spec_tokens=0 and {}: "
+        "{}/{}".format(SPEC_K, sum(same), len(same)))
+    if not all(same):
+        fail("spec_tokens={} streamed other tokens than spec_tokens=0 for "
+             "prompts {}".format(SPEC_K, [i for i, ok in enumerate(same)
+                                          if not ok]))
+    if stats["spec_proposed"] == 0:
+        fail("no stream drafted in the spec round")
+    if launches["decode_attention"] < cfg.n_layers * stats["steps"]:
+        fail("decode kernel launched {} times in the spec round (want >= "
+             "{})".format(launches["decode_attention"],
+                          cfg.n_layers * stats["steps"]))
+    return launches
+
+
+def _decode_threads():
+    import threading
+
+    return sum(t.name == "decode-scheduler" and t.is_alive()
+               for t in threading.enumerate())
+
+
+def _repetitive_prompts(np, vocab, n):
+    """``n`` 512-token prompts, each a random 32-token pattern tiled: the
+    self-context drafter proposes their continuation."""
+    rng = np.random.RandomState(SEED + 3)
+    return [np.tile(rng.randint(0, vocab, 32), 16) for _ in range(n)]
+
+
+def phase_heal(torch, np, cfg, params, readmits):
+    """(c) Self-healing and (d) resume over HTTP, on ``max_slots=8`` models
+    built with ``step_timeout_s=STEP_TIMEOUT_S``, as ``serve.py
+    --step-timeout-s`` builds them, whose ``fns["step"]``/
+    ``fns["spec_step"]`` are wrapped here: armed, the wrapper runs a fault
+    once, on the first call of its kind where a live row has reached the
+    armed position.  Two rounds fault the plain step (a raise, then a host
+    stall); a third, on a ``spec_tokens=SPEC_K`` model with repetitive
+    prompts, stalls the speculative verify.  Each follows an undisturbed
+    round of its model, which is the reference and the warm-up that arms
+    the watchdog.  Every admission prefill's length is recorded into
+    ``readmits``.  Returns the launch counts of the fault rounds and
+    (d)."""
+    from tpuserver_torch.ops import flash as fl
+
+    def _key(prompt):
+        return tuple(int(t) for t in prompt[:4])
+
+    fault = {"at": None, "kind": None, "action": None, "history": {},
+             "fired": 0, "fired_at": None}
+    models = {}
+
+    def heal_model(**kwargs):
+        model, core, http = _serving(cfg, params,
+                                     step_timeout_s=STEP_TIMEOUT_S, **kwargs)
+        fns = dict(model._fns)
+
+        def wrap(kind, real):
+            def wrapped(params_, pages, logits, tables, positions, *rest):
+                live = positions[positions < 4096]  # not the sentinel
+                if fault["at"] is not None and fault["kind"] == kind and \
+                        len(live) and live.max() >= fault["at"]:
+                    fault["at"] = None
+                    sched = model._scheduler
+                    with sched._cond:  # what each stream had emitted
+                        fault["history"] = {_key(st.prompt): len(st.history)
+                                            for st in sched._streams}
+                    fault["fired"] += 1
+                    fault["fired_at"] = time.monotonic()
+                    fault["action"]()
+                return real(params_, pages, logits, tables, positions, *rest)
+            return wrapped
+
+        for kind in ("step", "spec_step"):
+            fns[kind] = wrap(kind, fns[kind])
+        real_prefill = fns["prefill"]
+
+        def prefill(params_, slot_cache, tokens, true_len):
+            readmits.append(int(np.asarray(tokens).shape[1]))
+            return real_prefill(params_, slot_cache, tokens, true_len)
+
+        fns["prefill"] = prefill
+        model._fns = fns  # before the first request builds the scheduler
+        models[id(model)] = (model, core, http)
+        return model, core, http
+
+    def launches_now():
+        torch.cuda.synchronize()
+        return {"flash_attention": fl.flash_attention.launches,
+                "decode_attention": fl.decode_attention.launches}
+
+    def fault_round(model, port, prompts, budgets, ref, name, kind, at,
+                    action, readmit_length=None):
+        """One round of 8 concurrent streams in which the wrapped ``kind``
+        call runs ``action`` once; returns its launch counts."""
+        sched = model._scheduler
+        order = range(len(prompts))
+        restarts = sched.stats()["restarts"]
+        first = len(readmits)
+        before = launches_now()
+        fault.update(at=at, kind=kind, action=action, fired=0)
+        got, wall = _batched_round(port, prompts, budgets, order)
+        counts = {k: v - before[k] for k, v in launches_now().items()}
+        stats = sched.stats()
+        lengths = readmits[first:]
+        before_ok, after_agree, after_total = True, 0, 0
+        for i in order:
+            h = fault["history"].get(_key(prompts[i]), 0)
+            toks, ref_toks = got[i][0], ref[i][0]
+            before_ok &= toks[:h] == ref_toks[:h]
+            after_agree += sum(a == b for a, b in zip(toks[h:],
+                                                      ref_toks[h:]))
+            after_total += len(ref_toks) - h
+            seqs = [int(x.rsplit("/", 1)[1]) for x in got[i][4]]
+            if len(toks) != budgets[i] or not got[i][3] or \
+                    seqs != list(range(budgets[i])):
+                fail("heal {} request {}: {} tokens, final {}, seqs "
+                     "{}".format(name, i, len(toks), got[i][3], seqs))
+        log("heal (c) {}: fired {}, restarts {} -> {}, healthy {}, round "
+            "{:.3f} s; histories at the fault {}; admission prefill lengths "
+            "{}; tokens before the fault equal the undisturbed round's: {}; "
+            "after it {}/{} agree (reported); spec steps {}; peak device "
+            "memory {:.3f} GiB".format(
+                name, fault["fired"], restarts, stats["restarts"],
+                stats["healthy"], wall, sorted(fault["history"].values()),
+                lengths, before_ok, after_agree, after_total,
+                stats["spec_steps"],
+                torch.cuda.max_memory_allocated() / 2 ** 30))
+        if fault["fired"] != 1 or stats["restarts"] != restarts + 1 or \
+                not stats["healthy"] or not before_ok:
+            fail("heal {}: fired {}, restarts {} -> {}, healthy {}, tokens "
+                 "before the fault equal {}".format(
+                     name, fault["fired"], restarts, stats["restarts"],
+                     stats["healthy"], before_ok))
+        if readmit_length is not None and readmit_length not in lengths:
+            fail("heal {}: no re-admission at {} tokens".format(
+                name, readmit_length))
+        if action is not raise_once:
+            # the demoted thread wakes when its stall ends and exits
+            # without delivering
+            time.sleep(max(0.0, fault["fired_at"] + HANG_S + 1.0
+                           - time.monotonic()))
+            threads = _decode_threads()
+            log("heal (c) {}: decode threads alive after the stall ended: "
+                "{}; tokens {}".format(name, threads,
+                                       sched.stats()["tokens"]))
+            if threads != 1:
+                fail("{} decode threads alive after the stall".format(
+                    threads))
+        return counts
+
+    def raise_once():
+        raise RuntimeError("injected step fault (chip_smoke phase 4c)")
+
+    def stall():
+        time.sleep(HANG_S)
+
+    def add(total, counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    rng = np.random.RandomState(SEED + 4)
+    prompts = [rng.randint(0, cfg.vocab, n) for n in HEAL_PROMPT_LENGTHS]
+    budgets = [HEAL_BUDGET] * len(prompts)
+    launches = {}
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        model, core, http = heal_model()
+        ref, _ = _batched_round(http.port, prompts, budgets,
+                                range(len(prompts)))
+        for name, action in (("raise", raise_once), ("hang", stall)):
+            add(launches, fault_round(model, http.port, prompts, budgets,
+                                      ref, name, "step", HEAL_TRIGGER_POS,
+                                      action, READMIT_LENGTH))
+        before = launches_now()
+        restarts = model._scheduler.stats()["restarts"]
+        phase_resume(np, http.port, rng, cfg)
+        add(launches, {k: v - before[k] for k, v in launches_now().items()})
+        if model._scheduler.stats()["restarts"] != restarts:
+            fail("resume (d): the watchdog restarted an undisturbed loop")
+        log("heal (c)+(d) plain: scheduler {}; peak device memory {:.3f} "
+            "GiB".format(json.dumps(model._scheduler.stats()),
+                         torch.cuda.max_memory_allocated() / 2 ** 30))
+        del models[id(model)]
+        http.stop()
+        core.close()
+        # the speculative branch: its own heartbeat, same-iteration fetch
+        # and epoch check, faulted in the verify
+        spec_prompts = _repetitive_prompts(np, cfg.vocab, 8)
+        spec_budgets = [SPEC_HEAL_BUDGET] * len(spec_prompts)
+        model, core, http = heal_model(spec_tokens=SPEC_K)
+        ref, _ = _batched_round(http.port, spec_prompts, spec_budgets,
+                                range(len(spec_prompts)))
+        if model._scheduler.stats()["spec_steps"] == 0:
+            fail("heal spec: the undisturbed round ran no spec_step")
+        add(launches, fault_round(model, http.port, spec_prompts,
+                                  spec_budgets, ref, "spec hang",
+                                  "spec_step", SPEC_HEAL_TRIGGER_POS, stall))
+        log("heal (c)+(d): kernel launches in the fault rounds and (d) {}; "
+            "spec scheduler {}; peak device memory {:.3f} GiB".format(
+                json.dumps(launches), json.dumps(model._scheduler.stats()),
+                torch.cuda.max_memory_allocated() / 2 ** 30))
+    finally:
+        for model, core, http in models.values():
+            http.stop()
+            core.close()
+    return launches
+
+
+def phase_resume(np, port, rng, cfg):
+    """(d) A ``/generate_stream`` client drops after 5 events and
+    reconnects with ``Last-Event-ID`` naming the third: the events it
+    gets again must equal the first connection's and the ``id:`` seqs
+    run gap-free; a completed tail replays twice; an unknown id is a
+    404."""
+    prompt, n = rng.randint(0, cfg.vocab, 300), HEAL_BUDGET
+    status, whole, final, _ = _sse(port, prompt, n)
+    if status != 200 or len(whole) != n or not final:
+        fail("resume (d): the undisturbed stream: {} {}".format(status,
+                                                                 whole))
+    status, first, _, _ = _sse(port, prompt, n, stop_after=5)
+    gen_id = first[0][0].rsplit("/", 1)[0]
+    status2, second, final, _ = _sse(port, prompt, n,
+                                     last_event_id=first[2][0])
+    if status != 200 or status2 != 200 or not final:
+        fail("resume (d): statuses {} {}: {}".format(status, status2,
+                                                     second))
+    joined = first[:3] + second
+    seqs = [int(e[0].rsplit("/", 1)[1]) for e in joined]
+    replayed = [e[:3] for e in second[:2]] == [e[:3] for e in first[3:5]]
+    agree = sum(a[1] == b[1] for a, b in zip(joined, whole))
+    tails = [_sse(port, prompt, n, last_event_id="{}/{}".format(
+        gen_id, n - 5)) for _ in range(2)]
+    unknown = _sse(port, prompt, n, last_event_id="no-such-generation/3")
+    log("resume (d): seqs 0..{} gap-free {}; events replayed equal the "
+        "first connection's: {}; tokens agreeing with the undisturbed "
+        "stream: {}/{} (reported); completed tail replays {}; unknown id "
+        "answered {}".format(
+            len(seqs) - 1, seqs == list(range(n)), replayed, agree, n,
+            [(t[0], len(t[1])) for t in tails], unknown[0]))
+    if seqs != list(range(n)) or not replayed or {
+            e[0] for e in joined} != {"{}/{}".format(gen_id, i)
+                                      for i in range(n)}:
+        fail("resume (d): seqs {}, replayed equal {}".format(seqs,
+                                                             replayed))
+    for status, tail, final, _ in tails:
+        if status != 200 or not final or [e[:3] for e in tail] != [
+                e[:3] for e in joined[n - 4:]]:
+            fail("resume (d): completed tail replay {} {}".format(status,
+                                                                 tail))
+    if unknown[0] != 404:
+        fail("resume (d): an unknown id answered {}".format(unknown[0]))
 
 
 # -- phase 5: model check ----------------------------------------------------
@@ -845,30 +1332,44 @@ def main():
     phase_build()
     rows = phase_kernels(torch)
     model, core, prompt, launches, tokens, rates = phase_serve(torch, np)
-    batched_launches, batched_steps = phase_serve_batched(
-        torch, np, model, prompt, tokens, rates)
+    batched_launches, batched_steps, batched, b_prompts, b_budgets = \
+        phase_serve_batched(torch, np, model, prompt, tokens, rates)
+    cfg, params = model._cfg, model._ensure_params()
+    batched_steps.update(phase_spec_step(torch, np, cfg, params, batched))
+    spec_launches = phase_serve_spec(torch, np, cfg, params, b_prompts,
+                                     b_budgets)
+    readmits = []
+    heal_launches = phase_heal(torch, np, cfg, params, readmits)
+    phase_flash_lengths(torch, rows, readmits)
     phase_model_check(torch, model, prompt)
     phase_profile(torch, model, prompt, batched_steps)
     core.close()
 
     kernels = []
     # each kernel once per path: the single-stream serve (phase 4, timed
-    # at one row) and the batched serve (phase 4b; decode timed at the
-    # batched shape, flash at the same 512-token prefill)
+    # at one row), the batched serve (phase 4b; decode timed at the
+    # batched shape, flash at the same 512-token prefill), the speculative
+    # serve (phase 4c b) and the re-admissions of phase 4c's fault rounds
+    # and resumes (c, d; flash timed at the 640-token re-admission)
+    decode_src = "src/python/tpuserver_torch/csrc/decode_attention.cu"
+    flash_src = "src/python/tpuserver_torch/csrc/flash_attention.cu"
+    decode_tpu = "src/python/tpuserver/ops/flash.py:263"
+    flash_tpu = "src/python/tpuserver/ops/flash.py:139"
     for kname, src, replaces, path, timed_as, counts in (
-            ("flash_attention", "src/python/tpuserver_torch/csrc/"
-             "flash_attention.cu", "src/python/tpuserver/ops/flash.py:139",
-             "serve", "flash_attention", launches),
-            ("decode_attention", "src/python/tpuserver_torch/csrc/"
-             "decode_attention.cu", "src/python/tpuserver/ops/flash.py:263",
-             "serve", "decode_attention", launches),
-            ("flash_attention", "src/python/tpuserver_torch/csrc/"
-             "flash_attention.cu", "src/python/tpuserver/ops/flash.py:139",
-             "serve_batched", "flash_attention", batched_launches),
-            ("decode_attention", "src/python/tpuserver_torch/csrc/"
-             "decode_attention.cu", "src/python/tpuserver/ops/flash.py:263",
-             "serve_batched", "decode_attention_batched",
-             batched_launches)):
+            ("flash_attention", flash_src, flash_tpu, "serve",
+             "flash_attention", launches),
+            ("decode_attention", decode_src, decode_tpu, "serve",
+             "decode_attention", launches),
+            ("flash_attention", flash_src, flash_tpu, "serve_batched",
+             "flash_attention", batched_launches),
+            ("decode_attention", decode_src, decode_tpu, "serve_batched",
+             "decode_attention_batched", batched_launches),
+            ("decode_attention", decode_src, decode_tpu, "serve_spec",
+             "decode_attention_batched", spec_launches),
+            ("flash_attention", flash_src, flash_tpu, "readmission",
+             "flash_attention_readmission", heal_launches),
+            ("decode_attention", decode_src, decode_tpu, "readmission",
+             "decode_attention_batched", heal_launches)):
         row = rows["timed"][timed_as]
         kernels.append({
             "name": kname, "route": "cuda", "source": src,
@@ -878,6 +1379,9 @@ def main():
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
             "library_live_ms": row.get("library_live_ms")})
+    idle = [(k["name"], k["path"]) for k in kernels if not k["launches"]]
+    if idle:
+        fail("kernels of a path never launched on it: {}".format(idle))
     log(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

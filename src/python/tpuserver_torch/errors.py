@@ -26,6 +26,15 @@ class ModelNotFound(TorchServeError):
         super().__init__(msg, code=404)
 
 
+class GenerationNotFound(TorchServeError):
+    """A stream-resume request named a generation id this server does not
+    hold (never issued, already resumed, or aged out of the replay
+    buffer) — HTTP 404.  Replay state is local to one server."""
+
+    def __init__(self, msg):
+        super().__init__(msg, code=404)
+
+
 class NotPortedYet(TorchServeError):
     """The request uses a feature of the JAX server that a later slice
     of the port brings — HTTP 501."""

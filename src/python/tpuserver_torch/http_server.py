@@ -19,6 +19,9 @@ carries its ``generation_id`` and ``seq`` as the event's ``parameters``
 and as an ``id: <generation_id>/<seq>`` line before its ``data:`` line.
 An error after the stream started arrives in-band as ``data: {"error":
 ...}``.  A shed request (429) is answered with a ``Retry-After`` header.
+A ``/generate_stream`` request with a ``Last-Event-ID: <generation_id>/
+<seq>`` header resumes that generation from ``seq + 1`` (an unknown one
+answers 404 before any event).
 """
 
 import json
@@ -159,8 +162,22 @@ class _Handler(BaseHTTPRequestHandler):
         body = self._read_json()
         inputs = {tin.get("name"): _array_from_json(tin)
                   for tin in body.get("inputs", [])}
+        parameters = dict(body.get("parameters", {}))
+        last_id = self.headers.get("Last-Event-ID")
+        if stream and last_id:
+            # an SSE reconnect: the client re-POSTs the same body with
+            # the last id it read; the generation replays from seq + 1.
+            # The LAST slash splits: a client-chosen generation_id may
+            # itself hold one
+            gen_id, sep, seq = last_id.rpartition("/")
+            if sep and gen_id:
+                try:
+                    parameters.setdefault("resume_from_seq", int(seq) + 1)
+                    parameters.setdefault("resume_generation_id", gen_id)
+                except ValueError:
+                    pass  # a malformed id: a fresh request
         request = InferRequest(model, version, body.get("id", ""), inputs,
-                               dict(body.get("parameters", {})))
+                               parameters)
         responses = core.infer_stream(request)
         if not stream:
             merged = None
@@ -205,6 +222,10 @@ class _Handler(BaseHTTPRequestHandler):
                 {"error": str(e)}).encode("utf-8") + b"\n\n")
             self._chunk(b"")
             return
+        finally:
+            # a client gone mid-stream ends its generation now (which
+            # parks it for a resume), not when the frame is collected
+            responses.close()
         if not started:
             self._start_events()
         self._chunk(b'data: {"final": true}\n\n')

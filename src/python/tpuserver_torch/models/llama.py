@@ -19,8 +19,8 @@ Pieces:
 - continuous batching: the slotted step (``batched_decode_step``,
   ``scheduler_step``, ``scheduler_admit``, ``scheduler_extract``), the
   paged KV pool (``init_paged_kv_cache``, ``paged_batched_decode_step``,
-  ``paged_scheduler_step``, ``paged_admit``, ``paged_gather``), the
-  admission prefills (``prefill_bucket``, ``prefill_to_length``,
+  ``paged_scheduler_step``, ``paged_spec_step``, ``paged_admit``,
+  ``paged_gather``), the admission prefills (``prefill_bucket``, ``prefill_to_length``,
   ``prefill_span``) and the scheduler's bundle (``make_scheduler_fns``)
 """
 
@@ -613,6 +613,65 @@ def paged_scheduler_step(params, pages, logits_all, page_tables, positions,
     return tokens, tok_logp, new_logits, pages
 
 
+def paged_spec_step(params, pages, logits_all, page_tables, positions,
+                    active, forced, forced_mask, draft, draft_len, cfg):
+    """Multi-token speculative verify: :func:`paged_scheduler_step`
+    followed by up to K drafted continuation tokens, all in one call
+    (``tpuserver_torch.speculative`` is the draft source).
+
+    ``draft`` [S, K] holds each row's proposed continuation and
+    ``draft_len`` [S] how many of those entries are real (0: no
+    speculation for the row).  The step is a chain of K+1 sub-steps,
+    each the exact op sequence of :func:`paged_scheduler_step` (log
+    softmax, argmax, :func:`paged_batched_decode_step`) over all S rows,
+    so every intermediate logits row is bitwise what K+1 separate
+    single-token steps compute.  Sub-step 0 feeds the greedy-or-forced
+    token at ``positions``; sub-step j feeds ``draft[:, j-1]`` at
+    ``positions + j``, and rows past their ``draft_len`` feed at the
+    sentinel ``max_seq`` (their write goes to the trash page, the row is
+    inert for that sub-step).  Row ``i`` accepts the longest prefix of
+    its drafts where the previous sub-step's argmax equals the drafted
+    token, and its returned logits are the sub-step output at that
+    depth, selected by indexing, never by masked arithmetic, so a
+    poisoned row's NaN reaches the host's quarantine check intact.
+
+    Rejected drafts leave K/V at ``positions + accept + 1`` onward, past
+    the row's advanced write cursor: the next step overwrites them, and
+    the retirement donation reads only up to the cursor.
+
+    Returns (tokens [S, K+1], logprobs [S, K+1], accept [S] int32,
+    new_logits [S, vocab], pages updated in place): ``tokens[:, 0]`` is
+    the base token, ``tokens[:, j]`` the j-th draft, and the host emits
+    ``tokens[i, :1 + accept[i]]``."""
+    S, K = draft.shape
+    max_seq = page_tables.shape[1] * pages.shape[3]
+    positions = positions.long()
+    draft = draft.long()
+    t0, lp0 = _sample(logits_all, forced, forced_mask)
+    cur, pages = paged_batched_decode_step(params, pages, t0, page_tables,
+                                           positions, cfg)
+    toks, lps = [t0], [lp0]
+    stack = [cur]  # stack[j]: the logits after feeding sub-step j
+    matches = []
+    for j in range(1, K + 1):
+        cand = draft[:, j - 1]
+        fed = j <= draft_len
+        logp = torch.log_softmax(cur, dim=-1)
+        matches.append((torch.argmax(cur, dim=-1) == cand) & fed)
+        lps.append(logp.gather(-1, cand[:, None])[:, 0])
+        toks.append(cand)
+        pos_j = torch.where(fed, positions + j,
+                            torch.full_like(positions, max_seq))
+        cur, pages = paged_batched_decode_step(params, pages, cand,
+                                               page_tables, pos_j, cfg)
+        stack.append(cur)
+    accept = torch.cumprod(torch.stack(matches).int(), dim=0).sum(dim=0)
+    final = torch.stack(stack)[accept, torch.arange(S, device=cur.device)]
+    final = torch.where(active[:, None], final, logits_all)
+    return (torch.stack(toks, dim=1), torch.stack(lps, dim=1),
+            accept.int(), final, pages)
+
+
 def _host_ids(ids):
     """A page-id vector (numpy array, list or tensor) as numpy int64."""
     if isinstance(ids, torch.Tensor):
@@ -749,6 +808,10 @@ def make_scheduler_fns(cfg, max_seq, max_slots, page_size=16, kv_pages=None,
       forced, forced_mask)`` — :func:`paged_scheduler_step`; its tokens
       and logprobs come back as objects that ``np.asarray`` turns into
       host arrays, waiting for this step's copy alone
+    - ``spec_step(params, pages, logits, page_tables, positions, active,
+      forced, forced_mask, draft, draft_len)`` — :func:`paged_spec_step`,
+      the speculative verify; tokens, logprobs and accept counts come
+      back as ``step``'s do
     - ``admit(pages, logits, slot_cache, slot_logits, dest_ids, slot)``
       — :func:`paged_admit`
     - ``gather(pages, page_ids)`` — :func:`paged_gather`, the
@@ -812,6 +875,27 @@ def make_scheduler_fns(cfg, max_seq, max_slots, page_size=16, kv_pages=None,
             fmask_d != 0, cfg)
         return _HostFetch(toks), _HostFetch(logps), logits, pages
 
+    def spec_step(params, pages, logits, page_tables, positions, active,
+                  forced, forced_mask, draft, draft_len):
+        # one staged copy for the step's five control inputs and the
+        # drafts
+        s = max_slots * pages_per_seq
+        k = np.asarray(draft).shape[1]
+        packed = tokens_in(np.concatenate([
+            np.asarray(page_tables).reshape(-1), np.asarray(positions),
+            np.asarray(active), np.asarray(forced),
+            np.asarray(forced_mask), np.asarray(draft_len),
+            np.asarray(draft).reshape(-1)]))
+        tables_d = packed[:s].view(max_slots, pages_per_seq)
+        pos_d, active_d, forced_d, fmask_d, dlen_d = packed[
+            s:s + 5 * max_slots].view(5, max_slots)
+        draft_d = packed[s + 5 * max_slots:].view(max_slots, k)
+        toks, logps, accept, logits, pages = paged_spec_step(
+            params, pages, logits, tables_d, pos_d, active_d != 0, forced_d,
+            fmask_d != 0, draft_d, dlen_d, cfg)
+        return (_HostFetch(toks), _HostFetch(logps), _HostFetch(accept),
+                logits, pages)
+
     return {
         "init_cache": init_cache,
         "init_slot_cache": init_slot_cache,
@@ -820,6 +904,7 @@ def make_scheduler_fns(cfg, max_seq, max_slots, page_size=16, kv_pages=None,
         "prefill_span": prefill_span_fn,
         "prefill_bucket": functools.partial(prefill_bucket, cfg, max_seq),
         "step": step,
+        "spec_step": spec_step,
         "admit": paged_admit,
         "gather": paged_gather,
         "page_size": page_size,

@@ -12,12 +12,16 @@ One request carries the prompt ids and streams one response per token.
 - ``max_slots>1``: continuous batching.  A ``DecodeScheduler`` runs one
   batched decode step for up to ``max_slots`` concurrent generations
   over a paged KV pool (``llama.make_scheduler_fns``), admitting waiting
-  requests mid-flight into freed slots.  Each response carries its
-  ``generation_id`` and 0-based ``seq`` as response parameters.
+  requests mid-flight into freed slots, optionally verifying drafted
+  tokens (``spec_tokens``), under a supervisor that restarts a failed or
+  hung decode loop.  Each response carries its ``generation_id`` and
+  0-based ``seq`` as response parameters, and a request with
+  ``resume_generation_id`` (and ``resume_from_seq``, the first ``seq``
+  not yet seen) continues a parked generation.
 
-The KV-cache park/resume region, stream resume and the shared-memory
-token ring come in later slices of the port: requests asking for them get
-``NotPortedYet``.
+The KV-cache park/resume region, the shared-memory token ring and the
+disaggregated KV attach come in later slices of the port: requests asking
+for them get ``NotPortedYet``.
 """
 
 import threading
@@ -28,14 +32,14 @@ import torch
 
 from tpuserver_torch import resolve_device
 from tpuserver_torch.core import RESPONSE_PARAMS_KEY, Model, TensorSpec
-from tpuserver_torch.errors import NotPortedYet
+from tpuserver_torch.errors import GenerationNotFound, NotPortedYet
 from tpuserver_torch.models import llama
+from tpuserver_torch.ops import _build
 from tpuserver_torch.scheduler import DecodeScheduler
 
 #: request parameters of the JAX server that a later slice brings
 _LATER_PARAMETERS = ("kv_cache_region", "kv_cache_resume", "shm_ring_region",
-                     "resume_generation_id", "kv_attach", "kv_park",
-                     "kv_phase")
+                     "kv_attach", "kv_park", "kv_phase")
 
 
 class LlamaGenerateModel(Model):
@@ -61,7 +65,8 @@ class LlamaGenerateModel(Model):
 
     def __init__(self, cfg=None, max_seq=512, decode_chunk=None,
                  max_slots=1, params=None, seed=0, device=None,
-                 page_size=16, kv_pages=None):
+                 page_size=16, kv_pages=None, spec_tokens=0,
+                 step_timeout_s=None):
         """``params``: weights to serve (a params dict of tensors, e.g.
         from ``llama.params_from_jax``, or another model's, which is then
         shared, not copied), moved to ``device``; None draws random ones
@@ -70,7 +75,9 @@ class LlamaGenerateModel(Model):
 
         ``max_slots>1`` serves through a ``DecodeScheduler``;
         ``page_size`` and ``kv_pages`` set its KV pool (default: room for
-        ``max_slots`` full-length sequences)."""
+        ``max_slots`` full-length sequences), ``spec_tokens`` its drafted
+        tokens per step and ``step_timeout_s`` its watchdog (see
+        ``DecodeScheduler``)."""
         self._device = resolve_device(device)
         self.device_kind = "gpu" if self._device.type == "cuda" else "cpu"
         if max_slots < 1:
@@ -94,6 +101,8 @@ class LlamaGenerateModel(Model):
             self._cfg, self._max_seq, self._max_slots, page_size=page_size,
             kv_pages=kv_pages, device=self._device)
             if self._max_slots > 1 else None)
+        self._spec_tokens = spec_tokens
+        self._step_timeout_s = step_timeout_s
         self._scheduler = None
         # max_slots=1: one generation at a time (each holds a full-length
         # KV cache); max_slots>1: guards building the scheduler
@@ -112,12 +121,18 @@ class LlamaGenerateModel(Model):
             if self._scheduler is None:
                 self._scheduler = DecodeScheduler(
                     self._fns, self._ensure_params(), self._max_slots,
-                    self._max_seq)
+                    self._max_seq, spec_tokens=self._spec_tokens,
+                    step_timeout_s=self._step_timeout_s)
             return self._scheduler
 
     def warmup(self):
+        """Draw the weights, build the scheduler and, on the card, build
+        and load the kernel library, so the first request pays none of
+        them."""
         with self._lock:
             self._ensure_params()
+        if self._device.type == "cuda":
+            _build.load_library()
         if self._max_slots > 1:
             self._ensure_scheduler()
 
@@ -146,32 +161,50 @@ class LlamaGenerateModel(Model):
             yield from self._execute_scheduled(prompt, max_tokens, eos_id,
                                                request)
             return
+        if request.parameters.get("resume_generation_id"):
+            raise GenerationNotFound(
+                "the single-stream path (max_slots=1) keeps no replay "
+                "state: there is no generation to resume")
         with self._lock:
             yield from self._generate(prompt, max_tokens, eos_id)
 
     def _execute_scheduled(self, prompt, max_tokens, eos_id, request):
         """Continuous-batching path: submit to the shared decode loop and
-        stream its per-step tokens back, each response carrying the
-        generation's id (the ``generation_id`` request parameter, or a
-        fresh one) and its 0-based ``seq``."""
+        stream its per-step tokens back.  Every generation here is
+        resumable: it gets an id (the ``generation_id`` request
+        parameter, or a fresh one) and each response carries it with its
+        0-based ``seq``.  A request with ``resume_generation_id`` instead
+        continues a parked generation from ``resume_from_seq``: buffered
+        tokens replay first, then live ones follow, with no duplicates
+        or gaps, under the reconnect's own deadline."""
         scheduler = self._ensure_scheduler()
-        gen_id = str(request.parameters.get("generation_id")
-                     or uuid.uuid4().hex)
-        stream = scheduler.submit(prompt, max_tokens, eos_id=eos_id,
-                                  deadline=request.deadline)
+        resume_id = request.parameters.get("resume_generation_id")
+        if resume_id:
+            gen_id = str(resume_id)
+            seq = int(request.parameters.get("resume_from_seq", 0))
+            stream = scheduler.resume(gen_id, seq, deadline=request.deadline)
+        else:
+            gen_id = str(request.parameters.get("generation_id")
+                         or uuid.uuid4().hex)
+            seq = 0
+            stream = scheduler.submit(prompt, max_tokens, eos_id=eos_id,
+                                      deadline=request.deadline,
+                                      generation_id=gen_id)
         try:
-            for seq, (token, logprob) in enumerate(stream):
+            for token, logprob in stream:
                 yield {"TOKEN": np.array([token], dtype=np.int32),
                        "LOGPROB": np.array([logprob], dtype=np.float32),
                        RESPONSE_PARAMS_KEY: {"generation_id": gen_id,
                                              "seq": seq}}
+                seq += 1
         finally:
-            # a consumer that stops early retires the slot at once
+            # a consumer that stops early retires the slot at once (and
+            # the generation parks for a resume)
             stream.close()
 
     def healthy(self):
         """Readiness hook: False once the continuous-batching scheduler
-        is closed or its decode loop failed."""
+        is closed or tripped."""
         scheduler = self._scheduler
         return scheduler is None or scheduler.healthy
 

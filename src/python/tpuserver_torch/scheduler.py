@@ -21,7 +21,9 @@ Lifecycle of a request:
    ``llama.paged_gather``; only the unique suffix prefills, in one
    bucketed pass or chunk by chunk interleaved with decode when it
    exceeds ``prefill_chunk_tokens``), and copies the prefilled single-row
-   cache into its pages (``llama.paged_admit``).
+   cache into its pages (``llama.paged_admit``).  A stream admitted
+   again (after a loop restart, or resumed) prefills ``prompt +
+   history`` and emission continues where it stopped.
 2. **step**: every iteration runs ``llama.paged_scheduler_step``: a
    greedy token per slot from the slot's logits row, then one batched
    decode over every slot (always ``max_slots`` rows, so a row's numbers
@@ -29,6 +31,9 @@ Lifecycle of a request:
    at its own position.  Steps are pipelined one deep: step *i+1* is
    dispatched before step *i*'s tokens are fetched, and the fetch waits
    for step *i*'s own copy to the host, so it overlaps step *i+1*.
+   With ``spec_tokens=K`` each slot instead drafts up to K tokens
+   (``tpuserver_torch.speculative``) and one ``llama.paged_spec_step``
+   verifies them; see :class:`DecodeScheduler`.
 3. **retire**: a slot finishes on its max_tokens budget or its
    ``eos_id``; the slot and its pages free at once (full pages donate to
    the radix cache), so a waiting request joins **mid-flight** while the
@@ -41,26 +46,44 @@ carry the sentinel position (their writes go to the pool's trash page),
 and emission matches snapshot state by object identity and incarnation,
 so a re-admitted slot never receives a predecessor's token.
 
-A slot whose own step output is poisoned (a non-finite logprob) retires
-with a typed :class:`~tpuserver_torch.errors.SlotPoisoned` (422) while
-every co-batched slot keeps decoding: the batched step's math is
-row-independent.
+Self-healing:
 
-Left out of this port (``ROADMAP.md`` queue A): the supervisor, the
-hung-step watchdog and its epochs; replay and resume of generations;
-KV park, export and attach; the CoDel admission controller; speculative
-decoding; latency histograms and fault-injection points.  Without a
-supervisor, an exception that no single stream caused (a failed batched
-step or fetch) ends the decode loop: every live and pending stream fails
-with a typed 500, :attr:`DecodeScheduler.healthy` turns False, and later
-submits raise :class:`~tpuserver_torch.errors.ServerUnavailable`.  That
-is the JAX scheduler's behaviour before it had a supervisor.
+- **Per-slot quarantine.**  A slot whose own step output is poisoned (a
+  non-finite logprob) retires with a typed
+  :class:`~tpuserver_torch.errors.SlotPoisoned` (422) while every
+  co-batched slot keeps decoding: the batched step's math is
+  row-independent.
+- **Supervised restart.**  A ``decode-supervisor`` thread owns the loop
+  thread.  A failure no single stream caused (a failed batched step or
+  fetch) ends the loop; the supervisor starts a new one with a fresh
+  page pool, and every live stream is admitted again by prefilling
+  ``prompt + history``, under a budget of ``max_restarts`` restarts per
+  ``RESTART_WINDOW_S`` with exponential backoff.  A step stalled past
+  ``step_timeout_s`` (the watchdog) is treated the same way: the loop's
+  epoch moves on, so the stalled thread, when it wakes, delivers
+  nothing.  The watchdog arms for each kind of device call (admission
+  prefill, step, speculative step) once that kind has completed one
+  call: the first pays the kernel library's load and cuBLAS's set-up.  With the budget spent the scheduler trips for good: every
+  stream fails with ``ServerUnavailable`` (503), :attr:`healthy` stays
+  False, later submits are refused, and drain and close still work.
+- **Resumable generations.**  ``submit(generation_id=...)`` keeps every
+  emitted ``(token, logprob)``; a disconnected or completed generation
+  parks in a bounded, TTL'd replay buffer, and :meth:`resume` replays
+  ``history[from_seq:]`` and then splices the live continuation.
 
-Where the JAX scheduler raises its own ``SchedulerClosed`` and
-``AdmissionQueueFull``, this one raises the typed errors the core passes
-through: ``ServerUnavailable`` (503) once closed, draining or failed, and
-``TooManyRequests`` (429, one-second ``Retry-After``) when the pending
-queue is full or the KV page pool is exhausted.
+Left out of this port (``ROADMAP.md`` queue A): KV park, export and
+attach (``resume_cache``, ``on_finish``, the ``kv_export``/``kv_import``/
+``kv_discard`` hooks); the CoDel admission controller; latency
+histograms and fault-injection points.  JAX's ``TPUSERVER_SPEC_TOKENS``
+environment default is not read: ``spec_tokens`` is an argument.
+
+Where the JAX scheduler raises its own ``SchedulerClosed``,
+``AdmissionQueueFull`` and ``UnknownGeneration``, this one raises the
+typed errors the core passes through: ``ServerUnavailable`` (503) once
+closed, draining or tripped, ``TooManyRequests`` (429, one-second
+``Retry-After``) when the pending queue is full or the KV page pool is
+exhausted, and ``GenerationNotFound`` (404) for a resume id it does not
+hold.
 """
 
 import contextlib
@@ -68,21 +91,27 @@ import logging
 import queue
 import threading
 import time
-from collections import deque
+from collections import OrderedDict, deque
 
 import numpy as np
 import torch
 
 from tpuserver_torch.errors import (
+    GenerationNotFound,
     RequestTimedOut,
     ServerUnavailable,
     SlotPoisoned,
     TooManyRequests,
-    TorchServeError,
 )
 from tpuserver_torch.paging import PageAllocator, RadixPrefixCache, pages_for
+from tpuserver_torch.speculative import NgramDrafter
 
 _log = logging.getLogger(__name__)
+
+#: the sliding window of the supervisor's restart budget, in seconds
+RESTART_WINDOW_S = 60.0
+#: parked generations the replay buffer holds (the oldest goes first)
+REPLAY_CAPACITY = 256
 
 
 class _Stream:
@@ -90,15 +119,22 @@ class _Stream:
 
     __slots__ = (
         "prompt", "max_tokens", "eos_id", "queue", "pos", "emitted",
-        "finished", "cancelled", "deadline", "history", "incarnation",
-        # paged-KV state, owned by the decode loop: the np page-table
-        # row, the pinned radix path (table[:len(radix_nodes)] are tree
-        # pages, the rest up to span_pages are owned), and the reserved
-        # span in pages
+        "finished", "cancelled", "deadline", "generation_id", "history",
+        "incarnation", "enqueued_at",
+        # paged-KV state, owned by the decode loop that admitted the
+        # stream (reset for re-admission when a loop dies): the np
+        # page-table row, the pinned radix path (table[:len(radix_nodes)]
+        # are tree pages, the rest up to span_pages are owned), and the
+        # reserved span in pages
         "table", "radix_nodes", "span_pages",
+        # speculation throttle, owned by the decode loop: consecutive
+        # drafted tokens with no acceptance, and steps left to skip
+        # drafting once throttled
+        "spec_miss", "spec_skip",
     )
 
-    def __init__(self, prompt, max_tokens, eos_id, deadline=None):
+    def __init__(self, prompt, max_tokens, eos_id, deadline=None,
+                 generation_id=None):
         self.prompt = prompt
         self.max_tokens = max_tokens
         self.eos_id = eos_id
@@ -108,16 +144,26 @@ class _Stream:
         self.finished = False   # terminal queue event delivered
         self.cancelled = False  # consumer abandoned the token iterator
         self.deadline = deadline  # time.monotonic() bound, or None
-        self.history = []       # emitted tokens (radix donation key)
-        # bumped on every admission: a pipelined step snapshot taken for
-        # an earlier admission of this stream object never delivers
+        self.generation_id = generation_id  # resumable when set
+        # every emitted (token, logprob): the replay buffer of a resume,
+        # the re-admission feed of a restart, the radix donation key
+        self.history = []
+        # bumped on every admission: a step snapshot taken for an
+        # earlier admission of this stream object never delivers
         self.incarnation = 0
+        self.enqueued_at = time.monotonic()  # latest (re-)enqueue
         self.table = None
         self.radix_nodes = None
         self.span_pages = 0
+        self.spec_miss = 0
+        self.spec_skip = 0
 
     def expired(self, now):
         return self.deadline is not None and now >= self.deadline
+
+
+class _HungStep(Exception):
+    """The watchdog's cause of a loop restart."""
 
 
 class _PrefillTask:
@@ -162,10 +208,32 @@ class DecodeScheduler:
     ``params`` the weights, on the bundle's device.  One background
     thread owns ALL device state (the page pool and the per-slot
     logits), so frontend threads never touch the device: they block on
-    per-stream queues that the loop fans tokens into."""
+    per-stream queues that the loop fans tokens into.
+
+    Supervision: ``step_timeout_s`` (None: no watchdog) bounds every
+    device call of the loop once a call of its kind has completed (the
+    first pays the kernel library's load and cuBLAS's set-up);
+    admission prefills get ten times it, since a new length pays
+    cuBLAS's heuristics.  ``max_restarts`` restarts per sliding
+    ``RESTART_WINDOW_S`` are allowed, each after a backoff that starts
+    at ``restart_backoff_s`` and doubles (at most 2 s).  Replay:
+    parked generations stay ``replay_ttl_s``, at most
+    ``REPLAY_CAPACITY`` of them.
+
+    Speculation: ``spec_tokens=K`` (0: off) drafts up to K tokens per
+    slot per step and verifies them in one ``fns["spec_step"]`` call;
+    the tokens are bitwise those of ``spec_tokens=0``.  A stream that
+    drafted ``spec_throttle_after`` consecutive tokens with no
+    acceptance skips drafting for ``spec_probe_interval`` steps at a
+    time until a draft lands.  (JAX reads its default from the
+    ``TPUSERVER_SPEC_TOKENS`` environment variable; here it is only
+    this argument, and ``serve.py --spec-tokens``.)"""
 
     def __init__(self, fns, params, max_slots, max_seq,
-                 prefill_chunk_tokens=256, prefix_cache=True):
+                 prefill_chunk_tokens=256, prefix_cache=True,
+                 step_timeout_s=None, max_restarts=5, restart_backoff_s=0.05,
+                 replay_ttl_s=60.0, spec_tokens=0, spec_throttle_after=16,
+                 spec_probe_interval=8):
         if max_slots < 1:
             raise ValueError(
                 "max_slots must be >= 1 (got {})".format(max_slots))
@@ -187,39 +255,80 @@ class DecodeScheduler:
         self._prefill_chunk_tokens = (int(prefill_chunk_tokens)
                                       if prefill_chunk_tokens else None)
         self._prefix_cache = bool(prefix_cache)
+        self._step_timeout_s = step_timeout_s
+        self._max_restarts = int(max_restarts)
+        self._restart_backoff_s = float(restart_backoff_s)
+        self._replay_ttl_s = float(replay_ttl_s)
+        self._spec_tokens = max(0, int(spec_tokens))
+        self._spec_throttle_after = int(spec_throttle_after)
+        self._spec_probe_interval = int(spec_probe_interval)
         self._cond = threading.Condition()
         self._pending = deque()  # guarded-by: _cond
         self._thread = None      # guarded-by: _cond
+        self._supervisor = None  # guarded-by: _cond
         self._closed = False     # guarded-by: _cond
         self._draining = False   # guarded-by: _cond
-        # the exception that ended the decode loop  # guarded-by: _cond
-        self._failed = None
+        # restart budget spent: permanent  # guarded-by: _cond
+        self._tripped = False
+        # the epoch demotes superseded (wedged) loop threads: every
+        # delivery into stream queues checks it under _cond, so a thread
+        # waking after a watchdog restart never emits into a stream the
+        # new loop admitted again  # guarded-by: _cond
+        self._epoch = 0
+        # (epoch, monotonic start) of the current device call, or None;
+        # epoch-tagged so a demoted thread's stale stamps can neither
+        # trip the watchdog against its successor nor erase the
+        # successor's beat  # guarded-by: _cond
+        self._heartbeat = None
+        # set by a dying loop for the supervisor  # guarded-by: _cond
+        self._loop_error = None
+        # kinds of device call that completed once: the watchdog times
+        # only these (the card's and cuBLAS's set-up costs are paid once
+        # per process, so a restarted loop keeps them)  # guarded-by: _cond
+        self._warm = set()
+        self._restarts = 0  # lifetime count  # guarded-by: _cond
+        # restart times inside the window  # guarded-by: _cond
+        self._recent_restarts = deque()
         # lifetime SlotPoisoned count  # guarded-by: _cond
         self._quarantined = 0
+        # generation_id -> (stream, completed, expires_monotonic): the
+        # bounded, TTL'd replay buffer  # guarded-by: _cond
+        self._replay = OrderedDict()
         # every live (not yet terminally delivered) stream, pending or
         # slotted: close() fails exactly this set when the loop cannot,
         # and drain() waits on it  # guarded-by: _cond
         self._streams = set()
-        # counters written only by the decode loop; they only grow, so a
-        # racing stats() read may lag one step but never sees a decrease
+        # counters written only by the decode loop (or resume, under
+        # _cond); they only grow, so a racing stats() read may lag one
+        # step but never sees a decrease
         self._admitted_total = 0
         self._tokens_total = 0
         self._steps_total = 0
+        self._replay_hits = 0
         self._prefix_hits = 0     # prompt tokens served from shared pages
         self._prefix_misses = 0   # prompt tokens prefilled
         self._prefix_evictions = 0  # pages evicted from the radix cache
-        # (allocator, radix) of the running loop, for stats
-        self._pager = None  # guarded-by: _cond
+        self._spec_steps = 0      # guarded-by: _cond
+        self._spec_proposed = 0   # guarded-by: _cond
+        self._spec_accepted = 0   # guarded-by: _cond
+        self._spec_rollbacks = 0  # guarded-by: _cond
+        # (allocator, radix) of the running loop, for stats (a restart
+        # rebuilds both with the pool)  # guarded-by: _cond
+        self._pager = None
 
     # -- frontend side -----------------------------------------------------
 
-    def submit(self, prompt, max_tokens, eos_id=None, deadline=None):
+    def submit(self, prompt, max_tokens, eos_id=None, deadline=None,
+               generation_id=None):
         """Enqueue one generation; returns an iterator of ``(token,
         logprob)`` pairs that blocks as the decode loop produces them.
 
         ``deadline`` is a ``time.monotonic()`` bound: past it, a
         still-pending request fails before prefill and an in-flight one
-        retires mid-generation, both with ``RequestTimedOut`` (504)."""
+        retires mid-generation, both with ``RequestTimedOut`` (504).
+        ``generation_id`` makes the generation resumable: its tokens
+        stay in the replay buffer after a disconnect or completion, and
+        :meth:`resume` continues it."""
         prompt = np.asarray(prompt, dtype=np.int32).reshape(-1)
         if len(prompt) == 0:
             raise ValueError("PROMPT_IDS must be non-empty")
@@ -227,26 +336,120 @@ class DecodeScheduler:
             raise ValueError(
                 "position (0) + prompt ({}) + max_tokens ({}) exceeds max "
                 "sequence {}".format(len(prompt), max_tokens, self._max_seq))
-        stream = _Stream(prompt, int(max_tokens), eos_id, deadline=deadline)
+        stream = _Stream(prompt, int(max_tokens), eos_id, deadline=deadline,
+                         generation_id=generation_id)
         with self._cond:
-            if self._closed:
-                raise ServerUnavailable("scheduler is shut down")
-            if self._failed is not None:
-                raise ServerUnavailable(
-                    "decode loop failed ({}); the scheduler serves no more "
-                    "generations".format(self._failed))
-            if self._draining:
-                raise ServerUnavailable(
-                    "scheduler is draining; not accepting new generations")
+            self._check_admitting_locked()
             if len(self._pending) >= self._max_pending:
                 raise TooManyRequests(
                     "scheduler admission queue is full ({} waiting "
                     "generations); retry later".format(len(self._pending)))
+            if generation_id is not None:
+                # a reused id supersedes any parked predecessor
+                self._replay.pop(generation_id, None)
             self._pending.append(stream)
             self._streams.add(stream)
             self._ensure_running_locked()
             self._cond.notify_all()
         return self._drain(stream)
+
+    def _check_admitting_locked(self):
+        """Raise ``ServerUnavailable`` unless new decode work may enter.
+        Called with ``_cond`` held."""
+        if self._closed:
+            raise ServerUnavailable("scheduler is shut down")
+        if self._tripped:
+            raise ServerUnavailable(
+                "decode loop restart budget exhausted; the scheduler is "
+                "tripped: drain and restart the server")
+        if self._draining:
+            raise ServerUnavailable(
+                "scheduler is draining; not accepting new generations")
+
+    def resume(self, generation_id, from_seq=0, wait_s=5.0, deadline=None):
+        """Continue a parked generation: replays its ``(token,
+        logprob)`` history from ``from_seq`` (the first sequence number
+        the caller has NOT seen), then, for an interrupted generation,
+        splices the live tokens of a continuation admitted again
+        (``prompt + history`` prefilled).  Raises
+        :class:`~tpuserver_torch.errors.GenerationNotFound` when the id
+        was never issued, was already resumed, or aged out of the
+        buffer.
+
+        A disconnected stream parks only when the decode loop next reaps
+        its cancelled slot, so a fast reconnect can arrive first: while
+        the id still names a live stream, resume waits up to ``wait_s``
+        for the park.  ``deadline`` is the RESUME request's own
+        monotonic bound (None: none); the original request's deadline
+        died with its connection.  A completed generation's tail stays
+        replayable for the whole TTL; an interrupted one is consumed by
+        its first resume."""
+        from_seq = int(from_seq)
+        wait_deadline = time.monotonic() + float(wait_s)
+        with self._cond:
+            while True:
+                if self._closed:
+                    raise ServerUnavailable("scheduler is shut down")
+                self._sweep_replay_locked(time.monotonic())
+                entry = self._replay.pop(generation_id, None)
+                if entry is not None:
+                    break
+                live = any(st.generation_id == generation_id
+                           for st in self._streams)
+                remaining = wait_deadline - time.monotonic()
+                if not live or remaining <= 0:
+                    raise GenerationNotFound(
+                        "unknown or expired generation id '{}' (replay "
+                        "entries live {}s after a disconnect; resume is "
+                        "local to one server)".format(
+                            generation_id, self._replay_ttl_s))
+                self._cond.wait(min(0.05, remaining))
+            stream, completed, _ = entry
+            if from_seq < 0 or from_seq > len(stream.history):
+                # a malformed resume must not destroy the replay state
+                self._replay[generation_id] = entry
+                raise GenerationNotFound(
+                    "resume point {} is beyond generation '{}' ({} tokens "
+                    "emitted)".format(from_seq, generation_id,
+                                      len(stream.history)))
+            replay = list(stream.history[from_seq:])
+            if completed:
+                self._replay[generation_id] = entry
+            else:
+                try:
+                    # admitting it again is new decode work: the same
+                    # gate as submit()
+                    self._check_admitting_locked()
+                except ServerUnavailable:
+                    self._replay[generation_id] = entry
+                    raise
+                # a fresh queue: the abandoned one may hold tokens the
+                # old consumer never took, which the replay re-delivers
+                stream.queue = queue.Queue()
+                stream.cancelled = False
+                stream.finished = False
+                stream.deadline = deadline  # the reconnect's own bound
+                self._reset_for_readmission(stream)
+                self._pending.append(stream)
+                self._streams.add(stream)
+                self._ensure_running_locked()
+                self._cond.notify_all()
+            self._replay_hits += 1
+
+        def gen():
+            live = None if completed else self._drain(stream)
+            try:
+                yield from replay
+                if live is not None:
+                    yield from live
+            finally:
+                if live is not None and not stream.finished:
+                    # abandoned during the replay prefix: the live
+                    # generator's own cancel hook never ran
+                    stream.cancelled = True
+                    live.close()
+
+        return gen()
 
     @staticmethod
     def _drain(stream):
@@ -266,7 +469,8 @@ class DecodeScheduler:
                 # consumer gone mid-generation (client cancel or
                 # disconnect closes the generator): flag the stream so
                 # the decode loop retires its slot instead of burning
-                # batched steps on tokens nobody will read
+                # batched steps on tokens nobody will read (a resumable
+                # stream then parks in the replay buffer)
                 stream.cancelled = True
 
     def close(self, join_timeout=30):
@@ -280,12 +484,19 @@ class DecodeScheduler:
             self._closed = True
             self._cond.notify_all()
             thread = self._thread
-        if thread is not None and not already_closed:
-            thread.join(timeout=join_timeout)
+            supervisor = self._supervisor
+        if not already_closed:
+            # join once: a second close() must not wait again on a
+            # wedged thread
+            if thread is not None:
+                thread.join(timeout=join_timeout)
+            if supervisor is not None:
+                supervisor.join(timeout=5)
         with self._cond:
             leftover = list(self._streams)
             self._streams.clear()
             self._pending.clear()
+            self._replay.clear()
             self._cond.notify_all()
         err = ServerUnavailable("scheduler is shut down")
         for stream in leftover:
@@ -308,15 +519,16 @@ class DecodeScheduler:
 
     @property
     def healthy(self):
-        """False once the scheduler is closed or its decode loop failed;
-        the core's readiness answers report it."""
+        """False once the scheduler is closed or tripped (its restart
+        budget spent); the core's readiness answers report it."""
         with self._cond:
-            return not self._closed and self._failed is None
+            return not self._closed and not self._tripped
 
     def stats(self):
         """Live stream, pending and slot counts, lifecycle flags and the
         loop's counters.  ``live_streams`` returning to zero after
-        traffic is the no-leaked-slots invariant."""
+        traffic is the no-leaked-slots invariant; ``restarts`` rising is
+        the flapping signal."""
         with self._cond:
             pager = self._pager
             if pager is not None:
@@ -336,69 +548,254 @@ class DecodeScheduler:
                 "draining": self._draining,
                 "closed": self._closed,
                 "healthy": self.healthy,
-                "failed": self._failed is not None,
+                "tripped": self._tripped,
+                "restarts": self._restarts,
                 "quarantined": self._quarantined,
+                "replay_entries": len(self._replay),
+                "replay_hits": self._replay_hits,
                 "admitted": self._admitted_total,
                 "tokens": self._tokens_total,
                 "steps": self._steps_total,
                 "prefix_hits": self._prefix_hits,
                 "prefix_misses": self._prefix_misses,
                 "prefix_evictions": self._prefix_evictions,
+                "spec_tokens": self._spec_tokens,
+                "spec_steps": self._spec_steps,
+                "spec_proposed": self._spec_proposed,
+                "spec_accepted": self._spec_accepted,
+                "spec_rollbacks": self._spec_rollbacks,
+                "spec_accept_per_step": (
+                    (self._spec_steps + self._spec_accepted)
+                    / self._spec_steps if self._spec_steps else 0.0),
                 "pages_total": pages_total,
                 "pages_free": pages_free,
                 "pages_cached": pages_cached,
             }
 
-    # -- decode loop -------------------------------------------------------
+    # -- supervisor --------------------------------------------------------
 
     def _ensure_running_locked(self):
-        """Start the decode thread if it is not running.  Called with
+        """Start the supervisor if it is not running; it owns the loop
+        thread.  Called with ``_cond`` held."""
+        if self._supervisor is None or not self._supervisor.is_alive():
+            self._supervisor = threading.Thread(
+                target=self._supervise, name="decode-supervisor",
+                daemon=True)
+            self._supervisor.start()
+
+    def _start_loop_locked(self):
+        self._epoch += 1
+        self._heartbeat = None
+        self._loop_error = None
+        self._thread = threading.Thread(
+            target=self._run, args=(self._epoch,), name="decode-scheduler",
+            daemon=True)
+        self._thread.start()
+
+    def _beat(self, epoch, now):
+        """Stamp (or clear, ``now=None``) this loop's device-call
+        heartbeat.  A superseded loop's stamps and clears are dropped, so
+        a demoted thread cannot overwrite or erase the live loop's beat.
+        Takes ``_cond`` (reentrant: the loop's except hook calls it with
+        the lock held)."""
+        with self._cond:
+            if epoch != self._epoch:
+                return
+            self._heartbeat = None if now is None else (epoch, now)
+
+    def _hung_locked(self, now):
+        hb = self._heartbeat
+        return (self._step_timeout_s is not None and hb is not None
+                and hb[0] == self._epoch  # a demoted thread's stamp is inert
+                and now - hb[1] > self._step_timeout_s)
+
+    def _supervise(self):
+        """Own the decode thread: start it, watch for its death or a hung
+        device call, and start a new one (live streams admitted again)
+        under the restart budget, or trip for good when it is spent."""
+        poll = 0.05 if self._step_timeout_s is not None else 0.5
+        while True:
+            with self._cond:
+                if self._closed or self._tripped:
+                    return
+                if self._thread is None:
+                    self._start_loop_locked()
+                thread = self._thread
+            thread.join(timeout=poll)
+            death = None
+            with self._cond:
+                if self._closed:
+                    return
+                now = time.monotonic()
+                self._sweep_replay_locked(now)
+                if self._loop_error is not None:
+                    # the loop died; its except hook already moved its
+                    # slotted streams back into _pending
+                    death = self._loop_error
+                    self._loop_error = None
+                elif thread.is_alive() and self._hung_locked(now):
+                    # a wedged device call: demote the thread (every
+                    # delivery it attempts after waking is dropped) and
+                    # take its streams back from the registry
+                    death = _HungStep(
+                        "decode step exceeded step_timeout_s={}s".format(
+                            self._step_timeout_s))
+                    self._epoch += 1
+                    self._heartbeat = None
+                    self._thread = None
+                    pending = set(self._pending)
+                    for st in [s for s in self._streams
+                               if s not in pending]:
+                        if st.cancelled:
+                            self._detach_locked(st)
+                        else:
+                            self._reset_for_readmission(st)
+                            self._pending.appendleft(st)
+                if death is None:
+                    continue
+                _log.warning("decode loop restart: %s", death)
+                # the restart budget: a sliding window of restart times
+                while (self._recent_restarts
+                       and now - self._recent_restarts[0]
+                       > RESTART_WINDOW_S):
+                    self._recent_restarts.popleft()
+                if len(self._recent_restarts) >= self._max_restarts:
+                    self._tripped = True
+                    to_fail = list(self._streams)
+                    self._streams.clear()
+                    self._pending.clear()
+                    self._cond.notify_all()
+                else:
+                    to_fail = None
+                    self._recent_restarts.append(now)
+                    self._restarts += 1
+                    backoff = min(self._restart_backoff_s * 2 ** (
+                        len(self._recent_restarts) - 1), 2.0)
+                    # the FULL backoff elapses (a transient device fault
+                    # needs the pause): every submit's or delivery's
+                    # notify_all would otherwise cut the wait short and
+                    # spend the budget in milliseconds.  Only close()
+                    # ends it early
+                    backoff_until = now + backoff
+                    while not self._closed:
+                        remaining = backoff_until - time.monotonic()
+                        if remaining <= 0:
+                            break
+                        self._cond.wait(remaining)
+                    if self._closed:
+                        return
+                    if self._thread is None:
+                        self._start_loop_locked()
+            if to_fail is not None:
+                err = ServerUnavailable(
+                    "decode loop restart budget exhausted ({} restarts in "
+                    "{}s) after: {}".format(self._max_restarts,
+                                            RESTART_WINDOW_S, death))
+                for st in to_fail:
+                    st.queue.put(("err", err, None))
+                return
+
+    def _reset_for_readmission(self, stream):
+        """Prepare a salvaged or resumed stream for a fresh admission: the
+        next loop prefills ``prompt + history``, so emission continues
+        where it stopped.  Its paging state belonged to the old loop's
+        pool, and its speculation throttle starts afresh.  Called with
         ``_cond`` held."""
-        if self._thread is None or not self._thread.is_alive():
-            self._thread = threading.Thread(
-                target=self._run, name="decode-scheduler", daemon=True)
-            self._thread.start()
+        stream.pos = 0
+        stream.enqueued_at = time.monotonic()
+        stream.table = None
+        stream.radix_nodes = None
+        stream.span_pages = 0
+        stream.spec_miss = 0
+        stream.spec_skip = 0
+
+    # -- replay buffer -----------------------------------------------------
+
+    def _sweep_replay_locked(self, now):
+        for gid in [gid for gid, (_, _, expires) in self._replay.items()
+                    if expires <= now]:
+            del self._replay[gid]
+
+    def _park_locked(self, stream, completed):
+        """Keep a resumable generation's history for a later resume.
+        Called with ``_cond`` held."""
+        now = time.monotonic()
+        self._sweep_replay_locked(now)
+        self._replay[stream.generation_id] = (stream, completed,
+                                              now + self._replay_ttl_s)
+        self._replay.move_to_end(stream.generation_id)
+        while len(self._replay) > REPLAY_CAPACITY:
+            self._replay.popitem(last=False)  # the oldest goes
 
     def _detach_locked(self, stream):
-        """Retire a cancelled stream from the live registry.  Called with
-        ``_cond`` held."""
+        """Retire a cancelled stream from the live registry; a resumable
+        one parks in the replay buffer.  Called with ``_cond`` held."""
         self._streams.discard(stream)
+        if stream.generation_id is not None and not stream.finished:
+            self._park_locked(stream, completed=False)
         self._cond.notify_all()
 
-    def _fail(self, stream, exc):
-        self._deliver(stream, ("err", exc, None))
+    # -- decode loop -------------------------------------------------------
 
-    def _deliver(self, stream, event):
+    def _fail(self, stream, exc, epoch):
+        self._deliver(stream, ("err", exc, None), epoch)
+
+    def _deliver(self, stream, event, epoch):
         """Deliver a terminal event and retire the stream from the live
-        registry (never call while holding ``_cond``: it takes it)."""
+        registry (never call while holding ``_cond``: it takes it).  A
+        loop whose epoch was superseded delivers nothing: the new loop
+        owns the stream."""
         with self._cond:
+            if epoch != self._epoch:
+                return
             self._streams.discard(stream)
+            if event[0] == "done" and stream.generation_id is not None:
+                # a completed generation stays resumable for the TTL, so
+                # a client that lost the tail can replay it
+                self._park_locked(stream, completed=True)
             self._cond.notify_all()
+            # under the lock: a racing watchdog salvage either sees this
+            # delivery or runs strictly before it
             stream.queue.put(event)
 
-    def _run(self):
+    def _run(self, epoch):
         slots = [None] * self._max_slots  # slot -> _Stream | None
         try:
             # inference mode and the current device are per thread: the
-            # callers' settings do not reach this one
+            # callers' settings do not reach this one, and each
+            # restarted loop enters both again
             with torch.inference_mode(), _on_device(self._device):
-                self._loop(slots)
-        except Exception as e:  # noqa: BLE001 — the loop's boundary: a
-            # failure no single stream caused ends it, and every consumer
-            # must hear of it rather than block on its queue forever
+                self._loop(slots, epoch)
+        except Exception as e:  # noqa: BLE001 — loop death is the
+            # supervisor's restart (or trip) signal; swallowing it would
+            # leave every consumer blocked on its queue
             _log.exception("decode loop failed")
-            err = TorchServeError("decode loop failed: {}".format(e),
-                                  code=500)
             with self._cond:
-                self._failed = e
-                to_fail = list(self._streams)
-                self._streams.clear()
-                self._pending.clear()
+                if self._epoch != epoch:
+                    return  # demoted: the new loop owns everything
+                # without its traceback: that pins the dead loop's frames
+                # and with them its page pool
+                self._loop_error = e.with_traceback(None)
+                self._beat(epoch, None)
+                if self._thread is threading.current_thread():
+                    # unregister now, under the lock: the supervisor
+                    # starts the replacement
+                    self._thread = None
+                # salvage: slotted streams go back to the FRONT of the
+                # queue (they were admitted first), to prefill prompt +
+                # history again
+                for st in reversed([s for s in slots if s is not None]):
+                    if st not in self._streams:
+                        continue  # already terminally delivered
+                    if st.cancelled:
+                        self._detach_locked(st)
+                        continue
+                    self._reset_for_readmission(st)
+                    self._pending.appendleft(st)
                 self._cond.notify_all()
-            for stream in to_fail:
-                stream.queue.put(("err", err, None))
+                self._ensure_running_locked()
 
-    def _loop(self, slots):
+    def _loop(self, slots, epoch):
         fns = self._fns
         page = fns["page_size"]
         ppseq = fns["pages_per_seq"]
@@ -425,6 +822,41 @@ class DecodeScheduler:
         prefilling = {}                    # slot -> _PrefillTask
         inflight = None  # (tokens, logprobs, snapshot) of the last step
         no_force = np.zeros((self._max_slots,), np.int32)
+        # speculation: the drafter reads the radix tree (when there is
+        # one) and each stream's own context, read-only.  Its first
+        # proposal predicts the step's own next token, which the verify
+        # computes exactly, so it drafts spec_k + 1 and the first drops
+        spec_k = self._spec_tokens
+        drafter = (NgramDrafter(radix, max_draft=spec_k + 1)
+                   if spec_k > 0 else None)
+
+        def beat(kind, headroom=1):
+            """Stamp the heartbeat for a device call of ``kind`` that may
+            take ``headroom`` times ``step_timeout_s`` (a future-dated
+            stamp gives the watchdog's deadline that headroom).  A kind
+            with no completed call yet runs unwatched."""
+            with self._cond:
+                if kind not in self._warm:
+                    self._beat(epoch, None)
+                    return
+            now = time.monotonic()
+            if self._step_timeout_s is not None and headroom > 1:
+                now += (headroom - 1) * self._step_timeout_s
+            self._beat(epoch, now)
+
+        def done(kind):
+            """Clear the heartbeat after a device call of ``kind``
+            completed; later calls of that kind are watched."""
+            with self._cond:
+                self._warm.add(kind)
+                self._beat(epoch, None)
+
+        def superseded():
+            """True once a watchdog demotion replaced this loop: a thread
+            waking from a hung call must not touch stream state the next
+            loop owns (its own pool, tables and tasks die with it)."""
+            with self._cond:
+                return self._epoch != epoch
 
         def clear_slot(slot):
             slots[slot] = None
@@ -438,6 +870,10 @@ class DecodeScheduler:
             always safe to share); everything else frees.
             ``insert=False`` for poisoned or failed streams, whose
             written KV must not be cached."""
+            if superseded():
+                # the stream may already be admitted by the next loop,
+                # with paging state of ITS pool
+                return
             table = stream.table
             nodes = stream.radix_nodes or []
             if table is None:
@@ -451,8 +887,10 @@ class DecodeScheduler:
             owned = [int(table[d])
                      for d in range(path_len, stream.span_pages)]
             if insert and radix is not None:
+                # tokens fed so far; rejected speculative writes past
+                # stream.pos are never donated
                 known = ([int(t) for t in stream.prompt]
-                         + list(stream.history))
+                         + [t for t, _ in stream.history])
                 insertable = min(stream.pos, len(known)) // page
                 donate = max(0, insertable - path_len)
                 if donate:
@@ -472,6 +910,8 @@ class DecodeScheduler:
             the radix tree now (pinned: siblings admitted next iteration
             already share them), publish the page table, count the
             admission."""
+            if superseded():
+                return
             if radix is not None and full is not None:
                 path_len = len(stream.radix_nodes)
                 donate = stream.pos // page - path_len
@@ -493,18 +933,25 @@ class DecodeScheduler:
 
         def start_admission(slot, stream):
             """Reserve the stream's page span and run (or begin) its
-            prefill.  The slot is already reserved in ``slots``; on a
-            shed or a per-request fault it is cleared here."""
+            prefill of ``prompt + history``.  The slot is already
+            reserved in ``slots``; on a shed or a per-request fault it is
+            cleared here."""
             nonlocal pages, logits
             try:
+                if superseded():
+                    return  # the remaining admissions are the next loop's
                 # a step snapshot of an earlier admission becomes inert
                 stream.incarnation += 1
-                full = stream.prompt
+                replayed = [t for t, _ in stream.history]
+                full = (np.concatenate([stream.prompt,
+                                        np.asarray(replayed, np.int32)])
+                        if replayed else stream.prompt)
                 prefill_len = len(full)
                 # the whole potential span reserves up front, so decode
                 # never runs out of pages mid-generation: exhaustion is a
                 # typed admission-time shed
-                span_pages = pages_for(prefill_len + stream.max_tokens, page)
+                span_pages = pages_for(
+                    len(stream.prompt) + stream.max_tokens, page)
                 matched_nodes = []
                 shared_pages = 0
                 if radix is not None:
@@ -533,7 +980,7 @@ class DecodeScheduler:
                         "kv page pool exhausted: admission needs {} pages "
                         "but only {} are free and every cached page is "
                         "pinned by a live stream; retry later".format(
-                            needed, alloc.free_count)))
+                            needed, alloc.free_count)), epoch)
                     clear_slot(slot)
                     return
                 # counted once the reservation succeeded: a shed admission
@@ -549,6 +996,9 @@ class DecodeScheduler:
                 if stream.radix_nodes is None:
                     stream.radix_nodes = []  # radix off
                 stream.span_pages = span_pages
+                # admission prefills are watchdogged with ten times the
+                # step's headroom: a new length pays cuBLAS's heuristics
+                beat("admit", headroom=10)
                 suffix = np.asarray(full[shared_len:], np.int32)
                 suffix_len = len(suffix)
                 if shared_pages:
@@ -596,18 +1046,23 @@ class DecodeScheduler:
                     slot_logits, slot_cache = fns["prefill"](
                         self._params, slot_cache, padded[None, :],
                         suffix_len)
+                if superseded():
+                    return  # demoted mid-call: mutate nothing
                 stream.pos = prefill_len
                 pages, logits = fns["admit"](
                     pages, logits, slot_cache, slot_logits, dest, slot)
+                done("admit")
                 complete_admission(slot, stream, full)
             except Exception as e:  # noqa: BLE001 — per-request fault
                 release_pages(stream, insert=False)
-                self._fail(stream, e)
+                self._fail(stream, e, epoch)
                 clear_slot(slot)
+            finally:
+                self._beat(epoch, None)
 
         def run_prefill_chunk():
             """One chunk of the oldest in-progress chunked prefill: a
-            single bounded dispatch between decode steps, so co-batched
+            single bounded call between decode steps, so co-batched
             streams keep emitting."""
             nonlocal pages, logits
             slot, task = next(iter(prefilling.items()))
@@ -615,11 +1070,15 @@ class DecodeScheduler:
             n = min(task.chunk, task.total - task.done)
             rel = task.logits_at - task.done
             rel = rel if 0 <= rel < n else 0
+            beat("admit", headroom=10)
             try:
                 chunk_logits, task.slot_cache = fns["prefill_span"](
                     self._params, task.slot_cache,
                     task.padded[None, task.done:task.done + n],
                     task.start + task.done, rel)
+                if superseded():
+                    return
+                done("admit")
                 task.done += n
                 if task.done < task.total:
                     return
@@ -632,21 +1091,159 @@ class DecodeScheduler:
             except Exception as e:  # noqa: BLE001 — per-request fault
                 prefilling.pop(slot, None)
                 release_pages(stream, insert=False)
-                self._fail(stream, e)
+                self._fail(stream, e, epoch)
                 clear_slot(slot)
+            finally:
+                self._beat(epoch, None)
 
         def finish(stream, slot):
             release_pages(stream)
-            self._deliver(stream, ("done", None, None))
+            self._deliver(stream, ("done", None, None), epoch)
             clear_slot(slot)
+
+        def quarantine(poisoned):
+            for st in poisoned:
+                self._fail(st, SlotPoisoned(
+                    "generation produced non-finite logits after {} "
+                    "emitted tokens; its slot was quarantined (co-batched "
+                    "generations are unaffected)".format(st.emitted)),
+                    epoch)
+
+        def step_inputs(active_ids):
+            """Sentinel-filled positions (inert rows write to the trash
+            page) and the active mask of one batched step."""
+            positions = np.full((self._max_slots,), self._max_seq, np.int32)
+            active = np.zeros((self._max_slots,), bool)
+            for i in active_ids:
+                positions[i] = slots[i].pos
+                active[i] = True
+            return positions, active
+
+        def draft_for(st):
+            """This step's draft of ``st`` (a list, maybe empty), under
+            the throttle and the emission budget: the base token and
+            every accepted draft must fit in max_tokens, which also
+            keeps rejected writes inside the reserved span."""
+            if st.spec_skip > 0:
+                st.spec_skip -= 1  # throttled: this step drafts nothing
+                return []
+            budget = min(spec_k, st.max_tokens - st.emitted - 1)
+            if budget <= 0:
+                return []
+            ctx = [int(t) for t in st.prompt]
+            ctx.extend(t for t, _ in st.history)
+            return drafter.draft(ctx, budget + 1)[1:]
+
+        def spec_iteration(active_ids):
+            """One speculative step: draft, verify all slots in one call
+            (a plain step when nobody drafted), fetch at once and keep
+            each row's accepted prefix plus its base token.  A row's
+            advance depends on this step's acceptance, so the one-deep
+            pipeline cannot run here: dispatch and fetch share the
+            iteration."""
+            nonlocal pages, logits
+            positions, active = step_inputs(active_ids)
+            draft = np.zeros((self._max_slots, spec_k), np.int32)
+            draft_len = np.zeros((self._max_slots,), np.int32)
+            snapshot = []
+            for i in active_ids:
+                st = slots[i]
+                d = draft_for(st)
+                draft[i, :len(d)] = d
+                draft_len[i] = len(d)
+                snapshot.append((i, st, st.incarnation, len(d)))
+            # the verify chain runs to this step's longest draft: deeper
+            # sub-steps would have every row inert.  Nobody drafted: a
+            # plain step is bitwise the same for the one token
+            width = int(draft_len.max())
+            kind = "spec_step" if width else "step"
+            beat(kind)
+            if width:
+                toks_dev, lps_dev, acc_dev, logits, pages = fns["spec_step"](
+                    self._params, pages, logits, tables, positions, active,
+                    no_force, no_force.astype(bool), draft[:, :width],
+                    draft_len)
+            else:
+                toks_dev, lps_dev, logits, pages = fns["step"](
+                    self._params, pages, logits, tables, positions, active,
+                    no_force, no_force.astype(bool))
+                acc_dev = None
+            self._steps_total += 1
+            beat(kind)
+            toks = np.asarray(toks_dev).reshape(self._max_slots, -1)
+            lps = np.asarray(lps_dev).reshape(self._max_slots, -1)
+            accs = (np.asarray(acc_dev) if acc_dev is not None
+                    else np.zeros((self._max_slots,), np.int32))
+            done(kind)
+            poisoned, finished = [], []
+            with self._cond:
+                if self._epoch != epoch:
+                    return False  # demoted mid-fetch: deliver nothing
+                for i, st, inc, k_i in snapshot:
+                    if slots[i] is not st or st.incarnation != inc:
+                        continue
+                    if st.cancelled:
+                        release_pages(st)
+                        self._detach_locked(st)
+                        clear_slot(i)
+                        continue
+                    a = min(int(accs[i]), k_i)
+                    if k_i:
+                        self._spec_steps += 1
+                        self._spec_proposed += k_i
+                        self._spec_accepted += a
+                        if a < k_i:
+                            self._spec_rollbacks += 1
+                        if a > 0:
+                            st.spec_miss = 0
+                        else:
+                            st.spec_miss += k_i
+                            if st.spec_miss >= self._spec_throttle_after:
+                                st.spec_skip = self._spec_probe_interval
+                    fed, bad, hit_eos = 0, False, False
+                    for j in range(min(1 + a, st.max_tokens - st.emitted)):
+                        tok, lp = int(toks[i, j]), float(lps[i, j])
+                        if not np.isfinite(lp):
+                            bad = True
+                            break
+                        st.history.append((tok, lp))
+                        st.queue.put(("tok", tok, lp))
+                        st.emitted += 1
+                        self._tokens_total += 1
+                        fed += 1
+                        if st.eos_id is not None and tok == st.eos_id:
+                            hit_eos = True
+                            break
+                    if bad:
+                        # this row's own logits went non-finite; the
+                        # step is row-independent, so only it retires,
+                        # and its KV is not cached
+                        poisoned.append(st)
+                        release_pages(st, insert=False)
+                        clear_slot(i)
+                        continue
+                    # the rollback of rejected drafts is this cursor move:
+                    # the next step writes over them
+                    st.pos += fed
+                    if st.emitted >= st.max_tokens or hit_eos:
+                        finished.append((st, i))
+                self._quarantined += len(poisoned)
+            quarantine(poisoned)
+            for st, i in finished:
+                finish(st, i)
+            return True
 
         while True:
             expired = []
             with self._cond:
+                if self._epoch != epoch:
+                    return  # superseded by a watchdog restart
                 while (not self._closed and not self._draining
                        and not self._pending and inflight is None
                        and not any(s is not None for s in slots)):
                     self._cond.wait()
+                    if self._epoch != epoch:
+                        return
                 if self._closed:
                     pending = list(self._pending)
                     self._pending.clear()
@@ -660,7 +1257,8 @@ class DecodeScheduler:
                     break
                 # reap cancelled streams first: their consumers are gone,
                 # so the slot and its pages free for waiting work (full
-                # pages donate to the radix cache)
+                # pages donate to the radix cache; resumable streams
+                # park)
                 for i, st in enumerate(slots):
                     if st is not None and st.cancelled:
                         prefilling.pop(i, None)
@@ -691,15 +1289,16 @@ class DecodeScheduler:
                         self._detach_locked(st)
                         continue  # abandoned while still queued
                     slot = free.pop(0)
-                    # reserve now, under the lock: the cancel reap must
-                    # see prefilling streams as slotted
+                    # reserve now, under the lock: the cancel reap and the
+                    # watchdog salvage must see prefilling streams as
+                    # slotted
                     slots[slot] = st
                     admissions.append((slot, st))
             # failures deliver outside the lock (delivery takes it)
             for st in expired:
                 self._fail(st, RequestTimedOut(
                     "request deadline exceeded after {} emitted "
-                    "tokens".format(st.emitted)))
+                    "tokens".format(st.emitted)), epoch)
             # device work runs outside the lock: submitters enqueue while
             # the card computes
             for slot, stream in admissions:
@@ -708,36 +1307,43 @@ class DecodeScheduler:
                 # one bounded chunk per iteration: long prompts trickle
                 # in while decode keeps stepping
                 run_prefill_chunk()
+            if (admissions or prefilling) and superseded():
+                return  # demoted during an admission: step nothing
 
-            current = None
             active_ids = [i for i, s in enumerate(slots)
                           if s is not None and ready[i]]
+            if spec_k > 0:
+                if active_ids and not spec_iteration(active_ids):
+                    return
+                continue
+
+            current = None
             if active_ids:
-                # the sentinel position max_seq on inert rows: their
-                # writes go to the trash page
-                positions = np.full((self._max_slots,), self._max_seq,
-                                    np.int32)
-                active = np.zeros((self._max_slots,), bool)
+                positions, active = step_inputs(active_ids)
                 snapshot = []
                 for i in active_ids:
                     st = slots[i]
-                    positions[i] = st.pos
-                    active[i] = True
                     snapshot.append((i, st, st.incarnation))
                     st.pos += 1
+                beat("step")
                 tokens_dev, logps_dev, logits, pages = fns["step"](
                     self._params, pages, logits, tables, positions, active,
                     no_force, no_force.astype(bool))
+                self._beat(epoch, None)
                 self._steps_total += 1
                 current = (tokens_dev, logps_dev, snapshot)
 
             if inflight is not None:
                 tokens_dev, logps_dev, snapshot = inflight
+                beat("step")
                 toks = np.asarray(tokens_dev)
                 lps = np.asarray(logps_dev)
-                quarantined = []
+                done("step")
+                poisoned = []
                 finished = []
                 with self._cond:
+                    if self._epoch != epoch:
+                        return  # demoted mid-fetch: deliver nothing
                     for i, st, inc in snapshot:
                         if slots[i] is not st or st.incarnation != inc:
                             # the slot retired (and maybe re-admitted)
@@ -755,25 +1361,20 @@ class DecodeScheduler:
                             # this slot's own logits went non-finite; the
                             # step's math is row-independent, so only the
                             # offender retires, and its KV is not cached
-                            quarantined.append((i, st))
+                            poisoned.append(st)
                             release_pages(st, insert=False)
                             clear_slot(i)
                             continue
                         if st.emitted < st.max_tokens:
-                            st.history.append(tok)
+                            st.history.append((tok, lp))
                             st.queue.put(("tok", tok, lp))
                             st.emitted += 1
                             self._tokens_total += 1
                         if st.emitted >= st.max_tokens or (
                                 st.eos_id is not None and tok == st.eos_id):
                             finished.append((st, i))
-                    self._quarantined += len(quarantined)
-                for i, st in quarantined:
-                    self._fail(st, SlotPoisoned(
-                        "generation produced non-finite logits after {} "
-                        "emitted tokens; its slot was quarantined "
-                        "(co-batched generations are unaffected)".format(
-                            st.emitted)))
+                    self._quarantined += len(poisoned)
+                quarantine(poisoned)
                 for st, i in finished:
                     finish(st, i)
             inflight = current
@@ -782,6 +1383,6 @@ class DecodeScheduler:
         err = ServerUnavailable("scheduler is shut down")
         for st in slots:
             if st is not None:
-                self._fail(st, err)
+                self._fail(st, err, epoch)
         for st in pending:
-            self._fail(st, err)
+            self._fail(st, err, epoch)

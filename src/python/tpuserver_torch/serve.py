@@ -2,13 +2,18 @@
 
     python -m tpuserver_torch.serve --config llama3_8b --max-seq 4096 \\
         --port 8000 [--device cuda] [--seed 0] \\
-        [--max-slots 8 [--page-size 16] [--kv-pages N]]
+        [--max-slots 8 [--page-size 16] [--kv-pages N] [--spec-tokens K]
+        [--step-timeout-s S]]
 
 Weights are random, drawn from ``--seed`` on the device.  With
 ``--max-slots`` above 1, concurrent requests share one batched decode
 step over a paged KV pool of ``--kv-pages`` pages of ``--page-size``
-tokens (default: room for ``--max-slots`` full-length sequences).  The
-server runs until interrupted (SIGINT/SIGTERM).
+tokens (default: room for ``--max-slots`` full-length sequences); each
+step verifies up to ``--spec-tokens`` drafted tokens per stream, and a
+device call stalled past ``--step-timeout-s`` restarts the decode loop
+(admission prefills get ten times it, and the first call of each kind,
+which loads the kernel library, is not timed).  The server runs until
+interrupted (SIGINT/SIGTERM).
 """
 
 import argparse
@@ -40,6 +45,13 @@ def main(argv=None):
     parser.add_argument("--kv-pages", type=int, default=None,
                         help="KV pool pages (--max-slots > 1; default "
                              "max_slots * max_seq / page_size)")
+    parser.add_argument("--spec-tokens", type=int, default=0,
+                        help="tokens drafted and verified per batched step "
+                             "(--max-slots > 1; 0: no speculation)")
+    parser.add_argument("--step-timeout-s", type=float, default=None,
+                        help="restart the decode loop when a device call "
+                             "stalls this long (--max-slots > 1; default: "
+                             "no watchdog)")
     args = parser.parse_args(argv)
 
     device = resolve_device(args.device)
@@ -47,7 +59,9 @@ def main(argv=None):
                                max_seq=args.max_seq, seed=args.seed,
                                device=device, max_slots=args.max_slots,
                                page_size=args.page_size,
-                               kv_pages=args.kv_pages)
+                               kv_pages=args.kv_pages,
+                               spec_tokens=args.spec_tokens,
+                               step_timeout_s=args.step_timeout_s)
     model.warmup()
     core = InferenceServer([model])
     http = HttpServer(core, host=args.host, port=args.port).start()

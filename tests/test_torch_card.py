@@ -256,3 +256,57 @@ def test_paged_step_rows_ignore_their_slot_on_card(cuda):
     torch.cuda.synchronize()
     assert torch.isfinite(logits).all()
     assert torch.equal(permuted, logits[perm])
+
+
+def test_spec_step_is_bitwise_the_plain_chain_on_card(cuda):
+    """The speculative verify on the card's kernel path (bf16, the decode
+    kernel in every sub-step): full, partial and zero acceptance in one
+    batch, each row bitwise equal to K+1 plain paged steps at its depth
+    (tokens, logprobs, the selected logits), and the fully accepted rows'
+    gathered pages equal to the plain chain's."""
+    import dataclasses
+
+    from tpuserver_torch.models import llama
+
+    cfg = dataclasses.replace(
+        llama.tiny(vocab=2048), d_model=1024, n_heads=8, n_kv_heads=2,
+        d_ff=2048, dtype=torch.bfloat16, attn_impl="kernel")
+    params = llama.init_params(
+        cfg, torch.Generator(device=cuda).manual_seed(11), cuda)
+    max_seq, page, slots, k = 512, 16, 4, 3
+    ppseq = max_seq // page
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    pages0 = llama.init_paged_kv_cache(cfg, slots * ppseq, page, cuda)
+    pages0.normal_(generator=gen)
+    logits0 = torch.randn(slots, cfg.vocab, device=cuda, generator=gen)
+    tables = torch.randperm(slots * ppseq, device=cuda, generator=gen).view(
+        slots, ppseq)
+    positions = torch.tensor([300, 7, 100, 200], device=cuda)
+    active = torch.ones(slots, dtype=torch.bool, device=cuda)
+    no_force = torch.zeros(slots, dtype=torch.long, device=cuda)
+    with torch.inference_mode():
+        pages, logits, chain = pages0.clone(), logits0.clone(), []
+        for j in range(k + 1):
+            tok, lp, logits, pages = llama.paged_scheduler_step(
+                params, pages, logits, tables, positions + j, active,
+                no_force, no_force.bool(), cfg)
+            chain.append((tok, lp, logits.clone()))
+        ref = torch.stack([tok for tok, _, _ in chain])
+        draft = ref[1:].T.contiguous()
+        draft[1, 1] = (draft[1, 1] + 1) % cfg.vocab  # wrong at index 1
+        draft_len = torch.tensor([k, k, 0, k], device=cuda)
+        before = tflash.decode_attention.launches
+        toks, lps, accept, final, spec_pages = llama.paged_spec_step(
+            params, pages0.clone(), logits0.clone(), tables, positions,
+            active, no_force, no_force.bool(), draft, draft_len, cfg)
+        torch.cuda.synchronize()
+    assert tflash.decode_attention.launches - before == cfg.n_layers * (k + 1)
+    assert accept.tolist() == [k, 1, 0, k]
+    for row, depth in enumerate(accept.tolist()):
+        assert torch.equal(toks[row, :depth + 1], ref[:depth + 1, row])
+        for j in range(depth + 1):
+            assert torch.equal(lps[row, j], chain[j][1][row])
+        assert torch.equal(final[row], chain[depth][2][row])
+    for row in (0, 3):
+        assert torch.equal(llama.paged_gather(spec_pages, tables[row]),
+                           llama.paged_gather(pages, tables[row]))

@@ -11,6 +11,7 @@ steps must agree bit for bit, and chunked and one-shot prefill must
 stream the same tokens."""
 
 import dataclasses
+import functools
 import http.client
 import json
 import threading
@@ -35,6 +36,7 @@ from tpuserver_torch.errors import (
 )
 from tpuserver_torch.http_server import HttpServer
 from tpuserver_torch.models import llama as tl
+from tpuserver_torch.models import llama_serving
 from tpuserver_torch.models.llama_serving import LlamaGenerateModel
 from tpuserver_torch.scheduler import DecodeScheduler
 
@@ -316,7 +318,7 @@ def test_bundle_and_buckets_match_jax(kernel):
     jcfg, tcfg = _configs(kernel=kernel)
     jfns = jl.make_scheduler_fns(jcfg, 512, 3, page_size=16)
     tfns = tl.make_scheduler_fns(tcfg, 512, 3, page_size=16, device="cpu")
-    assert set(tfns) == set(jfns) - {"spec_step"}
+    assert set(tfns) == set(jfns)
     for key in ("page_size", "pages_per_seq", "n_pages", "span_safe"):
         assert tfns[key] == jfns[key], key
     for n in (1, 3, 5, 8, 77, 100, 128, 200, 256, 300, 500, 512):
@@ -516,11 +518,15 @@ def test_deadlines_fail_typed_504(fns, weights):
         core.close()
 
 
-def test_close_is_503_and_a_failed_loop_is_unhealthy(weights):
+def test_close_is_503_and_a_failed_loop_is_unhealthy(weights, monkeypatch):
     """A closed scheduler refuses with a 503; so does a closed core.  A
-    step that raises ends the loop: the live stream fails with a 500 and
-    the model reports unhealthy (there is no supervisor)."""
+    step that always raises spends the supervisor's restart budget: the
+    live stream fails with a 503, the scheduler trips and the model
+    reports unhealthy until it is closed."""
     _, tcfg = _configs()
+    # a short restart budget, which the model itself does not expose
+    monkeypatch.setattr(llama_serving, "DecodeScheduler", functools.partial(
+        DecodeScheduler, max_restarts=2, restart_backoff_s=0.01))
     model = LlamaGenerateModel(cfg=tcfg, max_seq=MAX_SEQ, max_slots=2,
                                params=weights, device="cpu")
     core = InferenceServer([model])
@@ -540,11 +546,13 @@ def test_close_is_503_and_a_failed_loop_is_unhealthy(weights):
     model.close()
     sched = model._ensure_scheduler()  # its loop starts at the next submit
     sched._fns = dict(sched._fns, step=broken)
-    with pytest.raises(Exception, match="decode loop failed") as info:
+    with pytest.raises(ServerUnavailable,
+                       match="restart budget exhausted") as info:
         _generate(core, PROMPTS[1], 3)
-    assert info.value.code == 500
+    assert info.value.code == 503
+    assert sched.stats()["restarts"] == 2 and sched.stats()["tripped"]
     assert not model.healthy() and not core.server_ready()
-    with pytest.raises(ServerUnavailable, match="decode loop failed"):
+    with pytest.raises(ServerUnavailable, match="tripped"):
         _generate(core, PROMPTS[1], 3)
     core.close()
     with pytest.raises(ServerUnavailable):
