@@ -40,6 +40,23 @@ Phases, in order; any failure exits non-zero and prints no result line:
    ``serve.py --step-timeout-s`` sets it); (d) an SSE client that drops and reconnects with
    ``Last-Event-ID``, a completed tail replayed twice, an unknown id
    answered 404; launch counts read around (b) and around (c) and (d);
+4e. the shared-memory data plane, ``max_slots=8`` on the same weights:
+   (a) one CUDA region (``tpuserver_torch.cuda_shared_memory``,
+   registered over HTTP by its raw handle) holds 4b's 12 prompts, which
+   12 concurrent requests take by reference, delivering their tokens into
+   a ring each in the same region: the rings must hold 4b's tokens; (b) a
+   child process makes a region and writes the 512-token prompt; 64
+   tokens stream into a seq-guarded ring in it, which the child reads
+   from device memory (every slot committed, 4b's tokens), and
+   unregistering it answers 409 during the stream and 200 after; (c)
+   phase 4c (c)'s 8 prompts with ``kv_park``, each client dropping after
+   5 events and resuming by ``Last-Event-ID``: 8 attach admissions and
+   no flash launch during the resumes, the continuation tokens' agreement
+   with the undisturbed run reported; (d) a second server process
+   (``--child-server``, the same seed and so the same weights) decodes
+   a prefill leg's export from this one over CUDA IPC: no flash launch
+   on it, the fused run's tokens, then a 409 on a second descriptor
+   fetch and a 404 after the release;
 5. model check: the 512-token prompt's last-position prefill logits
    through the kernels against the same model through the plain
    attention versions, and the greedy tokens of both;
@@ -109,6 +126,11 @@ SPEC_HEAL_BUDGET = 32
 SPEC_HEAL_TRIGGER_POS = 512 + 12
 # phase 6's wall-time samples per step
 WALL_REPS = 5
+# phase 4e (b): the child process's region: the 512-token prompt at 0, a
+# ring of 64 slots of 8 bytes, then their 4-byte seq words
+CHILD_RING_OFF = 2048
+CHILD_SEQ_OFF = CHILD_RING_OFF + 64 * 8
+CHILD_REGION_BYTES = 4096
 
 
 def log(*args):
@@ -467,19 +489,16 @@ def phase_flash_lengths(torch, rows, lengths):
 # -- phase 4: serve ----------------------------------------------------------
 
 
-def _sse(port, prompt, max_tokens, last_event_id=None, stop_after=None):
-    """POST one /generate_stream request (with a ``Last-Event-ID`` header
-    when given; the connection closes after ``stop_after`` events).
+def _sse_events(port, body, last_event_id=None, stop_after=None,
+                on_event=None):
+    """POST one /generate_stream request with the JSON ``body`` (with a
+    ``Last-Event-ID`` header when given; the connection closes after
+    ``stop_after`` events; ``on_event(n)`` runs after the n-th event).
     Returns (status, events, final marker seen, POST time): each event
-    is (its ``id:`` value, token, logprob, arrival time); for a status
+    is (its ``id:`` value, its JSON object, arrival time); for a status
     other than 200, the error body instead of the events."""
     import http.client
 
-    body = json.dumps({"inputs": [
-        {"name": "PROMPT_IDS", "datatype": "INT32", "shape": [len(prompt)],
-         "data": [int(t) for t in prompt]},
-        {"name": "MAX_TOKENS", "datatype": "INT32", "shape": [1],
-         "data": [max_tokens]}]})
     headers = {"Content-Type": "application/json"}
     if last_event_id:
         headers["Last-Event-ID"] = last_event_id
@@ -487,7 +506,7 @@ def _sse(port, prompt, max_tokens, last_event_id=None, stop_after=None):
     try:
         t0 = time.monotonic()
         conn.request("POST", "/v2/models/llama_generate/generate_stream",
-                     body, headers)
+                     json.dumps(body), headers)
         resp = conn.getresponse()
         if resp.status != 200:
             return resp.status, resp.read()[:500], False, t0
@@ -504,14 +523,39 @@ def _sse(port, prompt, max_tokens, last_event_id=None, stop_after=None):
                 break
             if "error" in event:
                 fail("in-band stream error: {}".format(event["error"]))
-            out = {o["name"]: o["data"] for o in event["outputs"]}
-            events.append((last_id, int(out["TOKEN"][0]),
-                           float(out["LOGPROB"][0]), time.monotonic()))
+            events.append((last_id, event, time.monotonic()))
+            if on_event is not None:
+                on_event(len(events))
             if len(events) == stop_after:
                 break
         return 200, events, final, t0
     finally:
         conn.close()
+
+
+def _body(prompt, max_tokens, parameters=None):
+    return {"inputs": [
+        {"name": "PROMPT_IDS", "datatype": "INT32", "shape": [len(prompt)],
+         "data": [int(t) for t in prompt]},
+        {"name": "MAX_TOKENS", "datatype": "INT32", "shape": [1],
+         "data": [max_tokens]}], "parameters": dict(parameters or {})}
+
+
+def _sse(port, prompt, max_tokens, last_event_id=None, stop_after=None,
+         parameters=None):
+    """POST one /generate_stream request (``_sse_events``) for ``prompt``;
+    each event comes back as (its ``id:`` value, token, logprob, arrival
+    time)."""
+    status, events, final, t0 = _sse_events(
+        port, _body(prompt, max_tokens, parameters), last_event_id,
+        stop_after)
+    if status != 200:
+        return status, events, final, t0
+    out = []
+    for last_id, event, t in events:
+        o = {x["name"]: x["data"] for x in event["outputs"]}
+        out.append((last_id, int(o["TOKEN"][0]), float(o["LOGPROB"][0]), t))
+    return 200, out, final, t0
 
 
 def _stream(port, prompt, max_tokens):
@@ -623,7 +667,8 @@ def phase_serve_batched(torch, np, model1, long_prompt, single_tokens,
     rounds and the kernels' launches; then one batched paged step of the
     512-token prompt in slot 3 against the single-stream decode step.
     Returns (launch counts, the batched steps phase 6 profiles, the
-    batched state phase 4c starts from, the prompts and budgets)."""
+    batched state phase 4c starts from, the prompts and budgets, and the
+    forward round's tokens by prompt)."""
     from tpuserver_torch.core import InferenceServer
     from tpuserver_torch.http_server import HttpServer
     from tpuserver_torch.models import llama
@@ -799,7 +844,7 @@ def phase_serve_batched(torch, np, model1, long_prompt, single_tokens,
     return launches, {"batched_step_8": batched_step,
                       "batched_steps_8_x4_pipelined": pipelined_steps}, {
         "fns": fns, "state": state, "tables": prof_tables,
-        "positions": prof_pos}, prompts, budgets
+        "positions": prof_pos}, prompts, budgets, rounds[0]
 
 
 # -- phase 4c: speculative verify, self-healing, resume -----------------------
@@ -1195,6 +1240,474 @@ def phase_resume(np, port, rng, cfg):
         fail("resume (d): an unknown id answered {}".format(unknown[0]))
 
 
+# -- phase 4e: the shared-memory data plane ----------------------------------
+
+
+def _child(mode):
+    """This script in a child process (``--child-region`` or
+    ``--child-server``), driven over its stdin and stdout."""
+    return subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), mode],
+        stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True, bufsize=1)
+
+
+def _child_line(proc, prefix):
+    """The child's next stdout line that starts with ``prefix`` (earlier
+    lines are its log), without the prefix; fails if the child ends."""
+    while True:
+        line = proc.stdout.readline()
+        if not line:
+            fail("child {} ended (exit {}) before printing {}".format(
+                proc.args[-1], proc.wait(timeout=60), prefix))
+        if line.startswith(prefix):
+            return line[len(prefix):].strip()
+        log("  child:", line.rstrip())
+
+
+def _ask(proc, command, prefix):
+    proc.stdin.write(command + "\n")
+    proc.stdin.flush()
+    return _child_line(proc, prefix)
+
+
+def _stop_child(proc):
+    """Ask the child to quit; kill it if it does not within a minute."""
+    if proc.poll() is None:
+        try:
+            proc.stdin.write("quit\n")
+            proc.stdin.flush()
+            proc.wait(timeout=60)
+        except (BrokenPipeError, subprocess.TimeoutExpired):
+            proc.kill()
+            proc.wait(timeout=60)
+
+
+def child_region(np):
+    """``--child-region``: a client process.  It makes a CUDA region of
+    ``CHILD_REGION_BYTES`` with the port's module, writes the prompt it
+    reads on stdin at offset 0, prints the raw handle, and on ``read N``
+    prints the ring's N slots (at ``CHILD_RING_OFF``) and whether each
+    one's seq word (at ``CHILD_SEQ_OFF``) commits it, read from device
+    memory."""
+    from tpuserver_torch import cuda_shared_memory as csm
+    from tpuserver_torch import shm_ring
+
+    prompt = np.asarray(json.loads(sys.stdin.readline()), np.int32)
+    h = csm.create_shared_memory_region("child", CHILD_REGION_BYTES)
+    try:
+        csm.set_shared_memory_region(h, [prompt])
+        print("HANDLE", csm.get_raw_handle(h).decode(), flush=True)
+        for line in sys.stdin:
+            cmd = line.split()
+            if cmd[0] == "quit":
+                break
+            n = int(cmd[1])
+            ring = csm.get_contents_as_numpy(h, "INT32", [n, 2],
+                                             CHILD_RING_OFF)
+            words = csm.get_contents_as_numpy(h, "INT32", [n],
+                                              CHILD_SEQ_OFF)
+            print("RING", json.dumps({
+                "tokens": ring[:, 0].tolist(),
+                "logprobs": np.ascontiguousarray(ring[:, 1]).view(
+                    np.float32).tolist(),
+                "committed": [shm_ring.slot_committed(
+                    int(w) & 0xFFFFFFFF, s) for s, w in enumerate(words)]}),
+                flush=True)
+    finally:
+        csm.destroy_shared_memory_region(h)
+
+
+def child_server(torch):
+    """``--child-server``: server B of the two-server handoff, the port's
+    server on ``llama3_8b`` with the same seed, so the same weights, as
+    phase 4's model.  Prints its port; ``reset`` zeroes its kernel
+    counts, ``counts`` prints them with its scheduler's and data plane's
+    counts and its peak memory."""
+    from tpuserver_torch.core import InferenceServer
+    from tpuserver_torch.http_server import HttpServer
+    from tpuserver_torch.models import llama
+    from tpuserver_torch.models.llama_serving import LlamaGenerateModel
+    from tpuserver_torch.ops import flash as fl
+
+    model = LlamaGenerateModel(cfg=llama.llama3_8b(), max_seq=4096,
+                               max_slots=8, seed=SEED, device="cuda")
+    model.warmup()
+    core = InferenceServer([model])
+    http = HttpServer(core, port=0).start()
+    print("PORT", http.port, flush=True)
+    try:
+        for line in sys.stdin:
+            cmd = line.strip()
+            if cmd == "quit":
+                break
+            torch.cuda.synchronize()
+            if cmd == "reset":
+                fl.reset_launch_counts()
+                print("OK", flush=True)
+            elif cmd == "counts":
+                print("COUNTS", json.dumps({
+                    "flash_attention": fl.flash_attention.launches,
+                    "decode_attention": fl.decode_attention.launches,
+                    "scheduler": model.scheduler_stats(),
+                    "shm": core.shm_stats(),
+                    "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}),
+                    flush=True)
+    finally:
+        http.stop()
+        core.close()
+
+
+def _http_json(port, method, path, body=None):
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    try:
+        conn.request(method, path,
+                     body=None if body is None else json.dumps(body))
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    finally:
+        conn.close()
+
+
+def _register(port, name, handle_b64, byte_size):
+    status, body = _http_json(
+        port, "POST", "/v2/cudasharedmemory/region/{}/register".format(name),
+        {"raw_handle": {"b64": handle_b64}, "device_id": 0,
+         "byte_size": byte_size})
+    if status != 200:
+        fail("registering CUDA region {}: {} {}".format(name, status, body))
+
+
+def _unregister(port, name):
+    return _http_json(
+        port, "POST",
+        "/v2/cudasharedmemory/region/{}/unregister".format(name))[0]
+
+
+def _shm_ref(name, offset, n):
+    return {"name": "PROMPT_IDS", "datatype": "INT32", "shape": [n],
+            "parameters": {"shared_memory_region": name,
+                           "shared_memory_byte_size": 4 * n,
+                           "shared_memory_offset": offset}}
+
+
+def _memory(torch, csm):
+    """(torch's peak GiB, GiB of live CUDA regions, GiB the whole card
+    has in use) — regions come from cudaMalloc, outside torch's count."""
+    free, total = torch.cuda.mem_get_info()
+    regions = sum(h.byte_size for h in csm.allocated_shared_memory_regions())
+    return (torch.cuda.max_memory_allocated() / 2 ** 30, regions / 2 ** 30,
+            (total - free) / 2 ** 30)
+
+
+def phase_shm(torch, np, cfg, params, prompts, budgets, tokens_4b):
+    """(a) 4b's 12 prompts from a CUDA region, tokens into rings in it;
+    (b) a child process's region: prompt, seq-guarded ring, 409/200
+    unregister; (c) 8 ``kv_park`` streams dropped and resumed over their
+    exports; (d) the two-server handoff over CUDA IPC.  Returns the
+    launch counts of (a)+(b), of (c)'s resumes and of (d)'s decode leg on
+    server B."""
+    from tpuserver_torch import cuda_shared_memory as csm
+    from tpuserver_torch.ops import flash as fl
+
+    torch.cuda.empty_cache()  # server B and the exports need the card
+    server_b = _child("--child-server")  # loads while (a)-(c) run
+    model, core, http = _serving(cfg, params)
+    out = {}
+    try:
+        model.warmup()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out["shm_plane"] = _shm_in_process(torch, np, fl, csm, model, core,
+                                           http.port, prompts, budgets,
+                                           tokens_4b)
+        add = _shm_cross_process(torch, np, fl, http.port, prompts[0],
+                                 tokens_4b[0])
+        for k, v in add.items():
+            out["shm_plane"][k] += v
+        out["kv_attach"] = _park_attach(torch, np, fl, csm, cfg, model,
+                                        core, http.port)
+        out["kv_handoff"] = _handoff(torch, fl, server_b, core, http.port,
+                                     prompts[0], tokens_4b[0])
+        log("shm (a)-(d): server A data plane {}; scheduler {}".format(
+            json.dumps(core.shm_stats()),
+            json.dumps(model.scheduler_stats())))
+    finally:
+        _stop_child(server_b)
+        http.stop()
+        core.close()
+    return out
+
+
+def _shm_in_process(torch, np, fl, csm, model, core, port, prompts, budgets,
+                    tokens_4b):
+    """(a) one CUDA region holds 4b's 12 prompts and a ring per prompt;
+    12 concurrent requests take their prompt by reference and deliver
+    into their ring; the ring tokens must equal 4b's in-band tokens."""
+    import threading
+
+    p_off, r_off, off = [], [], 0
+    for p in prompts:
+        p_off.append(off)
+        off += 4 * len(p)
+    for b in budgets:
+        r_off.append(off)
+        off += 8 * b
+    h = csm.create_shared_memory_region("plane4e", off)
+    csm.set_shared_memory_region(h, [np.asarray(p, np.int32)
+                                     for p in prompts])
+    _register(port, "plane4e", csm.get_raw_handle(h).decode(), off)
+    view = core.read_shm_input("plane4e", 4 * len(prompts[1]), p_off[1],
+                               "INT32", [len(prompts[1])])
+    base = h.tensor.data_ptr()
+    inside = base <= view.data_ptr() < base + off and \
+        view.data_ptr() == base + p_off[1]
+    results, errors = {}, []
+
+    def one(i):
+        try:
+            body = {"inputs": [
+                _shm_ref("plane4e", p_off[i], len(prompts[i])),
+                {"name": "MAX_TOKENS", "datatype": "INT32", "shape": [1],
+                 "data": [budgets[i]]}], "parameters": {
+                "shm_ring_region": "plane4e",
+                "shm_ring_slots": budgets[i], "shm_ring_offset": r_off[i]}}
+            results[i] = _sse_events(port, body)
+        except SystemExit as e:
+            errors.append(e)
+
+    torch.cuda.synchronize()
+    fl.reset_launch_counts()
+    steps0 = model.scheduler_stats()["steps"]
+    t0 = time.monotonic()
+    threads = []
+    for i in range(len(prompts)):
+        threads.append(threading.Thread(target=one, args=(i,), daemon=True))
+        threads[-1].start()
+        time.sleep(0.05)
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.monotonic() - t0
+    torch.cuda.synchronize()
+    counts = {"flash_attention": fl.flash_attention.launches,
+              "decode_attention": fl.decode_attention.launches}
+    steps = model.scheduler_stats()["steps"] - steps0
+    if errors or len(results) != len(prompts):
+        fail("shm (a): {} of {} streams completed".format(len(results),
+                                                          len(prompts)))
+    same, descriptor_only = [], True
+    for i in range(len(prompts)):
+        status, events, final, _ = results[i]
+        offs = [e[1]["parameters"]["shm_ring_offset"] for e in events]
+        descriptor_only &= all(e[1]["outputs"] == [] for e in events)
+        ring = csm.get_contents_as_numpy(h, "INT32", [budgets[i], 2],
+                                         r_off[i])[:, 0].tolist()
+        seqs = [e[1]["parameters"]["seq"] for e in events]
+        same.append(ring == tokens_4b[i])
+        if status != 200 or not final or seqs != list(range(budgets[i])) \
+                or offs != [r_off[i] + 8 * s for s in seqs]:
+            fail("shm (a) request {}: status {}, final {}, seqs {}, "
+                 "offsets {}".format(i, status, final, seqs, offs))
+    unreg = _unregister(port, "plane4e")
+    total = sum(budgets)
+    log("shm (a): 12 streams, prompts by reference from one CUDA region, "
+        "tokens into its rings: {} tokens in {:.3f} s ({:.1f} tokens/s); "
+        "ring tokens equal 4b's in-band tokens: {}/12; events carry only "
+        "descriptors: {}; the prompt view lies in the region at its offset: "
+        "{}; launches {} over {} batched steps; unregister after {}".format(
+            total, wall, total / wall, sum(same), descriptor_only, inside,
+            json.dumps(counts), steps, unreg))
+    csm.destroy_shared_memory_region(h)
+    if not all(same) or not descriptor_only or not inside or unreg != 200:
+        fail("shm (a): rings equal {}, descriptor-only {}, view inside {}, "
+             "unregister {}".format(same, descriptor_only, inside, unreg))
+    if counts["decode_attention"] < 32 * steps or \
+            counts["flash_attention"] < 32:
+        fail("shm (a): launches {} over {} steps".format(counts, steps))
+    return counts
+
+
+def _shm_cross_process(torch, np, fl, port, prompt, tokens):
+    """(b) a child process's CUDA region: the 512-token prompt by
+    reference, 64 tokens into a seq-guarded ring in it, read back by the
+    child from device memory; unregister answers 409 during the stream
+    and 200 after."""
+    child = _child("--child-region")
+    try:
+        child.stdin.write(json.dumps([int(t) for t in prompt]) + "\n")
+        child.stdin.flush()
+        handle = _child_line(child, "HANDLE ")
+        _register(port, "child", handle, CHILD_REGION_BYTES)
+        n = len(tokens)
+        during = []
+        body = {"inputs": [
+            _shm_ref("child", 0, len(prompt)),
+            {"name": "MAX_TOKENS", "datatype": "INT32", "shape": [1],
+             "data": [n]}], "parameters": {
+            "shm_ring_region": "child", "shm_ring_slots": n,
+            "shm_ring_offset": CHILD_RING_OFF,
+            "shm_ring_seq_base": CHILD_SEQ_OFF}}
+        torch.cuda.synchronize()
+        fl.reset_launch_counts()
+        status, events, final, _ = _sse_events(
+            port, body, on_event=lambda k: k == 1 and during.append(
+                _unregister(port, "child")))
+        torch.cuda.synchronize()
+        counts = {"flash_attention": fl.flash_attention.launches,
+                  "decode_attention": fl.decode_attention.launches}
+        after = _unregister(port, "child")
+        ring = json.loads(_ask(child, "read {}".format(n), "RING "))
+    finally:
+        _stop_child(child)
+    inband = [e[1]["outputs"][0]["data"][0] for e in events
+              if e[1]["outputs"]]
+    log("shm (b): a child process's CUDA region over IPC: {} events, final "
+        "{}; the child read {} ring slots from device memory, all committed "
+        "{}, tokens equal 4b's {}, equal the in-band fallback {}; "
+        "unregister during the stream {}, after it {}; launches {}".format(
+            len(events), final, len(ring["tokens"]), all(ring["committed"]),
+            ring["tokens"] == tokens, ring["tokens"] == inband, during,
+            after, json.dumps(counts)))
+    if status != 200 or not final or not all(ring["committed"]) or \
+            ring["tokens"] != tokens or during != [409] or after != 200:
+        fail("shm (b): status {}, final {}, committed {}, tokens {} vs {}, "
+             "unregister {} then {}".format(status, final, ring["committed"],
+                                           ring["tokens"], tokens, during,
+                                           after))
+    return counts
+
+
+def _park_attach(torch, np, fl, csm, cfg, model, core, port):
+    """(c) phase 4c (c)'s 8 prompts undisturbed, then with ``kv_park``:
+    each client drops after 5 events and resumes by ``Last-Event-ID``;
+    every resume must attach its export (8 attach admissions, no flash
+    launch during the resumes)."""
+    import threading
+
+    rng = np.random.RandomState(SEED + 4)
+    prompts = [rng.randint(0, cfg.vocab, n) for n in HEAL_PROMPT_LENGTHS]
+    budgets = [HEAL_BUDGET] * len(prompts)
+    order = range(len(prompts))
+    ref, _ = _batched_round(port, prompts, budgets, order)
+
+    def each(fn):
+        results, errors = {}, []
+
+        def one(i):
+            try:
+                results[i] = fn(i)
+            except SystemExit as e:
+                errors.append(e)
+
+        threads = [threading.Thread(target=one, args=(i,), daemon=True)
+                   for i in order]
+        for t in threads:
+            t.start()
+            time.sleep(0.05)
+        for t in threads:
+            t.join(timeout=600)
+        if errors or len(results) != len(prompts):
+            fail("park (c): {} of {} streams".format(len(results),
+                                                     len(prompts)))
+        return results
+
+    made0 = core.shm_stats()["kv_exports_made"]
+    first = each(lambda i: _sse(port, prompts[i], budgets[i], stop_after=5,
+                                parameters={"kv_park": True}))
+    deadline = time.monotonic() + 120
+    while sum(n.startswith("kvexport/") for n in core.cuda_shm_status()) \
+            < len(prompts):
+        if time.monotonic() > deadline:
+            fail("park (c): exports {} after 120 s".format(
+                sorted(core.cuda_shm_status())))
+        time.sleep(0.05)
+    peak, regions, used = _memory(torch, csm)
+    log("park (c): 8 streams dropped after 5 events, 8 exports parked: "
+        "{:.3f} GiB in CUDA regions; torch peak {:.3f} GiB; the card has "
+        "{:.3f} GiB in use".format(regions, peak, used))
+    stats0 = model.scheduler_stats()
+    torch.cuda.synchronize()
+    fl.reset_launch_counts()
+    second = each(lambda i: _sse(port, prompts[i], budgets[i],
+                                 last_event_id=first[i][1][4][0]))
+    torch.cuda.synchronize()
+    counts = {"flash_attention": fl.flash_attention.launches,
+              "decode_attention": fl.decode_attention.launches}
+    stats = model.scheduler_stats()
+    attaches = stats["attach_admissions"] - stats0["attach_admissions"]
+    agree = total = 0
+    for i in order:
+        status, events, final, _ = second[i]
+        joined = [e[1] for e in first[i][1][:5]] + [e[1] for e in events]
+        seqs = [int(e[0].rsplit("/", 1)[1]) for e in
+                first[i][1][:5] + events]
+        if status != 200 or not final or seqs != list(range(budgets[i])):
+            fail("park (c) request {}: status {}, final {}, seqs {}".format(
+                i, status, final, seqs))
+        agree += sum(a == b for a, b in zip(joined[5:], ref[i][0][5:]))
+        total += budgets[i] - 5
+    left = sorted(n for n in core.cuda_shm_status()
+                  if n.startswith("kvexport/"))
+    log("park (c): resumes by Last-Event-ID: attach admissions {} (want "
+        "8); launches during the resumes {}; continuation tokens equal to "
+        "the undisturbed run: {}/{} (the re-prefill resume: resume (d)); "
+        "exports made {}, left after the resumes {}; prefix misses {} -> "
+        "{}".format(attaches, json.dumps(counts), agree, total,
+                    core.shm_stats()["kv_exports_made"] - made0, left,
+                    stats0["prefix_misses"], stats["prefix_misses"]))
+    if attaches != len(prompts) or counts["flash_attention"] != 0 or \
+            counts["decode_attention"] == 0 or left or \
+            stats["prefix_misses"] != stats0["prefix_misses"]:
+        fail("park (c): attaches {}, launches {}, exports left {}".format(
+            attaches, counts, left))
+    return counts
+
+
+def _handoff(torch, fl, server_b, core_a, port_a, prompt, fused):
+    """(d) the prefill leg on server A (this process), its descriptor,
+    the decode leg on server B (another process) attached over CUDA
+    IPC: no flash launch on B, the fused run's tokens; then a second
+    fetch is a 409, and after the release a 404."""
+    port_b = int(_child_line(server_b, "PORT "))
+    status, events, final, _ = _sse(port_a, prompt, 1, parameters={
+        "generation_id": "handoff", "kv_phase": "prefill"})
+    tok0 = [e[1] for e in events]
+    status_d, desc = _http_json(port_a, "GET", "/v2/kvexport/handoff")
+    if status != 200 or not final or status_d != 200:
+        fail("handoff (d): prefill leg {} {}, descriptor {} {}".format(
+            status, events, status_d, desc))
+    desc = json.loads(desc)
+    _ask(server_b, "reset", "OK")
+    status, rest, final, _ = _sse(
+        port_b, list(prompt) + tok0, len(fused) - 1, parameters={
+            "generation_id": "handoff-d", "kv_attach": desc})
+    b = json.loads(_ask(server_b, "counts", "COUNTS "))
+    again = _http_json(port_a, "GET", "/v2/kvexport/handoff")[0]
+    release = _http_json(port_a, "POST", "/v2/kvexport/handoff/release")[0]
+    gone = _http_json(port_a, "GET", "/v2/kvexport/handoff")[0]
+    tokens = tok0 + [e[1] for e in rest]
+    agree = sum(a == x for a, x in zip(tokens, fused))
+    log("handoff (d): descriptor position {}, {} bytes; server B decode "
+        "leg: {} tokens, final {}, tokens equal the fused run's {}/{}; "
+        "B's launches flash {} decode {}, attach admissions {}, prefix "
+        "misses {}, exports attached {}, peak {:.3f} GiB; A: second fetch "
+        "{}, release {}, fetch after it {}".format(
+            desc["position"], desc["byte_size"], len(rest), final, agree,
+            len(fused), b["flash_attention"], b["decode_attention"],
+            b["scheduler"]["attach_admissions"],
+            b["scheduler"]["prefix_misses"], b["shm"]["kv_exports_attached"],
+            b["peak_gib"], again, release, gone))
+    if status != 200 or not final or tokens != fused or \
+            b["flash_attention"] != 0 or b["decode_attention"] == 0 or \
+            b["scheduler"]["attach_admissions"] != 1 or \
+            (again, release, gone) != (409, 200, 404):
+        fail("handoff (d): tokens {} vs {}, B {}, fetch/release {}".format(
+            tokens, fused, b, (again, release, gone)))
+    return {"decode_attention": b["decode_attention"],
+            "flash_attention": b["flash_attention"]}
+
+
 # -- phase 5: model check ----------------------------------------------------
 
 
@@ -1327,19 +1840,26 @@ def main():
     import numpy as np
     import torch
 
+    if sys.argv[1:] == ["--child-region"]:
+        return child_region(np)
+    if sys.argv[1:] == ["--child-server"]:
+        return child_server(torch)
     name, smi = phase_device(torch)
     log("nvidia-smi:", smi)
     phase_build()
     rows = phase_kernels(torch)
     model, core, prompt, launches, tokens, rates = phase_serve(torch, np)
-    batched_launches, batched_steps, batched, b_prompts, b_budgets = \
-        phase_serve_batched(torch, np, model, prompt, tokens, rates)
+    batched_launches, batched_steps, batched, b_prompts, b_budgets, \
+        b_tokens = phase_serve_batched(torch, np, model, prompt, tokens,
+                                       rates)
     cfg, params = model._cfg, model._ensure_params()
     batched_steps.update(phase_spec_step(torch, np, cfg, params, batched))
     spec_launches = phase_serve_spec(torch, np, cfg, params, b_prompts,
                                      b_budgets)
     readmits = []
     heal_launches = phase_heal(torch, np, cfg, params, readmits)
+    shm_launches = phase_shm(torch, np, cfg, params, b_prompts, b_budgets,
+                             b_tokens)
     phase_flash_lengths(torch, rows, readmits)
     phase_model_check(torch, model, prompt)
     phase_profile(torch, model, prompt, batched_steps)
@@ -1349,8 +1869,10 @@ def main():
     # each kernel once per path: the single-stream serve (phase 4, timed
     # at one row), the batched serve (phase 4b; decode timed at the
     # batched shape, flash at the same 512-token prefill), the speculative
-    # serve (phase 4c b) and the re-admissions of phase 4c's fault rounds
-    # and resumes (c, d; flash timed at the 640-token re-admission)
+    # serve (phase 4c b), the re-admissions of phase 4c's fault rounds
+    # and resumes (c, d; flash timed at the 640-token re-admission), and
+    # phase 4e's paths: the shm plane (a, b), the attach resumes (c) and
+    # the decode leg on server B (d)
     decode_src = "src/python/tpuserver_torch/csrc/decode_attention.cu"
     flash_src = "src/python/tpuserver_torch/csrc/flash_attention.cu"
     decode_tpu = "src/python/tpuserver/ops/flash.py:263"
@@ -1369,7 +1891,15 @@ def main():
             ("flash_attention", flash_src, flash_tpu, "readmission",
              "flash_attention_readmission", heal_launches),
             ("decode_attention", decode_src, decode_tpu, "readmission",
-             "decode_attention_batched", heal_launches)):
+             "decode_attention_batched", heal_launches),
+            ("flash_attention", flash_src, flash_tpu, "shm_plane",
+             "flash_attention", shm_launches["shm_plane"]),
+            ("decode_attention", decode_src, decode_tpu, "shm_plane",
+             "decode_attention_batched", shm_launches["shm_plane"]),
+            ("decode_attention", decode_src, decode_tpu, "kv_attach",
+             "decode_attention_batched", shm_launches["kv_attach"]),
+            ("decode_attention", decode_src, decode_tpu, "kv_handoff",
+             "decode_attention_batched", shm_launches["kv_handoff"])):
         row = rows["timed"][timed_as]
         kernels.append({
             "name": kname, "route": "cuda", "source": src,

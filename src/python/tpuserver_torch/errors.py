@@ -35,12 +35,30 @@ class GenerationNotFound(TorchServeError):
         super().__init__(msg, code=404)
 
 
-class NotPortedYet(TorchServeError):
-    """The request uses a feature of the JAX server that a later slice
-    of the port brings — HTTP 501."""
+class RegionPinned(TorchServeError):
+    """An unregister named a shared-memory region that an in-flight
+    generation or its token ring still references — HTTP 409.  The
+    region stays registered; retry once the generation has finished."""
 
     def __init__(self, msg):
-        super().__init__(msg, code=501)
+        super().__init__(msg, code=409)
+
+
+class KvExportMissing(TorchServeError):
+    """No live ``kvexport/<generation_id>`` region: the generation never
+    exported its KV, or the export was released or expired with its
+    replay entry — HTTP 404.  The caller falls back to prefill."""
+
+    def __init__(self, msg):
+        super().__init__(msg, code=404)
+
+
+class KvExportClaimed(TorchServeError):
+    """A KV export's descriptor was fetched a second time: the transfer
+    is one-shot (one decode-side server attaches it) — HTTP 409."""
+
+    def __init__(self, msg):
+        super().__init__(msg, code=409)
 
 
 class ServerUnavailable(TorchServeError):

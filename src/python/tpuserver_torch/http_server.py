@@ -8,6 +8,10 @@ Routes::
     GET  /v2/models/<m>[/versions/<v>] | .../config | .../ready
     POST /v2/models/<m>[/versions/<v>]/generate
     POST /v2/models/<m>[/versions/<v>]/generate_stream
+    GET|POST /v2/{systemsharedmemory,cudasharedmemory,xlasharedmemory}
+             [/region/<name>]/{status,register,unregister}
+    GET  /v2/kvexport/<generation_id>
+    POST /v2/kvexport/<generation_id>/release
 
 ``/generate`` and ``/generate_stream`` take the infer JSON shape
 (``inputs`` with ``name``/``datatype``/``shape``/``data``, optional
@@ -22,6 +26,18 @@ An error after the stream started arrives in-band as ``data: {"error":
 A ``/generate_stream`` request with a ``Last-Event-ID: <generation_id>/
 <seq>`` header resumes that generation from ``seq + 1`` (an unknown one
 answers 404 before any event).
+
+Shared memory: an input may name a registered region instead of carrying
+``data`` (``parameters``: ``shared_memory_region``,
+``shared_memory_byte_size``, ``shared_memory_offset``); from a CUDA
+region the model then reads a view of the region's device memory.  The
+region is pinned from the read to the end of the stream.  A CUDA region
+registers with ``{"raw_handle": {"b64": <base64 of the 64-byte
+cudaIpcMemHandle_t>}, "device_id": 0, "byte_size": N}``, Triton's wire
+format; a system region with ``{"key": "/name", "offset": 0,
+"byte_size": N}``.  ``/v2/kvexport/<generation_id>`` hands out a KV
+export's one-shot descriptor (404 when there is none, 409 on a second
+fetch); ``.../release`` drops the export.
 """
 
 import json
@@ -38,6 +54,13 @@ from tpuserver_torch.errors import BadRequest, ModelNotFound, TorchServeError
 _MODEL_URI = re.compile(
     r"^/v2/models/(?P<model>[^/]+)(/versions/(?P<version>[^/]+))?"
     r"(?P<rest>/.*)?$"
+)
+_SHM_URI = re.compile(
+    r"^/v2/(?P<kind>systemsharedmemory|cudasharedmemory|xlasharedmemory)"
+    r"(/region/(?P<region>[^/]+))?/(?P<verb>status|register|unregister)$"
+)
+_KVEXPORT_URI = re.compile(
+    r"^/v2/kvexport/(?P<gen>[^/]+)(?P<release>/release)?$"
 )
 
 
@@ -140,6 +163,22 @@ class _Handler(BaseHTTPRequestHandler):
             return self._send(200 if core.server_ready() else 503)
         if path in ("/v2", "/v2/"):
             return self._send_json(core.server_metadata())
+        m = _KVEXPORT_URI.match(path)
+        if m:
+            gen_id = unquote(m.group("gen"))
+            if m.group("release"):
+                if method != "POST":
+                    raise TorchServeError("kvexport release requires POST",
+                                          code=405)
+                core.drop_kv_region(gen_id)
+                return self._send_json({})
+            if method != "GET":
+                raise TorchServeError("kvexport descriptor fetch requires "
+                                      "GET", code=405)
+            return self._send_json(core.kv_export_descriptor(gen_id))
+        m = _SHM_URI.match(path)
+        if m:
+            return self._shm(m)
         m = _MODEL_URI.match(path)
         if m:
             model = unquote(m.group("model"))
@@ -157,11 +196,70 @@ class _Handler(BaseHTTPRequestHandler):
                                       stream=rest == "/generate_stream")
         raise ModelNotFound("unknown endpoint: {} {}".format(method, path))
 
+    def _shm(self, m):
+        core = self.server.core
+        kind = m.group("kind")
+        region = unquote(m.group("region")) if m.group("region") else ""
+        verb = m.group("verb")
+        if verb == "status":
+            status = {"systemsharedmemory": core.system_shm_status,
+                      "cudasharedmemory": core.cuda_shm_status,
+                      "xlasharedmemory": core.xla_shm_status}[kind]
+            return self._send_json(status(region))
+        if verb == "unregister":
+            {"systemsharedmemory": core.unregister_system_shm,
+             "cudasharedmemory": core.unregister_cuda_shm,
+             "xlasharedmemory": core.unregister_xla_shm}[kind](region)
+            return self._send_json({})
+        req = self._read_json()
+        try:
+            if kind == "systemsharedmemory":
+                core.register_system_shm(region, req["key"],
+                                         req.get("offset", 0),
+                                         req["byte_size"])
+            elif kind == "cudasharedmemory":
+                core.register_cuda_shm(
+                    region, (req.get("raw_handle") or {}).get("b64", ""),
+                    req.get("device_id", 0), req["byte_size"])
+            else:
+                core.register_xla_shm(
+                    region, (req.get("raw_handle") or {}).get("b64", ""),
+                    req.get("device_ordinal", 0), req["byte_size"])
+        except KeyError as e:
+            raise BadRequest("shared memory register request lacks "
+                             "{}".format(e))
+        return self._send_json({})
+
     def _generate(self, model, version, stream):
+        pinned = []
+        try:
+            self._generate_pinned(model, version, stream, pinned)
+        finally:
+            for name in pinned:
+                self.server.core.unpin_shm_region(name)
+
+    def _generate_pinned(self, model, version, stream, pinned):
+        """``_generate``'s body; ``pinned`` collects the regions it pinned
+        (from the read of a shm input to the end of the stream, so an
+        unregister cannot close the memory a view reads)."""
         core = self.server.core
         body = self._read_json()
-        inputs = {tin.get("name"): _array_from_json(tin)
-                  for tin in body.get("inputs", [])}
+        inputs = {}
+        for tin in body.get("inputs", []):
+            tparams = tin.get("parameters") or {}
+            region = tparams.get("shared_memory_region")
+            if region is None:
+                inputs[tin.get("name")] = _array_from_json(tin)
+                continue
+            if not tin.get("datatype") or "shape" not in tin:
+                raise BadRequest("generate input '{}' needs a datatype and "
+                                 "a shape".format(tin.get("name")))
+            core.pin_shm_region(region)
+            pinned.append(region)
+            inputs[tin.get("name")] = core.read_shm_input(
+                region, tparams.get("shared_memory_byte_size", 0),
+                tparams.get("shared_memory_offset", 0), tin["datatype"],
+                tin["shape"])
         parameters = dict(body.get("parameters", {}))
         last_id = self.headers.get("Last-Event-ID")
         if stream and last_id:
@@ -178,6 +276,7 @@ class _Handler(BaseHTTPRequestHandler):
                     pass  # a malformed id: a fresh request
         request = InferRequest(model, version, body.get("id", ""), inputs,
                                parameters)
+        request.shm_input_regions = tuple(pinned)
         responses = core.infer_stream(request)
         if not stream:
             merged = None

@@ -800,7 +800,8 @@ def make_scheduler_fns(cfg, max_seq, max_slots, page_size=16, kv_pages=None,
       prefill-on-admit (copied into pages by ``admit``)
     - ``init_logits()`` — [max_slots, vocab] fp32 zeros
     - ``prefill(params, slot_cache, tokens, true_len)`` — the one-shot
-      admission prefill (:func:`prefill_to_length`)
+      admission prefill (:func:`prefill_to_length`); ``tokens`` is a host
+      array, or a tensor already on the device
     - ``prefill_span(params, slot_cache, tokens, start, logits_at)`` —
       the chunked / shared-prefix-suffix prefill (:func:`prefill_span`)
     - ``prefill_bucket(true_len)`` — the padded length to use
@@ -840,6 +841,10 @@ def make_scheduler_fns(cfg, max_seq, max_slots, page_size=16, kv_pages=None,
             "pages of {} tokens)".format(n_pages, pages_per_seq, page_size))
 
     def tokens_in(tokens):
+        if isinstance(tokens, torch.Tensor):
+            # already on the device (a prompt read from a CUDA-shm
+            # region): cast there, no host round trip
+            return tokens.to(device=device, dtype=torch.int64)
         return _host_tensor(np.asarray(tokens, np.int64), device)
 
     def init_cache():

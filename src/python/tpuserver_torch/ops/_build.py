@@ -124,4 +124,16 @@ def load_library():
     lib.tt_flash_attention.restype = _int
     lib.tt_flash_tile_product.argtypes = [_ptr] * 6
     lib.tt_flash_tile_product.restype = _int
+    # CUDA IPC of the shared-memory regions (csrc/cuda_ipc.cu)
+    lib.tt_ipc_malloc.argtypes = [ctypes.c_size_t, _int,
+                                  ctypes.POINTER(_ptr)]
+    lib.tt_ipc_free.argtypes = [_ptr, _int]
+    lib.tt_ipc_get_handle.argtypes = [_ptr, _int, ctypes.c_char_p]
+    lib.tt_ipc_open.argtypes = [ctypes.c_char_p, _int, ctypes.POINTER(_ptr)]
+    lib.tt_ipc_close.argtypes = [_ptr, _int]
+    for fn in (lib.tt_ipc_malloc, lib.tt_ipc_free, lib.tt_ipc_get_handle,
+               lib.tt_ipc_open, lib.tt_ipc_close):
+        fn.restype = _int
+    lib.tt_ipc_error_string.argtypes = [_int]
+    lib.tt_ipc_error_string.restype = ctypes.c_char_p
     return lib

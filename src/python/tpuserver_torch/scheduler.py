@@ -23,7 +23,13 @@ Lifecycle of a request:
    exceeds ``prefill_chunk_tokens``), and copies the prefilled single-row
    cache into its pages (``llama.paged_admit``).  A stream admitted
    again (after a loop restart, or resumed) prefills ``prompt +
-   history`` and emission continues where it stopped.
+   history`` and emission continues where it stopped.  Two admissions
+   prefill nothing: over a parked cache (``resume_cache``, the
+   single-stream park shape) the cache scatters into the pages and the
+   prompt feeds as forced tokens; over an attached KV export
+   (``attach_cache``: a resume of a parked generation, or the decode leg
+   of a prefill/decode split) the export scatters and ONE token, the
+   last of its valid prefix, feeds again to regenerate the logits.
 2. **step**: every iteration runs ``llama.paged_scheduler_step``: a
    greedy token per slot from the slot's logits row, then one batched
    decode over every slot (always ``max_slots`` rows, so a row's numbers
@@ -69,13 +75,15 @@ Self-healing:
 - **Resumable generations.**  ``submit(generation_id=...)`` keeps every
   emitted ``(token, logprob)``; a disconnected or completed generation
   parks in a bounded, TTL'd replay buffer, and :meth:`resume` replays
-  ``history[from_seq:]`` and then splices the live continuation.
+  ``history[from_seq:]`` and then splices the live continuation.  With
+  the ``kv_export`` hooks, a disconnected ``kv_export`` stream's pages
+  are gathered and exported when it is reaped, and its resume attaches
+  the export instead of prefilling ``prompt + history``.
 
-Left out of this port (``ROADMAP.md`` queue A): KV park, export and
-attach (``resume_cache``, ``on_finish``, the ``kv_export``/``kv_import``/
-``kv_discard`` hooks); the CoDel admission controller; latency
-histograms and fault-injection points.  JAX's ``TPUSERVER_SPEC_TOKENS``
-environment default is not read: ``spec_tokens`` is an argument.
+Left out of this port (``ROADMAP.md`` queue A): the CoDel admission
+controller; latency histograms and fault-injection points.  JAX's
+``TPUSERVER_SPEC_TOKENS`` environment default is not read:
+``spec_tokens`` is an argument.
 
 Where the JAX scheduler raises its own ``SchedulerClosed``,
 ``AdmissionQueueFull`` and ``UnknownGeneration``, this one raises the
@@ -102,6 +110,7 @@ from tpuserver_torch.errors import (
     ServerUnavailable,
     SlotPoisoned,
     TooManyRequests,
+    TorchServeError,
 )
 from tpuserver_torch.paging import PageAllocator, RadixPrefixCache, pages_for
 from tpuserver_torch.speculative import NgramDrafter
@@ -118,29 +127,45 @@ class _Stream:
     """One in-flight generation bound to a cache slot."""
 
     __slots__ = (
-        "prompt", "max_tokens", "eos_id", "queue", "pos", "emitted",
-        "finished", "cancelled", "deadline", "generation_id", "history",
-        "incarnation", "enqueued_at",
+        "prompt", "max_tokens", "eos_id", "queue", "forced", "pos",
+        "emitted", "on_finish", "resume_cache", "resume_pos", "finished",
+        "cancelled", "deadline", "generation_id", "history", "incarnation",
+        "enqueued_at",
         # paged-KV state, owned by the decode loop that admitted the
         # stream (reset for re-admission when a loop dies): the np
         # page-table row, the pinned radix path (table[:len(radix_nodes)]
         # are tree pages, the rest up to span_pages are owned), and the
         # reserved span in pages
         "table", "radix_nodes", "span_pages",
+        # the data plane: the prompt as a device view (a CUDA-shm region's
+        # memory, which a cold prefill consumes without a host copy), the
+        # park-export opt-in, the export-on-finish of a prefill leg, the
+        # attach state a resume or a decode leg scatters instead of
+        # prefilling, and a failed export's error (its resume raises it)
+        "prompt_dev", "kv_export", "kv_export_on_finish", "attach_cache",
+        "attach_pos", "kv_error",
         # speculation throttle, owned by the decode loop: consecutive
         # drafted tokens with no acceptance, and steps left to skip
         # drafting once throttled
         "spec_miss", "spec_skip",
     )
 
-    def __init__(self, prompt, max_tokens, eos_id, deadline=None,
-                 generation_id=None):
+    def __init__(self, prompt, max_tokens, eos_id, resume_cache=None,
+                 resume_pos=0, on_finish=None, deadline=None,
+                 generation_id=None, prompt_dev=None, kv_export=False,
+                 kv_export_on_finish=False):
         self.prompt = prompt
         self.max_tokens = max_tokens
         self.eos_id = eos_id
         self.queue = queue.Queue()
+        # tokens the next steps feed instead of their greedy pick, with
+        # no emission (a parked cache's prompt, an attach's last token)
+        self.forced = deque()
         self.pos = 0
         self.emitted = 0
+        self.on_finish = on_finish  # park hook: gets the gathered cache
+        self.resume_cache = resume_cache  # parked cache to continue from
+        self.resume_pos = resume_pos      # and its position
         self.finished = False   # terminal queue event delivered
         self.cancelled = False  # consumer abandoned the token iterator
         self.deadline = deadline  # time.monotonic() bound, or None
@@ -155,6 +180,12 @@ class _Stream:
         self.table = None
         self.radix_nodes = None
         self.span_pages = 0
+        self.prompt_dev = prompt_dev
+        self.kv_export = bool(kv_export)
+        self.kv_export_on_finish = bool(kv_export_on_finish)
+        self.attach_cache = None  # the KV export to scatter
+        self.attach_pos = 0       # the end of its valid prefix
+        self.kv_error = None
         self.spec_miss = 0
         self.spec_skip = 0
 
@@ -220,6 +251,15 @@ class DecodeScheduler:
     parked generations stay ``replay_ttl_s``, at most
     ``REPLAY_CAPACITY`` of them.
 
+    KV hooks (all optional; absent, no stream exports):
+    ``kv_export(generation_id, cache, valid_pos)`` parks a reaped
+    ``kv_export`` stream's gathered pages, ``kv_import(generation_id)``
+    returns ``(cache, valid_pos)`` or None when its resume looks for them,
+    and ``kv_discard(generation_id)`` releases an export whose replay entry
+    is gone (superseded, expired, evicted, consumed or closed).  A
+    missing export falls back to prefilling ``prompt + history``; a
+    failed one fails the stream's resume with its typed error.
+
     Speculation: ``spec_tokens=K`` (0: off) drafts up to K tokens per
     slot per step and verifies them in one ``fns["spec_step"]`` call;
     the tokens are bitwise those of ``spec_tokens=0``.  A stream that
@@ -233,7 +273,8 @@ class DecodeScheduler:
                  prefill_chunk_tokens=256, prefix_cache=True,
                  step_timeout_s=None, max_restarts=5, restart_backoff_s=0.05,
                  replay_ttl_s=60.0, spec_tokens=0, spec_throttle_after=16,
-                 spec_probe_interval=8):
+                 spec_probe_interval=8, kv_export=None, kv_import=None,
+                 kv_discard=None):
         if max_slots < 1:
             raise ValueError(
                 "max_slots must be >= 1 (got {})".format(max_slots))
@@ -312,32 +353,69 @@ class DecodeScheduler:
         self._spec_proposed = 0   # guarded-by: _cond
         self._spec_accepted = 0   # guarded-by: _cond
         self._spec_rollbacks = 0  # guarded-by: _cond
+        # admissions over an attached KV export (no prefill), written by
+        # the loop like the counters above
+        self._attach_admissions = 0
+        self._kv_export = kv_export
+        self._kv_import = kv_import
+        self._kv_discard = kv_discard
         # (allocator, radix) of the running loop, for stats (a restart
         # rebuilds both with the pool)  # guarded-by: _cond
         self._pager = None
 
     # -- frontend side -----------------------------------------------------
 
-    def submit(self, prompt, max_tokens, eos_id=None, deadline=None,
-               generation_id=None):
+    def submit(self, prompt, max_tokens, eos_id=None, resume_cache=None,
+               resume_pos=0, on_finish=None, deadline=None,
+               generation_id=None, prompt_dev=None, kv_export=False,
+               kv_export_on_finish=False, attach_cache=None, attach_pos=0):
         """Enqueue one generation; returns an iterator of ``(token,
         logprob)`` pairs that blocks as the decode loop produces them.
 
-        ``deadline`` is a ``time.monotonic()`` bound: past it, a
-        still-pending request fails before prefill and an in-flight one
-        retires mid-generation, both with ``RequestTimedOut`` (504).
-        ``generation_id`` makes the generation resumable: its tokens
-        stay in the replay buffer after a disconnect or completion, and
-        :meth:`resume` continues it."""
+        ``resume_cache``/``resume_pos`` continue from a parked cache (the
+        single-stream park shape): it scatters into the pages and the
+        prompt feeds as forced tokens, with no emission.
+        ``on_finish(cache)`` receives the stream's gathered cache when it
+        finishes: the park hook.  ``deadline`` is a ``time.monotonic()``
+        bound: past it, a still-pending request fails before prefill and
+        an in-flight one retires mid-generation, both with
+        ``RequestTimedOut`` (504).  ``generation_id`` makes the
+        generation resumable: its tokens stay in the replay buffer after
+        a disconnect or completion, and :meth:`resume` continues it.
+        ``prompt_dev`` is the prompt as a device tensor (a view of a
+        region's memory), which a cold prefill consumes in place of the
+        host ids.
+
+        The data plane: ``kv_export`` exports the stream's KV through the
+        ``kv_export`` hook when a disconnect reaps it (its resume then
+        attaches); ``kv_export_on_finish`` (a prefill leg) also exports
+        when it finishes, and keeps the export past the completed park
+        for a decode-side server to attach.  ``attach_cache`` /
+        ``attach_pos`` admit over an imported export (a decode leg): it
+        scatters into a fresh page span and ``prompt[attach_pos - 1:]``
+        feeds as forced tokens, with no prefill.  A position outside
+        ``(0, len(prompt)]`` falls back to the prefill."""
         prompt = np.asarray(prompt, dtype=np.int32).reshape(-1)
         if len(prompt) == 0:
             raise ValueError("PROMPT_IDS must be non-empty")
-        if len(prompt) + max_tokens > self._max_seq:
+        start = resume_pos if resume_cache is not None else 0
+        if start + len(prompt) + max_tokens > self._max_seq:
             raise ValueError(
-                "position (0) + prompt ({}) + max_tokens ({}) exceeds max "
-                "sequence {}".format(len(prompt), max_tokens, self._max_seq))
-        stream = _Stream(prompt, int(max_tokens), eos_id, deadline=deadline,
-                         generation_id=generation_id)
+                "position ({}) + prompt ({}) + max_tokens ({}) exceeds max "
+                "sequence {}".format(start, len(prompt), max_tokens,
+                                     self._max_seq))
+        stream = _Stream(prompt, int(max_tokens), eos_id, resume_cache,
+                         int(resume_pos), on_finish, deadline=deadline,
+                         generation_id=generation_id, prompt_dev=prompt_dev,
+                         kv_export=kv_export and resume_cache is None,
+                         kv_export_on_finish=(
+                             kv_export_on_finish and kv_export
+                             and resume_cache is None
+                             and generation_id is not None))
+        if (attach_cache is not None and resume_cache is None
+                and 0 < int(attach_pos) <= len(prompt)):
+            stream.attach_cache = attach_cache
+            stream.attach_pos = int(attach_pos)
         with self._cond:
             self._check_admitting_locked()
             if len(self._pending) >= self._max_pending:
@@ -345,8 +423,11 @@ class DecodeScheduler:
                     "scheduler admission queue is full ({} waiting "
                     "generations); retry later".format(len(self._pending)))
             if generation_id is not None:
-                # a reused id supersedes any parked predecessor
-                self._replay.pop(generation_id, None)
+                # a reused id supersedes any parked predecessor, and its
+                # KV export
+                if (self._replay.pop(generation_id, None) is not None
+                        and self._kv_discard is not None):
+                    self._kv_discard(generation_id)
             self._pending.append(stream)
             self._streams.add(stream)
             self._ensure_running_locked()
@@ -386,6 +467,7 @@ class DecodeScheduler:
         its first resume."""
         from_seq = int(from_seq)
         wait_deadline = time.monotonic() + float(wait_s)
+        discard_export = False
         with self._cond:
             while True:
                 if self._closed:
@@ -423,6 +505,10 @@ class DecodeScheduler:
                 except ServerUnavailable:
                     self._replay[generation_id] = entry
                     raise
+                if stream.kv_error is not None:
+                    # its export failed when it was reaped: the stream
+                    # fails with that error (the replay entry is spent)
+                    raise stream.kv_error
                 # a fresh queue: the abandoned one may hold tokens the
                 # old consumer never took, which the replay re-delivers
                 stream.queue = queue.Queue()
@@ -430,11 +516,28 @@ class DecodeScheduler:
                 stream.finished = False
                 stream.deadline = deadline  # the reconnect's own bound
                 self._reset_for_readmission(stream)
+                if (self._kv_import is not None and stream.kv_export
+                        and stream.resume_cache is None):
+                    # the reap exported the stream's KV: the admission
+                    # scatters it back and feeds one token instead of
+                    # prefilling prompt + history.  The import is a copy,
+                    # and consumes the export (dropped once _cond is
+                    # released); none means the prefill path
+                    got = self._kv_import(generation_id)
+                    if got is not None:
+                        cache, valid = got
+                        known = len(stream.prompt) + len(stream.history)
+                        if 0 < valid <= known:
+                            stream.attach_cache = cache
+                            stream.attach_pos = int(valid)
+                        discard_export = self._kv_discard is not None
                 self._pending.append(stream)
                 self._streams.add(stream)
                 self._ensure_running_locked()
                 self._cond.notify_all()
             self._replay_hits += 1
+        if discard_export:
+            self._kv_discard(generation_id)
 
         def gen():
             live = None if completed else self._drain(stream)
@@ -496,8 +599,12 @@ class DecodeScheduler:
             leftover = list(self._streams)
             self._streams.clear()
             self._pending.clear()
+            parked_ids = list(self._replay)
             self._replay.clear()
             self._cond.notify_all()
+        if self._kv_discard is not None:
+            for gid in parked_ids:
+                self._kv_discard(gid)
         err = ServerUnavailable("scheduler is shut down")
         for stream in leftover:
             stream.queue.put(("err", err, None))
@@ -558,6 +665,7 @@ class DecodeScheduler:
                 "steps": self._steps_total,
                 "prefix_hits": self._prefix_hits,
                 "prefix_misses": self._prefix_misses,
+                "attach_admissions": self._attach_admissions,
                 "prefix_evictions": self._prefix_evictions,
                 "spec_tokens": self._spec_tokens,
                 "spec_steps": self._spec_steps,
@@ -698,14 +806,19 @@ class DecodeScheduler:
     def _reset_for_readmission(self, stream):
         """Prepare a salvaged or resumed stream for a fresh admission: the
         next loop prefills ``prompt + history``, so emission continues
-        where it stopped.  Its paging state belonged to the old loop's
-        pool, and its speculation throttle starts afresh.  Called with
-        ``_cond`` held."""
+        where it stopped (over a parked cache: feeds both as forced
+        tokens).  Its paging state belonged to the old loop's pool, a
+        pending attach dies with the loop that would have scattered it
+        (the prefill path is token-identical), and its speculation
+        throttle starts afresh.  Called with ``_cond`` held."""
         stream.pos = 0
+        stream.forced.clear()
         stream.enqueued_at = time.monotonic()
         stream.table = None
         stream.radix_nodes = None
         stream.span_pages = 0
+        stream.attach_cache = None
+        stream.attach_pos = 0
         stream.spec_miss = 0
         stream.spec_skip = 0
 
@@ -715,17 +828,36 @@ class DecodeScheduler:
         for gid in [gid for gid, (_, _, expires) in self._replay.items()
                     if expires <= now]:
             del self._replay[gid]
+            if self._kv_discard is not None:
+                # an export lives as long as its replay entry
+                self._kv_discard(gid)
 
     def _park_locked(self, stream, completed):
         """Keep a resumable generation's history for a later resume.
         Called with ``_cond`` held."""
         now = time.monotonic()
         self._sweep_replay_locked(now)
+        # the prompt's device view reads a region whose pin ends with the
+        # request: a later admission uses the host ids
+        stream.prompt_dev = None
+        if completed:
+            # a completed park only replays history: its device state
+            # goes now, and so does its export, unless it is a prefill
+            # leg's, which a decode-side server attaches after the leg
+            # finished (it still dies with the entry)
+            stream.resume_cache = None
+            stream.on_finish = None
+            stream.attach_cache = None
+            if (self._kv_discard is not None and stream.kv_export
+                    and not stream.kv_export_on_finish):
+                self._kv_discard(stream.generation_id)
         self._replay[stream.generation_id] = (stream, completed,
                                               now + self._replay_ttl_s)
         self._replay.move_to_end(stream.generation_id)
         while len(self._replay) > REPLAY_CAPACITY:
-            self._replay.popitem(last=False)  # the oldest goes
+            gid, _ = self._replay.popitem(last=False)  # the oldest goes
+            if self._kv_discard is not None:
+                self._kv_discard(gid)
 
     def _detach_locked(self, stream):
         """Retire a cancelled stream from the live registry; a resumable
@@ -821,7 +953,6 @@ class DecodeScheduler:
         ready = [False] * self._max_slots  # prefill complete
         prefilling = {}                    # slot -> _PrefillTask
         inflight = None  # (tokens, logprobs, snapshot) of the last step
-        no_force = np.zeros((self._max_slots,), np.int32)
         # speculation: the drafter reads the radix tree (when there is
         # one) and each stream's own context, read-only.  Its first
         # proposal predicts the step's own next token, which the verify
@@ -886,7 +1017,8 @@ class DecodeScheduler:
             path_len = len(nodes)
             owned = [int(table[d])
                      for d in range(path_len, stream.span_pages)]
-            if insert and radix is not None:
+            if (insert and radix is not None
+                    and stream.resume_cache is None):
                 # tokens fed so far; rejected speculative writes past
                 # stream.pos are never donated
                 known = ([int(t) for t in stream.prompt]
@@ -905,6 +1037,27 @@ class DecodeScheduler:
             stream.radix_nodes = None
             stream.span_pages = 0
 
+        def export_kv(stream):
+            """Export a stream's gathered KV through the ``kv_export``
+            hook (the server keeps it as a CUDA region keyed by the
+            generation id), valid up to ``prompt + history``: every write
+            of a dispatched but unfetched step lies beyond it.  Runs
+            before ``release_pages``: the gather copies the pool as it is
+            now, so later page reuse cannot touch the export.  A failed
+            export (a typed error, such as a CUDA allocation failure) is
+            kept on the stream: its resume fails with it."""
+            if (self._kv_export is None or not stream.kv_export
+                    or stream.generation_id is None
+                    or stream.resume_cache is not None
+                    or stream.table is None):
+                return
+            valid = len(stream.prompt) + len(stream.history)
+            parked = fns["gather"](pages, stream.table)
+            try:
+                self._kv_export(stream.generation_id, parked, valid)
+            except TorchServeError as e:
+                stream.kv_error = e
+
         def complete_admission(slot, stream, full):
             """Post-admit bookkeeping: donate the prompt's full pages to
             the radix tree now (pinned: siblings admitted next iteration
@@ -912,7 +1065,8 @@ class DecodeScheduler:
             admission."""
             if superseded():
                 return
-            if radix is not None and full is not None:
+            if (radix is not None and full is not None
+                    and stream.resume_cache is None):
                 path_len = len(stream.radix_nodes)
                 donate = stream.pos // page - path_len
                 if donate > 0:
@@ -931,30 +1085,82 @@ class DecodeScheduler:
             ready[slot] = True
             self._admitted_total += 1
 
+        def reserve(span_pages):
+            """``span_pages`` fresh pages (evicting cached ones when
+            needed), or None when the pool cannot give them."""
+            owned = alloc.alloc(span_pages)
+            if owned is None and radix is not None:
+                freed = radix.evict(span_pages - alloc.free_count)
+                self._prefix_evictions += len(freed)
+                alloc.free(freed)
+                owned = alloc.alloc(span_pages)
+            return owned
+
+        def attach_admission(slot, stream):
+            """Admit over an attached KV export: it scatters into a fresh
+            page span, and the last token of its valid prefix feeds
+            again (rewriting its own K/V with the same values) to
+            regenerate the logits.  No prefill runs."""
+            nonlocal pages, logits
+            known = [int(t) for t in stream.prompt] + [
+                t for t, _ in stream.history]
+            start = stream.attach_pos - 1
+            span_pages = pages_for(len(stream.prompt) + stream.max_tokens,
+                                   page)
+            stream.radix_nodes = []
+            owned = reserve(span_pages)
+            if owned is None:
+                self._fail(stream, TooManyRequests(
+                    "kv page pool exhausted: an attach needs {} pages but "
+                    "only {} are free; retry later".format(
+                        span_pages, alloc.free_count)), epoch)
+                clear_slot(slot)
+                return
+            table = np.full((ppseq,), n_pages, np.int32)
+            table[:span_pages] = owned
+            stream.table = table
+            stream.span_pages = span_pages
+            beat("admit", headroom=10)
+            attach_cache, stream.attach_cache = stream.attach_cache, None
+            stream.forced.extend(known[start:])
+            stream.pos = start
+            pages, logits = fns["admit"](
+                pages, logits, attach_cache,
+                logits.new_zeros((1, logits.shape[1])), table, slot)
+            done("admit")
+            self._attach_admissions += 1
+            complete_admission(slot, stream, None)
+
         def start_admission(slot, stream):
             """Reserve the stream's page span and run (or begin) its
-            prefill of ``prompt + history``.  The slot is already
-            reserved in ``slots``; on a shed or a per-request fault it is
-            cleared here."""
+            prefill of ``prompt + history``, or scatter a parked cache
+            or an attached export instead.  The slot is already reserved
+            in ``slots``; on a shed or a per-request fault it is cleared
+            here."""
             nonlocal pages, logits
             try:
                 if superseded():
                     return  # the remaining admissions are the next loop's
                 # a step snapshot of an earlier admission becomes inert
                 stream.incarnation += 1
+                if stream.attach_cache is not None:
+                    attach_admission(slot, stream)
+                    return
                 replayed = [t for t, _ in stream.history]
+                start = (stream.resume_pos
+                         if stream.resume_cache is not None else 0)
                 full = (np.concatenate([stream.prompt,
                                         np.asarray(replayed, np.int32)])
                         if replayed else stream.prompt)
-                prefill_len = len(full)
+                prefill_len = start + len(full)
                 # the whole potential span reserves up front, so decode
                 # never runs out of pages mid-generation: exhaustion is a
                 # typed admission-time shed
                 span_pages = pages_for(
-                    len(stream.prompt) + stream.max_tokens, page)
+                    start + len(stream.prompt) + stream.max_tokens, page)
                 matched_nodes = []
                 shared_pages = 0
-                if radix is not None:
+                if radix is not None and stream.resume_cache is None:
                     nodes, _ids = radix.match(full)
                     # the prompt's LAST token always re-runs: its logits
                     # seed the first decode step
@@ -968,12 +1174,7 @@ class DecodeScheduler:
                         radix.acquire(matched_nodes)
                 shared_len = shared_pages * page
                 needed = span_pages - shared_pages
-                owned = alloc.alloc(needed)
-                if owned is None and radix is not None:
-                    freed = radix.evict(needed - alloc.free_count)
-                    self._prefix_evictions += len(freed)
-                    alloc.free(freed)
-                    owned = alloc.alloc(needed)
+                owned = reserve(needed)
                 if owned is None:
                     release_pages(stream, insert=False)  # unpin only
                     self._fail(stream, TooManyRequests(
@@ -985,9 +1186,10 @@ class DecodeScheduler:
                     return
                 # counted once the reservation succeeded: a shed admission
                 # served nothing and prefilled nothing
-                if radix is not None:
-                    self._prefix_hits += shared_len
-                self._prefix_misses += prefill_len - shared_len
+                if stream.resume_cache is None:
+                    if radix is not None:
+                        self._prefix_hits += shared_len
+                    self._prefix_misses += prefill_len - shared_len
                 table = np.full((ppseq,), n_pages, np.int32)
                 for d, node in enumerate(matched_nodes):
                     table[d] = node.page
@@ -999,6 +1201,20 @@ class DecodeScheduler:
                 # admission prefills are watchdogged with ten times the
                 # step's headroom: a new length pays cuBLAS's heuristics
                 beat("admit", headroom=10)
+                if stream.resume_cache is not None:
+                    # a parked cache: it scatters into the reserved pages
+                    # (only read: the region's copy stays valid for the
+                    # next resume) and the prompt (and history, after a
+                    # restart) feeds as forced tokens
+                    stream.forced.extend(int(t) for t in stream.prompt)
+                    stream.forced.extend(replayed)
+                    stream.pos = start
+                    pages, logits = fns["admit"](
+                        pages, logits, stream.resume_cache,
+                        logits.new_zeros((1, logits.shape[1])), table, slot)
+                    done("admit")
+                    complete_admission(slot, stream, None)
+                    return
                 suffix = np.asarray(full[shared_len:], np.int32)
                 suffix_len = len(suffix)
                 if shared_pages:
@@ -1040,12 +1256,20 @@ class DecodeScheduler:
                     # (prefill_bucket keeps the kernel choice; padding
                     # rows stay masked)
                     bucket = fns["prefill_bucket"](suffix_len)
-                    padded = np.zeros((bucket,), np.int32)
-                    padded[:suffix_len] = suffix
+                    if stream.prompt_dev is not None and not replayed:
+                        # the prompt is a view of a region's device
+                        # memory: it is padded on the device, so the
+                        # prefill's ids never pass through the host
+                        padded = torch.zeros(
+                            (1, bucket), dtype=torch.int64,
+                            device=stream.prompt_dev.device)
+                        padded[0, :suffix_len] = stream.prompt_dev
+                    else:
+                        padded = np.zeros((1, bucket), np.int32)
+                        padded[0, :suffix_len] = suffix
                     slot_cache = fns["init_slot_cache"]()
                     slot_logits, slot_cache = fns["prefill"](
-                        self._params, slot_cache, padded[None, :],
-                        suffix_len)
+                        self._params, slot_cache, padded, suffix_len)
                 if superseded():
                     return  # demoted mid-call: mutate nothing
                 stream.pos = prefill_len
@@ -1097,6 +1321,33 @@ class DecodeScheduler:
                 self._beat(epoch, None)
 
         def finish(stream, slot):
+            if stream.on_finish is not None:
+                # the park: a gather and a copy into the region, watched
+                # like an admission
+                beat("admit", headroom=10)
+                try:
+                    parked = fns["gather"](pages, stream.table)
+                    if superseded():
+                        return  # never park over the next loop's park
+                    stream.on_finish(parked)
+                except Exception as e:  # noqa: BLE001 — the park is the
+                    # stream's own: it fails, co-batched streams go on
+                    self._fail(stream, e, epoch)
+                    release_pages(stream)
+                    clear_slot(slot)
+                    return
+                finally:
+                    self._beat(epoch, None)
+            if stream.kv_export_on_finish:
+                # a prefill leg: its KV (prompt and the one emitted token)
+                # exports before the pages free, for a decode-side server
+                # to attach instead of prefilling
+                export_kv(stream)
+                if stream.kv_error is not None:
+                    release_pages(stream)
+                    self._fail(stream, stream.kv_error, epoch)
+                    clear_slot(slot)
+                    return
             release_pages(stream)
             self._deliver(stream, ("done", None, None), epoch)
             clear_slot(slot)
@@ -1111,13 +1362,21 @@ class DecodeScheduler:
 
         def step_inputs(active_ids):
             """Sentinel-filled positions (inert rows write to the trash
-            page) and the active mask of one batched step."""
+            page), the active mask, and the forced tokens and their mask
+            of one batched step (a row with forced tokens left feeds the
+            next one instead of its greedy pick)."""
             positions = np.full((self._max_slots,), self._max_seq, np.int32)
             active = np.zeros((self._max_slots,), bool)
+            forced = np.zeros((self._max_slots,), np.int32)
+            forced_mask = np.zeros((self._max_slots,), bool)
             for i in active_ids:
-                positions[i] = slots[i].pos
+                st = slots[i]
+                positions[i] = st.pos
                 active[i] = True
-            return positions, active
+                if st.forced:
+                    forced[i] = st.forced.popleft()
+                    forced_mask[i] = True
+            return positions, active, forced, forced_mask
 
         def draft_for(st):
             """This step's draft of ``st`` (a list, maybe empty), under
@@ -1142,16 +1401,18 @@ class DecodeScheduler:
             pipeline cannot run here: dispatch and fetch share the
             iteration."""
             nonlocal pages, logits
-            positions, active = step_inputs(active_ids)
+            positions, active, forced, forced_mask = step_inputs(active_ids)
             draft = np.zeros((self._max_slots, spec_k), np.int32)
             draft_len = np.zeros((self._max_slots,), np.int32)
             snapshot = []
             for i in active_ids:
                 st = slots[i]
-                d = draft_for(st)
+                # a forced feed drafts nothing
+                d = [] if forced_mask[i] else draft_for(st)
                 draft[i, :len(d)] = d
                 draft_len[i] = len(d)
-                snapshot.append((i, st, st.incarnation, len(d)))
+                snapshot.append((i, st, st.incarnation, len(d),
+                                 bool(forced_mask[i])))
             # the verify chain runs to this step's longest draft: deeper
             # sub-steps would have every row inert.  Nobody drafted: a
             # plain step is bitwise the same for the one token
@@ -1161,12 +1422,11 @@ class DecodeScheduler:
             if width:
                 toks_dev, lps_dev, acc_dev, logits, pages = fns["spec_step"](
                     self._params, pages, logits, tables, positions, active,
-                    no_force, no_force.astype(bool), draft[:, :width],
-                    draft_len)
+                    forced, forced_mask, draft[:, :width], draft_len)
             else:
                 toks_dev, lps_dev, logits, pages = fns["step"](
                     self._params, pages, logits, tables, positions, active,
-                    no_force, no_force.astype(bool))
+                    forced, forced_mask)
                 acc_dev = None
             self._steps_total += 1
             beat(kind)
@@ -1179,14 +1439,18 @@ class DecodeScheduler:
             with self._cond:
                 if self._epoch != epoch:
                     return False  # demoted mid-fetch: deliver nothing
-                for i, st, inc, k_i in snapshot:
+                for i, st, inc, k_i, was_forced in snapshot:
                     if slots[i] is not st or st.incarnation != inc:
                         continue
                     if st.cancelled:
+                        export_kv(st)
                         release_pages(st)
                         self._detach_locked(st)
                         clear_slot(i)
                         continue
+                    if was_forced:
+                        st.pos += 1
+                        continue  # a forced feed emits nothing
                     a = min(int(accs[i]), k_i)
                     if k_i:
                         self._spec_steps += 1
@@ -1262,6 +1526,10 @@ class DecodeScheduler:
                 for i, st in enumerate(slots):
                     if st is not None and st.cancelled:
                         prefilling.pop(i, None)
+                        if ready[i]:
+                            # export before the pages free: the resume
+                            # attaches it
+                            export_kv(st)
                         release_pages(st)
                         self._detach_locked(st)
                         clear_slot(i)
@@ -1319,16 +1587,18 @@ class DecodeScheduler:
 
             current = None
             if active_ids:
-                positions, active = step_inputs(active_ids)
+                positions, active, forced, forced_mask = step_inputs(
+                    active_ids)
                 snapshot = []
                 for i in active_ids:
                     st = slots[i]
-                    snapshot.append((i, st, st.incarnation))
+                    snapshot.append((i, st, st.incarnation,
+                                     bool(forced_mask[i])))
                     st.pos += 1
                 beat("step")
                 tokens_dev, logps_dev, logits, pages = fns["step"](
                     self._params, pages, logits, tables, positions, active,
-                    no_force, no_force.astype(bool))
+                    forced, forced_mask)
                 self._beat(epoch, None)
                 self._steps_total += 1
                 current = (tokens_dev, logps_dev, snapshot)
@@ -1344,17 +1614,22 @@ class DecodeScheduler:
                 with self._cond:
                     if self._epoch != epoch:
                         return  # demoted mid-fetch: deliver nothing
-                    for i, st, inc in snapshot:
+                    for i, st, inc, was_forced in snapshot:
                         if slots[i] is not st or st.incarnation != inc:
                             # the slot retired (and maybe re-admitted)
                             # after this step was dispatched: its token is
                             # the pipeline's wasted extra
                             continue
                         if st.cancelled:
+                            # consumer gone: export (a resume attaches
+                            # it), free the pages, park
+                            export_kv(st)
                             release_pages(st)
                             self._detach_locked(st)
                             clear_slot(i)
                             continue
+                        if was_forced:
+                            continue  # a forced feed emits nothing
                         tok = int(toks[i])
                         lp = float(lps[i])
                         if not np.isfinite(lp):

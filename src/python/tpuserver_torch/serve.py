@@ -3,7 +3,7 @@
     python -m tpuserver_torch.serve --config llama3_8b --max-seq 4096 \\
         --port 8000 [--device cuda] [--seed 0] \\
         [--max-slots 8 [--page-size 16] [--kv-pages N] [--spec-tokens K]
-        [--step-timeout-s S]]
+        [--step-timeout-s S] [--kv-export]]
 
 Weights are random, drawn from ``--seed`` on the device.  With
 ``--max-slots`` above 1, concurrent requests share one batched decode
@@ -12,8 +12,10 @@ tokens (default: room for ``--max-slots`` full-length sequences); each
 step verifies up to ``--spec-tokens`` drafted tokens per stream, and a
 device call stalled past ``--step-timeout-s`` restarts the decode loop
 (admission prefills get ten times it, and the first call of each kind,
-which loads the kernel library, is not timed).  The server runs until
-interrupted (SIGINT/SIGTERM).
+which loads the kernel library, is not timed), and ``--kv-export`` parks
+every disconnected generation's KV for its resume to attach (the default
+of the ``kv_park`` request parameter).  The server runs until interrupted
+(SIGINT/SIGTERM).
 """
 
 import argparse
@@ -52,6 +54,10 @@ def main(argv=None):
                         help="restart the decode loop when a device call "
                              "stalls this long (--max-slots > 1; default: "
                              "no watchdog)")
+    parser.add_argument("--kv-export", action="store_true",
+                        help="export a disconnected generation's KV as a "
+                             "CUDA-shm region its resume attaches "
+                             "(--max-slots > 1; the kv_park default)")
     args = parser.parse_args(argv)
 
     device = resolve_device(args.device)
@@ -61,7 +67,8 @@ def main(argv=None):
                                page_size=args.page_size,
                                kv_pages=args.kv_pages,
                                spec_tokens=args.spec_tokens,
-                               step_timeout_s=args.step_timeout_s)
+                               step_timeout_s=args.step_timeout_s,
+                               kv_export=args.kv_export)
     model.warmup()
     core = InferenceServer([model])
     http = HttpServer(core, host=args.host, port=args.port).start()

@@ -8,6 +8,7 @@ JAX, so they run where the port runs:
 machine need not have.)
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -310,3 +311,139 @@ def test_spec_step_is_bitwise_the_plain_chain_on_card(cuda):
     for row in (0, 3):
         assert torch.equal(llama.paged_gather(spec_pages, tables[row]),
                            llama.paged_gather(pages, tables[row]))
+
+
+# -- CUDA IPC regions (tpuserver_torch.cuda_shared_memory) --------------------
+
+
+def _child(code, *args):
+    """Run ``code`` in a fresh python process (the port on its path):
+    CUDA IPC opens only across processes."""
+    import os
+    import subprocess
+    import sys
+
+    src = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "src", "python")
+    return subprocess.run(
+        [sys.executable, "-c", code, *args], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, timeout=300,
+        env=dict(os.environ, PYTHONPATH=src))
+
+
+def test_region_in_process_attach_is_the_same_memory_on_card(cuda):
+    """A CUDA region is cudaMalloc memory wrapped without a copy; its raw
+    handle is 64 bytes; attaching it in this process aliases the owner
+    (the registry: cudaIpcOpenMemHandle refuses its own process)."""
+    import base64
+
+    from tpuserver_torch import cuda_shared_memory as csm
+
+    h = csm.create_shared_memory_region("card", 1 << 16)
+    try:
+        assert h.tensor.device.type == "cuda" and not h.mapped
+        assert torch.count_nonzero(h.tensor).item() == 0  # zero-filled
+        raw = csm.get_raw_handle(h)
+        assert len(base64.b64decode(raw)) == 64
+        attached = csm.attach_from_raw_handle(raw, 4096)
+        assert attached.tensor.data_ptr() == h.tensor.data_ptr()
+        csm.set_shared_memory_region(attached, [torch.arange(
+            8, dtype=torch.int32, device=cuda)], 16)
+        view = csm.get_contents_as_tensor(h, "INT32", [8], 16)
+        assert view.data_ptr() == h.tensor.data_ptr() + 16
+        assert view.tolist() == list(range(8))
+        attached.detach()
+        attached.detach()  # an alias holds nothing: a no-op, twice
+    finally:
+        csm.destroy_shared_memory_region(h)
+    csm.destroy_shared_memory_region(h)  # idempotent: never a double free
+    with pytest.raises(csm.RegionGone):
+        csm.attach_from_raw_handle(raw, 4096)
+
+
+def test_region_written_by_another_process_reads_back_on_card(cuda):
+    """A child process opens the handle over CUDA IPC, writes, closes its
+    mapping (twice: the second is a no-op) and exits; the bytes are in
+    the owner's memory.  The owner frees the region only after."""
+    from tpuserver_torch import cuda_shared_memory as csm
+
+    h = csm.create_shared_memory_region("card-x", 4096)
+    try:
+        code = (
+            "import sys, numpy as np\n"
+            "from tpuserver_torch import cuda_shared_memory as c\n"
+            "a = c.attach_from_raw_handle(sys.argv[1], 4096)\n"
+            "assert a.mapped\n"
+            "c.set_shared_memory_region(a, [np.arange(100, 164, "
+            "dtype=np.int32)], 256)\n"
+            "print('read', c.get_contents_as_numpy(a, 'INT32', [2], 0)"
+            ".tolist())\n"
+            "a.detach(); a.detach(); print('closed')\n")
+        csm.set_shared_memory_region(h, [np.array([7, 9], np.int32)])
+        out = _child(code, csm.get_raw_handle(h).decode())
+        assert out.returncode == 0, out.stdout
+        assert "read [7, 9]" in out.stdout and "closed" in out.stdout
+        got = csm.get_contents_as_numpy(h, "INT32", [64], 256)
+        assert got.tolist() == list(range(100, 164))
+    finally:
+        csm.destroy_shared_memory_region(h)
+
+
+def test_ipc_error_surfaces_as_an_exception_on_card(cuda):
+    """A handle no process made fails cudaIpcOpenMemHandle: the CUDA error
+    raises (with its name), in the module and as the core's typed 400 at
+    registration, and nothing is registered."""
+    import base64
+
+    from tpuserver_torch import cuda_shared_memory as csm
+    from tpuserver_torch.core import InferenceServer
+    from tpuserver_torch.errors import BadRequest
+
+    bogus = base64.b64encode(bytes(range(64)))
+    with pytest.raises(csm.CudaSharedMemoryException,
+                       match="cudaIpcOpenMemHandle failed: CUDA error"):
+        csm.attach_from_raw_handle(bogus, 4096)
+    core = InferenceServer()
+    with pytest.raises(BadRequest, match="CUDA error") as err:
+        core.register_cuda_shm("bogus", bogus, 0, 4096)
+    assert err.value.code == 400 and core.cuda_shm_status() == {}
+
+
+def test_kv_export_descriptor_round_trip_on_card(cuda):
+    """A server-owned KV export on the card: its descriptor attaches in
+    this process (the registry) and in another (CUDA IPC), both giving
+    the exported bytes; a second fetch is a 409; once released, this
+    process's attach of the stale descriptor is the typed 404 (the
+    caller prefills), not an IPC call on freed memory."""
+    import json
+
+    from tpuserver_torch.core import InferenceServer
+    from tpuserver_torch.errors import KvExportClaimed, KvExportMissing
+
+    core = InferenceServer()
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    cache = torch.randn(2, 2, 1, 64, 4, 8, device=cuda,
+                        generator=gen).to(torch.bfloat16)
+    try:
+        core.export_kv_region("g", cache, 17)
+        desc = core.kv_export_descriptor("g")
+        with pytest.raises(KvExportClaimed):
+            core.kv_export_descriptor("g")
+        got, pos = core.import_kv_descriptor(desc)
+        assert pos == 17 and torch.equal(got, cache)
+        code = (
+            "import json, sys, torch\n"
+            "from tpuserver_torch.core import InferenceServer\n"
+            "got, pos = InferenceServer().import_kv_descriptor("
+            "json.loads(sys.argv[1]))\n"
+            "print('sum', got.float().sum().item(), pos, tuple(got.shape))\n")
+        out = _child(code, json.dumps(desc))
+        assert out.returncode == 0, out.stdout
+        assert "sum {} 17 {}".format(cache.float().sum().item(),
+                                     tuple(cache.shape)) in out.stdout
+        core.drop_kv_region("g")
+        with pytest.raises(KvExportMissing):
+            core.import_kv_descriptor(desc)
+        assert core.shm_stats()["kv_exports_dropped"] == 1
+    finally:
+        core.close()

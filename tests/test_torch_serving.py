@@ -24,7 +24,7 @@ from tpuserver.models import llama as jl
 from tpuserver.models.llama_serving import LlamaGenerateModel as JaxLlama
 import tpuserver_torch
 from tpuserver_torch.core import InferenceServer, InferRequest
-from tpuserver_torch.errors import NotPortedYet
+from tpuserver_torch.errors import BadRequest
 from tpuserver_torch.http_server import HttpServer
 from tpuserver_torch.models import llama as tl
 from tpuserver_torch.models.llama_serving import LlamaGenerateModel
@@ -180,11 +180,14 @@ def test_unknown_models_and_routes_are_404(served, path, method, code):
 
 
 @pytest.mark.parametrize("parameters,code", [
-    ({"kv_cache_region": "r"}, 501), ({"shm_ring_region": "r"}, 501)])
+    ({"kv_cache_region": "r"}, 400),
+    ({"shm_ring_region": "r", "shm_ring_slots": 4}, 400)])
 def test_later_slice_parameters_are_typed_errors(served, parameters, code):
+    """The data-plane parameters were a later slice (501); they serve now,
+    and naming a region that is not registered is a typed 400."""
     status, text = _post(served, "/v2/models/llama_generate/generate_stream",
                          _body([1, 2, 3], 2, parameters))
-    assert status == code and "later slice" in json.loads(text)["error"]
+    assert status == code and "Unable to find" in json.loads(text)["error"]
 
 
 def test_bad_requests_are_400(served):
@@ -205,7 +208,9 @@ def test_max_slots_above_one_is_a_later_slice(served):
     """``max_slots>1`` was a later slice of the port and now serves: on
     the CPU, ``max_slots=4`` streams the single-stream path's tokens (and
     the JAX model's: the ``served`` fixture is held against it above).
-    The request parameters of still later slices stay 501 there too."""
+    The data-plane request parameters, a later slice too, now serve
+    there: a ``kv_cache_region`` that is not registered is a typed 400
+    (``tests/test_torch_shm.py`` holds the rest against JAX)."""
     jcfg, tcfg = _cfgs()
     np_params = jax.tree_util.tree_map(
         np.asarray, jl.init_params(jax.random.PRNGKey(0), jcfg))
@@ -221,8 +226,9 @@ def test_max_slots_above_one_is_a_later_slice(served):
         tokens = [int(dict((s["name"], a) for s, a in r.outputs)["TOKEN"][0])
                   for r in core.infer_stream(req)]
         req.parameters = {"kv_cache_region": "r"}
-        with pytest.raises(NotPortedYet, match="later slice"):
+        with pytest.raises(BadRequest, match="Unable to find") as err:
             list(core.infer_stream(req))
+        assert err.value.code == 400
     finally:
         core.close()
     _, text = _post(served, "/v2/models/llama_generate/generate",
