@@ -9,8 +9,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
    csrc`` (into ``build/tpuserver_torch``), print the build seconds;
 3. kernels: each kernel against its plain PyTorch version on the card at
    Llama-3-8B shapes (flash at every prefill length phases 4, 4b and 4c
-   give it; the lengths of 4c's re-admissions that depend on when a fault
-   hit are checked right after 4c), with the stated tolerances (decode
+   give it; the lengths of 4c's and 4f's re-admissions that depend on
+   when a fault hit are checked right after 4f), with the stated tolerances (decode
    also against the
    plain model of its split-K), and timed beside its bound, its plain
    version and one PyTorch library call (for single-row decode also SDPA
@@ -57,6 +57,28 @@ Phases, in order; any failure exits non-zero and prints no result line:
    a prefill leg's export from this one over CUDA IPC: no flash launch
    on it, the fused run's tokens, then a 409 on a second descriptor
    fetch and a 404 after the release;
+4f. serve_grpc: the gRPC front end (``tpuserver_torch.grpc_server``) on
+   ``max_slots=8`` models over the same weights, driven through a raw
+   ``grpc`` channel over the port's own pb2 copies (the script's first
+   line prints the grpcio and protobuf versions the machine has): (a)
+   4b's 12 prompts, 50 ms apart, on one bidi stream: 4b's tokens per
+   prompt, gap-free ``seq``s, flash >= 32 x tileable admissions and decode
+   >= 32 x batched steps; (b) 4c (c)'s 8 prompts with ``kv_park`` on one
+   stream, which the ``grpc.stream_infer`` fault point (``skip=5``, this
+   server's scope) drops after 5 responses; each generation resumes by
+   ``resume_generation_id``/``resume_from_seq``: 8 attach admissions, no
+   flash launch, the undisturbed run's continuation tokens; (c)
+   ``scheduler.step`` raises once mid-round: one restart, every stream
+   complete, ``tpu_scheduler_restarts_total`` up by 1; (d) CoDel on a
+   second model (``target_queue_ms=50``, ``shed_interval_ms=100``), 24
+   requests 50 ms apart over 8 slots: at least one shed, in-band as
+   ``RESOURCE_EXHAUSTED`` with ``retry-after`` 1, as many as
+   ``tpu_scheduler_codel_sheds_total`` counts; (e) ``ServerMetrics`` and
+   ``GET /metrics`` agree on every ``tpu_*`` counter, whose admissions,
+   tokens and prefix counts equal ``scheduler_stats()`` and whose step
+   histogram counts the batched steps; ``nv_gpu_memory_used_bytes``
+   beside ``torch.cuda.mem_get_info``; NOT_FOUND for an unknown model and
+   UNIMPLEMENTED for a repository verb;
 5. model check: the 512-token prompt's last-position prefill logits
    through the kernels against the same model through the plain
    attention versions, and the greedy tokens of both;
@@ -1708,6 +1730,393 @@ def _handoff(torch, fl, server_b, core_a, port_a, prompt, fused):
             "flash_attention": b["flash_attention"]}
 
 
+# -- phase 4f: the gRPC front end, metrics, fault points, CoDel -------------
+
+F_SCOPE = "phase4f"
+CODEL_SCOPE = "phase4f-codel"
+
+
+def _install_versions():
+    """The grpcio and protobuf versions this machine has (phase 4f needs
+    both)."""
+    found = {}
+    for name, module in (("grpcio", "grpc"), ("protobuf", "google.protobuf")):
+        try:
+            found[name] = __import__(module, fromlist=["__version__"]
+                                     ).__version__
+        except ImportError:
+            found[name] = None
+    return found
+
+
+def _grpc_calls(url):
+    """(channel, {method name: callable}) over the port's own pb2 copies:
+    a raw channel, no client library."""
+    import grpc
+
+    from tpuserver_torch.grpc_proto import service
+
+    channel = grpc.insecure_channel(url, options=[
+        ("grpc.max_receive_message_length", -1)])
+    calls = {}
+    for name, (req_cls, resp_cls, kind) in service.METHODS.items():
+        make = (channel.unary_unary if kind == "unary"
+                else channel.stream_stream)
+        calls[name] = make(service.method_path(name),
+                           request_serializer=req_cls.SerializeToString,
+                           response_deserializer=resp_cls.FromString)
+    return channel, calls
+
+
+def _grpc_request(np, prompt, max_tokens, request_id, parameters):
+    from tpuserver_torch.grpc_proto import grpc_service_pb2 as pb
+
+    req = pb.ModelInferRequest(model_name="llama_generate", id=request_id)
+    for name, arr in (("PROMPT_IDS", np.asarray(prompt, np.int32)),
+                      ("MAX_TOKENS", np.array([max_tokens], np.int32))):
+        t = req.inputs.add(name=name, datatype="INT32")
+        t.shape.extend(arr.shape)
+        req.raw_input_contents.append(arr.tobytes())
+    for key, value in parameters.items():
+        if isinstance(value, bool):
+            req.parameters[key].bool_param = value
+        elif isinstance(value, int):
+            req.parameters[key].int64_param = value
+        else:
+            req.parameters[key].string_param = str(value)
+    return req
+
+
+def _grpc_round(np, calls, requests, spacing_s=0.05):
+    """Send ``requests`` on ONE ``ModelStreamInfer`` stream, ``spacing_s``
+    apart, and read it to its end.  Returns ({request id: [(token, seq)]},
+    {request id: in-band error response}, the RpcError that ended the
+    stream or None, wall seconds)."""
+    import grpc
+
+    def feed():
+        for i, req in enumerate(requests):
+            if i:
+                time.sleep(spacing_s)
+            yield req
+
+    got = {r.id: [] for r in requests}
+    errors, dropped = {}, None
+    t0 = time.monotonic()
+    try:
+        for resp in calls["ModelStreamInfer"](feed(), timeout=600):
+            if resp.error_message:
+                errors[resp.infer_response.id] = resp
+                continue
+            out = resp.infer_response
+            token = int(np.frombuffer(out.raw_output_contents[0],
+                                      np.int32)[0])
+            got[out.id].append((token, out.parameters["seq"].int64_param))
+    except grpc.RpcError as e:
+        dropped = e
+    return got, errors, dropped, time.monotonic() - t0
+
+
+def _metrics_families(text, prefix="tpu_"):
+    from tpuserver_torch.metrics import parse_prometheus_text
+
+    return {name: fam for name, fam in parse_prometheus_text(text).items()
+            if name.startswith(prefix)}
+
+
+def _sample(families, family, sample=None, **labels):
+    """The value of ``family``'s sample ``sample`` (default: the family's
+    own name) with exactly ``labels``."""
+    sample = sample or family
+    for name, lab, value in families.get(family, {}).get("samples", ()):
+        if name == sample and lab == labels:
+            return value
+    fail("no sample {}{} in the exposition".format(sample, labels))
+
+
+def phase_grpc(torch, np, cfg, params, prompts, budgets, tokens_4b,
+               readmits):
+    """Phase 4f on ``max_slots=8`` models over phase 4b's weights, driven
+    through a raw gRPC channel over the port's pb2 copies: (a) 4b's 12
+    prompts on one bidi stream; (b) 4c (c)'s prompts with ``kv_park``,
+    the stream dropped by ``grpc.stream_infer`` after 5 responses and each
+    generation resumed; (c) a ``scheduler.step`` raise; (d) CoDel on a
+    second model; (e) ``ServerMetrics`` against ``GET /metrics``, the
+    counters against ``scheduler_stats()``, a NOT_FOUND and an
+    UNIMPLEMENTED.  Every admission prefill's length is recorded into
+    ``readmits`` ((c)'s re-admissions depend on when the fault hit).
+    Returns (a)'s launch counts."""
+    import http.client
+
+    import grpc
+
+    from tpuserver_torch import fault_points
+    from tpuserver_torch.core import InferenceServer
+    from tpuserver_torch.grpc_proto import grpc_service_pb2 as pb
+    from tpuserver_torch.grpc_server import GrpcServer
+    from tpuserver_torch.http_server import HttpServer
+    from tpuserver_torch.models import llama
+    from tpuserver_torch.models.llama_serving import LlamaGenerateModel
+    from tpuserver_torch.ops import flash as fl
+
+    def serving(scope, **kwargs):
+        model = LlamaGenerateModel(cfg=cfg, max_seq=4096, max_slots=8,
+                                   params=params, device="cuda",
+                                   fault_scope=scope, **kwargs)
+        real_prefill = model._fns["prefill"]
+
+        def prefill(params_, slot_cache, tokens, true_len):
+            readmits.append(int(tokens.shape[1]))
+            return real_prefill(params_, slot_cache, tokens, true_len)
+
+        model._fns = dict(model._fns, prefill=prefill)
+        # registered before the warm-up builds the scheduler: its
+        # histograms go into this server's registry
+        core = InferenceServer([model], fault_scope=scope)
+        model.warmup()
+        return (model, core, HttpServer(core, port=0).start(),
+                GrpcServer(core, port=0).start())
+
+    def launches_now():
+        torch.cuda.synchronize()
+        return {"flash_attention": fl.flash_attention.launches,
+                "decode_attention": fl.decode_attention.launches}
+
+    def check_round(name, got, errors, dropped, want):
+        if errors or dropped is not None:
+            fail("grpc {}: in-band errors {}, stream ended by {}".format(
+                name, {k: v.error_message for k, v in errors.items()},
+                dropped))
+        for rid, n in want.items():
+            seqs = [s for _, s in got[rid]]
+            if seqs != list(range(n)):
+                fail("grpc {} request {}: seqs {}".format(name, rid, seqs))
+
+    fault_points.clear()
+    torch.cuda.empty_cache()
+    model, core, http_srv, grpc_srv = serving(F_SCOPE)
+    channel, calls = _grpc_calls(grpc_srv.url)
+    codel = None
+    try:
+        # (a) 4b's 12 prompts and budgets on one bidi stream, 50 ms apart
+        lengths = [len(p) for p in prompts]
+        tileable = len(_flash_admissions(llama, cfg, 4096, lengths))
+        requests = [_grpc_request(np, p, n, str(i),
+                                  {"generation_id": "f4a-{}".format(i)})
+                    for i, (p, n) in enumerate(zip(prompts, budgets))]
+        steps0 = model.scheduler_stats()["steps"]
+        torch.cuda.synchronize()
+        fl.reset_launch_counts()
+        got, errors, dropped, wall = _grpc_round(np, calls, requests)
+        launches = launches_now()
+        steps = model.scheduler_stats()["steps"] - steps0
+        check_round("(a)", got, errors, dropped,
+                    {str(i): n for i, n in enumerate(budgets)})
+        same = [[t for t, _ in got[str(i)]] == tokens_4b[i]
+                for i in range(len(prompts))]
+        total = sum(len(v) for v in got.values())
+        log("grpc (a): 12 generations on one bidi stream: {} tokens in "
+            "{:.3f} s ({:.1f} tokens/s); tokens equal to 4b's HTTP round "
+            "{}/12; launches {}; batched steps {}; tileable admissions "
+            "{}".format(total, wall, total / wall, sum(same),
+                        json.dumps(launches), steps, tileable))
+        if not all(same):
+            fail("grpc (a): prompts {} streamed other tokens than over "
+                 "HTTP".format([i for i, ok in enumerate(same) if not ok]))
+        if launches["decode_attention"] < cfg.n_layers * steps or \
+                launches["flash_attention"] < cfg.n_layers * tileable:
+            fail("grpc (a): launches {} for {} steps and {} tileable "
+                 "admissions".format(launches, steps, tileable))
+
+        # (b) 4c (c)'s 8 prompts with kv_park: undisturbed, then the
+        # stream dropped after 5 responses and every generation resumed
+        rng = np.random.RandomState(SEED + 4)
+        heal = [rng.randint(0, cfg.vocab, n) for n in HEAL_PROMPT_LENGTHS]
+
+        def heal_requests(tag, extra):
+            return [_grpc_request(np, p, HEAL_BUDGET, str(i), dict(
+                {"generation_id": "{}-{}".format(tag, i)}, **extra))
+                for i, p in enumerate(heal)]
+
+        ref, errors, dropped, _ = _grpc_round(
+            np, calls, heal_requests("f4b-ref", {}), spacing_s=0.0)
+        check_round("(b) undisturbed", ref, errors, dropped,
+                    {str(i): HEAL_BUDGET for i in range(len(heal))})
+        fault_points.install("grpc.stream_infer", skip=5, scope=F_SCOPE)
+        first, errors, dropped, _ = _grpc_round(
+            np, calls, heal_requests("f4b", {"kv_park": True}),
+            spacing_s=0.0)
+        fired = fault_points.fired("grpc.stream_infer", F_SCOPE)
+        fault_points.clear()
+        if dropped is None or errors or fired != 1:
+            fail("grpc (b): the stream was not dropped once (fired {}, "
+                 "ended by {}, errors {})".format(fired, dropped, errors))
+        deadline = time.monotonic() + 120
+        while sum(n.startswith("kvexport/f4b-")
+                  for n in core.cuda_shm_status()) < len(heal):
+            if time.monotonic() > deadline:
+                fail("grpc (b): exports {} after 120 s".format(
+                    sorted(core.cuda_shm_status())))
+            time.sleep(0.05)
+        seen = {rid: len(v) for rid, v in first.items()}
+        stats0 = model.scheduler_stats()
+        torch.cuda.synchronize()
+        fl.reset_launch_counts()
+        resumed, errors, dropped, _ = _grpc_round(np, calls, [
+            _grpc_request(np, heal[i], HEAL_BUDGET, str(i), {
+                "resume_generation_id": "f4b-{}".format(i),
+                "resume_from_seq": seen[str(i)]})
+            for i in range(len(heal))], spacing_s=0.0)
+        attach_launches = launches_now()
+        stats = model.scheduler_stats()
+        attaches = stats["attach_admissions"] - stats0["attach_admissions"]
+        agree = total = 0
+        for i in range(len(heal)):
+            rid = str(i)
+            joined = first[rid] + resumed[rid]
+            if [s for _, s in joined] != list(range(HEAL_BUDGET)):
+                fail("grpc (b) request {}: seqs {}".format(
+                    i, [s for _, s in joined]))
+            agree += sum(a == b for (a, _), (b, _) in zip(
+                resumed[rid], ref[rid][seen[rid]:]))
+            total += HEAL_BUDGET - seen[rid]
+        log("grpc (b): stream dropped after 5 responses (responses per "
+            "generation {}); resumed on one stream: attach admissions {} "
+            "(want 8); launches during the resumes {}; continuation tokens "
+            "equal to the undisturbed run {}/{}".format(
+                [seen[str(i)] for i in range(len(heal))], attaches,
+                json.dumps(attach_launches), agree, total))
+        if errors or dropped is not None or attaches != len(heal) or \
+                attach_launches["flash_attention"] != 0 or agree != total:
+            fail("grpc (b): errors {}, dropped {}, attaches {}, launches "
+                 "{}, agreement {}/{}".format(errors, dropped, attaches,
+                                              attach_launches, agree, total))
+
+        # (c) one raising step, mid-round
+        restarts0 = _sample(_metrics_families(core.metrics_text()),
+                            "tpu_scheduler_restarts_total",
+                            model="llama_generate")
+        fault_points.install("scheduler.step", skip=10, scope=F_SCOPE)
+        got, errors, dropped, wall = _grpc_round(
+            np, calls, heal_requests("f4c", {}), spacing_s=0.0)
+        fired = fault_points.fired("scheduler.step", F_SCOPE)
+        fault_points.clear()
+        check_round("(c)", got, errors, dropped,
+                    {str(i): HEAL_BUDGET for i in range(len(heal))})
+        restarts = _sample(_metrics_families(core.metrics_text()),
+                           "tpu_scheduler_restarts_total",
+                           model="llama_generate")
+        log("grpc (c): scheduler.step raised {} time(s); restarts {} -> {}; "
+            "8/8 streams completed, gap-free, in {:.3f} s".format(
+                fired, restarts0, restarts, wall))
+        if fired != 1 or restarts != restarts0 + 1 or \
+                not model.scheduler_stats()["healthy"]:
+            fail("grpc (c): fired {}, restarts {} -> {}".format(
+                fired, restarts0, restarts))
+
+        # (d) CoDel on a second model over the same weights: 24 requests
+        # on one stream, 50 ms apart, over 8 slots
+        codel = serving(CODEL_SCOPE, target_queue_ms=50,
+                        shed_interval_ms=100)
+        codel_channel, codel_calls = _grpc_calls(codel[3].url)
+        try:
+            burst = [_grpc_request(np, prompts[i % 12], 16, str(i),
+                                   {"generation_id": "f4d-{}".format(i)})
+                     for i in range(24)]
+            got, errors, dropped, wall = _grpc_round(np, codel_calls, burst)
+        finally:
+            codel_channel.close()
+        sheds = {rid: resp for rid, resp in errors.items()
+                 if resp.infer_response.parameters[
+                     "grpc_status"].string_param == "RESOURCE_EXHAUSTED"}
+        retry = sorted({int(r.infer_response.parameters[
+            "retry-after"].int64_param) for r in sheds.values()})
+        counted = _sample(_metrics_families(codel[1].metrics_text()),
+                          "tpu_scheduler_codel_sheds_total",
+                          model="llama_generate")
+        completed = [rid for rid, v in got.items()
+                     if rid not in errors and len(v) == 16]
+        log("grpc (d): 24 requests over 8 slots, 50 ms apart: {} shed "
+            "in-band as RESOURCE_EXHAUSTED with retry-after {} (the "
+            "control interval is at most 100 ms: max(1, ceil) = 1); "
+            "tpu_scheduler_codel_sheds_total {}; {} completed; {:.3f} "
+            "s".format(len(sheds), retry, counted, len(completed), wall))
+        if not sheds or retry != [1] or counted != len(sheds) or \
+                len(sheds) != len(errors) or dropped is not None or \
+                len(completed) + len(sheds) != 24 or [
+                    s for _, s in got[completed[0]]] != list(range(16)):
+            fail("grpc (d): sheds {}, retry-after {}, counter {}, errors "
+                 "{}, completed {}".format(len(sheds), retry, counted,
+                                           len(errors), len(completed)))
+
+        # (e) the metrics plane over both transports
+        over_grpc = calls["ServerMetrics"](pb.ServerMetadataRequest(),
+                                           timeout=60).settings[
+            "metrics"].string_param
+        conn = http.client.HTTPConnection("127.0.0.1", http_srv.port,
+                                          timeout=60)
+        conn.request("GET", "/metrics")
+        over_http = conn.getresponse().read().decode("utf-8")
+        conn.close()
+        fams_grpc = _metrics_families(over_grpc)
+        fams_http = _metrics_families(over_http)
+        counters = sorted(n for n, f in fams_grpc.items()
+                          if f["type"] == "counter")
+        differ = [n for n in counters
+                  if fams_grpc[n]["samples"] != fams_http.get(n, {}).get(
+                      "samples")]
+        stats = model.scheduler_stats()
+        checks = {
+            "tpu_scheduler_admissions_total": stats["admitted"],
+            "tpu_scheduler_tokens_total": stats["tokens"],
+            "tpu_prefix_cache_hits_total": stats["prefix_hits"],
+            "tpu_prefix_cache_misses_total": stats["prefix_misses"],
+            "tpu_prefix_cache_evictions_total": stats["prefix_evictions"],
+        }
+        read = {n: _sample(fams_grpc, n, model="llama_generate")
+                for n in checks}
+        step_count = _sample(fams_grpc, "tpu_scheduler_step_seconds",
+                             "tpu_scheduler_step_seconds_count",
+                             model="llama_generate")
+        nv = _metrics_families(over_grpc, "nv_gpu_memory_used_bytes")
+        free, total_mem = torch.cuda.mem_get_info()
+        nv_used = _sample(nv, "nv_gpu_memory_used_bytes", gpu="0")
+        log("grpc (e): {} tpu_* counter families; ServerMetrics and GET "
+            "/metrics differ on {}; counters {} against scheduler_stats() "
+            "{}; step histogram count {} against {} batched steps; "
+            "nv_gpu_memory_used_bytes {} beside torch.cuda.mem_get_info "
+            "used {} (total {})".format(
+                len(counters), differ, json.dumps(read), json.dumps(checks),
+                step_count, stats["steps"], int(nv_used), total_mem - free,
+                total_mem))
+        if differ or read != checks or step_count != stats["steps"]:
+            fail("grpc (e): differing families {}, counters {} vs {}, step "
+                 "count {} vs {}".format(differ, read, checks, step_count,
+                                         stats["steps"]))
+        codes = []
+        for method, request in (
+                ("ModelMetadata", pb.ModelMetadataRequest(name="nope")),
+                ("RepositoryIndex", pb.RepositoryIndexRequest())):
+            try:
+                calls[method](request, timeout=60)
+                codes.append(None)
+            except grpc.RpcError as e:
+                codes.append(e.code().name)
+        log("grpc (e): unknown model -> {}, RepositoryIndex -> {}".format(
+            *codes))
+        if codes != ["NOT_FOUND", "UNIMPLEMENTED"]:
+            fail("grpc (e): codes {}".format(codes))
+    finally:
+        fault_points.clear()
+        channel.close()
+        for server in ([codel] if codel else []) + [
+                (model, core, http_srv, grpc_srv)]:
+            server[3].stop()
+            server[2].stop()
+            server[1].close()
+    return launches
+
+
 # -- phase 5: model check ----------------------------------------------------
 
 
@@ -1844,6 +2253,8 @@ def main():
         return child_region(np)
     if sys.argv[1:] == ["--child-server"]:
         return child_server(torch)
+    log("installs: grpcio {grpcio}, protobuf {protobuf}".format(
+        **_install_versions()))
     name, smi = phase_device(torch)
     log("nvidia-smi:", smi)
     phase_build()
@@ -1860,6 +2271,8 @@ def main():
     heal_launches = phase_heal(torch, np, cfg, params, readmits)
     shm_launches = phase_shm(torch, np, cfg, params, b_prompts, b_budgets,
                              b_tokens)
+    grpc_launches = phase_grpc(torch, np, cfg, params, b_prompts, b_budgets,
+                               b_tokens, readmits)
     phase_flash_lengths(torch, rows, readmits)
     phase_model_check(torch, model, prompt)
     phase_profile(torch, model, prompt, batched_steps)
@@ -1872,7 +2285,7 @@ def main():
     # serve (phase 4c b), the re-admissions of phase 4c's fault rounds
     # and resumes (c, d; flash timed at the 640-token re-admission), and
     # phase 4e's paths: the shm plane (a, b), the attach resumes (c) and
-    # the decode leg on server B (d)
+    # the decode leg on server B (d); and phase 4f (a), the gRPC stream
     decode_src = "src/python/tpuserver_torch/csrc/decode_attention.cu"
     flash_src = "src/python/tpuserver_torch/csrc/flash_attention.cu"
     decode_tpu = "src/python/tpuserver/ops/flash.py:263"
@@ -1899,7 +2312,11 @@ def main():
             ("decode_attention", decode_src, decode_tpu, "kv_attach",
              "decode_attention_batched", shm_launches["kv_attach"]),
             ("decode_attention", decode_src, decode_tpu, "kv_handoff",
-             "decode_attention_batched", shm_launches["kv_handoff"])):
+             "decode_attention_batched", shm_launches["kv_handoff"]),
+            ("flash_attention", flash_src, flash_tpu, "serve_grpc",
+             "flash_attention", grpc_launches),
+            ("decode_attention", decode_src, decode_tpu, "serve_grpc",
+             "decode_attention_batched", grpc_launches)):
         row = rows["timed"][timed_as]
         kernels.append({
             "name": kname, "route": "cuda", "source": src,

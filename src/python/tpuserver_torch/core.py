@@ -1,9 +1,20 @@
 """The port's serving core: model registry, readiness, metadata,
-decoupled (streaming) execution and the shared-memory data plane — a
-slim copy of ``tpuserver/core.py``'s ``TensorSpec``, ``InferRequest``,
-``InferResponse``, ``Model`` and the ``InferenceServer`` verbs the
-generation path uses.  Transport-agnostic: ``tpuserver_torch.http_server``
-speaks HTTP on top of it.
+decoupled (streaming) execution, statistics and metrics, and the
+shared-memory data plane — a slim copy of ``tpuserver/core.py``'s
+``TensorSpec``, ``InferRequest``, ``InferResponse``, ``Model`` and the
+``InferenceServer`` verbs the generation path uses.  Transport-agnostic:
+``tpuserver_torch.http_server`` speaks HTTP and
+``tpuserver_torch.grpc_server`` gRPC on top of it.
+
+Metrics: ``metrics`` is the server's ``tpuserver_torch.metrics``
+registry: request counts, latency histograms and typed-error counts per
+verb, owned here, and scrape-time collectors over each model's
+``scheduler_stats()`` and the data plane's :meth:`InferenceServer.
+shm_stats`, which stay the one account of their events.
+:meth:`InferenceServer.metrics_text` is the exposition both front ends
+serve (``GET /metrics``, the gRPC ``ServerMetrics`` unary).  A server
+built with ``fault_scope`` trips its fault points
+(``tpuserver_torch.fault_points``) in that scope.
 
 Shared memory: system (POSIX) regions, and CUDA regions backed by CUDA
 IPC (``tpuserver_torch.cuda_shared_memory``) in the role the JAX core
@@ -26,7 +37,7 @@ import numpy as np
 import torch
 
 from tpuserver_torch import cuda_shared_memory as csm
-from tpuserver_torch import shm_ring
+from tpuserver_torch import fault_points, shm_ring
 from tpuserver_torch.errors import (
     BadRequest,
     KvExportClaimed,
@@ -37,6 +48,7 @@ from tpuserver_torch.errors import (
     ServerUnavailable,
     TorchServeError,
 )
+from tpuserver_torch.metrics import MetricsRegistry
 
 SERVER_NAME = "tpuserver-torch"
 SERVER_VERSION = "0.1.0"
@@ -171,6 +183,76 @@ class Model:
         """Release what the model holds (optional)."""
 
 
+def wall_clock_ms():
+    """Epoch milliseconds, for the statistics protocol's
+    ``last_inference`` field only: every deadline, timeout and liveness
+    stamp in the port is ``time.monotonic()`` math."""
+    return int(time.time() * 1000)  # tpulint: disable=R3
+
+
+class _ModelStats:
+    """A model's inference statistics (the KServe statistics extension),
+    recorded by the streaming verb: one execution per completed
+    generation, one failure per generation that raised."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.inference_count = 0     # guarded-by: lock
+        self.execution_count = 0     # guarded-by: lock
+        self.last_inference_ms = 0   # guarded-by: lock
+        self.success_count = 0       # guarded-by: lock
+        self.success_ns = 0          # guarded-by: lock
+        self.fail_count = 0          # guarded-by: lock
+        self.fail_ns = 0             # guarded-by: lock
+        self.queue_ns = 0            # guarded-by: lock
+        self.compute_input_ns = 0    # guarded-by: lock
+        self.compute_infer_ns = 0    # guarded-by: lock
+        self.compute_output_ns = 0   # guarded-by: lock
+
+    def record(self, batch, queue_ns, ci_ns, cf_ns, co_ns, ok=True):
+        with self.lock:
+            if ok:
+                self.inference_count += batch
+                self.execution_count += 1
+                self.last_inference_ms = wall_clock_ms()
+                self.success_count += 1
+                self.success_ns += queue_ns + ci_ns + cf_ns + co_ns
+                self.queue_ns += queue_ns
+                self.compute_input_ns += ci_ns
+                self.compute_infer_ns += cf_ns
+                self.compute_output_ns += co_ns
+            else:
+                self.fail_count += 1
+                self.fail_ns += queue_ns + ci_ns + cf_ns + co_ns
+
+    def as_dict(self, name, version):
+        with self.lock:
+            def sd(count, ns):
+                return {"count": count, "ns": ns}
+
+            return {
+                "name": name,
+                "version": version,
+                "last_inference": self.last_inference_ms,
+                "inference_count": self.inference_count,
+                "execution_count": self.execution_count,
+                "inference_stats": {
+                    "success": sd(self.success_count, self.success_ns),
+                    "fail": sd(self.fail_count, self.fail_ns),
+                    "queue": sd(self.success_count, self.queue_ns),
+                    "compute_input": sd(self.success_count,
+                                        self.compute_input_ns),
+                    "compute_infer": sd(self.success_count,
+                                        self.compute_infer_ns),
+                    "compute_output": sd(self.success_count,
+                                         self.compute_output_ns),
+                    "cache_hit": sd(0, 0),
+                    "cache_miss": sd(0, 0),
+                },
+                "batch_stats": [],
+            }
+
+
 class _SystemShmRegion:
     """A registered POSIX shared-memory region, mapped into this
     process."""
@@ -263,11 +345,19 @@ class InferenceServer:
     #: little-endian, back to back
     SHM_RING_SLOT_BYTES = 8
 
-    def __init__(self, models=None):
+    def __init__(self, models=None, fault_scope=None):
+        # this server's scope at the fault points (per-server chaos in a
+        # process that hosts several)
+        self.fault_scope = fault_scope
         self._models = {}  # name -> Model
         self._ready = {}  # name -> bool
+        self._stats = {}  # name -> _ModelStats
         self._lock = threading.Lock()
         self._closed = False  # guarded-by: _lock
+        # started front ends (attach_frontend)  # guarded-by: _lock
+        self._frontends = 0
+        # requests executing in the core  # guarded-by: _lock
+        self._inflight = 0
         # registered regions by name  # guarded-by: _shm_lock
         self._system_shm = {}
         self._cuda_shm = {}  # guarded-by: _shm_lock
@@ -288,6 +378,23 @@ class InferenceServer:
             "kv_exports_made", "kv_exports_attached",
             "kv_exports_dropped"), 0)
         self._shm_lock = threading.Lock()
+        # the telemetry plane: owned per-verb instruments, plus
+        # scrape-time collectors over the scheduler's and the data
+        # plane's counters.  Verb children are bound once, so a request
+        # costs two adds, never a family-lock lookup
+        self.metrics = MetricsRegistry()
+        requests_family = self.metrics.counter(
+            "tpu_requests_total", labelnames=("verb",))
+        seconds_family = self.metrics.histogram(
+            "tpu_request_seconds", labelnames=("verb",))
+        self._metric_errors = self.metrics.counter(
+            "tpu_request_errors_total", labelnames=("verb", "code"))
+        self._m_infer_count = requests_family.labels(verb="infer")
+        self._m_infer_hist = seconds_family.labels(verb="infer")
+        self._m_stream_count = requests_family.labels(verb="stream_infer")
+        self._m_stream_hist = seconds_family.labels(verb="stream_infer")
+        self.metrics.register_collector(self._collect_metrics)
+        self.metrics.register_collector(self._collect_shm_ring)
         for m in models or []:
             self.register_model(m)
 
@@ -295,6 +402,7 @@ class InferenceServer:
         with self._lock:
             self._models[model.name] = model
             self._ready[model.name] = ready
+            self._stats.setdefault(model.name, _ModelStats())
         attach = getattr(model, "attach_server", None)
         if attach is not None:
             attach(self)
@@ -314,6 +422,175 @@ class InferenceServer:
         if closed or not ready:
             raise ServerUnavailable("Model '{}' is not ready".format(name))
         return model
+
+    def requires_stream_order(self, name, version=""):
+        """Whether stream requests to this model run in arrival order:
+        a decoupled model's response bursts are contractual, unless it
+        is ``concurrent_decoupled`` (the continuous-batching scheduler),
+        whose generations run interleaved, each response carrying its
+        request id."""
+        model = self._get_model(name, version)
+        if model.decoupled:
+            return not getattr(model, "concurrent_decoupled", False)
+        return False
+
+    def is_concurrent_decoupled(self, name, version=""):
+        """Whether this model runs decoupled requests interleaved.  Such
+        requests limit themselves through the model's slots, so a stream
+        front end must not cap them with its own in-flight bound."""
+        with self._lock:
+            model = self._models.get(name)
+        return bool(model is not None and model.decoupled
+                    and getattr(model, "concurrent_decoupled", False))
+
+    def attach_frontend(self):
+        """Front ends register when they start, and a server closed by
+        its last detach opens again."""
+        with self._lock:
+            self._frontends += 1
+            self._closed = False
+
+    def detach_frontend(self):
+        """The last detach closes the core to new requests (the port's
+        core runs no background workers of its own to stop; each
+        model's scheduler stops with :meth:`close`)."""
+        with self._lock:
+            self._frontends = max(0, self._frontends - 1)
+            if self._frontends == 0:
+                self._closed = True
+
+    def model_statistics(self, name="", version=""):
+        """The KServe statistics of every model (``name=""``) or of one;
+        an unknown name is a typed 404."""
+        with self._lock:
+            items = sorted((n, m, self._stats[n])
+                           for n, m in self._models.items()
+                           if not name or n == name)
+        if name and not items:
+            raise ModelNotFound(
+                "Request for unknown model: '{}' is not found".format(name))
+        return {"model_stats": [st.as_dict(n, m.version)
+                                for n, m, st in items]}
+
+    # -- metrics -------------------------------------------------------------
+
+    def _count_error(self, verb, code):
+        self._metric_errors.labels(verb=verb, code=str(code)).inc()
+
+    def _collect_metrics(self):
+        """Scrape-time collector: the in-flight gauge, the region counts,
+        the data plane's ``shm_stats()`` and every scheduler-backed
+        model's ``scheduler_stats()``: one source of truth each, no
+        second account."""
+        with self._lock:
+            inflight = self._inflight
+            items = list(self._models.items())
+        with self._shm_lock:
+            regions = [({"kind": "system"}, len(self._system_shm)),
+                       ({"kind": "cuda"}, len(self._cuda_shm)),
+                       ({"kind": "xla"}, 0)]
+        shm = self.shm_stats()
+        families = [("tpu_inflight_requests", [({}, inflight)]),
+                    ("tpu_shm_regions", regions)]
+        for fam_name, key in (
+                ("tpu_shm_bytes_read_total", "shm_bytes_read"),
+                ("tpu_shm_bytes_written_total", "shm_bytes_written"),
+                ("tpu_shm_zero_copy_reads_total", "shm_zero_copy_reads"),
+                ("tpu_kv_exports_made_total", "kv_exports_made"),
+                ("tpu_kv_exports_attached_total", "kv_exports_attached"),
+                ("tpu_kv_exports_dropped_total", "kv_exports_dropped")):
+            families.append((fam_name, [({}, shm[key])]))
+        per_family = {
+            "tpu_scheduler_admissions_total": "admitted",
+            "tpu_scheduler_tokens_total": "tokens",
+            "tpu_scheduler_restarts_total": "restarts",
+            "tpu_scheduler_quarantined_total": "quarantined",
+            "tpu_scheduler_replay_hits_total": "replay_hits",
+            "tpu_scheduler_live_streams": "live_streams",
+            "tpu_scheduler_pending": "pending",
+            "tpu_scheduler_codel_sheds_total": "codel_sheds",
+            "tpu_scheduler_codel_shedding": "codel_shedding",
+            "tpu_scheduler_attach_admissions_total": "attach_admissions",
+            "tpu_prefix_cache_hits_total": "prefix_hits",
+            "tpu_prefix_cache_misses_total": "prefix_misses",
+            "tpu_prefix_cache_evictions_total": "prefix_evictions",
+            "tpu_kv_pages_total": "pages_total",
+            "tpu_kv_pages_free": "pages_free",
+            "tpu_kv_pages_cached": "pages_cached",
+            "tpu_spec_tokens_proposed_total": "spec_proposed",
+            "tpu_spec_tokens_accepted_total": "spec_accepted",
+            "tpu_spec_rollbacks_total": "spec_rollbacks",
+            "tpu_spec_steps_total": "spec_steps",
+            "tpu_spec_accept_per_step": "spec_accept_per_step",
+        }
+        # the one family that is a mean, not a count or a 0/1 flag
+        float_families = {"tpu_spec_accept_per_step"}
+        samples = {name: [] for name in per_family}
+        for model_name, model in items:
+            stats_fn = getattr(model, "scheduler_stats", None)
+            stats = stats_fn() if callable(stats_fn) else None
+            if not isinstance(stats, dict):
+                continue
+            for fam_name, key in per_family.items():
+                val = stats.get(key) or 0
+                samples[fam_name].append(
+                    ({"model": model_name},
+                     float(val) if fam_name in float_families
+                     else int(val)))
+        families.extend(
+            (name, rows) for name, rows in samples.items() if rows)
+        return families
+
+    @staticmethod
+    def _collect_shm_ring():
+        """The process-wide count of torn token-ring reads
+        (``tpuserver_torch.shm_ring``): readers are client code with no
+        server handle, so the module counter is the one account."""
+        return [("tpu_shm_ring_torn_total", [({}, shm_ring.torn_total())])]
+
+    def metrics_text(self):
+        """The full ``/metrics`` exposition: the ``nv_*`` compatibility
+        gauges that the reference server publishes and perf_analyzer
+        ``--collect-metrics`` scrapes, then the ``tpu_*`` registry.  One
+        snapshot for both transports."""
+        lines = []
+        try:
+            # current RSS (/proc is authoritative on Linux)
+            with open("/proc/self/statm") as f:
+                rss_bytes = int(f.read().split()[1]) * os.sysconf(
+                    "SC_PAGE_SIZE")
+            lines.append(
+                "# HELP nv_cpu_memory_used_bytes Server RSS.\n"
+                "# TYPE nv_cpu_memory_used_bytes gauge\n"
+                "nv_cpu_memory_used_bytes {}".format(rss_bytes))
+        except (OSError, ValueError, IndexError):
+            pass
+        if torch.cuda.is_available():
+            # the card's used bytes (total - free, as CUDA reports them):
+            # CUDA-shm regions are cudaMalloc memory outside torch's
+            # allocator, so this counts them, and KV exports, where
+            # torch.cuda.memory_allocated would not
+            for i in range(torch.cuda.device_count()):
+                free, total = torch.cuda.mem_get_info(i)
+                used = total - free
+                label = '{{gpu="{}"}}'.format(i)
+                lines.append("nv_gpu_memory_used_bytes{} {}".format(
+                    label, used))
+                lines.append("nv_gpu_memory_total_bytes{} {}".format(
+                    label, total))
+                if total:
+                    # a memory fraction, not a compute duty cycle (which
+                    # nv_gpu_utilization would mean)
+                    lines.append("nv_gpu_memory_utilization{} {}".format(
+                        label, used / total))
+        for stat in self.model_statistics()["model_stats"]:
+            label = '{{model="{}"}}'.format(stat["name"])
+            lines.append("nv_inference_count{} {}".format(
+                label, stat["inference_count"]))
+            lines.append("nv_inference_exec_count{} {}".format(
+                label, stat["execution_count"]))
+        return ("\n".join(lines) + "\n" if lines else "") \
+            + self.metrics.render()
 
     @staticmethod
     def _model_healthy(model):
@@ -696,6 +973,8 @@ class InferenceServer:
         """An input tensor from a registered region.  From a CUDA region
         it is a view of the region's memory, with no host copy; from a
         system region, a numpy array."""
+        # the shm-read failure point (scoped: one server of several)
+        fault_points.trip("core.shm_read", self.fault_scope)
         region = self._shm_region(region_name)
         np_dtype = wire_to_np_dtype(datatype)
         shape = [int(s) for s in shape]
@@ -760,16 +1039,21 @@ class InferenceServer:
 
     @staticmethod
     def _resolve_deadline(request):
-        """The request's ``timeout`` parameter (microseconds) as a
-        ``time.monotonic()`` deadline on ``request.deadline``."""
+        """One monotonic deadline per request on ``request.deadline``:
+        the ``timeout`` parameter (microseconds) and any transport
+        deadline a front end stamped there (the gRPC context's), the
+        sooner winning."""
         t = request.parameters.get("timeout")
         if t:
             try:
-                request.deadline = time.monotonic() + int(t) / 1e6
+                deadline = time.monotonic() + int(t) / 1e6
             except (TypeError, ValueError):
                 raise BadRequest(
                     "request parameter 'timeout' must be an integer "
                     "microsecond count (got {!r})".format(t))
+            if request.deadline is not None:
+                deadline = min(deadline, request.deadline)
+            request.deadline = deadline
 
     @staticmethod
     def _check_deadline(deadline, when):
@@ -777,20 +1061,76 @@ class InferenceServer:
             raise RequestTimedOut(
                 "request deadline expired {} execution".format(when))
 
+    def _enter_inflight(self):
+        with self._lock:
+            self._inflight += 1
+
+    def _exit_inflight(self):
+        with self._lock:
+            self._inflight -= 1
+
+    def infer(self, request):
+        """The unary verb.  A decoupled model answers JAX's typed 400 (it
+        is served over the streaming endpoint only); the port's core
+        serves decoupled models only, so any other is a typed 501."""
+        t0 = time.monotonic()
+        self._m_infer_count.inc()
+        try:
+            self._resolve_deadline(request)
+            self._check_deadline(request.deadline, "before")
+            model = self._get_model(request.model_name,
+                                    request.model_version)
+            if model.decoupled:
+                raise BadRequest(
+                    "model '{}' is a decoupled model: it can only be served "
+                    "over the streaming endpoint".format(model.name))
+            raise TorchServeError(
+                "model '{}': unary inference is not served by this "
+                "server yet".format(model.name), code=501)
+        except TorchServeError as e:
+            self._count_error("infer", e.code)
+            raise
+        finally:
+            self._m_infer_hist.observe(time.monotonic() - t0)
+
     def infer_stream(self, request):
         """Execute a decoupled request; yields one InferResponse per
         response the model produces.  Failures inside the model surface
         as TorchServeError (a typed one, such as the scheduler's 429 shed
         or 503 shutdown, passes through, ValueError is a 400, anything
         else a 500).  A response produced past the request's
-        deadline ends the stream with a 504."""
+        deadline ends the stream with a 504.  With the
+        ``triton_enable_empty_final_response`` request parameter every
+        response is marked ``triton_final_response`` False and an empty
+        one marked True ends the stream.  Counted per verb in
+        :attr:`metrics` (typed errors by code; the latency covers the
+        whole generation), and in the model's statistics."""
+        t0 = time.monotonic()
+        self._m_stream_count.inc()
+        try:
+            self._enter_inflight()
+            try:
+                yield from self._infer_stream_inner(request)
+            finally:
+                self._exit_inflight()
+        except TorchServeError as e:
+            self._count_error("stream_infer", e.code)
+            raise
+        finally:
+            self._m_stream_hist.observe(time.monotonic() - t0)
+
+    def _infer_stream_inner(self, request):
         model = self._get_model(request.model_name, request.model_version)
         if not model.decoupled:
             raise BadRequest(
                 "model '{}' is not a decoupled model".format(model.name))
         self._resolve_deadline(request)
         self._check_deadline(request.deadline, "before")
+        want_final = bool(
+            request.parameters.get("triton_enable_empty_final_response"))
         declared = {t.name: t for t in model.outputs}
+        stats = self._stats[model.name]
+        t0 = time.monotonic_ns()
         try:
             for out in model.execute_stream(dict(request.inputs), request):
                 # a token produced past the deadline belongs to a request
@@ -808,16 +1148,25 @@ class InferenceServer:
                                 else _WIRE_DTYPES[array.dtype])
                     outputs.append(({"name": name, "datatype": datatype,
                                      "shape": list(array.shape)}, array))
+                if want_final:
+                    params = dict(params or {}, triton_final_response=False)
                 yield InferResponse(model.name, model.version, request.id,
                                     outputs, params)
         except TorchServeError:
+            stats.record(0, 0, 0, 0, 0, ok=False)
             raise
         except ValueError as e:
+            stats.record(0, 0, 0, 0, 0, ok=False)
             raise BadRequest("model '{}': {}".format(model.name, e))
         except Exception as e:
+            stats.record(0, 0, 0, 0, 0, ok=False)
             raise TorchServeError(
                 "inference failed for model '{}': {}".format(model.name, e),
                 code=500)
+        stats.record(1, 0, 0, time.monotonic_ns() - t0, 0)
+        if want_final:
+            yield InferResponse(model.name, model.version, request.id, [],
+                                {"triton_final_response": True})
 
     def close(self):
         """Stop serving, let every model release what it holds, and drop

@@ -5,7 +5,9 @@ generate endpoints over ``http.server.ThreadingHTTPServer`` (the port of
 Routes::
 
     GET  /v2/health/live | /v2/health/ready
-    GET  /v2/models/<m>[/versions/<v>] | .../config | .../ready
+    GET  /metrics
+    GET  /v2/models/stats
+    GET  /v2/models/<m>[/versions/<v>] | .../config | .../ready | .../stats
     POST /v2/models/<m>[/versions/<v>]/generate
     POST /v2/models/<m>[/versions/<v>]/generate_stream
     GET|POST /v2/{systemsharedmemory,cudasharedmemory,xlasharedmemory}
@@ -38,6 +40,12 @@ format; a system region with ``{"key": "/name", "offset": 0,
 "byte_size": N}``.  ``/v2/kvexport/<generation_id>`` hands out a KV
 export's one-shot descriptor (404 when there is none, 409 on a second
 fetch); ``.../release`` drops the export.
+
+``/metrics`` serves the core's Prometheus exposition
+(``InferenceServer.metrics_text``, the bytes the gRPC ``ServerMetrics``
+unary carries).  The ``http.generate_stream`` fault point trips before
+each SSE event write: ``raise`` severs the connection mid-stream, with
+no terminal chunk, which drives a client's ``Last-Event-ID`` resume.
 """
 
 import json
@@ -48,6 +56,7 @@ from urllib.parse import unquote
 
 import numpy as np
 
+from tpuserver_torch import fault_points
 from tpuserver_torch.core import InferRequest, wire_to_np_dtype
 from tpuserver_torch.errors import BadRequest, ModelNotFound, TorchServeError
 
@@ -163,6 +172,11 @@ class _Handler(BaseHTTPRequestHandler):
             return self._send(200 if core.server_ready() else 503)
         if path in ("/v2", "/v2/"):
             return self._send_json(core.server_metadata())
+        if path == "/metrics":
+            return self._send(200, core.metrics_text().encode("utf-8"),
+                              content_type="text/plain; version=0.0.4")
+        if path == "/v2/models/stats":
+            return self._send_json(core.model_statistics())
         m = _KVEXPORT_URI.match(path)
         if m:
             gen_id = unquote(m.group("gen"))
@@ -191,6 +205,8 @@ class _Handler(BaseHTTPRequestHandler):
                 return self._send_json(core.model_metadata(model, version))
             if rest == "/config" and method == "GET":
                 return self._send_json(core.model_config(model, version))
+            if rest == "/stats" and method == "GET":
+                return self._send_json(core.model_statistics(model, version))
             if rest in ("/generate", "/generate_stream") and method == "POST":
                 return self._generate(model, version,
                                       stream=rest == "/generate_stream")
@@ -305,15 +321,25 @@ class _Handler(BaseHTTPRequestHandler):
                     started = True
                 payload = _response_json(resp)
                 event = b""
-                if resp.parameters:
-                    payload["parameters"] = resp.parameters
-                    gen_id = resp.parameters.get("generation_id")
-                    seq = resp.parameters.get("seq")
+                wire = {k: v for k, v in resp.parameters.items()
+                        if not k.startswith("triton_")}
+                if wire:
+                    payload["parameters"] = wire
+                    gen_id = wire.get("generation_id")
+                    seq = wire.get("seq")
                     if gen_id is not None and seq is not None:
                         event = "id: {}/{}\n".format(gen_id, seq).encode(
                             "utf-8")
+                # the mid-stream disconnect point: skip=N drops the
+                # connection after the Nth event
+                fault_points.trip("http.generate_stream", core.fault_scope)
                 self._chunk(event + b"data: " + json.dumps(payload).encode(
                     "utf-8") + b"\n\n")
+        except fault_points.FaultInjected:
+            try:
+                self.connection.close()
+            finally:
+                raise BrokenPipeError("injected mid-stream disconnect")
         except TorchServeError as e:
             if not started:
                 raise
@@ -356,6 +382,7 @@ class HttpServer:
             target=self._httpd.serve_forever, kwargs={"poll_interval": 0.05},
             name="tpuserver-torch-http", daemon=True)
         self._thread.start()
+        self._core.attach_frontend()
         return self
 
     def stop(self):
@@ -364,3 +391,4 @@ class HttpServer:
         if self._thread is not None:
             self._thread.join(timeout=5)
             self._thread = None
+            self._core.detach_frontend()

@@ -17,7 +17,13 @@ One request carries the prompt ids and streams one response per token.
   hung decode loop.  Each response carries its ``generation_id`` and
   0-based ``seq`` as response parameters, and a request with
   ``resume_generation_id`` (and ``resume_from_seq``, the first ``seq``
-  not yet seen) continues a parked generation.
+  not yet seen) continues a parked generation.  The model is then
+  ``concurrent_decoupled``: a gRPC stream runs its requests side by
+  side.  ``target_queue_ms``/``shed_interval_ms`` turn on the
+  scheduler's sojourn-time shedding, ``fault_scope`` names it at the
+  fault points, and the scheduler's latency histograms go into the
+  attached server's ``metrics`` registry (register the model before
+  ``warmup`` builds the scheduler).
 
 The shared-memory data plane (the server attaches itself when the model
 is registered):
@@ -87,7 +93,8 @@ class LlamaGenerateModel(Model):
     def __init__(self, cfg=None, max_seq=512, decode_chunk=None,
                  max_slots=1, params=None, seed=0, device=None,
                  page_size=16, kv_pages=None, spec_tokens=0,
-                 step_timeout_s=None, kv_export=False):
+                 step_timeout_s=None, kv_export=False, target_queue_ms=None,
+                 shed_interval_ms=100.0, fault_scope=None):
         """``params``: weights to serve (a params dict of tensors, e.g.
         from ``llama.params_from_jax``, or another model's, which is then
         shared, not copied), moved to ``device``; None draws random ones
@@ -99,13 +106,18 @@ class LlamaGenerateModel(Model):
         ``max_slots`` full-length sequences), ``spec_tokens`` its drafted
         tokens per step and ``step_timeout_s`` its watchdog (see
         ``DecodeScheduler``).  ``kv_export`` is the default of the
-        ``kv_park`` request parameter."""
+        ``kv_park`` request parameter.  ``target_queue_ms`` (None: off)
+        and ``shed_interval_ms`` set the scheduler's adaptive shedding,
+        ``fault_scope`` its scope at the fault points."""
         self._device = resolve_device(device)
         self.device_kind = "gpu" if self._device.type == "cuda" else "cpu"
         if max_slots < 1:
             raise ValueError("max_slots must be >= 1 (got {})".format(
                 max_slots))
         self._max_slots = int(max_slots)
+        # the scheduler runs concurrent generations: a gRPC stream runs
+        # its requests to this model side by side, not in order
+        self.concurrent_decoupled = self._max_slots > 1
         self._cfg = cfg or llama.tiny(vocab=2048)
         self._max_seq = int(max_seq)
         self._seed = seed
@@ -126,6 +138,9 @@ class LlamaGenerateModel(Model):
         self._spec_tokens = spec_tokens
         self._step_timeout_s = step_timeout_s
         self._kv_export = bool(kv_export)
+        self._target_queue_ms = target_queue_ms
+        self._shed_interval_ms = shed_interval_ms
+        self._fault_scope = fault_scope
         self._scheduler = None
         # the InferenceServer whose shared-memory regions and KV exports
         # requests reference (attach_server)
@@ -154,7 +169,14 @@ class LlamaGenerateModel(Model):
                     self._max_seq, spec_tokens=self._spec_tokens,
                     step_timeout_s=self._step_timeout_s,
                     kv_export=self._export_kv, kv_import=self._import_kv,
-                    kv_discard=self._discard_kv)
+                    kv_discard=self._discard_kv,
+                    target_queue_ms=self._target_queue_ms,
+                    shed_interval_ms=self._shed_interval_ms,
+                    fault_scope=self._fault_scope,
+                    # the queue-wait and step histograms land in the
+                    # attached server's /metrics registry
+                    metrics=getattr(self._server, "metrics", None),
+                    metric_labels={"model": self.name})
             return self._scheduler
 
     # the scheduler's KV hooks, resolved against the server attached when

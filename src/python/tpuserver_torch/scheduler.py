@@ -80,22 +80,39 @@ Self-healing:
   are gathered and exported when it is reaped, and its resume attaches
   the export instead of prefilling ``prompt + history``.
 
-Left out of this port (``ROADMAP.md`` queue A): the CoDel admission
-controller; latency histograms and fault-injection points.  JAX's
-``TPUSERVER_SPEC_TOKENS`` environment default is not read:
+Observability and chaos:
+
+- **Adaptive admission shedding** (``target_queue_ms``): the CoDel
+  control law over the pending queue (:class:`_CodelShedController`).
+  Once the head of the queue has waited longer than the target for a
+  whole control interval, ``submit`` sheds one arrival per (shrinking)
+  interval with a typed 429 whose ``Retry-After`` is the interval,
+  rounded up; ``max_pending`` stays the hard backstop.
+- **Latency histograms** (``metrics``): the queue wait of each admission
+  and the dispatch time of each batched step, as ``single_writer``
+  children of ``tpuserver_torch.metrics`` families.  The decode loop is
+  their only writer, so it observes without a lock.
+- **Fault points** (``fault_scope``): ``scheduler.admit`` before each
+  admission, ``scheduler.step`` before each step dispatch (plain or
+  speculative, through one helper) and ``scheduler.fetch`` before the
+  device-to-host token copy, each tripped through
+  ``tpuserver_torch.fault_points`` with this scheduler's scope.
+
+JAX's ``TPUSERVER_SPEC_TOKENS`` environment default is not read:
 ``spec_tokens`` is an argument.
 
 Where the JAX scheduler raises its own ``SchedulerClosed``,
 ``AdmissionQueueFull`` and ``UnknownGeneration``, this one raises the
 typed errors the core passes through: ``ServerUnavailable`` (503) once
-closed, draining or tripped, ``TooManyRequests`` (429, one-second
-``Retry-After``) when the pending queue is full or the KV page pool is
-exhausted, and ``GenerationNotFound`` (404) for a resume id it does not
-hold.
+closed, draining or tripped, ``TooManyRequests`` (429) when the pending
+queue is full or the KV page pool is exhausted (``Retry-After: 1``) or
+the controller sheds (its computed ``Retry-After``), and
+``GenerationNotFound`` (404) for a resume id it does not hold.
 """
 
 import contextlib
 import logging
+import math
 import queue
 import threading
 import time
@@ -104,6 +121,7 @@ from collections import OrderedDict, deque
 import numpy as np
 import torch
 
+from tpuserver_torch import fault_points
 from tpuserver_torch.errors import (
     GenerationNotFound,
     RequestTimedOut,
@@ -121,6 +139,76 @@ _log = logging.getLogger(__name__)
 RESTART_WINDOW_S = 60.0
 #: parked generations the replay buffer holds (the oldest goes first)
 REPLAY_CAPACITY = 256
+
+
+class _CodelShedController:
+    """Sojourn-time admission shedding: the CoDel control law applied to
+    the scheduler's pending queue (Nichols & Jacobson, "Controlling
+    Queue Delay"), in place of a fixed queue-length cliff.
+
+    A long queue is not the problem; a queue that STAYS long is.  The
+    controller watches the admission queue's sojourn (the head stream's
+    wait, which ``tpu_scheduler_queue_wait_seconds`` histograms at
+    admission): once it has exceeded ``target_s`` continuously for a
+    full ``interval_s``, the scheduler sheds the NEWEST arrival with
+    the typed 429 and keeps shedding one arrival per control interval,
+    tightening the interval as ``interval / sqrt(shed_count)`` while
+    overload persists and relaxing the moment sojourn drops back under
+    target.  ``Retry-After`` is the ceiling of the current control
+    interval: the pace the queue is draining at.
+
+    A plain state machine, with no lock of its own: every method runs
+    under the scheduler's ``_cond`` (submit holds it to shed; the decode
+    loop holds it where it notes sojourn), and all time flows in as
+    ``now``, so tests drive it without a clock.  A copy of the JAX
+    package's controller."""
+
+    __slots__ = ("target_s", "interval_s", "above_since", "shedding",
+                 "shed_next", "shed_count")
+
+    def __init__(self, target_s, interval_s):
+        self.target_s = float(target_s)
+        self.interval_s = float(interval_s)
+        self.above_since = None  # first instant sojourn exceeded target
+        self.shedding = False
+        self.shed_next = 0.0     # next shed instant while shedding
+        self.shed_count = 0      # sheds in the current overload episode
+
+    def current_interval(self):
+        return self.interval_s / math.sqrt(max(1, self.shed_count))
+
+    def note_sojourn(self, sojourn_s, now):
+        """One queue-delay observation (the head-of-queue wait: the FIFO
+        maximum, so 'head under target' means the whole queue is).
+        Below target: relax completely; above: start (or keep) the
+        overload clock."""
+        if sojourn_s < self.target_s:
+            self.above_since = None
+            self.shedding = False
+            self.shed_count = 0
+        elif self.above_since is None:
+            self.above_since = now
+
+    def on_arrival(self, now, queue_len):
+        """Shed verdict for one new submit: the ``Retry-After`` seconds
+        to shed with, or None to admit.  Never sheds an empty queue (its
+        sojourn is a stale signal), never before the sojourn has been
+        above target for one full interval, and while shedding drops one
+        arrival per (shrinking) control interval, not every arrival."""
+        if queue_len <= 0 or self.above_since is None:
+            return None
+        if now - self.above_since < self.interval_s:
+            return None
+        if not self.shedding:
+            self.shedding = True
+            self.shed_count = 1
+        elif now >= self.shed_next:
+            self.shed_count += 1
+        else:
+            return None
+        interval = self.current_interval()
+        self.shed_next = now + interval
+        return max(1, int(math.ceil(interval)))
 
 
 class _Stream:
@@ -267,14 +355,23 @@ class DecodeScheduler:
     acceptance skips drafting for ``spec_probe_interval`` steps at a
     time until a draft lands.  (JAX reads its default from the
     ``TPUSERVER_SPEC_TOKENS`` environment variable; here it is only
-    this argument, and ``serve.py --spec-tokens``.)"""
+    this argument, and ``serve.py --spec-tokens``.)
+
+    Shedding: ``target_queue_ms`` (None: off) turns on the sojourn-time
+    controller with a control interval of ``shed_interval_ms``.
+    Observability: ``metrics`` (a ``tpuserver_torch.metrics``
+    registry) gets the queue-wait and step histograms, labelled
+    ``metric_labels``.  Chaos: ``fault_scope`` is this scheduler's
+    scope at its fault points."""
 
     def __init__(self, fns, params, max_slots, max_seq,
                  prefill_chunk_tokens=256, prefix_cache=True,
                  step_timeout_s=None, max_restarts=5, restart_backoff_s=0.05,
                  replay_ttl_s=60.0, spec_tokens=0, spec_throttle_after=16,
                  spec_probe_interval=8, kv_export=None, kv_import=None,
-                 kv_discard=None):
+                 kv_discard=None, target_queue_ms=None,
+                 shed_interval_ms=100.0, metrics=None, metric_labels=None,
+                 fault_scope=None):
         if max_slots < 1:
             raise ValueError(
                 "max_slots must be >= 1 (got {})".format(max_slots))
@@ -287,6 +384,16 @@ class DecodeScheduler:
         # one client enqueue arbitrarily many generations (each also
         # holding a frontend thread)
         self._max_pending = max(32, 8 * max_slots)
+        # adaptive queue shedding (None: off, the fixed cliff only).
+        # Written by submit and by the decode loop, both under _cond
+        # (the loop notes sojourn inside a region that holds it anyway:
+        # no new lock acquisition)  # guarded-by: _cond
+        self._shed_ctl = (
+            _CodelShedController(float(target_queue_ms) / 1e3,
+                                 float(shed_interval_ms) / 1e3)
+            if target_queue_ms else None)
+        self._codel_sheds = 0  # guarded-by: _cond
+        self.fault_scope = fault_scope
         # prompts whose padded prefill exceeds ``prefill_chunk_tokens``
         # prefill in chunks of that many tokens, one chunk per loop
         # iteration (None disables chunking); ``prefix_cache`` enables
@@ -362,6 +469,19 @@ class DecodeScheduler:
         # (allocator, radix) of the running loop, for stats (a restart
         # rebuilds both with the pool)  # guarded-by: _cond
         self._pager = None
+        # the latency histograms: the decode loop is their only writer,
+        # so single_writer children observe without a lock
+        self._queue_hist = None
+        self._step_hist = None
+        if metrics is not None:
+            labels = dict(metric_labels or {})
+            names = tuple(sorted(labels))
+            self._queue_hist = metrics.histogram(
+                "tpu_scheduler_queue_wait_seconds", labelnames=names,
+                single_writer=True).labels(**labels)
+            self._step_hist = metrics.histogram(
+                "tpu_scheduler_step_seconds", labelnames=names,
+                single_writer=True).labels(**labels)
 
     # -- frontend side -----------------------------------------------------
 
@@ -418,6 +538,16 @@ class DecodeScheduler:
             stream.attach_pos = int(attach_pos)
         with self._cond:
             self._check_admitting_locked()
+            if self._shed_ctl is not None:
+                retry_after = self._shed_ctl.on_arrival(
+                    time.monotonic(), len(self._pending))
+                if retry_after is not None:
+                    self._codel_sheds += 1
+                    raise TooManyRequests(
+                        "admission queue sojourn above target for a full "
+                        "control interval ({} waiting generations); retry "
+                        "later".format(len(self._pending)),
+                        retry_after=retry_after)
             if len(self._pending) >= self._max_pending:
                 raise TooManyRequests(
                     "scheduler admission queue is full ({} waiting "
@@ -660,6 +790,9 @@ class DecodeScheduler:
                 "quarantined": self._quarantined,
                 "replay_entries": len(self._replay),
                 "replay_hits": self._replay_hits,
+                "codel_sheds": self._codel_sheds,
+                "codel_shedding": bool(
+                    self._shed_ctl is not None and self._shed_ctl.shedding),
                 "admitted": self._admitted_total,
                 "tokens": self._tokens_total,
                 "steps": self._steps_total,
@@ -1084,6 +1217,9 @@ class DecodeScheduler:
             tables[slot] = stream.table
             ready[slot] = True
             self._admitted_total += 1
+            if self._queue_hist is not None:
+                self._queue_hist.observe(
+                    time.monotonic() - stream.enqueued_at)
 
         def reserve(span_pages):
             """``span_pages`` fresh pages (evicting cached ones when
@@ -1141,6 +1277,7 @@ class DecodeScheduler:
             try:
                 if superseded():
                     return  # the remaining admissions are the next loop's
+                fault_points.trip("scheduler.admit", self.fault_scope)
                 # a step snapshot of an earlier admission becomes inert
                 stream.incarnation += 1
                 if stream.attach_cache is not None:
@@ -1320,6 +1457,31 @@ class DecodeScheduler:
             finally:
                 self._beat(epoch, None)
 
+        def dispatch_step(kind, call):
+            """The one ``scheduler.step`` site: trip the point, run the
+            step dispatch ``call(logits)`` under the heartbeat of
+            ``kind`` and observe its time.  A ``nan`` action poisons one
+            slot's logits row (the quarantine path); a ``hang`` stalls
+            inside the heartbeat window, where the watchdog sees it."""
+            nonlocal logits
+            action = fault_points.trip("scheduler.step", self.fault_scope)
+            if action is not None and action[0] == "nan":
+                logits[min(max(0, action[1]), self._max_slots - 1)] = \
+                    float("nan")
+            start = time.monotonic()
+            beat(kind)
+            if action is not None and action[0] == "hang":
+                time.sleep(action[1])
+            out = call(logits)
+            if self._step_hist is not None:
+                self._step_hist.observe(time.monotonic() - start)
+            return out
+
+        def fetch_chaos():
+            """The one ``scheduler.fetch`` site: before a step's
+            device-to-host token copy, on either path."""
+            fault_points.trip("scheduler.fetch", self.fault_scope)
+
         def finish(stream, slot):
             if stream.on_finish is not None:
                 # the park: a gather and a copy into the region, watched
@@ -1418,17 +1580,19 @@ class DecodeScheduler:
             # plain step is bitwise the same for the one token
             width = int(draft_len.max())
             kind = "spec_step" if width else "step"
-            beat(kind)
             if width:
-                toks_dev, lps_dev, acc_dev, logits, pages = fns["spec_step"](
-                    self._params, pages, logits, tables, positions, active,
-                    forced, forced_mask, draft[:, :width], draft_len)
+                toks_dev, lps_dev, acc_dev, logits, pages = dispatch_step(
+                    kind, lambda lg: fns["spec_step"](
+                        self._params, pages, lg, tables, positions, active,
+                        forced, forced_mask, draft[:, :width], draft_len))
             else:
-                toks_dev, lps_dev, logits, pages = fns["step"](
-                    self._params, pages, logits, tables, positions, active,
-                    forced, forced_mask)
+                toks_dev, lps_dev, logits, pages = dispatch_step(
+                    kind, lambda lg: fns["step"](
+                        self._params, pages, lg, tables, positions, active,
+                        forced, forced_mask))
                 acc_dev = None
             self._steps_total += 1
+            fetch_chaos()
             beat(kind)
             toks = np.asarray(toks_dev).reshape(self._max_slots, -1)
             lps = np.asarray(lps_dev).reshape(self._max_slots, -1)
@@ -1537,6 +1701,13 @@ class DecodeScheduler:
                 # fails before prefill; an in-flight one retires
                 # mid-generation, its slot and pages freeing at once
                 now = time.monotonic()
+                if self._shed_ctl is not None:
+                    # the controller's sojourn signal: the head stream's
+                    # wait is the FIFO maximum.  Noted inside this held
+                    # region: no new lock acquisition
+                    self._shed_ctl.note_sojourn(
+                        (now - self._pending[0].enqueued_at)
+                        if self._pending else 0.0, now)
                 if self._pending:
                     keep = deque()
                     for st in self._pending:
@@ -1595,16 +1766,17 @@ class DecodeScheduler:
                     snapshot.append((i, st, st.incarnation,
                                      bool(forced_mask[i])))
                     st.pos += 1
-                beat("step")
-                tokens_dev, logps_dev, logits, pages = fns["step"](
-                    self._params, pages, logits, tables, positions, active,
-                    forced, forced_mask)
+                tokens_dev, logps_dev, logits, pages = dispatch_step(
+                    "step", lambda lg: fns["step"](
+                        self._params, pages, lg, tables, positions, active,
+                        forced, forced_mask))
                 self._beat(epoch, None)
                 self._steps_total += 1
                 current = (tokens_dev, logps_dev, snapshot)
 
             if inflight is not None:
                 tokens_dev, logps_dev, snapshot = inflight
+                fetch_chaos()
                 beat("step")
                 toks = np.asarray(tokens_dev)
                 lps = np.asarray(logps_dev)

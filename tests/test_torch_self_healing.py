@@ -25,6 +25,7 @@ import torch
 
 from tpuserver.models import llama as jl
 from tpuserver.scheduler import DecodeScheduler as JaxScheduler
+from tpuserver_torch import scheduler as scheduler_module
 from tpuserver_torch.core import InferenceServer, InferRequest
 from tpuserver_torch.errors import GenerationNotFound, ServerUnavailable
 from tpuserver_torch.http_server import HttpServer
@@ -49,6 +50,18 @@ def _cfgs():
     return (dataclasses.replace(jl.tiny(vocab=VOCAB), dtype=jnp.float32),
             dataclasses.replace(tl.tiny(vocab=VOCAB), dtype=torch.float32,
                                 decode_impl="dense"))
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The watchdog's tests time steps against ``step_timeout_s``: one
+    intra-op thread per process keeps a tiny step short when several
+    test processes share the cores (torch otherwise starts one thread
+    per core in each)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")
@@ -282,20 +295,40 @@ def test_an_abandoned_stream_parks_and_resume_splices(bridged, fns,
         sched.close()
 
 
+class _ShiftedClock:
+    """The scheduler module's ``time``, with ``monotonic()`` moved on by
+    ``shift`` seconds (0 until a test sets it)."""
+
+    def __init__(self):
+        self.shift = 0.0
+
+    def monotonic(self):
+        return time.monotonic() + self.shift
+
+    def __getattr__(self, name):
+        return getattr(time, name)
+
+
 def test_a_resume_takes_the_reconnects_fresh_deadline(bridged, fns,
-                                                      reference):
+                                                      reference,
+                                                      monkeypatch):
     """The original request's deadline died with its connection: a
-    resume with no deadline runs to the end after it passed."""
+    resume with no deadline runs to the end after it passed.  The
+    deadline is generous while the two tokens are read, however loaded
+    the machine; then the clock the scheduler reads moves past it (the
+    replay entry's TTL is longer still, so the park stays)."""
     _, tparams = bridged
-    sched = DecodeScheduler(fns, tparams, 2, MAX_SEQ)
+    clock = _ShiftedClock()
+    monkeypatch.setattr(scheduler_module, "time", clock)
+    sched = DecodeScheduler(fns, tparams, 2, MAX_SEQ, replay_ttl_s=3600.0)
     try:
         stream = sched.submit(STREAM_PROMPT, STREAM_BUDGET,
-                              deadline=time.monotonic() + 0.5,
+                              deadline=clock.monotonic() + 60.0,
                               generation_id="g-deadline")
         got = [next(stream) for _ in range(2)]
         stream.close()
         assert _parked(sched, "g-deadline")
-        time.sleep(0.55)  # the ORIGINAL deadline is now past
+        clock.shift = 61.0  # the ORIGINAL deadline is now past
         resumed = list(sched.resume("g-deadline", 2, deadline=None))
         assert [t for t, _ in got + resumed] == reference[3]
     finally:
