@@ -86,12 +86,37 @@ Phases, in order; any failure exits non-zero and prints no result line:
    live rows near length 600), four in the scheduler's pipeline, and one
    speculative verify (K 4) beside the five plain steps it stands for,
    under ``torch.profiler``: device time by kernel class (the page gather
-   apart) beside the wall time.
+   apart) beside the wall time;
+4g. fleet, last, once this process has released its models: two replica
+   processes, each the port's ``serve.py`` run through this script's
+   ``--child-serve`` mode (``llama3_8b``, ``max_seq`` 4096, ``max_slots``
+   8, this script's seed, so 4b's weights; a ``--role prefill`` replica P
+   and a ``--role decode`` replica D; ``reset`` and ``counts`` of the
+   kernel launches on stdin), behind the JAX package's router run as a
+   process (``tools/router.py --probe-interval 0.2``, reached over HTTP
+   only; its first log line is printed, and its exit fails the phase):
+   (a) 4b's 12 prompts 50 ms apart through the router, phase-split: 4b's
+   tokens, gap-free ``seq``s, 12 splits and 12 transfers, on P flash = 32
+   x the tileable admissions and decode >= 32 x its steps, on D no flash,
+   12 attach admissions and decode >= 32 x its steps, each replica's peak
+   memory; (b) the round again, D SIGTERMed once every stream has 5
+   events: D's snapshot reads ``draining`` within one probe interval,
+   every stream finishes with 4b's tokens, 4 prompts sent while it drains
+   complete (their path and agreement reported), D exits 0, and the same
+   4 once the router's decode pool is empty go fused to P with 4b's
+   tokens; (c) D respawned on its port with a new ``--spawn-nonce``
+   (echoed, re-partitioned), 4c (c)'s 8 prompts undisturbed and then
+   with D SIGKILLed once every stream has 5 events: every stream handed
+   off to P and complete, gap-free, the continuation tokens' agreement
+   reported, P's flash launches = 32 x (tileable prefill legs + tileable
+   re-prefills), and flash held against its plain version at those
+   re-prefill lengths; (d) P SIGTERMed exits 0.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
+import gc
 import json
 import os
 import subprocess
@@ -477,20 +502,35 @@ def phase_kernels(torch):
             "flash_lengths": set(prefill_ts)}
 
 
-def phase_flash_lengths(torch, rows, lengths):
+def phase_flash_lengths(torch, rows, lengths, timed_as=None):
     """Phase 3, continued: the flash kernel against its plain version at
     every prefill length a later phase ran through it that phase 3 did
-    not check (phase 4c's re-admissions depend on when a fault hit)."""
+    not check (phase 4c's re-admissions and phase 4g's handoff
+    re-prefills depend on when a fault hit).  With ``timed_as``, also
+    time it at the least of ``lengths`` that tiles, kept under that
+    name."""
     import torch.nn.functional as F
 
     from tpuserver_torch.models import llama
     from tpuserver_torch.ops import flash as fl
 
     cfg = llama.llama3_8b()
-    new = sorted(t for t in set(lengths) - rows["flash_lengths"]
-                 if None not in llama._flash_blocks(t, cfg))
+    tiled = sorted(t for t in set(lengths)
+                   if None not in llama._flash_blocks(t, cfg))
+    new = [t for t in tiled if t not in rows["flash_lengths"]]
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    if timed_as is not None and tiled:
+        flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+        row = _flash_case(torch, F, fl, dev, gen, 1, tiled[0], 32, 8, 128,
+                          True, torch.bfloat16, True, flush)
+        del flush
+        row["kernel"] = "flash_attention"
+        log("kernel_case:", json.dumps(row))
+        if not row["row_rel_err"] <= TOL["bfloat16"]:
+            fail("flash kernel at prefill length {}: {}".format(tiled[0],
+                                                                row))
+        rows["timed"][timed_as] = row
     for t in new:
         row = _flash_case(torch, F, fl, dev, gen, 1, t, 32, 8, 128, True,
                           torch.bfloat16, False, None)
@@ -2117,6 +2157,451 @@ def phase_grpc(torch, np, cfg, params, prompts, budgets, tokens_4b,
     return launches
 
 
+# -- phase 4g: the fleet ----------------------------------------------------
+
+FLEET_PROBE_S = 0.2
+FLEET_DRAIN_S = 120.0
+# each replica's in-flight cap, as a deployment sets one: well above a
+# round's streams, so it sheds nothing here
+FLEET_MAX_INFLIGHT = 64
+
+
+def child_serve(torch, argv):
+    """``--child-serve <serve.py argv>``: a fleet replica, the port's
+    ``serve.py`` on this process's main thread (so its signal handlers
+    install and a SIGTERM drains for real).  A daemon thread answers
+    ``reset`` (zero the kernel counts) and ``counts`` (print them with
+    this process's peak memory) on stdin; the server's HTTP surface has
+    no kernel counter."""
+    import threading
+
+    from tpuserver_torch import serve
+    from tpuserver_torch.ops import flash as fl
+
+    def answer():
+        for line in sys.stdin:
+            cmd = line.strip()
+            torch.cuda.synchronize()
+            if cmd == "reset":
+                fl.reset_launch_counts()
+                torch.cuda.reset_peak_memory_stats()
+                print("OK", flush=True)
+            elif cmd == "counts":
+                free, total = torch.cuda.mem_get_info()
+                print("COUNTS", json.dumps({
+                    "flash_attention": fl.flash_attention.launches,
+                    "decode_attention": fl.decode_attention.launches,
+                    "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                    "card_used_gib": (total - free) / 2 ** 30}), flush=True)
+
+    threading.Thread(target=answer, name="child-serve-stdin",
+                     daemon=True).start()
+    serve.main(argv)
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _replica(port, role, nonce):
+    """A ``llama3_8b`` replica process with the argv a supervisor's
+    template would give it (the script's seed: phase 4b's weights)."""
+    return subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--child-serve",
+         "--config", "llama3_8b", "--max-seq", "4096", "--max-slots", "8",
+         "--seed", str(SEED), "--port", str(port), "--role", role,
+         "--spawn-nonce", nonce, "--drain-timeout", str(FLEET_DRAIN_S),
+         "--max-inflight", str(FLEET_MAX_INFLIGHT)],
+        stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True, bufsize=1)
+
+
+def _health(port):
+    """A replica's ``/v2/health/stats``, or None while it does not
+    answer."""
+    try:
+        status, body = _http_json(port, "GET", "/v2/health/stats")
+    except OSError:
+        return None
+    return json.loads(body) if status == 200 else None
+
+
+def _router_stats(port):
+    status, body = _http_json(port, "GET", "/router/stats")
+    if status != 200:
+        fail("router stats answered {}: {}".format(status, body[:300]))
+    return json.loads(body)
+
+
+def _fleet_wait(what, predicate, procs, timeout=600.0):
+    """Poll ``predicate`` until it holds; fail after ``timeout`` or when
+    one of ``procs`` (name -> process) has exited."""
+    deadline = time.monotonic() + timeout
+    while not predicate():
+        for name, proc in procs.items():
+            if proc.poll() is not None:
+                fail("fleet: {} exited with {} while waiting for {}".format(
+                    name, proc.returncode, what))
+        if time.monotonic() > deadline:
+            fail("fleet: {} not reached after {:.0f} s".format(what,
+                                                              timeout))
+        time.sleep(0.05)
+
+
+def _fleet_round(port, prompts, budgets, on_event=None):
+    """Every request through the router, 50 ms apart, each on its own
+    thread (``on_event(i, n)`` after request i's n-th event).  Returns a
+    thread that joins to {i: (tokens, ids, final, each event's seconds
+    after the POST)} in ``.results``."""
+    import threading
+
+    results, errors = {}, []
+
+    def one(i):
+        try:
+            status, events, final, t0 = _sse_events(
+                port, _body(prompts[i], budgets[i]),
+                on_event=None if on_event is None
+                else (lambda n: on_event(i, n)))
+            if status != 200:
+                fail("fleet request {}: status {} {}".format(i, status,
+                                                           events))
+            tokens = [int(next(o for o in e["outputs"]
+                               if o["name"] == "TOKEN")["data"][0])
+                      for _, e, _ in events]
+            results[i] = (tokens, [x for x, _, _ in events], final,
+                          [t - t0 for _, _, t in events])
+        except SystemExit as e:  # fail() inside a worker thread
+            errors.append(e)
+
+    def run():
+        threads = []
+        for i in range(len(prompts)):
+            threads.append(threading.Thread(target=one, args=(i,),
+                                            daemon=True))
+            threads[-1].start()
+            time.sleep(0.05)
+        for t in threads:
+            t.join(timeout=900)
+
+    runner = threading.Thread(target=run, daemon=True)
+    runner.results, runner.errors = results, errors
+    runner.start()
+    return runner
+
+
+def _fleet_results(runner, budgets, what):
+    """The round's results, each stream complete and gap-free."""
+    runner.join(timeout=900)
+    if runner.errors or len(runner.results) != len(budgets):
+        fail("fleet {}: {} of {} streams completed".format(
+            what, len(runner.results), len(budgets)))
+    for i, (tokens, ids, final, _) in sorted(runner.results.items()):
+        seqs = [int(x.rsplit("/", 1)[1]) for x in ids]
+        if not final or len(tokens) != budgets[i] or \
+                seqs != list(range(budgets[i])):
+            fail("fleet {} request {}: {} tokens of {}, final {}, seqs "
+                 "{}".format(what, i, len(tokens), budgets[i], final, seqs))
+    return runner.results
+
+
+def _handoff_offset(ids):
+    """The offset of a stream's last router handoff (its ``id:`` lines
+    read ``<gen>~<offset>/<seq>`` after one), 0 without one."""
+    base = ids[-1].rsplit("/", 1)[0]
+    _, tilde, off = base.rpartition("~")
+    return int(off) if tilde and off.isdigit() else 0
+
+
+def phase_fleet(torch, np, cfg, prompts, budgets, tokens_4b):
+    """Phase 4g: two ``llama3_8b`` replica processes (``--child-serve``,
+    ``--role prefill`` and ``--role decode``) behind the JAX package's
+    router (``tools/router.py``, a process reached over HTTP only): (a)
+    4b's 12 prompts phase-split, (b) a SIGTERM drain of the decode
+    replica mid-round, (c) a respawn with a new nonce and a SIGKILL
+    mid-round, every stream handed off to the prefill replica, (d) a
+    SIGTERM of the survivor.  Returns the launch counts of the three
+    paths, the handoff's counted from just before the SIGKILL (so none
+    of (c)'s prefill legs is among them), and the lengths of (c)'s
+    handoff re-prefills that ran flash (one whose length does not tile
+    runs the dense path)."""
+    import signal
+    import threading
+
+    from tpuserver_torch.models import llama
+
+    layers = cfg.n_layers
+    pport, dport, rport = _free_port(), _free_port(), _free_port()
+    procs = {"prefill replica": _replica(pport, "prefill", "p-1"),
+             "decode replica": _replica(dport, "decode", "d-1")}
+    router = subprocess.Popen(
+        [sys.executable, os.path.join(HERE, "tools", "router.py"),
+         "--backends", "127.0.0.1:{},127.0.0.1:{}".format(pport, dport),
+         "--port", str(rport), "--probe-interval", str(FLEET_PROBE_S)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        bufsize=1)
+    router_lines = []
+    out = {}
+    try:
+        first = router.stdout.readline()
+        if not first:
+            fail("fleet: the router exited with {} before its first log "
+                 "line".format(router.wait(timeout=60)))
+        log("fleet: router:", first.rstrip())
+        threading.Thread(target=lambda: router_lines.extend(router.stdout),
+                         daemon=True).start()
+        watched = dict(procs, router=router)
+        t0 = time.monotonic()
+        states = set()
+
+        def booted():
+            snap = _health(pport)
+            if snap is not None:
+                states.add(snap["state"])
+            snaps = [snap, _health(dport)]
+            if any(x is None or x["state"] != "ready" for x in snaps):
+                return False
+            if any(x["max_inflight"] != FLEET_MAX_INFLIGHT for x in snaps):
+                fail("fleet: snapshots' max_inflight {} (want {})".format(
+                    [x["max_inflight"] for x in snaps], FLEET_MAX_INFLIGHT))
+            disagg = _router_stats(rport)["disagg"]
+            return (disagg["prefill_replicas"],
+                    disagg["decode_replicas"]) == (1, 1) and all(
+                r["eligible"] for r in _router_stats(rport)["replicas"])
+
+        _fleet_wait("both replicas ready in their router pools", booted,
+                    watched)
+        log("fleet: replicas ready and routed in {:.1f} s; states the "
+            "prefill replica's snapshot showed while it booted: {}".format(
+                time.monotonic() - t0, sorted(states)))
+        p_proc, d_proc = procs["prefill replica"], procs["decode replica"]
+
+        # (a) the phase split
+        tileable = len(_flash_admissions(llama, cfg, 4096,
+                                         [len(p) for p in prompts]))
+        for proc in (p_proc, d_proc):
+            _ask(proc, "reset", "OK")
+        p0, d0 = _health(pport), _health(dport)
+        s0 = _router_stats(rport)["disagg"]
+        t0 = time.monotonic()
+        results = _fleet_results(_fleet_round(rport, prompts, budgets),
+                                 budgets, "(a)")
+        wall = time.monotonic() - t0
+        pc = json.loads(_ask(p_proc, "counts", "COUNTS "))
+        dc = json.loads(_ask(d_proc, "counts", "COUNTS "))
+        p1, d1 = _health(pport), _health(dport)
+        s1 = _router_stats(rport)["disagg"]
+        pm0, pm1 = (x["models"]["llama_generate"] for x in (p0, p1))
+        dm0, dm1 = (x["models"]["llama_generate"] for x in (d0, d1))
+        p_steps, d_steps = (pm1["steps"] - pm0["steps"],
+                            dm1["steps"] - dm0["steps"])
+        same = sum(results[i][0] == tokens_4b[i] for i in range(12))
+        times = [results[i][3] for i in range(12)]
+        ttft = float(np.median([t[0] for t in times]))
+        # the decode leg's first token after the prefill leg's: the
+        # descriptor fetch, the attach and D's admission
+        leg_gap = float(np.median([t[1] - t[0] for t in times]))
+        rate = float(np.median([(len(t) - 2) / (t[-1] - t[1])
+                                for t in times]))
+        splits, transfers = (s1["splits"] - s0["splits"],
+                             s1["transfers"] - s0["transfers"])
+        nbytes = s1["transfer_bytes"] - s0["transfer_bytes"]
+        attaches = dm1["attach_admissions"] - dm0["attach_admissions"]
+        log("fleet (a): 12 streams through the router in {:.3f} s ({} "
+            "tokens); medians: TTFT {:.1f} ms, first to second token "
+            "{:.1f} ms, decode {:.1f} tokens/s after it; equal to 4b's "
+            "tokens {}/12; splits {}, transfers {} "
+            "({} bytes, {:.1f} ms fetching), fallbacks {}; prefill replica: "
+            "flash {} decode {} over {} steps, admissions {}, peak {:.3f} "
+            "GiB; decode replica: flash {} decode {} over {} steps, attach "
+            "admissions {}, prefix misses {}, peak {:.3f} GiB; the card "
+            "{:.3f} GiB in use".format(
+                wall, sum(budgets), ttft * 1e3, leg_gap * 1e3, rate,
+                same, splits, transfers, nbytes,
+                s1["transfer_ms_total"] - s0["transfer_ms_total"],
+                s1["fallbacks"], pc["flash_attention"],
+                pc["decode_attention"], p_steps,
+                pm1["admitted"] - pm0["admitted"], pc["peak_gib"],
+                dc["flash_attention"], dc["decode_attention"], d_steps,
+                attaches, dm1["prefix_misses"] - dm0["prefix_misses"],
+                dc["peak_gib"], dc["card_used_gib"]))
+        if same != 12 or (splits, transfers) != (12, 12) or nbytes <= 0:
+            fail("fleet (a): tokens {}/12, splits {}, transfers {}, bytes "
+                 "{}".format(same, splits, transfers, nbytes))
+        if pc["flash_attention"] != layers * tileable or \
+                not pc["decode_attention"] >= layers * p_steps > 0:
+            fail("fleet (a): prefill replica's launches {} over {} steps "
+                 "(want flash {})".format(pc, p_steps, layers * tileable))
+        if dc["flash_attention"] != 0 or attaches != 12 or \
+                not dc["decode_attention"] >= layers * d_steps > 0:
+            fail("fleet (a): decode replica's launches {} over {} steps, "
+                 "attach admissions {}".format(dc, d_steps, attaches))
+        out["fleet_prefill_leg"] = pc
+        out["fleet_decode_leg"] = dc
+
+        # (b) a SIGTERM drain of the decode replica mid-round
+        seen = [0] * len(prompts)
+        all5 = threading.Event()
+
+        def count(i, n):
+            seen[i] = n
+            if min(seen) >= 5:
+                all5.set()
+
+        s0 = _router_stats(rport)
+        pm0 = _health(pport)["models"]["llama_generate"]
+        runner = _fleet_round(rport, prompts, budgets, count)
+        if not all5.wait(600):
+            fail("fleet (b): streams' events {} after 600 s".format(seen))
+        t0 = time.monotonic()
+        d_proc.send_signal(signal.SIGTERM)
+        state = None
+        while state != "draining":
+            snap = _health(dport)
+            state = snap and snap["state"]
+            if time.monotonic() - t0 > 30:
+                fail("fleet (b): decode replica's state {} 30 s after "
+                     "SIGTERM".format(state))
+        to_draining = time.monotonic() - t0
+        live = snap["models"]["llama_generate"]["live_streams"]
+        extra = [0, 1, 2, 3]
+        extra_prompts = [prompts[i] for i in extra]
+        extra_budgets = [budgets[i] for i in extra]
+        during = _fleet_round(rport, extra_prompts, extra_budgets)
+        results = _fleet_results(runner, budgets, "(b)")
+        during = _fleet_results(during, extra_budgets, "(b) while draining")
+        d_exit = d_proc.wait(timeout=FLEET_DRAIN_S + 60)
+        s1 = _router_stats(rport)
+        pm1 = _health(pport)["models"]["llama_generate"]
+        _fleet_wait("the router's decode pool empty", lambda: _router_stats(
+            rport)["disagg"]["decode_replicas"] == 0, {"router": router})
+        s2 = _router_stats(rport)
+        fused = _fleet_results(_fleet_round(rport, extra_prompts,
+                                            extra_budgets),
+                               extra_budgets, "(b) after the exit")
+        s3 = _router_stats(rport)
+        same = sum(results[i][0] == tokens_4b[i] for i in range(12))
+        same_during = sum(during[k][0] == tokens_4b[i]
+                          for k, i in enumerate(extra))
+        same_fused = sum(fused[k][0] == tokens_4b[i]
+                         for k, i in enumerate(extra))
+        log("fleet (b): SIGTERM once every stream had 5 events; the decode "
+            "replica's snapshot read 'draining' after {:.4f} s with {} live "
+            "streams; 12/12 streams complete, equal to 4b's tokens {}/12; "
+            "4 requests sent while it drained: complete, equal to 4b's {}/4 "
+            "(reported: router splits +{}, transfers +{}, handoffs +{}, "
+            "failovers +{}, fallbacks {}; prefill replica admissions +{}, "
+            "attach admissions +{}); decode replica exit code {}; the same "
+            "4 once the router's decode pool was empty: equal to 4b's {}/4, "
+            "splits +{}".format(
+                to_draining, live, same, same_during,
+                s1["disagg"]["splits"] - s0["disagg"]["splits"],
+                s1["disagg"]["transfers"] - s0["disagg"]["transfers"],
+                s1["handoffs"] - s0["handoffs"],
+                s1["failovers"] - s0["failovers"], s1["disagg"]["fallbacks"],
+                pm1["admitted"] - pm0["admitted"],
+                pm1["attach_admissions"] - pm0["attach_admissions"],
+                d_exit, same_fused,
+                s3["disagg"]["splits"] - s2["disagg"]["splits"]))
+        if to_draining > FLEET_PROBE_S or same != 12 or same_fused != 4 \
+                or s3["disagg"]["splits"] != s2["disagg"]["splits"] \
+                or d_exit != 0:
+            fail("fleet (b): draining after {:.4f} s, tokens {}/12, fused "
+                 "{}/4, exit {}".format(to_draining, same, same_fused,
+                                        d_exit))
+
+        # (c) a respawn with a new nonce, then a SIGKILL mid-round
+        d_proc = procs["decode replica"] = _replica(dport, "decode", "d-2")
+        watched["decode replica"] = d_proc
+
+        def rejoined():
+            snap = _health(dport)
+            if snap is None or snap.get("spawn_nonce") != "d-2" or \
+                    snap["state"] != "ready":
+                return False
+            stats = _router_stats(rport)
+            return stats["disagg"]["decode_replicas"] == 1 and all(
+                r["eligible"] for r in stats["replicas"])
+
+        t0 = time.monotonic()
+        _fleet_wait("the respawned decode replica in its pool", rejoined,
+                    watched)
+        log("fleet (c): decode replica respawned on port {} (nonce d-2, "
+            "pid {}), routed again after {:.1f} s".format(
+                dport, _health(dport)["pid"], time.monotonic() - t0))
+        rng = np.random.RandomState(SEED + 4)
+        heal = [rng.randint(0, cfg.vocab, n) for n in HEAL_PROMPT_LENGTHS]
+        heal_budgets = [HEAL_BUDGET] * len(heal)
+        ref = _fleet_results(_fleet_round(rport, heal, heal_budgets),
+                             heal_budgets, "(c) undisturbed")
+        seen = [0] * len(heal)
+        all5.clear()
+        s0 = _router_stats(rport)
+        runner = _fleet_round(rport, heal, heal_budgets, count)
+        if not all5.wait(600):
+            fail("fleet (c): streams' events {} after 600 s".format(seen))
+        # every prefill leg has run (each stream is on D): from here on
+        # P counts the handoff's launches only
+        _ask(p_proc, "reset", "OK")
+        d_proc.send_signal(signal.SIGKILL)
+        d_proc.wait(timeout=60)
+        results = _fleet_results(runner, heal_budgets, "(c)")
+        pc = json.loads(_ask(p_proc, "counts", "COUNTS "))
+        s1 = _router_stats(rport)
+        offsets = [_handoff_offset(results[i][1]) for i in range(len(heal))]
+        lengths = [len(heal[i]) + offsets[i] for i in range(len(heal))]
+        readmits = _flash_admissions(llama, cfg, 4096,
+                                     [n for n, o in zip(lengths, offsets)
+                                      if o > 1])
+        agree = sum(sum(a == b for a, b in zip(results[i][0][o:],
+                                               ref[i][0][o:]))
+                    for i, o in enumerate(offsets))
+        total = sum(HEAL_BUDGET - o for o in offsets)
+        handoffs = s1["handoffs"] - s0["handoffs"]
+        log("fleet (c): SIGKILL once every stream had 5 events; 8/8 "
+            "streams complete and gap-free; router handoffs +{}, handoff "
+            "offsets {} (re-prefill lengths {}); continuation tokens equal "
+            "to the undisturbed run {}/{} (reported, not required: a bf16 "
+            "re-prefill can flip near-ties); the prefill replica's "
+            "launches from the SIGKILL on: flash {} (want {} = {} x {} "
+            "re-prefills that tile, at {}; the others ran dense), decode "
+            "{}, peak {:.3f} GiB".format(
+                handoffs, offsets, lengths, agree, total,
+                pc["flash_attention"], layers * len(readmits), layers,
+                len(readmits), readmits, pc["decode_attention"],
+                pc["peak_gib"]))
+        if handoffs < len(heal) or min(offsets) < 5 or \
+                pc["flash_attention"] != layers * len(readmits) \
+                or pc["decode_attention"] <= 0:
+            fail("fleet (c): handoffs {}, offsets {}, launches {}".format(
+                handoffs, offsets, pc))
+        out["fleet_handoff"] = pc
+
+        # (d) SIGTERM the survivor
+        p_proc.send_signal(signal.SIGTERM)
+        p_exit = p_proc.wait(timeout=FLEET_DRAIN_S + 60)
+        log("fleet (d): prefill replica exit code {} after SIGTERM".format(
+            p_exit))
+        if p_exit != 0:
+            fail("fleet (d): the prefill replica exited {}".format(p_exit))
+        return out, readmits
+    finally:
+        for proc in list(procs.values()) + [router]:
+            if proc.poll() is None:
+                proc.send_signal(signal.SIGTERM)
+        for proc in list(procs.values()) + [router]:
+            try:
+                proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=60)
+        log("fleet: router log after its first line:",
+            json.dumps([x.rstrip() for x in router_lines][-20:]))
+
+
 # -- phase 5: model check ----------------------------------------------------
 
 
@@ -2253,6 +2738,9 @@ def main():
         return child_region(np)
     if sys.argv[1:] == ["--child-server"]:
         return child_server(torch)
+    if sys.argv[1:2] == ["--child-serve"]:
+        return child_serve(torch, sys.argv[2:])
+    started = time.monotonic()
     log("installs: grpcio {grpcio}, protobuf {protobuf}".format(
         **_install_versions()))
     name, smi = phase_device(torch)
@@ -2277,6 +2765,17 @@ def main():
     phase_model_check(torch, model, prompt)
     phase_profile(torch, model, prompt, batched_steps)
     core.close()
+    # phase 4g's two replica processes need the card: release this
+    # process's models first
+    del model, core, params, batched, batched_steps
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("fleet: this process holds {:.3f} GiB after releasing its "
+        "models".format(torch.cuda.memory_allocated() / 2 ** 30))
+    fleet_launches, handoff_lengths = phase_fleet(
+        torch, np, cfg, b_prompts, b_budgets, b_tokens)
+    phase_flash_lengths(torch, rows, handoff_lengths,
+                        timed_as="flash_attention_handoff")
 
     kernels = []
     # each kernel once per path: the single-stream serve (phase 4, timed
@@ -2285,38 +2784,56 @@ def main():
     # serve (phase 4c b), the re-admissions of phase 4c's fault rounds
     # and resumes (c, d; flash timed at the 640-token re-admission), and
     # phase 4e's paths: the shm plane (a, b), the attach resumes (c) and
-    # the decode leg on server B (d); and phase 4f (a), the gRPC stream
+    # the decode leg on server B (d); phase 4f (a), the gRPC stream; and
+    # phase 4g's replica processes: the prefill replica's legs (a), the
+    # decode replica's attached legs (a) and the prefill replica's
+    # handoff re-prefills after the decode replica's SIGKILL (c), whose
+    # flash row stands only when a re-prefill's length tiled (timed at
+    # the least such length; the others ran dense)
     decode_src = "src/python/tpuserver_torch/csrc/decode_attention.cu"
     flash_src = "src/python/tpuserver_torch/csrc/flash_attention.cu"
     decode_tpu = "src/python/tpuserver/ops/flash.py:263"
     flash_tpu = "src/python/tpuserver/ops/flash.py:139"
-    for kname, src, replaces, path, timed_as, counts in (
-            ("flash_attention", flash_src, flash_tpu, "serve",
-             "flash_attention", launches),
-            ("decode_attention", decode_src, decode_tpu, "serve",
-             "decode_attention", launches),
-            ("flash_attention", flash_src, flash_tpu, "serve_batched",
-             "flash_attention", batched_launches),
-            ("decode_attention", decode_src, decode_tpu, "serve_batched",
-             "decode_attention_batched", batched_launches),
-            ("decode_attention", decode_src, decode_tpu, "serve_spec",
-             "decode_attention_batched", spec_launches),
-            ("flash_attention", flash_src, flash_tpu, "readmission",
-             "flash_attention_readmission", heal_launches),
-            ("decode_attention", decode_src, decode_tpu, "readmission",
-             "decode_attention_batched", heal_launches),
-            ("flash_attention", flash_src, flash_tpu, "shm_plane",
-             "flash_attention", shm_launches["shm_plane"]),
-            ("decode_attention", decode_src, decode_tpu, "shm_plane",
-             "decode_attention_batched", shm_launches["shm_plane"]),
-            ("decode_attention", decode_src, decode_tpu, "kv_attach",
-             "decode_attention_batched", shm_launches["kv_attach"]),
-            ("decode_attention", decode_src, decode_tpu, "kv_handoff",
-             "decode_attention_batched", shm_launches["kv_handoff"]),
-            ("flash_attention", flash_src, flash_tpu, "serve_grpc",
-             "flash_attention", grpc_launches),
-            ("decode_attention", decode_src, decode_tpu, "serve_grpc",
-             "decode_attention_batched", grpc_launches)):
+    paths = [
+        ("flash_attention", flash_src, flash_tpu, "serve",
+         "flash_attention", launches),
+        ("decode_attention", decode_src, decode_tpu, "serve",
+         "decode_attention", launches),
+        ("flash_attention", flash_src, flash_tpu, "serve_batched",
+         "flash_attention", batched_launches),
+        ("decode_attention", decode_src, decode_tpu, "serve_batched",
+         "decode_attention_batched", batched_launches),
+        ("decode_attention", decode_src, decode_tpu, "serve_spec",
+         "decode_attention_batched", spec_launches),
+        ("flash_attention", flash_src, flash_tpu, "readmission",
+         "flash_attention_readmission", heal_launches),
+        ("decode_attention", decode_src, decode_tpu, "readmission",
+         "decode_attention_batched", heal_launches),
+        ("flash_attention", flash_src, flash_tpu, "shm_plane",
+         "flash_attention", shm_launches["shm_plane"]),
+        ("decode_attention", decode_src, decode_tpu, "shm_plane",
+         "decode_attention_batched", shm_launches["shm_plane"]),
+        ("decode_attention", decode_src, decode_tpu, "kv_attach",
+         "decode_attention_batched", shm_launches["kv_attach"]),
+        ("decode_attention", decode_src, decode_tpu, "kv_handoff",
+         "decode_attention_batched", shm_launches["kv_handoff"]),
+        ("flash_attention", flash_src, flash_tpu, "serve_grpc",
+         "flash_attention", grpc_launches),
+        ("decode_attention", decode_src, decode_tpu, "serve_grpc",
+         "decode_attention_batched", grpc_launches),
+        ("flash_attention", flash_src, flash_tpu, "fleet_prefill_leg",
+         "flash_attention", fleet_launches["fleet_prefill_leg"]),
+        ("decode_attention", decode_src, decode_tpu, "fleet_prefill_leg",
+         "decode_attention_batched", fleet_launches["fleet_prefill_leg"]),
+        ("decode_attention", decode_src, decode_tpu, "fleet_decode_leg",
+         "decode_attention_batched", fleet_launches["fleet_decode_leg"]),
+        ("decode_attention", decode_src, decode_tpu, "fleet_handoff",
+         "decode_attention_batched", fleet_launches["fleet_handoff"])]
+    if fleet_launches["fleet_handoff"]["flash_attention"]:
+        paths.append(
+            ("flash_attention", flash_src, flash_tpu, "fleet_handoff",
+             "flash_attention_handoff", fleet_launches["fleet_handoff"]))
+    for kname, src, replaces, path, timed_as, counts in paths:
         row = rows["timed"][timed_as]
         kernels.append({
             "name": kname, "route": "cuda", "source": src,
@@ -2329,6 +2846,7 @@ def main():
     idle = [(k["name"], k["path"]) for k in kernels if not k["launches"]]
     if idle:
         fail("kernels of a path never launched on it: {}".format(idle))
+    log("chip_smoke: {:.1f} s".format(time.monotonic() - started))
     log(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

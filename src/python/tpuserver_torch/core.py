@@ -1,9 +1,11 @@
-"""The port's serving core: model registry, readiness, metadata,
-decoupled (streaming) execution, statistics and metrics, and the
-shared-memory data plane — a slim copy of ``tpuserver/core.py``'s
-``TensorSpec``, ``InferRequest``, ``InferResponse``, ``Model`` and the
-``InferenceServer`` verbs the generation path uses.  Transport-agnostic:
-``tpuserver_torch.http_server`` speaks HTTP and
+"""The port's serving core: model registry, the lifecycle (readiness,
+drain, the in-flight cap) and the health snapshot a fleet router
+probes, metadata, decoupled (streaming) execution, statistics and
+metrics, and the shared-memory data plane — a slim copy of
+``tpuserver/core.py``'s ``TensorSpec``, ``InferRequest``,
+``InferResponse``, ``Model``, ``install_sigterm_drain`` and the
+``InferenceServer`` verbs the generation path and a fleet replica use.
+Transport-agnostic: ``tpuserver_torch.http_server`` speaks HTTP and
 ``tpuserver_torch.grpc_server`` gRPC on top of it.
 
 Metrics: ``metrics`` is the server's ``tpuserver_torch.metrics``
@@ -27,6 +29,7 @@ resume on this server scatters back, and whose one-shot descriptor lets
 a second server process attach it over CUDA IPC.
 """
 
+import logging
 import mmap
 import os
 import struct
@@ -46,9 +49,12 @@ from tpuserver_torch.errors import (
     RegionPinned,
     RequestTimedOut,
     ServerUnavailable,
+    TooManyRequests,
     TorchServeError,
 )
 from tpuserver_torch.metrics import MetricsRegistry
+
+_log = logging.getLogger(__name__)
 
 SERVER_NAME = "tpuserver-torch"
 SERVER_VERSION = "0.1.0"
@@ -337,27 +343,45 @@ class InferenceServer:
     """Models by name, readiness, streaming execution and the
     shared-memory data plane.
 
-    Lifecycle: ``ready`` until :meth:`close`, then ``stopped``; a
-    stopped server answers not-ready and refuses inference, and its KV
-    exports are released."""
+    Lifecycle (``tpuserver/core.py``'s): ``starting`` (constructed with
+    ``ready=False``, while the warm-up runs) -> ``ready``
+    (:meth:`mark_ready`) -> ``draining`` (:meth:`begin_drain`,
+    :meth:`drain`) -> ``stopped``
+    (:meth:`close`, or the last front end's :meth:`detach_frontend`).
+    Only a ``ready`` server admits requests: otherwise a request is a
+    typed 503, and at ``max_inflight`` requests in flight a typed 429 with
+    ``Retry-After``.  A stopped server answers not-ready, and
+    :meth:`close` releases its KV exports.  :meth:`health_snapshot` is
+    the routing signal a fleet router probes (``/v2/health/stats``);
+    ``role`` (``"prefill"``, ``"decode"`` or None for fused) and
+    ``spawn_nonce`` are echoed in it."""
 
     #: bytes per token-ring slot: one int32 TOKEN and one fp32 LOGPROB,
     #: little-endian, back to back
     SHM_RING_SLOT_BYTES = 8
 
-    def __init__(self, models=None, fault_scope=None):
+    def __init__(self, models=None, max_inflight=None, ready=True,
+                 fault_scope=None, role=None, spawn_nonce=None):
         # this server's scope at the fault points (per-server chaos in a
         # process that hosts several)
         self.fault_scope = fault_scope
+        # the disaggregated-serving phase this replica serves, and the
+        # spawner's identity nonce: both echoed by health_snapshot
+        self.role = role
+        self.spawn_nonce = spawn_nonce
         self._models = {}  # name -> Model
         self._ready = {}  # name -> bool
         self._stats = {}  # name -> _ModelStats
         self._lock = threading.Lock()
-        self._closed = False  # guarded-by: _lock
         # started front ends (attach_frontend)  # guarded-by: _lock
         self._frontends = 0
-        # requests executing in the core  # guarded-by: _lock
-        self._inflight = 0
+        # the lifecycle state, the in-flight cap and the requests
+        # executing in the core; drain() waits on the condition
+        self._inflight_cond = threading.Condition()
+        # starting | ready | draining | stopped  # guarded-by: _inflight_cond
+        self._state = "ready" if ready else "starting"
+        self._max_inflight = max_inflight  # guarded-by: _inflight_cond
+        self._inflight = 0  # guarded-by: _inflight_cond
         # registered regions by name  # guarded-by: _shm_lock
         self._system_shm = {}
         self._cuda_shm = {}  # guarded-by: _shm_lock
@@ -411,7 +435,6 @@ class InferenceServer:
         with self._lock:
             model = self._models.get(name)
             ready = self._ready.get(name, False)
-            closed = self._closed
         if model is None:
             raise ModelNotFound(
                 "Request for unknown model: '{}' is not found".format(name))
@@ -419,7 +442,7 @@ class InferenceServer:
             raise ModelNotFound(
                 "Request for unknown model version: '{}' version {}".format(
                     name, version))
-        if closed or not ready:
+        if not ready or self.server_state() == "stopped":
             raise ServerUnavailable("Model '{}' is not ready".format(name))
         return model
 
@@ -444,20 +467,25 @@ class InferenceServer:
                     and getattr(model, "concurrent_decoupled", False))
 
     def attach_frontend(self):
-        """Front ends register when they start, and a server closed by
-        its last detach opens again."""
+        """Front ends register when they start, and a stopped server
+        opens again (a ``starting`` one stays starting)."""
         with self._lock:
             self._frontends += 1
-            self._closed = False
+        with self._inflight_cond:
+            if self._state == "stopped":
+                self._state = "ready"
 
     def detach_frontend(self):
-        """The last detach closes the core to new requests (the port's
+        """The last detach stops the core to new requests (the port's
         core runs no background workers of its own to stop; each
         model's scheduler stops with :meth:`close`)."""
         with self._lock:
             self._frontends = max(0, self._frontends - 1)
-            if self._frontends == 0:
-                self._closed = True
+            last = self._frontends == 0
+        if last:
+            with self._inflight_cond:
+                self._state = "stopped"
+                self._inflight_cond.notify_all()
 
     def model_statistics(self, name="", version=""):
         """The KServe statistics of every model (``name=""``) or of one;
@@ -482,8 +510,9 @@ class InferenceServer:
         the data plane's ``shm_stats()`` and every scheduler-backed
         model's ``scheduler_stats()``: one source of truth each, no
         second account."""
-        with self._lock:
+        with self._inflight_cond:
             inflight = self._inflight
+        with self._lock:
             items = list(self._models.items())
         with self._shm_lock:
             regions = [({"kind": "system"}, len(self._system_shm)),
@@ -599,11 +628,20 @@ class InferenceServer:
         probe = getattr(model, "healthy", None)
         return probe is None or bool(probe())
 
+    # -- lifecycle -----------------------------------------------------------
+
+    def server_state(self):
+        """``starting`` | ``ready`` | ``draining`` | ``stopped``."""
+        with self._inflight_cond:
+            return self._state
+
     def server_ready(self):
-        """True while serving and every ready model is healthy."""
+        """True only in ``ready`` with every ready model healthy (a
+        tripped scheduler reports here), so a prober sees a warm-up, a
+        drain and a trip."""
+        if self.server_state() != "ready":
+            return False
         with self._lock:
-            if self._closed:
-                return False
             models = [m for n, m in self._models.items()
                       if self._ready.get(n, False)]
         return all(self._model_healthy(m) for m in models)
@@ -611,10 +649,119 @@ class InferenceServer:
     def model_ready(self, name, version=""):
         with self._lock:
             model = self._models.get(name)
-            ready = (model is not None and not self._closed
+            ready = (model is not None
                      and version in ("", model.version)
                      and self._ready.get(name, False))
-        return ready and self._model_healthy(model)
+        return (ready and self.server_state() == "ready"
+                and self._model_healthy(model))
+
+    def health_snapshot(self):
+        """The routing signal a fleet router's prober polls
+        (``/v2/health/stats``), in the shape of ``tpuserver/core.py``'s:
+        ``state``, ``ready``, ``inflight``, ``max_inflight``, ``pid``,
+        ``role``, ``spawn_nonce`` when the spawner passed one, and
+        ``models``: each model's ``scheduler_stats()`` (None without a
+        scheduler).  The router reads ``tripped``, ``closed``,
+        ``live_streams`` and ``pending`` from them."""
+        with self._inflight_cond:
+            state = self._state
+            inflight = self._inflight
+            max_inflight = self._max_inflight
+        with self._lock:
+            items = list(self._models.items())
+        models = {}
+        for name, model in items:
+            stats_fn = getattr(model, "scheduler_stats", None)
+            models[name] = stats_fn() if callable(stats_fn) else None
+        snap = {"state": state, "ready": self.server_ready(),
+                "inflight": inflight, "max_inflight": max_inflight,
+                "pid": os.getpid(), "role": self.role, "models": models}
+        if self.spawn_nonce is not None:
+            snap["spawn_nonce"] = self.spawn_nonce
+        return snap
+
+    def mark_ready(self, undrain=True):
+        """``starting`` -> ``ready`` once warm, or cancel a drain in
+        progress (the replica rejoins the fleet).  With ``undrain``
+        False only a ``starting`` server turns ready, in one step under
+        the lock, so a warm-up's end never cancels a drain that a
+        SIGTERM has begun.  A stopped server stays stopped: only
+        :meth:`attach_frontend` opens one again."""
+        with self._inflight_cond:
+            if self._state == "starting" or (
+                    undrain and self._state == "draining"):
+                self._state = "ready"
+                # a drain() waiting for inflight == 0 sees the cancel
+                self._inflight_cond.notify_all()
+
+    def set_max_inflight(self, max_inflight):
+        """Set the server-wide in-flight cap at run time (None lifts
+        it)."""
+        with self._inflight_cond:
+            self._max_inflight = max_inflight
+            self._inflight_cond.notify_all()
+
+    def _enter_inflight(self):
+        """Admit one request into the core, or refuse it typed: 503
+        unless ``ready``, 429 with ``Retry-After`` at the cap (the
+        messages of JAX's ``ShuttingDown`` and ``Overloaded``)."""
+        with self._inflight_cond:
+            if self._state != "ready":
+                reason = {"starting": "starting and not yet ready",
+                          "draining": "draining"}.get(self._state,
+                                                      "shut down")
+                raise ServerUnavailable(
+                    "server is {}; not accepting new requests".format(
+                        reason))
+            if self._max_inflight is not None and \
+                    self._inflight >= self._max_inflight:
+                raise TooManyRequests(
+                    "server is at its in-flight request cap ({}); retry "
+                    "later".format(self._max_inflight))
+            self._inflight += 1
+
+    def _exit_inflight(self):
+        with self._inflight_cond:
+            self._inflight -= 1
+            # the one waiter, drain(), waits only after the state left
+            # ready: a ready-state exit wakes nobody
+            if self._state != "ready":
+                self._inflight_cond.notify_all()
+
+    def begin_drain(self):
+        """Stop admission and flip readiness; in-flight work goes on.
+        The first half of :meth:`drain`."""
+        with self._inflight_cond:
+            if self._state != "stopped":
+                self._state = "draining"
+
+    def drain(self, timeout=30.0):
+        """Graceful shutdown: stop admission (new requests get a typed
+        503), let in-flight requests finish within ``timeout`` seconds
+        (each model's scheduler drains first: its generations are the
+        long-lived work), then :meth:`close`, failing whatever remains.
+        A :meth:`mark_ready` during the wait cancels the drain, and the
+        server is not closed."""
+        self.begin_drain()
+        deadline = time.monotonic() + timeout
+        with self._lock:
+            models = list(self._models.values())
+        for model in models:
+            drainer = getattr(model, "drain", None)
+            if callable(drainer):
+                try:
+                    drainer(max(0.0, deadline - time.monotonic()))
+                except Exception:  # noqa: BLE001 — close() must still run
+                    _log.exception("draining model '%s' failed", model.name)
+        with self._inflight_cond:
+            while self._inflight > 0 and self._state == "draining":
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    break
+                self._inflight_cond.wait(remaining)
+            if self._state == "ready":
+                return  # undrained mid-wait: serving again
+        self.close()
 
     def server_metadata(self):
         return {"name": SERVER_NAME, "version": SERVER_VERSION,
@@ -1061,14 +1208,6 @@ class InferenceServer:
             raise RequestTimedOut(
                 "request deadline expired {} execution".format(when))
 
-    def _enter_inflight(self):
-        with self._lock:
-            self._inflight += 1
-
-    def _exit_inflight(self):
-        with self._lock:
-            self._inflight -= 1
-
     def infer(self, request):
         """The unary verb.  A decoupled model answers JAX's typed 400 (it
         is served over the streaming endpoint only); the port's core
@@ -1080,13 +1219,18 @@ class InferenceServer:
             self._check_deadline(request.deadline, "before")
             model = self._get_model(request.model_name,
                                     request.model_version)
-            if model.decoupled:
-                raise BadRequest(
-                    "model '{}' is a decoupled model: it can only be served "
-                    "over the streaming endpoint".format(model.name))
-            raise TorchServeError(
-                "model '{}': unary inference is not served by this "
-                "server yet".format(model.name), code=501)
+            self._enter_inflight()
+            try:
+                if model.decoupled:
+                    raise BadRequest(
+                        "model '{}' is a decoupled model: it can only be "
+                        "served over the streaming endpoint".format(
+                            model.name))
+                raise TorchServeError(
+                    "model '{}': unary inference is not served by this "
+                    "server yet".format(model.name), code=501)
+            finally:
+                self._exit_inflight()
         except TorchServeError as e:
             self._count_error("infer", e.code)
             raise
@@ -1108,9 +1252,13 @@ class InferenceServer:
         t0 = time.monotonic()
         self._m_stream_count.inc()
         try:
+            self._resolve_deadline(request)
+            self._check_deadline(request.deadline, "before")
+            model = self._get_model(request.model_name,
+                                    request.model_version)
             self._enter_inflight()
             try:
-                yield from self._infer_stream_inner(request)
+                yield from self._infer_stream_inner(model, request)
             finally:
                 self._exit_inflight()
         except TorchServeError as e:
@@ -1119,13 +1267,10 @@ class InferenceServer:
         finally:
             self._m_stream_hist.observe(time.monotonic() - t0)
 
-    def _infer_stream_inner(self, request):
-        model = self._get_model(request.model_name, request.model_version)
+    def _infer_stream_inner(self, model, request):
         if not model.decoupled:
             raise BadRequest(
                 "model '{}' is not a decoupled model".format(model.name))
-        self._resolve_deadline(request)
-        self._check_deadline(request.deadline, "before")
         want_final = bool(
             request.parameters.get("triton_enable_empty_final_response"))
         declared = {t.name: t for t in model.outputs}
@@ -1171,8 +1316,10 @@ class InferenceServer:
     def close(self):
         """Stop serving, let every model release what it holds, and drop
         every server-owned KV export.  Safe to call twice."""
+        with self._inflight_cond:
+            self._state = "stopped"
+            self._inflight_cond.notify_all()
         with self._lock:
-            self._closed = True
             models = list(self._models.values())
         for model in models:
             model.close()
@@ -1180,3 +1327,19 @@ class InferenceServer:
             export_ids = list(self._kv_exports)
         for gid in export_ids:
             self.drop_kv_region(gid)
+
+
+def install_sigterm_drain(server, drain_timeout=30.0):
+    """Install a SIGTERM handler that drains ``server`` gracefully:
+    admission stops and readiness flips at once (a prober routes away),
+    in-flight generations finish within ``drain_timeout`` seconds, and
+    the rest fail.  The drain runs on a daemon thread, since a signal
+    handler must return promptly.  Returns the previous handler.  Main
+    thread only, as all signal installation is."""
+    import signal
+
+    def _handler(signum, frame):
+        threading.Thread(target=server.drain, args=(drain_timeout,),
+                         name="sigterm-drain", daemon=True).start()
+
+    return signal.signal(signal.SIGTERM, _handler)

@@ -4,7 +4,7 @@ generate endpoints over ``http.server.ThreadingHTTPServer`` (the port of
 
 Routes::
 
-    GET  /v2/health/live | /v2/health/ready
+    GET  /v2/health/live | /v2/health/ready | /v2/health/stats
     GET  /metrics
     GET  /v2/models/stats
     GET  /v2/models/<m>[/versions/<v>] | .../config | .../ready | .../stats
@@ -41,6 +41,10 @@ format; a system region with ``{"key": "/name", "offset": 0,
 export's one-shot descriptor (404 when there is none, 409 on a second
 fetch); ``.../release`` drops the export.
 
+``/v2/health/ready`` answers 200 only while the core is ``ready`` (503
+while it starts, drains or has stopped); ``/v2/health/stats`` is the
+core's ``health_snapshot()``, the signal a fleet router probes.
+
 ``/metrics`` serves the core's Prometheus exposition
 (``InferenceServer.metrics_text``, the bytes the gRPC ``ServerMetrics``
 unary carries).  The ``http.generate_stream`` fault point trips before
@@ -51,6 +55,7 @@ no terminal chunk, which drives a client's ``Last-Event-ID`` resume.
 import json
 import re
 import threading
+import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import unquote
 
@@ -153,6 +158,8 @@ class _Handler(BaseHTTPRequestHandler):
         self._handle("POST")
 
     def _handle(self, method):
+        with self.server.answering:
+            self.server.n_answering += 1
         try:
             self._dispatch_path(method)
         except TorchServeError as e:
@@ -162,6 +169,10 @@ class _Handler(BaseHTTPRequestHandler):
             self._send_json({"error": str(e)}, e.code, headers)
         except (BrokenPipeError, ConnectionResetError):
             self.close_connection = True
+        finally:
+            with self.server.answering:
+                self.server.n_answering -= 1
+                self.server.answering.notify_all()
 
     def _dispatch_path(self, method):
         path = self.path.split("?", 1)[0]
@@ -170,6 +181,8 @@ class _Handler(BaseHTTPRequestHandler):
             return self._send(200)
         if path == "/v2/health/ready":
             return self._send(200 if core.server_ready() else 503)
+        if path == "/v2/health/stats":
+            return self._send_json(core.health_snapshot())
         if path in ("/v2", "/v2/"):
             return self._send_json(core.server_metadata())
         if path == "/metrics":
@@ -367,6 +380,9 @@ class HttpServer:
         self._httpd = ThreadingHTTPServer((host, port), _Handler)
         self._httpd.daemon_threads = True
         self._httpd.core = core
+        # the requests being answered, which stop(grace) waits for
+        self._httpd.answering = threading.Condition()
+        self._httpd.n_answering = 0
         self._thread = None
 
     @property
@@ -385,9 +401,23 @@ class HttpServer:
         self._core.attach_frontend()
         return self
 
-    def stop(self):
+    def stop(self, grace=None):
+        """Stop listening.  With ``grace``, wait up to that many seconds
+        for the requests being answered to finish writing (their handler
+        threads are daemons, so a process that exits without the wait
+        cuts them): a drained server's last streams end with their final
+        event."""
         self._httpd.shutdown()
         self._httpd.server_close()
+        if grace:
+            deadline = time.monotonic() + grace
+            answering = self._httpd.answering
+            with answering:
+                while self._httpd.n_answering:
+                    remaining = deadline - time.monotonic()
+                    if remaining <= 0:
+                        break
+                    answering.wait(remaining)
         if self._thread is not None:
             self._thread.join(timeout=5)
             self._thread = None

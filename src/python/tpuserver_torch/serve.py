@@ -4,7 +4,9 @@
         --port 8000 [--grpc-port 8001] [--device cuda] [--seed 0] \\
         [--max-slots 8 [--page-size 16] [--kv-pages N] [--spec-tokens K]
         [--step-timeout-s S] [--kv-export] [--target-queue-ms MS
-        [--shed-interval-ms MS]]] [--fault-scope NAME]
+        [--shed-interval-ms MS]]] [--fault-scope NAME] \\
+        [--role prefill|decode] [--spawn-nonce N] [--drain-timeout S] \\
+        [--max-inflight N]
 
 Weights are random, drawn from ``--seed`` on the device.  With
 ``--max-slots`` above 1, concurrent requests share one batched decode
@@ -25,16 +27,32 @@ sojourn-time shedding of admissions (a 429 with a computed
 flag it is not imported).  Both serve ``/metrics``: ``GET /metrics`` and
 the ``ServerMetrics`` unary.  ``--fault-scope`` names this server at the
 fault points (``tpuserver_torch.fault_points``), which the
-``TPUSERVER_FAULTS`` environment variable arms at start.  The server
-runs until interrupted (SIGINT/SIGTERM).
+``TPUSERVER_FAULTS`` environment variable arms at start.
+
+A fleet replica: this is the command a fleet supervisor's template runs
+(``tpuserver/fleet.py`` appends ``--role`` and ``--spawn-nonce``), and
+a fleet router probes its ``/v2/health/stats``.  ``--role`` advertises
+the disaggregated-serving phase this replica serves (a router splits a
+generation into a prefill leg on a ``prefill`` replica and a decode leg
+that attaches its KV export on a ``decode`` one); ``--spawn-nonce`` is
+echoed in the snapshot; ``--max-inflight`` caps the requests in flight
+(a typed 429 with ``Retry-After`` past it).  The front ends listen while
+the model warms up, with the server ``starting`` (not ready), and it
+turns ready after the warm-up.  SIGTERM drains: admission stops and
+readiness flips at once, live streams finish within ``--drain-timeout``
+seconds, and the process exits 0 once the server has stopped, stopping
+its front ends only then.  A SIGTERM during the warm-up waits for it to
+end and then drains a server that never turned ready.  SIGINT stops at
+once.
 """
 
 import argparse
+import os
 import signal
 import threading
 
 from tpuserver_torch import resolve_device
-from tpuserver_torch.core import InferenceServer
+from tpuserver_torch.core import InferenceServer, install_sigterm_drain
 from tpuserver_torch.http_server import HttpServer
 from tpuserver_torch.models import llama
 from tpuserver_torch.models.llama_serving import LlamaGenerateModel
@@ -79,6 +97,19 @@ def main(argv=None):
                         help="the shedding controller's control interval")
     parser.add_argument("--fault-scope", default=None,
                         help="this server's scope at the fault points")
+    parser.add_argument("--role", choices=("prefill", "decode"),
+                        default=None,
+                        help="the disaggregated-serving phase this replica "
+                             "serves (default: fused)")
+    parser.add_argument("--spawn-nonce", default=None,
+                        help="the spawner's identity nonce, echoed in "
+                             "/v2/health/stats")
+    parser.add_argument("--drain-timeout", type=float, default=30.0,
+                        help="seconds a SIGTERM drain lets live streams "
+                             "run before it fails them")
+    parser.add_argument("--max-inflight", type=int, default=None,
+                        help="requests in flight past which admission "
+                             "answers 429 (default: no cap)")
     args = parser.parse_args(argv)
 
     device = resolve_device(args.device)
@@ -94,27 +125,47 @@ def main(argv=None):
                                shed_interval_ms=args.shed_interval_ms,
                                fault_scope=args.fault_scope)
     # registered before the warm-up builds the scheduler, whose latency
-    # histograms go into the server's registry
-    core = InferenceServer([model], fault_scope=args.fault_scope)
-    model.warmup()
+    # histograms go into the server's registry; not ready until it ends
+    core = InferenceServer([model], max_inflight=args.max_inflight,
+                           ready=False, fault_scope=args.fault_scope,
+                           role=args.role, spawn_nonce=args.spawn_nonce)
     http = HttpServer(core, host=args.host, port=args.port).start()
     frontends = [http]
-    print("serving {} on http://{} ({}, max_slots {})".format(
-        args.config, http.url, device, args.max_slots), flush=True)
     if args.grpc_port is not None:
         from tpuserver_torch.grpc_server import GrpcServer
 
         grpc_server = GrpcServer(core, host=args.host,
                                  port=args.grpc_port).start()
         frontends.append(grpc_server)  # a collected grpc server stops
-        print("serving gRPC on {}".format(grpc_server.url), flush=True)
     stop = threading.Event()
-    for sig in (signal.SIGINT, signal.SIGTERM):
-        signal.signal(sig, lambda *_: stop.set())
-    stop.wait()
-    for frontend in reversed(frontends):
-        frontend.stop()
+    signal.signal(signal.SIGINT, lambda *_: stop.set())
+    # a SIGTERM during the warm-up is held until it ends: a drain then
+    # would close the model the warm-up is still building
+    term = threading.Event()
+    signal.signal(signal.SIGTERM, lambda *_: term.set())
+    model.warmup()
+    install_sigterm_drain(core, drain_timeout=args.drain_timeout)
+    if term.is_set():
+        print("SIGTERM during the warm-up: draining", flush=True)
+        core.drain(args.drain_timeout)
+    else:
+        # a SIGTERM from here on drains on its own thread, and this
+        # switch from starting never undoes that drain
+        core.mark_ready(undrain=False)
+        print("serving {} on http://{} ({}, max_slots {}, role {}, pid {})"
+              .format(args.config, http.url, device, args.max_slots,
+                      args.role or "fused", os.getpid()), flush=True)
+        if args.grpc_port is not None:
+            print("serving gRPC on {}".format(frontends[-1].url),
+                  flush=True)
+    while core.server_state() != "stopped" and not stop.wait(0.1):
+        pass
+    # after a drain every stream has had its last event; only an
+    # interrupt still fails live ones (close() ends them in-band)
     core.close()
+    for frontend in reversed(frontends):
+        frontend.stop(grace=5.0)
+    print("stopped", flush=True)
 
 
 if __name__ == "__main__":

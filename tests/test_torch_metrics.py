@@ -18,11 +18,13 @@ import torch
 
 from perfanalyzer.client_backend import HttpBackend
 from tpuserver import metrics as jax_metrics
+from tpuserver import shm_ring as jax_shm_ring
 from tpuserver.core import InferenceServer as JaxServer
 from tpuserver.core import InferRequest as JaxRequest
 from tpuserver.models import llama as jl
 from tpuserver.models.llama_serving import LlamaGenerateModel as JaxLlama
 from tpuserver_torch import metrics as port_metrics
+from tpuserver_torch import shm_ring as port_shm_ring
 from tpuserver_torch.core import InferenceServer, InferRequest
 from tpuserver_torch.grpc_proto import grpc_service_pb2 as pb
 from tpuserver_torch.grpc_proto import service
@@ -203,8 +205,21 @@ def _families(text):
     return out
 
 
+#: counted per process in both packages, so other tests that ran in the
+#: same process (a torn-read fallback test) may already have moved it
+PROCESS_WIDE = "tpu_shm_ring_torn_total"
+
+
 @pytest.fixture(scope="module")
-def cores_after_traffic():
+def torn_before():
+    """Each package's process-wide torn-ring-read count before the
+    traffic."""
+    return {"port": port_shm_ring.torn_total(),
+            "jax": jax_shm_ring.torn_total()}
+
+
+@pytest.fixture(scope="module")
+def cores_after_traffic(torn_before):
     """(the port's core, its model, the JAX core), each ``max_slots=3``
     on the same weights, after ``_drive``."""
     jcfg, tcfg = _cfgs()
@@ -224,16 +239,22 @@ def cores_after_traffic():
         jax_core.close()
 
 
-def test_tpu_families_and_counters_match_jax(cores_after_traffic):
+def test_tpu_families_and_counters_match_jax(cores_after_traffic,
+                                             torn_before):
     """Every ``tpu_*`` family the JAX core serves after the traffic, the
     port's core serves with the same type and label names (plus its own
     data-plane families), and every counter and histogram count holds
     the same values: requests and typed errors per verb, admissions,
     tokens, replay hits, restarts, sheds, prefix-cache tokens, the queue
-    and step histograms."""
+    and step histograms (the process-wide torn-read count as what the
+    traffic added)."""
     core, model, jax_core = cores_after_traffic
     ours = _families(core.metrics_text())
     theirs = _families(jax_core.metrics_text())
+    for fams, side in ((ours, "port"), (theirs, "jax")):
+        kind, labels, values = fams[PROCESS_WIDE]
+        fams[PROCESS_WIDE] = (kind, labels, {
+            k: v - torn_before[side] for k, v in values.items()})
     assert set(ours) - set(theirs) == PORT_ONLY
     assert set(theirs) <= set(ours)
     for name, (kind, labels, values) in theirs.items():
