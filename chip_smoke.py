@@ -110,9 +110,26 @@ Phases, in order; any failure exits non-zero and prints no result line:
    off to P and complete, gap-free, the continuation tokens' agreement
    reported, P's flash launches = 32 x (tileable prefill legs + tileable
    re-prefills), and flash held against its plain version at those
-   re-prefill lengths; (d) P SIGTERMed exits 0.
+   re-prefill lengths; (d) P SIGTERMed exits 0;
+7. int8, last: (a) the W8A16 kernel (``csrc/int8_matmul.cu``) against its
+   plain version at the five distinct Llama-3-8B weight shapes and 1, 8
+   and 40 rows (row-relative ``INT8_TOL``, a planted fault, each row bit
+   for bit the same row computed alone), timed beside its bound, the bf16
+   ``torch.matmul`` of the unquantized weight, the plain version and the
+   library's W8A16 call; (b) ``llama3_8b`` with int8 weights
+   (``LlamaGenerateModel(quantize=True)``, drawn and quantized on the
+   card): phase 4's three requests, then 4b's 12 prompts and 4 repetitive
+   ones over ``max_slots=8`` forward and reversed and with
+   ``spec_tokens=4`` (identical tokens per prompt), the flash, decode and
+   W8A16 launches of each path, TTFT, rates, the decode bandwidth share
+   (``perf.mbu`` with 1-byte weights), peak memory and the tree's bytes,
+   the kernel path's logits against the plain path's, the greedy tokens
+   shared with bf16's (reported), and phase 6's profile of the int8 model
+   beside the bf16 one.
 
-The line before the last is ``{"kernels": [...]}``; the last line is
+The peaks of every bound come from ``tpuserver_torch.ops.perf`` by the
+card's name (phase 1 fails on a card the table does not know).  The line
+before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -126,10 +143,11 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src", "python"))
 
-# H100 SXM published peaks (NVIDIA data sheet, dense): bytes/s of HBM3 and
-# bf16 tensor-core operations/s, at the 700 W power limit
-HBM_BYTES_PER_S = 3.35e12
-BF16_OPS_PER_S = 989e12
+# the card's published peaks (HBM bytes/s, dense bf16 tensor-core
+# operations/s), read from tpuserver_torch.ops.perf by name in phase 1;
+# float32 outside the tensor cores is not in that table (H100 SXM, NVIDIA
+# data sheet)
+SPEC = None
 F32_OPS_PER_S = 67e12
 
 # kernel vs plain tolerances on the card.  The measure is row-relative:
@@ -193,16 +211,24 @@ def fail(msg):
 
 
 def phase_device(torch):
+    global SPEC
+    from tpuserver_torch.ops import perf
+
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke needs a card")
     name = torch.cuda.get_device_name(0)
+    SPEC = perf.chip_spec(0)
+    if SPEC is None:
+        fail("no published spec for {} in tpuserver_torch.ops.perf: the "
+             "bounds need its peaks".format(name))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         timeout=60)
     log("device:", name, "count:", torch.cuda.device_count(),
-        "torch", torch.__version__, "cuda", torch.version.cuda)
+        "torch", torch.__version__, "cuda", torch.version.cuda, "spec",
+        SPEC)
     return name, smi.stdout.strip().splitlines()[0]
 
 
@@ -263,7 +289,7 @@ def row_rel_err(out, ref):
 
 
 def _bound_ms(nbytes, ops, ops_per_s):
-    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_bytes = nbytes / SPEC.hbm_bandwidth
     t_ops = ops / ops_per_s
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
@@ -316,7 +342,7 @@ def _flash_case(torch, F, fl, dev, gen, b, t, h, hkv, d, causal, dtype,
         isz = q.element_size()
         nbytes = (2 * b * t * h * d + 2 * b * t * hkv * d) * isz
         row["bound_ms"], row["bound_by"] = _bound_ms(
-            nbytes, 4 * pairs * d, BF16_OPS_PER_S
+            nbytes, 4 * pairs * d, SPEC.peak_bf16_flops
             if dtype == torch.bfloat16 else F32_OPS_PER_S)
     return row
 
@@ -382,7 +408,7 @@ def _decode_case(torch, F, fl, dev, gen, lengths, s, h, hkv, d, dtype, timed,
         live = sum(lengths)
         nbytes = (2 * live * hkv * d + 2 * b * h * d) * isz + 4 * b
         row["bound_ms"], row["bound_by"] = _bound_ms(
-            nbytes, 4 * live * h * d, BF16_OPS_PER_S
+            nbytes, 4 * live * h * d, SPEC.peak_bf16_flops
             if dtype == torch.bfloat16 else F32_OPS_PER_S)
     return row
 
@@ -873,16 +899,33 @@ def phase_serve_batched(torch, np, model1, long_prompt, single_tokens,
     if inert != 0.0:
         fail("an inert row's logits moved")
 
-    prof_tables = np.arange(slots * ppseq, dtype=np.int32).reshape(
-        slots, ppseq)
-    prof_pos = np.array(BATCHED_LENGTHS, np.int32) - 1
-    prof_active = np.ones((slots,), bool)
     state = {"pages": pages, "logits": logits_all}
+    steps, prof_tables, prof_pos = _profiled_steps(np, fns, params, state)
+    torch.cuda.synchronize()
+    log("serve_batched: peak device memory {:.3f} GiB (weights, phase 4's "
+        "model and this phase)".format(
+            torch.cuda.max_memory_allocated() / 2 ** 30))
+    return launches, steps, {
+        "fns": fns, "state": state, "tables": prof_tables,
+        "positions": prof_pos}, prompts, budgets, rounds[0]
+
+
+def _profiled_steps(np, fns, params, state):
+    """Phase 6's batched steps on ``state`` (``pages`` and ``logits`` of
+    ``fns``'s pool, updated by each step): 8 live rows at lengths
+    ``BATCHED_LENGTHS``, one step fetched, and four in the scheduler's
+    one-deep pipeline.  Returns (the two functions, the page tables, the
+    positions)."""
+    slots, ppseq = len(BATCHED_LENGTHS), fns["pages_per_seq"]
+    tables = np.arange(slots * ppseq, dtype=np.int32).reshape(slots, ppseq)
+    positions = np.array(BATCHED_LENGTHS, np.int32) - 1
+    active = np.ones((slots,), bool)
+    no_force = np.zeros((slots,), np.int32)
 
     def dispatch():
         toks, lps, state["logits"], state["pages"] = fns["step"](
-            params, state["pages"], state["logits"], prof_tables, prof_pos,
-            prof_active, no_force, no_force.astype(bool))
+            params, state["pages"], state["logits"], tables, positions,
+            active, no_force, no_force.astype(bool))
         return toks, lps
 
     def batched_step():
@@ -899,14 +942,9 @@ def phase_serve_batched(torch, np, model1, long_prompt, single_tokens,
             inflight = current
         return np.asarray(inflight[0]), np.asarray(inflight[1])
 
-    torch.cuda.synchronize()
-    log("serve_batched: peak device memory {:.3f} GiB (weights, phase 4's "
-        "model and this phase)".format(
-            torch.cuda.max_memory_allocated() / 2 ** 30))
-    return launches, {"batched_step_8": batched_step,
-                      "batched_steps_8_x4_pipelined": pipelined_steps}, {
-        "fns": fns, "state": state, "tables": prof_tables,
-        "positions": prof_pos}, prompts, budgets, rounds[0]
+    return {"batched_step_8": batched_step,
+            "batched_steps_8_x4_pipelined": pipelined_steps}, tables, \
+        positions
 
 
 # -- phase 4c: speculative verify, self-healing, resume -----------------------
@@ -2161,9 +2199,6 @@ def phase_grpc(torch, np, cfg, params, prompts, budgets, tokens_4b,
 
 FLEET_PROBE_S = 0.2
 FLEET_DRAIN_S = 120.0
-# each replica's in-flight cap, as a deployment sets one: well above a
-# round's streams, so it sheds nothing here
-FLEET_MAX_INFLIGHT = 64
 
 
 def child_serve(torch, argv):
@@ -2214,8 +2249,7 @@ def _replica(port, role, nonce):
         [sys.executable, os.path.abspath(__file__), "--child-serve",
          "--config", "llama3_8b", "--max-seq", "4096", "--max-slots", "8",
          "--seed", str(SEED), "--port", str(port), "--role", role,
-         "--spawn-nonce", nonce, "--drain-timeout", str(FLEET_DRAIN_S),
-         "--max-inflight", str(FLEET_MAX_INFLIGHT)],
+         "--spawn-nonce", nonce, "--drain-timeout", str(FLEET_DRAIN_S)],
         stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True, bufsize=1)
 
 
@@ -2364,9 +2398,10 @@ def phase_fleet(torch, np, cfg, prompts, budgets, tokens_4b):
             snaps = [snap, _health(dport)]
             if any(x is None or x["state"] != "ready" for x in snaps):
                 return False
-            if any(x["max_inflight"] != FLEET_MAX_INFLIGHT for x in snaps):
-                fail("fleet: snapshots' max_inflight {} (want {})".format(
-                    [x["max_inflight"] for x in snaps], FLEET_MAX_INFLIGHT))
+            if any(x["max_inflight"] is not None for x in snaps):
+                fail("fleet: snapshots' max_inflight {} (want no cap: "
+                     "serve.py takes none)".format(
+                         [x["max_inflight"] for x in snaps]))
             disagg = _router_stats(rport)["disagg"]
             return (disagg["prefill_replicas"],
                     disagg["decode_replicas"]) == (1, 1) and all(
@@ -2602,6 +2637,408 @@ def phase_fleet(torch, np, cfg, prompts, budgets, tokens_4b):
             json.dumps([x.rstrip() for x in router_lines][-20:]))
 
 
+# -- phase 7: int8 weights ---------------------------------------------------
+
+# Llama-3-8B's int8 matmul weights, (K, N) by name: a decode step runs each
+# layer's seven and the lm_head's once through the W8A16 kernel
+INT8_WEIGHTS = (("wq", 4096, 4096), ("wk", 4096, 1024), ("wv", 4096, 1024),
+                ("wo", 4096, 4096), ("w_gate", 4096, 14336),
+                ("w_up", 4096, 14336), ("w_down", 14336, 4096),
+                ("lm_head", 4096, 128256))
+# rows the kernel is held at: one stream's decode (1), a batched or
+# speculative sub-step of 8 slots (8), and 40 (8 slots x 5 verify
+# positions, for a verify in one pass: the port's chains 5 steps of 8)
+INT8_ROWS = (1, 8, 40)
+# W8A16 kernel vs plain, row-relative as TOL: both round the float32 sum
+# to bf16 and then the product with the bf16 scale, but sum in another
+# order, so a rounding can move by one bf16 step, twice (at most 2^-7 of
+# the row's largest value each); a skipped block of 32 weight rows breaks it
+INT8_TOL = 2e-2
+# int8 model check, kernels against plain versions: twice LOGITS_TOL.  The
+# prefill's w8a8 product rounds every activation to a step of 1/127 of its
+# row's largest value, about twice bf16's relative step there, so the
+# last-bit differences of flash against dense attention (phase 5) move the
+# 32 layers' products up to twice as far; and the lm_head product itself
+# now differs between the paths (the W8A16 kernel's and cuBLAS's sums, each
+# rounded twice to bf16).  A planted fault (the last 32 of each product's
+# input rows dropped) must break it
+INT8_LOGITS_TOL = 2 * LOGITS_TOL
+INT8_BUDGET_REPETITIVE = 32
+
+
+def _int8_cases(torch, quant, dev, gen, k, n, flush):
+    """The W8A16 kernel against its plain version at one weight shape and
+    each of ``INT8_ROWS``: two calls equal, each row equal bit for bit to
+    the row computed alone, the row-relative error, a planted fault (the
+    last 32 weight rows zeroed), and the times of the kernel, the plain
+    version, the bf16 ``torch.matmul`` of the unquantized weight and the
+    library's W8A16 call (``torch._weight_int8pack_mm``, which takes the
+    weight as [N, K] and bf16 scales), beside the byte and operation
+    bound."""
+    w = (torch.randn(k, n, device=dev, generator=gen) / k ** 0.5).to(
+        torch.bfloat16)
+    qw = quant.quantize_int8(w)
+    q, s = qw["q"], qw["s"]
+    x = torch.randn(max(INT8_ROWS), k, device=dev, generator=gen).to(
+        torch.bfloat16)
+    alone = torch.cat([quant.int8_matmul(x[i:i + 1], q, s)
+                       for i in range(len(x))])
+    cut = q.clone()
+    cut[-32:] = 0
+    wt, sb = q.t().contiguous(), s.to(torch.bfloat16)
+    rows = []
+    for m in INT8_ROWS:
+        xm = x[:m]
+        before = quant.int8_matmul.launches
+        out = quant.int8_matmul(xm, q, s)
+        again = quant.int8_matmul(xm, q, s)
+        torch.cuda.synchronize()
+        if quant.int8_matmul.launches != before + 2:
+            fail("int8_matmul did not launch its kernel")
+        if not torch.equal(out, again):
+            fail("int8_matmul: two calls on the same inputs differ")
+        if not torch.equal(out, alone[:m]):
+            fail("int8_matmul at ({}, {}): rows inside M {} differ from "
+                 "the same rows computed alone".format(k, n, m))
+        ref = quant.int8_matmul_reference(xm, q, s)
+        row = {"kernel": "int8_matmul", "m": m, "k": k, "n": n,
+               "dtype": "bfloat16",
+               "max_abs_err": (out.float() - ref.float()).abs().max().item(),
+               "row_rel_err": row_rel_err(out, ref),
+               "planted_fault_err": {"skipped_rows": row_rel_err(
+                   quant.int8_matmul_reference(xm, cut, s), ref)},
+               "ms": _time_ms(torch, lambda: quant.int8_matmul(xm, q, s),
+                              50, flush),
+               "plain_ms": _time_ms(
+                   torch, lambda: quant.int8_matmul_reference(xm, q, s), 10,
+                   flush),
+               "bf16_matmul_ms": _time_ms(torch, lambda: xm @ w, 50, flush)}
+        try:
+            lib = torch._weight_int8pack_mm(xm, wt, sb)
+            row["library_row_rel_err"] = row_rel_err(lib, ref)
+            row["library_ms"] = _time_ms(
+                torch, lambda: torch._weight_int8pack_mm(xm, wt, sb), 10,
+                flush)
+        except (AttributeError, RuntimeError, NotImplementedError) as e:
+            row["library_ms"] = None
+            row["library_error"] = str(e)[:200]
+        row["bound_ms"], row["bound_by"] = _bound_ms(
+            k * n + 4 * n + 2 * m * k + 2 * m * n, 2 * m * k * n,
+            SPEC.peak_bf16_flops)
+        rows.append(row)
+    return rows
+
+
+def _int8_step_sum(cases, m, n_layers):
+    """One decode step's W8A16 work at ``m`` rows from the timed shapes:
+    every layer's seven products and the lm_head's, summed."""
+    uses = {}
+    for name, k, n in INT8_WEIGHTS:
+        uses[(k, n)] = uses.get((k, n), 0) + (1 if name == "lm_head"
+                                              else n_layers)
+    out = {"m": m, "shape": "{} layers x (wq, wk, wv, wo, w_gate, w_up, "
+           "w_down) + lm_head".format(n_layers)}
+    for key in ("ms", "plain_ms", "bound_ms", "bf16_matmul_ms",
+                "library_ms"):
+        vals = [(c, cases[(m,) + kn][key]) for kn, c in uses.items()]
+        out[key] = (None if any(v is None for _, v in vals)
+                    else sum(c * v for c, v in vals))
+    out["bound_by"] = ("bytes" if all(cases[(m,) + kn]["bound_by"] ==
+                                      "bytes" for kn in uses)
+                       else "operations")
+    return out
+
+
+def _tree_bytes(quant, tree):
+    if quant.is_quantized(tree) or not isinstance(tree, (dict, list)):
+        return quant.quantized_bytes(tree)
+    return sum(_tree_bytes(quant, v) for v in (
+        tree.values() if isinstance(tree, dict) else tree))
+
+
+def _int8_counts(fl, quant):
+    return {"flash_attention": fl.flash_attention.launches,
+            "decode_attention": fl.decode_attention.launches,
+            "int8_matmul": quant.int8_matmul.launches}
+
+
+def _int8_logits(torch, llama, quant, params, cfg, prompt):
+    """The last-position prefill logits of ``prompt`` and one decode
+    step's (fed the kernel path's greedy token), through the kernels
+    (flash, decode, W8A16), through the plain path (dense attention, and
+    the W8A16 plain version swapped in for the kernel here), and through
+    the plain path with a planted fault (each W8A16 product without its
+    last 32 input rows)."""
+    import dataclasses
+
+    tokens = torch.tensor(prompt, dtype=torch.long, device="cuda")[None, :]
+    cfg_plain = dataclasses.replace(cfg, attn_impl="dense",
+                                    decode_impl="dense")
+    out, tok = {}, None
+    kernel = quant.int8_matmul
+    swaps = {"kernel": kernel, "plain": quant.int8_matmul_reference,
+             "fault": lambda x, q, s: quant.int8_matmul_reference(
+                 x[..., :-32], q[:-32], s)}
+    with torch.inference_mode():
+        for name, c in (("kernel", cfg), ("plain", cfg_plain),
+                        ("fault", cfg_plain)):
+            quant.int8_matmul = swaps[name]
+            try:
+                cache = llama.init_kv_cache(c, 1, 4096, "cuda")
+                first, cache = llama.prefill(params, cache, tokens, c)
+                if tok is None:
+                    tok = torch.argmax(first, dim=-1)
+                second, cache = llama.decode_step(params, cache, tok,
+                                                  tokens.shape[1], c)
+                out[name] = (first, second)
+                del cache
+            finally:
+                quant.int8_matmul = kernel
+    return out
+
+
+def phase_int8(torch, np, bf16_tokens, prompts, budgets):
+    """(a) The W8A16 kernel at the five distinct ``llama3_8b`` weight
+    shapes and ``INT8_ROWS`` rows; (b) ``llama3_8b`` served with int8
+    weights (``LlamaGenerateModel(quantize=True)``, ``max_seq`` 4096):
+    phase 4's three requests single-stream, then phase 4b's 12 prompts
+    and 4 repetitive ones over ``max_slots=8`` forward and in reverse, and
+    the same 16 with ``spec_tokens=4``: tokens identical per prompt across
+    the three, launches of all three kernels, TTFT, decode and aggregate
+    rates, the decode-token bandwidth share, peak memory and the tree's
+    bytes; the kernel path's logits against the plain path's; the int8
+    tokens' agreement with bf16's (reported).  Returns (the kernel cases
+    by (m, k, n), launch counts by path, the profile of the int8 model)."""
+    import gc
+
+    from tpuserver_torch import ops
+    from tpuserver_torch.core import InferenceServer
+    from tpuserver_torch.http_server import HttpServer
+    from tpuserver_torch.models import llama
+    from tpuserver_torch.models.llama_serving import LlamaGenerateModel
+    from tpuserver_torch.ops import flash as fl
+    from tpuserver_torch.ops import perf, quant
+
+    dev = torch.device("cuda")
+    cfg = llama.llama3_8b()
+    # (a) the kernel against its plain version
+    gen = torch.Generator(device=dev).manual_seed(SEED + 20)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    cases = {}
+    for k, n in sorted({(k, n) for _, k, n in INT8_WEIGHTS}):
+        for row in _int8_cases(torch, quant, dev, gen, k, n, flush):
+            log("kernel_case:", json.dumps(row))
+            cases[(row["m"], k, n)] = row
+    # the prefill's w8a8 product (torch._int_mm, cuBLASLt) at a 512-token
+    # prompt and w_gate's shape: the int8 weight as stored ([K, N], N
+    # contiguous), the same values column-major, and the bf16 product
+    xq = torch.randint(-127, 128, (512, 4096), device=dev,
+                       generator=gen).to(torch.int8)
+    wq = torch.randint(-127, 128, (4096, 14336), device=dev,
+                       generator=gen).to(torch.int8)
+    wq_cm = wq.t().contiguous().t()
+    if not torch.equal(torch._int_mm(xq, wq_cm), quant._int8_product(xq, wq)):
+        fail("torch._int_mm differs between the weight's two layouts")
+    xb, wb = xq.to(torch.bfloat16), wq.to(torch.bfloat16)
+    log("w8a8 product at M 512, K 4096, N 14336: {}".format(json.dumps({
+        "stored_layout_ms": _time_ms(
+            torch, lambda: quant._int8_product(xq, wq), 20, flush),
+        "column_major_ms": _time_ms(
+            torch, lambda: torch._int_mm(xq, wq_cm), 20, flush),
+        "bf16_matmul_ms": _time_ms(torch, lambda: xb @ wb, 20, flush)})))
+    del flush, xq, wq, wq_cm, xb, wb
+    torch.cuda.empty_cache()
+    bad = [r for r in cases.values() if not r["row_rel_err"] <= INT8_TOL]
+    blind = [r for r in cases.values()
+             if not r["planted_fault_err"]["skipped_rows"] > INT8_TOL]
+    if bad:
+        fail("int8_matmul disagrees with its plain version: {}".format(bad))
+    if blind:
+        fail("a planted fault passes the int8 tolerance: {}".format(blind))
+    steps = {m: _int8_step_sum(cases, m, cfg.n_layers) for m in (1, 8)}
+    for m, row in steps.items():
+        log("timed: int8_matmul, one decode step at M {}: {} ms, bound {} "
+            "ms ({}), bf16 torch.matmul of the same weights {} ms, plain {} "
+            "ms, library {} ms".format(
+                m, row["ms"], row["bound_ms"], row["bound_by"],
+                row["bf16_matmul_ms"], row["plain_ms"], row["library_ms"]))
+
+    # (b) the int8 server: weights drawn and quantized on the card
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    model = LlamaGenerateModel(cfg=cfg, max_seq=4096, seed=SEED,
+                               device="cuda", quantize=True)
+    t0 = time.monotonic()
+    model.warmup()
+    torch.cuda.synchronize()
+    params = model._ensure_params()
+    memory = {"load_s": time.monotonic() - t0,
+              "load_peak_gib": (torch.cuda.max_memory_allocated() - base)
+              / 2 ** 30,
+              "quantized_bytes": _tree_bytes(quant, params),
+              "bf16_bytes": perf.param_count(cfg) * 2}
+    if not quant.is_quantized(params["lm_head"]) or not all(
+            quant.is_quantized(layer[w]) for layer in params["layers"]
+            for w in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")):
+        fail("the int8 model serves weights that are not quantized")
+    torch.cuda.reset_peak_memory_stats()
+    rng = np.random.RandomState(SEED)  # phase 4's prompts
+    long_prompt = rng.randint(0, cfg.vocab, 512)
+    short_prompt = rng.randint(0, cfg.vocab, 77)
+    core = InferenceServer([model])
+    http = HttpServer(core, port=0).start()
+    runs, rates, ttfts, launches = [], [], [], {}
+    try:
+        ops.reset_launch_counts()
+        for name, prompt, n in (("flash_prefill", long_prompt, 64),
+                                ("dense_prefill", short_prompt, 32),
+                                ("repeat", long_prompt, 64)):
+            tokens, ttft, rate, final, _ = _stream(http.port, prompt, n)
+            log("int8 request {}: prompt {} tokens, {} tokens streamed, "
+                "ttft {:.1f} ms, decode {:.1f} tokens/s".format(
+                    name, len(prompt), len(tokens), ttft * 1e3, rate))
+            if len(tokens) != n or not final:
+                fail("int8 request {}: {} events (want {}), final marker "
+                     "{}".format(name, len(tokens), n, final))
+            runs.append(tokens)
+            rates.append(rate)
+            ttfts.append(ttft)
+        torch.cuda.synchronize()
+        launches["serve_int8"] = _int8_counts(fl, quant)
+    finally:
+        http.stop()
+        core.close()
+    memory["serve_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    if runs[2] != runs[0]:
+        fail("int8: the repeated request gave other tokens")
+    counts = launches["serve_int8"]
+    per_step = 7 * cfg.n_layers + 1  # W8A16 launches of one decode step
+    if (counts["flash_attention"] < cfg.n_layers
+            or counts["decode_attention"] < cfg.n_layers * 95
+            or counts["int8_matmul"] < per_step * 95):
+        fail("int8 single-stream launches {} (want flash >= {}, decode >= "
+             "{}, int8 >= {})".format(counts, cfg.n_layers,
+                                      cfg.n_layers * 95, per_step * 95))
+    ctx = len(long_prompt) + 32
+    nbytes = perf.decode_bytes_per_token(cfg, ctx, weight_bytes_per_param=1)
+    rate = rates[0]
+    share = perf.mbu(nbytes, 1.0 / rate, SPEC)
+    agree = sum(a == b for a, b in zip(runs[0], bf16_tokens))
+    log("int8 serve: launches {}; TTFT {} ms; decode {} tokens/s; decode "
+        "bandwidth share {} ({} bytes a token at context {}, 1-byte "
+        "weights; client clock); greedy tokens shared with bf16's: {}/{} "
+        "(reported, not required); memory {}".format(
+            json.dumps(counts), [t * 1e3 for t in ttfts], rates, share,
+            nbytes, ctx, agree, len(bf16_tokens), json.dumps(memory)))
+
+    # the kernel path's logits against the plain path's
+    logits = _int8_logits(torch, llama, quant, params, cfg, long_prompt)
+    errs, faults, ranges = [], [], []
+    for i, what in enumerate(("prefill", "decode step")):
+        lk, lp = logits["kernel"][i], logits["plain"][i]
+        if not (torch.isfinite(lk).all() and lk.shape == (1, cfg.vocab)):
+            fail("int8 kernel-path {} logits not finite or of the wrong "
+                 "shape".format(what))
+        errs.append((lk - lp).abs().max().item())
+        faults.append((logits["fault"][i] - lp).abs().max().item())
+        ranges.append((lp.min().item(), lp.max().item()))
+    log("int8 model check: logits max |kernel - plain| prefill {:.4g}, "
+        "decode step {:.4g} (tolerance {}); planted fault {:.4g}, {:.4g}; "
+        "plain logits ranges {}".format(errs[0], errs[1], INT8_LOGITS_TOL,
+                                        faults[0], faults[1], ranges))
+    if not max(errs) <= INT8_LOGITS_TOL:
+        fail("int8 kernel-path logits differ from the plain path by "
+             "{}".format(errs))
+    if not faults[1] > INT8_LOGITS_TOL:
+        fail("int8 model check: the planted fault passes the tolerance")
+    del logits
+
+    # batched, in both arrival orders, then speculative
+    prompts = list(prompts) + _repetitive_prompts(np, cfg.vocab, 4)
+    budgets = list(budgets) + [INT8_BUDGET_REPETITIVE] * 4
+    tileable = len(_flash_admissions(llama, cfg, 4096,
+                                     [len(p) for p in prompts]))
+    rounds = {}
+    for path, spec, orders in (
+            ("serve_int8_batched", 0, (range(len(prompts)),
+                                       range(len(prompts) - 1, -1, -1))),
+            ("serve_int8_spec", SPEC_K, (range(len(prompts)),))):
+        bmodel = LlamaGenerateModel(cfg=cfg, max_seq=4096, max_slots=8,
+                                    params=params, device="cuda",
+                                    quantize=True, spec_tokens=spec)
+        bmodel.warmup()
+        if bmodel._ensure_params()["lm_head"]["q"].data_ptr() != \
+                params["lm_head"]["q"].data_ptr():
+            fail("the batched int8 model copied the weights")
+        bcore = InferenceServer([bmodel])
+        bhttp = HttpServer(bcore, port=0).start()
+        try:
+            ops.reset_launch_counts()
+            for order in orders:
+                results, wall = _batched_round(bhttp.port, prompts, budgets,
+                                               list(order))
+                total = sum(len(r[0]) for r in results.values())
+                log("int8 {} round: {} tokens in {:.3f} s, aggregate {:.1f} "
+                    "tokens/s; TTFT median {:.1f} ms".format(
+                        path, total, wall, total / wall, sorted(
+                            r[1] for r in results.values())[
+                                len(results) // 2] * 1e3))
+                for i, r in results.items():
+                    if len(r[0]) != budgets[i] or not r[3] or [
+                            int(x.rsplit("/", 1)[1]) for x in r[4]] != list(
+                                range(budgets[i])):
+                        fail("int8 {} request {}: {} tokens, final {}, ids "
+                             "{}".format(path, i, len(r[0]), r[3], r[4]))
+                rounds.setdefault(path, []).append(
+                    {i: r[0] for i, r in results.items()})
+            torch.cuda.synchronize()
+            launches[path] = _int8_counts(fl, quant)
+            stats = bmodel.scheduler_stats()
+        finally:
+            bhttp.stop()
+            bcore.close()
+        del bmodel, bcore, bhttp
+        gc.collect()
+        torch.cuda.empty_cache()
+        counts = launches[path]
+        log("int8 {}: launches {}, scheduler {}".format(
+            path, json.dumps(counts), json.dumps(stats)))
+        n_rounds = len(orders)
+        if (counts["decode_attention"] < cfg.n_layers * stats["steps"]
+                or counts["int8_matmul"] < per_step * stats["steps"]
+                or counts["flash_attention"]
+                < cfg.n_layers * n_rounds * tileable):
+            fail("int8 {} launches {} over {} steps and {} tileable "
+                 "admissions".format(path, counts, stats["steps"],
+                                     n_rounds * tileable))
+        if spec and stats["spec_proposed"] == 0:
+            fail("no stream drafted in the int8 spec round")
+    plain = rounds["serve_int8_batched"]
+    same = [plain[0][i] == plain[1][i] == rounds["serve_int8_spec"][0][i]
+            for i in range(len(prompts))]
+    log("int8: prompts identical across arrival orders and with "
+        "spec_tokens={}: {}/{}".format(SPEC_K, sum(same), len(same)))
+    if not all(same):
+        fail("int8: prompts streamed other tokens in another slot or with "
+             "speculation: {}".format([i for i, ok in enumerate(same)
+                                       if not ok]))
+
+    # where the time goes, on a fresh pool of random K/V
+    fns = llama.make_scheduler_fns(cfg, 4096, 8, device="cuda")
+    with torch.inference_mode():
+        state = {"pages": fns["init_cache"](), "logits": fns["init_logits"]()}
+        state["pages"].normal_(generator=torch.Generator(
+            device="cuda").manual_seed(SEED))
+    prof_steps, _, _ = _profiled_steps(np, fns, params, state)
+    profile = phase_profile(torch, model, long_prompt, prof_steps,
+                            label="profile_int8")
+    del state, prof_steps, fns, model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return cases, steps, launches, profile
+
+
 # -- phase 5: model check ----------------------------------------------------
 
 
@@ -2645,6 +3082,8 @@ def phase_model_check(torch, model, prompt):
 
 
 def _kernel_class(name):
+    if "w8a16" in name:
+        return "int8_matmul"
     if "decode_attention" in name:
         return "decode_attention"
     if "flash_attention" in name:
@@ -2661,13 +3100,14 @@ def _kernel_class(name):
     return "other"
 
 
-def phase_profile(torch, model, prompt, batched_steps):
+def phase_profile(torch, model, prompt, batched_steps, label="profile"):
     """One 512-token prefill and one 8-token decode chunk of the served
     model, and ``batched_steps`` (name -> function: one batched paged
     step, and four in the scheduler's pipeline, fetched): wall time (no
     profiler; the median of ``WALL_REPS`` runs, each kept), device kernel
     time by class and the top kernels
-    (torch.profiler), and the device's busy share."""
+    (torch.profiler), and the device's busy share, logged under
+    ``label`` and returned."""
     from torch.profiler import ProfilerActivity, profile
 
     from tpuserver_torch.models import llama
@@ -2722,9 +3162,10 @@ def phase_profile(torch, model, prompt, batched_steps):
                 "top_kernels": sorted(kernels, reverse=True)[:6],
                 "top_host_ops_ms": sorted(host, reverse=True)[:6]}
         del cache
-    log("profile:", json.dumps(out))
+    log(label + ":", json.dumps(out))
     if not any(v["device_ms"] > 0 for v in out.values()):
-        log("profile: torch.profiler recorded no device time")
+        log(label + ": torch.profiler recorded no device time")
+    return out
 
 
 # -- main --------------------------------------------------------------------
@@ -2763,7 +3204,7 @@ def main():
                                b_tokens, readmits)
     phase_flash_lengths(torch, rows, readmits)
     phase_model_check(torch, model, prompt)
-    phase_profile(torch, model, prompt, batched_steps)
+    profile = phase_profile(torch, model, prompt, batched_steps)
     core.close()
     # phase 4g's two replica processes need the card: release this
     # process's models first
@@ -2776,6 +3217,12 @@ def main():
         torch, np, cfg, b_prompts, b_budgets, b_tokens)
     phase_flash_lengths(torch, rows, handoff_lengths,
                         timed_as="flash_attention_handoff")
+    int8_cases, int8_steps, int8_launches, int8_profile = phase_int8(
+        torch, np, tokens, b_prompts, b_budgets)
+    log("int8 vs bf16, device ms by kernel class: {}".format(json.dumps({
+        name: {"bf16": profile[name]["device_ms_by_class"],
+               "int8": int8_profile[name]["device_ms_by_class"]}
+        for name in int8_profile})))
 
     kernels = []
     # each kernel once per path: the single-stream serve (phase 4, timed
@@ -2833,6 +3280,14 @@ def main():
         paths.append(
             ("flash_attention", flash_src, flash_tpu, "fleet_handoff",
              "flash_attention_handoff", fleet_launches["fleet_handoff"]))
+    # phase 7's int8 paths: single-stream, batched, speculative
+    for path, timed_as in (("serve_int8", "decode_attention"),
+                           ("serve_int8_batched", "decode_attention_batched"),
+                           ("serve_int8_spec", "decode_attention_batched")):
+        paths += [("flash_attention", flash_src, flash_tpu, path,
+                   "flash_attention", int8_launches[path]),
+                  ("decode_attention", decode_src, decode_tpu, path,
+                   timed_as, int8_launches[path])]
     for kname, src, replaces, path, timed_as, counts in paths:
         row = rows["timed"][timed_as]
         kernels.append({
@@ -2843,6 +3298,26 @@ def main():
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
             "library_live_ms": row.get("library_live_ms")})
+    # the W8A16 kernel has no Pallas counterpart: it replaces the XLA
+    # fusion of the JAX package's weight-only product.  Its times are one
+    # decode step's worth (every layer's seven weights and the lm_head)
+    # at the step's rows, each shape timed in phase 7 (a)
+    int8_err = max(r["max_abs_err"] for r in int8_cases.values())
+    for path, m in (("serve_int8", 1), ("serve_int8_batched", 8),
+                    ("serve_int8_spec", 8)):
+        step = int8_steps[m]
+        kernels.append({
+            "name": "int8_matmul", "route": "cuda",
+            "source": "src/python/tpuserver_torch/csrc/int8_matmul.cu",
+            "replaces": "src/python/tpuserver/ops/quant.py:68",
+            "path": path,
+            "launches": int8_launches[path]["int8_matmul"],
+            "max_abs_err": int8_err, "ms": step["ms"],
+            "plain_ms": step["plain_ms"], "bound_ms": step["bound_ms"],
+            "bound_by": step["bound_by"], "library_ms": step["library_ms"],
+            "bf16_matmul_ms": step["bf16_matmul_ms"],
+            "timed_as": "one decode step at M {}: {}".format(
+                m, step["shape"])})
     idle = [(k["name"], k["path"]) for k in kernels if not k["launches"]]
     if idle:
         fail("kernels of a path never launched on it: {}".format(idle))

@@ -25,15 +25,25 @@ namespace {
 // Runs fn with ``device`` current, then makes the caller's device current
 // again; the first error wins.
 template <typename F>
-int on_device(int device, F fn) {
+cudaError_t on_device_(int device, F fn) {
   int prev = 0;
   cudaError_t e = cudaGetDevice(&prev);
-  if (e != cudaSuccess) return (int)e;
+  if (e != cudaSuccess) return e;
   e = cudaSetDevice(device);
-  if (e != cudaSuccess) return (int)e;
+  if (e != cudaSuccess) return e;
   cudaError_t r = fn();
   e = cudaSetDevice(prev);
-  return (int)(r != cudaSuccess ? r : e);
+  return r != cudaSuccess ? r : e;
+}
+
+// on_device_, and a failure is also taken off the thread's last-error
+// state, where the runtime leaves it: the code goes back to the caller, and
+// the next kernel launch's cudaGetLastError() check must not report it.
+template <typename F>
+int on_device(int device, F fn) {
+  const cudaError_t e = on_device_(device, fn);
+  if (e != cudaSuccess) cudaGetLastError();
+  return (int)e;
 }
 
 }  // namespace

@@ -33,7 +33,8 @@ Shared memory: an input may name a registered region instead of carrying
 ``data`` (``parameters``: ``shared_memory_region``,
 ``shared_memory_byte_size``, ``shared_memory_offset``); from a CUDA
 region the model then reads a view of the region's device memory.  The
-region is pinned from the read to the end of the stream.  A CUDA region
+region is pinned from the read to the end of the stream (released before
+the final marker goes out).  A CUDA region
 registers with ``{"raw_handle": {"b64": <base64 of the 64-byte
 cudaIpcMemHandle_t>}, "device_id": 0, "byte_size": N}``, Triton's wire
 format; a system region with ``{"key": "/name", "offset": 0,
@@ -264,8 +265,12 @@ class _Handler(BaseHTTPRequestHandler):
         try:
             self._generate_pinned(model, version, stream, pinned)
         finally:
-            for name in pinned:
-                self.server.core.unpin_shm_region(name)
+            self._unpin(pinned)
+
+    def _unpin(self, pinned):
+        """Release the regions ``_generate_pinned`` pinned (each once)."""
+        while pinned:
+            self.server.core.unpin_shm_region(pinned.pop())
 
     def _generate_pinned(self, model, version, stream, pinned):
         """``_generate``'s body; ``pinned`` collects the regions it pinned
@@ -324,6 +329,7 @@ class _Handler(BaseHTTPRequestHandler):
             if merged is None:
                 merged = {"model_name": model, "model_version": version,
                           "outputs": []}
+            self._unpin(pinned)  # before the answer: see the final marker
             return self._send_json(merged)
 
         started = False
@@ -364,6 +370,10 @@ class _Handler(BaseHTTPRequestHandler):
             # a client gone mid-stream ends its generation now (which
             # parks it for a resume), not when the frame is collected
             responses.close()
+        # the stream is over: its input regions unpin before the final
+        # marker goes out, so a client that unregisters a region once it
+        # read the marker is never refused 409 by a pin still held here
+        self._unpin(pinned)
         if not started:
             self._start_events()
         self._chunk(b'data: {"final": true}\n\n')

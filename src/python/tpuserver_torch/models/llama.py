@@ -5,14 +5,18 @@ Parameters are a plain dict of tensors with the JAX package's structure
 and layouts (``{embed, layers: [..], norm, lm_head}``, weights ``[in,
 out]`` so a projection is ``x @ w``); activations are ``[B, T, H, D]``
 and the KV cache ``[L, 2, B, S, Hkv, D]``.  The large matmuls, norms,
-RoPE and the embedding gather are plain ``torch`` ops; attention goes
-through the port's CUDA kernels (``tpuserver_torch.ops``), whose plain
-versions run when the tensors lie on the CPU.
+RoPE and the embedding gather are plain ``torch`` ops (an int8 weight's
+few-row product goes through the W8A16 kernel); attention goes through
+the port's CUDA kernels (``tpuserver_torch.ops``), whose plain versions
+run when the tensors lie on the CPU.
 
 Pieces:
 - ``LlamaConfig`` and the presets ``tiny`` .. ``llama3_8b``
 - ``init_params`` (seeded ``torch.Generator``) and ``params_from_jax``
   (the JAX package's params, as numpy arrays, bridged to the port)
+- ``quantize_params``: int8 weights with per-output-channel scales; every
+  product and embedding lookup goes through ``_mm`` and ``_embed_rows``,
+  which serve a plain or an int8 leaf (``tpuserver_torch.ops.quant``)
 - ``forward`` (teacher-forcing logits)
 - ``init_kv_cache`` / ``prefill`` / ``decode_step`` / ``decode_chunk``
   for token-by-token serving
@@ -32,7 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from tpuserver_torch import resolve_device
-from tpuserver_torch.ops import decode_attention, flash_attention
+from tpuserver_torch.ops import decode_attention, flash_attention, quant
 
 
 @dataclasses.dataclass(frozen=True)
@@ -156,6 +160,33 @@ def params_from_jax(np_tree, device):
     return _tensor_from_numpy(np_tree, device)
 
 
+_QUANTIZED_LAYER_WEIGHTS = ("wq", "wk", "wv", "wo", "w_gate", "w_up",
+                            "w_down")
+
+
+def quantize_layer(layer):
+    """One layer's params with its matmul weights int8-quantized
+    (``quant.quantize_int8(w, axis=0)``); the norms stay as they are."""
+    return {k: quant.quantize_int8(v, axis=0)
+            if k in _QUANTIZED_LAYER_WEIGHTS else v
+            for k, v in layer.items()}
+
+
+def quantize_params(params, quantize_embed=False):
+    """Int8-quantize the serving weights (per-output-channel scales), as
+    the JAX package's ``quantize_params`` does: layer matmul weights and
+    ``lm_head`` go int8 (about half the bytes); norms stay as they are.
+    ``embed`` is a row gather, not a matmul: it stays as it is unless
+    ``quantize_embed`` (one scale per row, ``axis=1``)."""
+    return {
+        "embed": (quant.quantize_int8(params["embed"], axis=1)
+                  if quantize_embed else params["embed"]),
+        "norm": params["norm"],
+        "lm_head": quant.quantize_int8(params["lm_head"], axis=0),
+        "layers": [quantize_layer(layer) for layer in params["layers"]],
+    }
+
+
 # -- layers ------------------------------------------------------------------
 
 
@@ -174,6 +205,17 @@ def _flash_blocks(T, cfg):
         None,
     )
     return bq, bk
+
+
+def _mm(x, w):
+    """Matmul against a plain or int8-quantized weight leaf."""
+    return quant.matmul(x, w)
+
+
+def _embed_rows(params, tokens, cfg):
+    """Embedding lookup from a plain or row-quantized table, dequantized
+    rows in ``cfg.dtype``."""
+    return quant.gather_rows(params["embed"], tokens, dtype=cfg.dtype)
 
 
 def _rms_norm(x, w, eps):
@@ -210,16 +252,16 @@ def _block(params, x, positions, cfg, attn_fn):
     B, T, _ = x.shape
     hd = cfg.head_dim
     h = _rms_norm(x, params["attn_norm"], cfg.norm_eps)
-    q = (h @ params["wq"]).reshape(B, T, cfg.n_heads, hd)
-    k = (h @ params["wk"]).reshape(B, T, cfg.n_kv_heads, hd)
-    v = (h @ params["wv"]).reshape(B, T, cfg.n_kv_heads, hd)
+    q = _mm(h, params["wq"]).reshape(B, T, cfg.n_heads, hd)
+    k = _mm(h, params["wk"]).reshape(B, T, cfg.n_kv_heads, hd)
+    v = _mm(h, params["wv"]).reshape(B, T, cfg.n_kv_heads, hd)
     q = _rope(q, positions, cfg.rope_theta)
     k = _rope(k, positions, cfg.rope_theta)
     attn = attn_fn(q, k, v)
-    x = x + attn.reshape(B, T, cfg.n_heads * hd) @ params["wo"]
+    x = x + _mm(attn.reshape(B, T, cfg.n_heads * hd), params["wo"])
     h = _rms_norm(x, params["mlp_norm"], cfg.norm_eps)
-    gated = F.silu(h @ params["w_gate"]) * (h @ params["w_up"])
-    return x + gated @ params["w_down"]
+    gated = F.silu(_mm(h, params["w_gate"])) * _mm(h, params["w_up"])
+    return x + _mm(gated, params["w_down"])
 
 
 def _dense_causal(q, k, v, n_rep):
@@ -247,11 +289,11 @@ def forward(params, tokens, cfg):
                                    block_k=bk)
         return _dense_causal(q, k, v, n_rep)
 
-    x = params["embed"][tokens]
+    x = _embed_rows(params, tokens, cfg)
     for layer in params["layers"]:
         x = _block(layer, x, positions, cfg, attn_fn)
     x = _rms_norm(x, params["norm"], cfg.norm_eps)
-    return (x @ params["lm_head"]).float()
+    return _mm(x, params["lm_head"]).float()
 
 
 # -- decode (serving) --------------------------------------------------------
@@ -339,10 +381,10 @@ def decode_step(params, cache, tokens, pos, cfg):
     B = tokens.shape[0]
     positions = torch.full((B, 1), pos, dtype=torch.long,
                            device=tokens.device)
-    x = params["embed"][tokens][:, None, :]  # [B, 1, Dm]
+    x = _embed_rows(params, tokens, cfg)[:, None, :]  # [B, 1, Dm]
     x, cache = _run_cached(params, cache, x, positions, pos, pos + 1, cfg)
     x = _rms_norm(x, params["norm"], cfg.norm_eps)
-    logits = (x[:, 0, :] @ params["lm_head"]).float()
+    logits = _mm(x[:, 0, :], params["lm_head"]).float()
     return logits, cache
 
 
@@ -352,10 +394,10 @@ def prefill(params, cache, tokens, cfg):
     updated in place)."""
     B, T = tokens.shape
     positions = torch.arange(T, device=tokens.device)[None, :].expand(B, T)
-    x = params["embed"][tokens]
+    x = _embed_rows(params, tokens, cfg)
     x, cache = _run_cached(params, cache, x, positions, 0, T, cfg)
     x = _rms_norm(x, params["norm"], cfg.norm_eps)
-    logits = (x[:, -1, :] @ params["lm_head"]).float()
+    logits = _mm(x[:, -1, :], params["lm_head"]).float()
     return logits, cache
 
 
@@ -414,10 +456,10 @@ def prefill_to_length(params, cache, tokens, true_len, cfg):
     until decode steps overwrite them."""
     B, T = tokens.shape
     positions = torch.arange(T, device=tokens.device)[None, :].expand(B, T)
-    x = params["embed"][tokens]
+    x = _embed_rows(params, tokens, cfg)
     x, cache = _run_cached(params, cache, x, positions, 0, T, cfg)
     x = _rms_norm(x, params["norm"], cfg.norm_eps)
-    logits = (x[:, true_len - 1, :] @ params["lm_head"]).float()
+    logits = _mm(x[:, true_len - 1, :], params["lm_head"]).float()
     return logits, cache
 
 
@@ -462,7 +504,7 @@ def batched_decode_step(params, cache, tokens, positions, cfg):
     n_rep = cfg.n_heads // cfg.n_kv_heads
     block_k = _decode_block(max_seq)
     decode_kernel = block_k is not None and cfg.decode_impl == "auto"
-    x = params["embed"][tokens][:, None, :]  # [S, 1, Dm]
+    x = _embed_rows(params, tokens, cfg)[:, None, :]  # [S, 1, Dm]
 
     for i, layer in enumerate(params["layers"]):
         def attn_fn(q, k, v, i=i):
@@ -481,7 +523,7 @@ def batched_decode_step(params, cache, tokens, positions, cfg):
 
         x = _block(layer, x, q_pos, cfg, attn_fn)
     x = _rms_norm(x, params["norm"], cfg.norm_eps)
-    logits = (x[:, 0, :] @ params["lm_head"]).float()
+    logits = _mm(x[:, 0, :], params["lm_head"]).float()
     return logits, cache
 
 
@@ -576,7 +618,7 @@ def paged_batched_decode_step(params, pages, tokens, page_tables, positions,
     n_rep = cfg.n_heads // cfg.n_kv_heads
     block_k = _decode_block(max_seq)
     decode_kernel = block_k is not None and cfg.decode_impl == "auto"
-    x = params["embed"][tokens][:, None, :]  # [S, 1, Dm]
+    x = _embed_rows(params, tokens, cfg)[:, None, :]  # [S, 1, Dm]
 
     for i, layer in enumerate(params["layers"]):
         def attn_fn(q, k, v, i=i):
@@ -597,7 +639,7 @@ def paged_batched_decode_step(params, pages, tokens, page_tables, positions,
 
         x = _block(layer, x, q_pos, cfg, attn_fn)
     x = _rms_norm(x, params["norm"], cfg.norm_eps)
-    logits = (x[:, 0, :] @ params["lm_head"]).float()
+    logits = _mm(x[:, 0, :], params["lm_head"]).float()
     return logits, pages
 
 
@@ -747,11 +789,11 @@ def prefill_span(params, cache, tokens, start, logits_at, cfg):
     B, T = tokens.shape
     positions = start + torch.arange(T, device=tokens.device)[None, :].expand(
         B, T)
-    x = params["embed"][tokens]
+    x = _embed_rows(params, tokens, cfg)
     x, cache = _run_cached(params, cache, x, positions, start, start + T,
                            cfg)
     x = _rms_norm(x, params["norm"], cfg.norm_eps)
-    logits = (x[:, logits_at, :] @ params["lm_head"]).float()
+    logits = _mm(x[:, logits_at, :], params["lm_head"]).float()
     return logits, cache
 
 

@@ -3,6 +3,10 @@
 
 One request carries the prompt ids and streams one response per token.
 
+- ``quantize=True``: int8 weights with per-output-channel scales
+  (``llama.quantize_params``), about half the bytes of bf16; a product
+  over few rows runs the W8A16 kernel, a prompt's the w8a8 product
+  (``tpuserver_torch.ops.quant``).  The KV cache stays in ``cfg.dtype``.
 - ``max_slots=1``: the single-stream path.  The model prefills a fresh
   KV cache in one batched pass (through the flash kernel at lengths
   ``llama._flash_blocks`` tiles), then greedy-decodes in chunks of
@@ -65,7 +69,7 @@ from tpuserver_torch.errors import (
     KvExportMissing,
 )
 from tpuserver_torch.models import llama
-from tpuserver_torch.ops import _build
+from tpuserver_torch.ops import _build, quant
 from tpuserver_torch.scheduler import DecodeScheduler
 
 
@@ -94,12 +98,18 @@ class LlamaGenerateModel(Model):
                  max_slots=1, params=None, seed=0, device=None,
                  page_size=16, kv_pages=None, spec_tokens=0,
                  step_timeout_s=None, kv_export=False, target_queue_ms=None,
-                 shed_interval_ms=100.0, fault_scope=None):
+                 shed_interval_ms=100.0, fault_scope=None, quantize=False):
         """``params``: weights to serve (a params dict of tensors, e.g.
         from ``llama.params_from_jax``, or another model's, which is then
         shared, not copied), moved to ``device``; None draws random ones
         from ``seed`` at the first request.  ``device`` defaults to the
         card (see ``tpuserver_torch.resolve_device``).
+
+        ``quantize`` serves int8 weights: random ones are drawn and then
+        quantized layer by layer on the device (the peak stays near the
+        bf16 tree's size); given ``params`` that are not quantized yet are
+        quantized into a new tree, and quantized ones are served as they
+        are.
 
         ``max_slots>1`` serves through a ``DecodeScheduler``;
         ``page_size`` and ``kv_pages`` set its KV pool (default: room for
@@ -121,13 +131,17 @@ class LlamaGenerateModel(Model):
         self._cfg = cfg or llama.tiny(vocab=2048)
         self._max_seq = int(max_seq)
         self._seed = seed
+        self._quantize = bool(quantize)
         if decode_chunk is not None:
             if decode_chunk < 1:
                 raise ValueError(
                     "decode_chunk must be >= 1 (got {})".format(decode_chunk))
             self.decode_chunk = decode_chunk
-        self._params = (_to_device(params, self._device)
-                        if params is not None else None)
+        if params is not None:
+            params = _to_device(params, self._device)
+            if self._quantize and not quant.is_quantized(params["lm_head"]):
+                params = llama.quantize_params(params)
+        self._params = params
         # the scheduler's bundle (stateless; built here so a bad page
         # geometry fails at construction) and the scheduler, built at
         # first use
@@ -156,7 +170,10 @@ class LlamaGenerateModel(Model):
     def _ensure_params(self):
         if self._params is None:
             gen = torch.Generator(device=self._device).manual_seed(self._seed)
-            self._params = llama.init_params(self._cfg, gen, self._device)
+            params = llama.init_params(self._cfg, gen, self._device)
+            if self._quantize:
+                params = _quantize_on_load(params)
+            self._params = params
         return self._params
 
     def _ensure_scheduler(self):
@@ -566,6 +583,19 @@ class LlamaGenerateModel(Model):
             done += n
             yield (toks[skip:, 0].cpu().numpy().astype(np.int32),
                    logps[skip:, 0].cpu().numpy().astype(np.float32))
+
+
+def _quantize_on_load(params):
+    """``llama.quantize_params`` of a tree the model owns, in place and
+    layer by layer: each layer's bf16 weights are dropped once their int8
+    form exists, so the peak stays near the bf16 tree's size instead of
+    bf16 plus int8.  ``lm_head`` is quantized as ``quantize_params`` does,
+    ``embed`` and the norms stay."""
+    layers = params["layers"]
+    for i in range(len(layers)):
+        layers[i] = llama.quantize_layer(layers[i])
+    params["lm_head"] = quant.quantize_int8(params["lm_head"], axis=0)
+    return params
 
 
 def _to_device(tree, device):

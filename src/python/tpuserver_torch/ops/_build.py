@@ -124,6 +124,9 @@ def load_library():
     lib.tt_flash_attention.restype = _int
     lib.tt_flash_tile_product.argtypes = [_ptr] * 6
     lib.tt_flash_tile_product.restype = _int
+    lib.tt_int8_matmul.argtypes = ([_ptr, _i64] + [_ptr] * 5 + [_int] * 5
+                                   + [_ptr])
+    lib.tt_int8_matmul.restype = _int
     # CUDA IPC of the shared-memory regions (csrc/cuda_ipc.cu)
     lib.tt_ipc_malloc.argtypes = [ctypes.c_size_t, _int,
                                   ctypes.POINTER(_ptr)]

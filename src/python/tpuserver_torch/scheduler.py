@@ -377,7 +377,7 @@ class DecodeScheduler:
                 "max_slots must be >= 1 (got {})".format(max_slots))
         self._fns = fns
         self._params = params
-        self._device = params["embed"].device
+        self._device = params["norm"].device  # a tensor, quantized or not
         self._max_slots = max_slots
         self._max_seq = max_seq
         # admission backpressure: an unbounded pending deque would let

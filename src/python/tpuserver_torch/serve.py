@@ -2,13 +2,16 @@
 
     python -m tpuserver_torch.serve --config llama3_8b --max-seq 4096 \\
         --port 8000 [--grpc-port 8001] [--device cuda] [--seed 0] \\
-        [--max-slots 8 [--page-size 16] [--kv-pages N] [--spec-tokens K]
-        [--step-timeout-s S] [--kv-export] [--target-queue-ms MS
-        [--shed-interval-ms MS]]] [--fault-scope NAME] \\
-        [--role prefill|decode] [--spawn-nonce N] [--drain-timeout S] \\
-        [--max-inflight N]
+        [--quantize] [--max-slots 8 [--page-size 16] [--kv-pages N]
+        [--spec-tokens K] [--step-timeout-s S] [--kv-export]
+        [--target-queue-ms MS [--shed-interval-ms MS]]] \\
+        [--fault-scope NAME] \\
+        [--role prefill|decode] [--spawn-nonce N] [--drain-timeout S]
 
-Weights are random, drawn from ``--seed`` on the device.  With
+Weights are random, drawn from ``--seed`` on the device; ``--quantize``
+serves them as int8 with per-output-channel scales
+(``LlamaGenerateModel(quantize=True)``: about half the bytes, the few-row
+products through the W8A16 kernel).  With
 ``--max-slots`` above 1, concurrent requests share one batched decode
 step over a paged KV pool of ``--kv-pages`` pages of ``--page-size``
 tokens (default: room for ``--max-slots`` full-length sequences); each
@@ -35,8 +38,7 @@ a fleet router probes its ``/v2/health/stats``.  ``--role`` advertises
 the disaggregated-serving phase this replica serves (a router splits a
 generation into a prefill leg on a ``prefill`` replica and a decode leg
 that attaches its KV export on a ``decode`` one); ``--spawn-nonce`` is
-echoed in the snapshot; ``--max-inflight`` caps the requests in flight
-(a typed 429 with ``Retry-After`` past it).  The front ends listen while
+echoed in the snapshot.  The front ends listen while
 the model warms up, with the server ``starting`` (not ready), and it
 turns ready after the warm-up.  SIGTERM drains: admission stops and
 readiness flips at once, live streams finish within ``--drain-timeout``
@@ -70,6 +72,9 @@ def main(argv=None):
     parser.add_argument("--device", default=None,
                         help="torch device (default: the card)")
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--quantize", action="store_true",
+                        help="serve int8 weights (per-output-channel "
+                             "scales) instead of bf16")
     parser.add_argument("--max-slots", type=int, default=1,
                         help="concurrent generations per batched decode "
                              "step (1: one request at a time)")
@@ -107,13 +112,11 @@ def main(argv=None):
     parser.add_argument("--drain-timeout", type=float, default=30.0,
                         help="seconds a SIGTERM drain lets live streams "
                              "run before it fails them")
-    parser.add_argument("--max-inflight", type=int, default=None,
-                        help="requests in flight past which admission "
-                             "answers 429 (default: no cap)")
     args = parser.parse_args(argv)
 
     device = resolve_device(args.device)
-    model = LlamaGenerateModel(cfg=llama.PRESETS[args.config](),
+    cfg = llama.PRESETS[args.config]()
+    model = LlamaGenerateModel(cfg=cfg,
                                max_seq=args.max_seq, seed=args.seed,
                                device=device, max_slots=args.max_slots,
                                page_size=args.page_size,
@@ -123,11 +126,11 @@ def main(argv=None):
                                kv_export=args.kv_export,
                                target_queue_ms=args.target_queue_ms,
                                shed_interval_ms=args.shed_interval_ms,
-                               fault_scope=args.fault_scope)
+                               fault_scope=args.fault_scope,
+                               quantize=args.quantize)
     # registered before the warm-up builds the scheduler, whose latency
     # histograms go into the server's registry; not ready until it ends
-    core = InferenceServer([model], max_inflight=args.max_inflight,
-                           ready=False, fault_scope=args.fault_scope,
+    core = InferenceServer([model], ready=False, fault_scope=args.fault_scope,
                            role=args.role, spawn_nonce=args.spawn_nonce)
     http = HttpServer(core, host=args.host, port=args.port).start()
     frontends = [http]
@@ -152,9 +155,13 @@ def main(argv=None):
         # a SIGTERM from here on drains on its own thread, and this
         # switch from starting never undoes that drain
         core.mark_ready(undrain=False)
-        print("serving {} on http://{} ({}, max_slots {}, role {}, pid {})"
-              .format(args.config, http.url, device, args.max_slots,
-                      args.role or "fused", os.getpid()), flush=True)
+        print("serving {} on http://{} ({}, {} weights, max_slots {}, role "
+              "{}, pid {})".format(args.config, http.url, device,
+                                   "int8" if args.quantize else
+                                   str(cfg.dtype).split(".")[-1],
+                                   args.max_slots,
+                                   args.role or "fused", os.getpid()),
+              flush=True)
         if args.grpc_port is not None:
             print("serving gRPC on {}".format(frontends[-1].url),
                   flush=True)

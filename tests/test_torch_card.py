@@ -447,3 +447,117 @@ def test_kv_export_descriptor_round_trip_on_card(cuda):
         assert core.shm_stats()["kv_exports_dropped"] == 1
     finally:
         core.close()
+
+
+# -- the W8A16 kernel (csrc/int8_matmul.cu) ----------------------------------
+
+
+def _int8_inputs(cuda, seed, m, k, n):
+    """bf16 activations, and an int8 weight with per-column float32
+    scales as ``quantize_int8`` gives them (built here: this file imports
+    no JAX, and quant.quantize_int8 is plain torch)."""
+    from tpuserver_torch.ops import quant
+
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn(m, k, device=cuda, generator=gen).to(torch.bfloat16)
+    w = (torch.randn(k, n, device=cuda, generator=gen) / k ** 0.5).to(
+        torch.bfloat16)
+    qw = quant.quantize_int8(w, axis=0)
+    return x, qw["q"], qw["s"]
+
+
+# the tiny preset's (K, N) (d_model 64, 8 heads of 8, 4 kv heads, d_ff
+# 128, vocab 256), an odd shape that is no multiple of anything (the
+# byte-wise edge path), and one of Llama-3-8B's (w_down)
+INT8_SHAPES = [(64, 64), (64, 32), (64, 128), (128, 64), (64, 256),
+               (37, 29), (4096 + 3, 1000 + 5), (14336, 4096)]
+
+
+@pytest.mark.parametrize("k,n", INT8_SHAPES)
+@pytest.mark.parametrize("m", [1, 3, 8, 40])
+def test_int8_kernel_matches_plain_on_card(cuda, m, k, n):
+    from tpuserver_torch.ops import quant
+
+    x, q, s = _int8_inputs(cuda, 10, m, k, n)
+    before = quant.int8_matmul.launches
+    out = quant.int8_matmul(x, q, s)
+    torch.cuda.synchronize()
+    assert quant.int8_matmul.launches == before + 1
+    assert out.shape == (m, n) and out.dtype == torch.bfloat16
+    ref = quant.int8_matmul_reference(x, q, s)
+    assert _row_rel_err(out, ref) <= CARD_TOL[torch.bfloat16]
+    # the limit sees the last 32 input rows of the weight skipped
+    cut = q.clone()
+    cut[-32:] = 0
+    wrong = quant.int8_matmul_reference(x, cut, s)
+    assert _row_rel_err(wrong, ref) > CARD_TOL[torch.bfloat16]
+    # a 3-D input is flattened and comes back in its shape
+    if m % 4 == 0:
+        out3 = quant.int8_matmul(x.view(4, m // 4, k), q, s)
+        assert torch.equal(out3.view(m, n), out)
+
+
+@pytest.mark.parametrize("k,n", [(64, 256), (37, 29), (4096, 14336)])
+def test_int8_kernel_rows_do_not_depend_on_m_on_card(cuda, k, n):
+    """A row computed alone equals, bit for bit, the same row inside M 8
+    and M 40, wherever it sits and whatever its neighbours hold."""
+    from tpuserver_torch.ops import quant
+
+    x, q, s = _int8_inputs(cuda, 11, 40, k, n)
+    alone = torch.cat([quant.int8_matmul(x[i:i + 1], q, s)
+                       for i in range(40)])
+    for m in (2, 4, 8, 16, 40):
+        for j in range(0, 40, m):
+            part = quant.int8_matmul(x[j:j + m], q, s)
+            assert torch.equal(part, alone[j:j + m]), (m, j)
+    rolled = quant.int8_matmul(x.roll(5, dims=0), q, s)
+    assert torch.equal(rolled, alone.roll(5, dims=0))
+    noisy = x.clone()
+    noisy[1:] = torch.randn_like(noisy[1:].float()).to(torch.bfloat16)
+    assert torch.equal(quant.int8_matmul(noisy[:8], q, s)[0], alone[0])
+
+
+def test_int8_kernel_rejects_what_it_does_not_take(cuda):
+    from tpuserver_torch.ops import quant
+
+    x, q, s = _int8_inputs(cuda, 12, 2, 64, 32)
+    with pytest.raises(ValueError, match="bfloat16"):
+        quant.int8_matmul(x.float(), q, s)
+    with pytest.raises(ValueError, match="contiguous"):
+        quant.int8_matmul(x, q.t().contiguous().t(), s)
+    with pytest.raises(ValueError, match="do not match"):
+        quant.int8_matmul(x[:, :63], q, s)
+
+
+def test_int8_wrapper_raises_without_a_library(cuda, monkeypatch, tmp_path):
+    """No silent fallback: with no kernel library, a CUDA call raises."""
+    from tpuserver_torch.ops import quant
+
+    x, q, s = _int8_inputs(cuda, 13, 2, 64, 32)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "nvcc_path", lambda: None)
+    _build.load_library.cache_clear()
+    try:
+        before = quant.int8_matmul.launches
+        with pytest.raises(RuntimeError, match="nvcc"):
+            quant.int8_matmul(x, q, s)
+        assert quant.int8_matmul.launches == before
+    finally:
+        _build.load_library.cache_clear()
+
+
+def test_w8a8_product_is_exact_on_card(cuda):
+    """The w8a8 product's int8 x int8 -> int32 step (``torch._int_mm``,
+    rows padded to 32 when 16 or fewer) against the exact product, in
+    float64 (every sum is an integer below 2^53)."""
+    from tpuserver_torch.ops import quant
+
+    gen = torch.Generator(device=cuda).manual_seed(14)
+    q = torch.randint(-127, 128, (4096, 1024), device=cuda,
+                      generator=gen).to(torch.int8)
+    for rows in (1, 8, 16, 17, 40, 512):
+        xq = torch.randint(-127, 128, (rows, 4096), device=cuda,
+                           generator=gen).to(torch.int8)
+        got = quant._int8_product(xq, q)
+        exact = (xq.double() @ q.double()).to(torch.int32)
+        assert got.shape == (rows, 1024) and torch.equal(got, exact), rows

@@ -387,16 +387,14 @@ def test_grpc_readiness_and_refusals_match_jax(sides, case, core_kwargs,
 
 def _replica(package, port, scope, log_path):
     """A replica process with ``--role decode --spawn-nonce``: the port's
-    ``serve.py`` (also ``--max-inflight 1``) or the JAX package's
-    ``tools/fleet.py --serve-replica``, which has no such flag, each with
-    every decode step slowed by ``STEP_SLEEP_S``.  Its output
+    ``serve.py`` or the JAX package's ``tools/fleet.py --serve-replica``,
+    each with every decode step slowed by ``STEP_SLEEP_S``.  Its output
     goes to ``log_path`` (a pipe nobody reads would block it once
     full)."""
     if package == "port":
         argv = [sys.executable, "-m", "tpuserver_torch.serve", "--device",
                 "cpu", "--config", "tiny", "--max-seq", str(MAX_SEQ),
-                "--max-slots", "2", "--max-inflight", "1",
-                "--fault-scope", scope]
+                "--max-slots", "2", "--fault-scope", scope]
     else:
         argv = [sys.executable, os.path.join(REPO, "tools", "fleet.py"),
                 "--serve-replica", "--models", "llama", "--slots", "2",
@@ -437,7 +435,7 @@ def _replica_round(package, proc, port, log_path):
                  {"Content-Type": "application/json"})
     resp = conn.getresponse()
     tokens, seqs, final = [], [], False
-    draining = refused = shed = None
+    draining = refused = None
     for seq, event in sse_events(resp):
         if event.get("final"):
             final = True
@@ -445,8 +443,6 @@ def _replica_round(package, proc, port, log_path):
         seqs.append(seq)
         tokens.append(event["outputs"][0]["data"][0])
         if len(tokens) == 1:
-            if package == "port":  # --max-inflight 1, and one in flight
-                shed = _post_stream(port)[:2]
             proc.send_signal(signal.SIGTERM)
             wait_for(lambda: (_stats(port) or {}).get("state") == "draining"
                      or proc.poll() is not None,
@@ -461,17 +457,16 @@ def _replica_round(package, proc, port, log_path):
             "tokens": tokens, "seqs": seqs, "final": final,
             "draining": (draining["state"], draining["ready"],
                          draining["models"]["llama_generate"]["live_streams"]),
-            "refused": refused, "shed": shed, "exit": code,
+            "refused": refused, "exit": code,
             "max_inflight": snap["max_inflight"]}
 
 
 def test_serve_replica_drains_on_sigterm_like_jax_replica(tmp_path):
     """``serve.py --role decode --spawn-nonce N`` as a process, beside the
     JAX package's replica process with the same flags: both echo role
-    and nonce in the same snapshot keys; the port's ``--max-inflight 1``
-    sheds a second POST 429 with ``Retry-After``; a stream begun before
-    SIGTERM
-    completes gap-free with the undisturbed tokens while the snapshot
+    and nonce in the same snapshot keys, with no in-flight cap (neither
+    entry point takes one); a stream begun before SIGTERM completes
+    gap-free with the undisturbed tokens while the snapshot
     reads ``draining``, the next POST is a 503, and the process exits
     0."""
     ports = {p: free_port() for p in ("port", "jax")}
@@ -505,10 +500,7 @@ def test_serve_replica_drains_on_sigterm_like_jax_replica(tmp_path):
     assert (t["role"], t["nonce"]) == ("decode", "nonce-port")
     assert (j["role"], j["nonce"]) == ("decode", "nonce-jax")
     assert t["keys"] == j["keys"]
-    # only the port's replica runs with --max-inflight 1: the POST made
-    # while its one stream was in flight was shed
-    assert (t["max_inflight"], j["max_inflight"]) == (1, None)
-    assert (t["shed"], j["shed"]) == ((429, "1"), None)
+    assert (t["max_inflight"], j["max_inflight"]) == (None, None)
     for r in (t, j):
         assert r["reference"][0] == 200
         assert r["tokens"] == r["reference"][2]
@@ -605,8 +597,8 @@ def test_fleet_supervisor_spawns_and_heals_port_replicas(tmp_path):
     respawned on its address with a new pid, the restart counted."""
     command = [sys.executable, "-m", "tpuserver_torch.serve", "--device",
                "cpu", "--config", "tiny", "--max-seq", str(MAX_SEQ),
-               "--max-slots", "2", "--max-inflight", "8", "--port",
-               "{port}", "--fault-scope", "{scope}"]
+               "--max-slots", "2", "--port", "{port}", "--fault-scope",
+               "{scope}"]
     sup = FleetSupervisor(
         command, prefill_replicas=1, decode_replicas=1, min_replicas=1,
         max_replicas=1, probe_interval_s=0.1, probe_timeout_s=2.0,
@@ -624,7 +616,7 @@ def test_fleet_supervisor_spawns_and_heals_port_replicas(tmp_path):
         assert sorted(s["role"] for s in snaps.values()) == [
             "decode", "prefill"]
         assert all(s["spawn_nonce"] and s["state"] == "ready"
-                   and s["max_inflight"] == 8 for s in snaps.values())
+                   and s["max_inflight"] is None for s in snaps.values())
         assert {r["pid"] for r in replicas} == {
             s["pid"] for s in snaps.values()}
         victim = replicas[0]

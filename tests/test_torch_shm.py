@@ -48,6 +48,11 @@ from tpuserver_torch.models import llama as tl
 from tpuserver_torch.models.llama_serving import LlamaGenerateModel
 from tritonclient.utils import xla_shared_memory as xshm
 
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+# one torch thread per test process, as the port's other files with a
+# live decode loop run: tiny steps stay short when workers share the cores
+from torch_port_helpers import one_torch_thread  # noqa: E402,F401 (fixture)
+
 pytestmark = pytest.mark.torch_port
 
 VOCAB = 256
