@@ -114,9 +114,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
 7. int8, last: (a) the W8A16 kernel (``csrc/int8_matmul.cu``) against its
    plain version at the five distinct Llama-3-8B weight shapes and 1, 8
    and 40 rows (row-relative ``INT8_TOL``, a planted fault, each row bit
-   for bit the same row computed alone), timed beside its bound, the bf16
-   ``torch.matmul`` of the unquantized weight, the plain version and the
-   library's W8A16 call; (b) ``llama3_8b`` with int8 weights
+   for bit the same row computed alone), timed beside its bound (and its
+   bandwidth share, ``perf.mbu``), the bf16 ``torch.matmul`` of the
+   unquantized weight, the plain version and the library's W8A16 call,
+   and summed to one decode step's products at each of the three row
+   counts; (b) ``llama3_8b`` with int8 weights
    (``LlamaGenerateModel(quantize=True)``, drawn and quantized on the
    card): phase 4's three requests, then 4b's 12 prompts and 4 repetitive
    ones over ``max_slots=8`` forward and reversed and with
@@ -2666,7 +2668,7 @@ INT8_LOGITS_TOL = 2 * LOGITS_TOL
 INT8_BUDGET_REPETITIVE = 32
 
 
-def _int8_cases(torch, quant, dev, gen, k, n, flush):
+def _int8_cases(torch, quant, perf, dev, gen, k, n, flush):
     """The W8A16 kernel against its plain version at one weight shape and
     each of ``INT8_ROWS``: two calls equal, each row equal bit for bit to
     the row computed alone, the row-relative error, a planted fault (the
@@ -2674,7 +2676,7 @@ def _int8_cases(torch, quant, dev, gen, k, n, flush):
     version, the bf16 ``torch.matmul`` of the unquantized weight and the
     library's W8A16 call (``torch._weight_int8pack_mm``, which takes the
     weight as [N, K] and bf16 scales), beside the byte and operation
-    bound."""
+    bound and the kernel's bandwidth share."""
     w = (torch.randn(k, n, device=dev, generator=gen) / k ** 0.5).to(
         torch.bfloat16)
     qw = quant.quantize_int8(w)
@@ -2722,9 +2724,12 @@ def _int8_cases(torch, quant, dev, gen, k, n, flush):
         except (AttributeError, RuntimeError, NotImplementedError) as e:
             row["library_ms"] = None
             row["library_error"] = str(e)[:200]
+        nbytes = k * n + 4 * n + 2 * m * k + 2 * m * n
         row["bound_ms"], row["bound_by"] = _bound_ms(
-            k * n + 4 * n + 2 * m * k + 2 * m * n, 2 * m * k * n,
-            SPEC.peak_bf16_flops)
+            nbytes, 2 * m * k * n, SPEC.peak_bf16_flops)
+        # the kernel's bandwidth share: the bytes the product must move
+        # over its time, against the card's peak (ops/perf.py)
+        row["bandwidth_share"] = perf.mbu(nbytes, row["ms"] / 1e3, SPEC)
         rows.append(row)
     return rows
 
@@ -2826,7 +2831,7 @@ def phase_int8(torch, np, bf16_tokens, prompts, budgets):
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     cases = {}
     for k, n in sorted({(k, n) for _, k, n in INT8_WEIGHTS}):
-        for row in _int8_cases(torch, quant, dev, gen, k, n, flush):
+        for row in _int8_cases(torch, quant, perf, dev, gen, k, n, flush):
             log("kernel_case:", json.dumps(row))
             cases[(row["m"], k, n)] = row
     # the prefill's w8a8 product (torch._int_mm, cuBLASLt) at a 512-token
@@ -2855,7 +2860,9 @@ def phase_int8(torch, np, bf16_tokens, prompts, budgets):
         fail("int8_matmul disagrees with its plain version: {}".format(bad))
     if blind:
         fail("a planted fault passes the int8 tolerance: {}".format(blind))
-    steps = {m: _int8_step_sum(cases, m, cfg.n_layers) for m in (1, 8)}
+    # one decode step's products at each timed row count (M 40 is on no
+    # path: a verify of 8 slots x 5 positions in one pass)
+    steps = {m: _int8_step_sum(cases, m, cfg.n_layers) for m in INT8_ROWS}
     for m, row in steps.items():
         log("timed: int8_matmul, one decode step at M {}: {} ms, bound {} "
             "ms ({}), bf16 torch.matmul of the same weights {} ms, plain {} "

@@ -24,11 +24,13 @@ from tpuserver_torch.ops.flash import _raise_on, _stream
 # torch._int_mm (cuBLASLt) takes more than 16 rows: fewer are padded
 # with zero rows to this many, which change no other row
 _INT_MM_MIN_ROWS = 32
-# the W8A16 kernel's tiles: 128 columns a block, K cut into splits of a
-# multiple of 256 rows and at most 1024 (the x rows a block stages), as
-# many as give about 512 blocks (four an SM of an H100's 132), a constant
-# so that a row's bits do not depend on the card
+# the W8A16 kernel's tiles: 128 columns a block, up to 40 rows (five n8
+# MMA tiles), K cut into splits of a multiple of 256 rows and at most 1024
+# (the x rows a block stages), as many as give about 512 blocks (four an
+# SM of an H100's 132), a constant so that a row's bits do not depend on
+# the card
 _BLOCK_N = 128
+_BLOCK_M = 40
 _SPLIT_ALIGN = 256
 _SPLIT_MAX_ROWS = 1024
 _SPLIT_TARGET_BLOCKS = 512
@@ -155,6 +157,18 @@ def int8_splits(k, n):
     return -(-k // rows), rows
 
 
+def int8_scratch(m, k, n):
+    """(n_split, split_rows, part_shape, n_tickets) of one W8A16 launch
+    at ``m`` rows: the split from (k, n) alone; with more than one split
+    a float32 partial-sum scratch ``[n_split, m, n]`` and one ticket a
+    tile of 128 columns and up to ``_BLOCK_M`` rows, else neither."""
+    n_split, split_rows = int8_splits(k, n)
+    if n_split == 1:
+        return n_split, split_rows, None, 0
+    return (n_split, split_rows, (n_split, m, n),
+            -(-n // _BLOCK_N) * -(-m // _BLOCK_M))
+
+
 def _ticket_counters(device, need):
     key = (device, torch.cuda.current_stream(device).cuda_stream)
     buf = _tickets.get(key)
@@ -209,14 +223,12 @@ def int8_matmul(x, q, s):
     m = x2.shape[0]
     y = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
     if m:
-        n_split, split_rows = int8_splits(k, n)
+        n_split, split_rows, part_shape, n_tickets = int8_scratch(m, k, n)
         part = tickets = None
-        if n_split > 1:
-            # the splits' float32 partial sums, and a ticket a tile (at
-            # most one a row and 128 columns)
-            part = torch.empty((n_split, m, n), dtype=torch.float32,
+        if part_shape is not None:
+            part = torch.empty(part_shape, dtype=torch.float32,
                                device=x.device)
-            tickets = _ticket_counters(x.device, -(-n // _BLOCK_N) * m)
+            tickets = _ticket_counters(x.device, n_tickets)
         rc = _build.load_library().tt_int8_matmul(
             x2.data_ptr(), x2.stride(0), q.data_ptr(), s.data_ptr(),
             y.data_ptr(), None if part is None else part.data_ptr(),

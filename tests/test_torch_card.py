@@ -517,6 +517,69 @@ def test_int8_kernel_rows_do_not_depend_on_m_on_card(cuda, k, n):
     assert torch.equal(quant.int8_matmul(noisy[:8], q, s)[0], alone[0])
 
 
+@pytest.mark.parametrize("n", [72, 200, 1000])
+@pytest.mark.parametrize("k", [80, 1000, 1040])
+def test_int8_kernel_ragged_tile_edges_on_card(cuda, k, n):
+    """K no multiple of the split, the 64-row stage or the MMA's 16; N no
+    multiple of the 128-column tile (72 and 200 are no multiple of the
+    16-byte chunk either: the byte-load path), at 1, 8 and 40 rows."""
+    from tpuserver_torch.ops import quant
+
+    x, q, s = _int8_inputs(cuda, 15, 40, k, n)
+    for m in (1, 8, 40):
+        out = quant.int8_matmul(x[:m], q, s)
+        ref = quant.int8_matmul_reference(x[:m], q, s)
+        assert out.shape == (m, n)
+        assert _row_rel_err(out, ref) <= CARD_TOL[torch.bfloat16], m
+        assert torch.equal(out, quant.int8_matmul(x[:m], q, s)), m
+
+
+def test_int8_kernel_rows_alone_at_every_m_on_card(cuda):
+    """Every M from 1 to 40 at one 8B shape (wq's, split K): each row
+    equals, bit for bit, the same row computed alone."""
+    from tpuserver_torch.ops import quant
+
+    x, q, s = _int8_inputs(cuda, 16, 40, 4096, 4096)
+    alone = torch.cat([quant.int8_matmul(x[i:i + 1], q, s)
+                       for i in range(40)])
+    for m in range(1, 41):
+        assert torch.equal(quant.int8_matmul(x[:m], q, s), alone[:m]), m
+
+
+def test_int8_kernel_takes_a_strided_x_on_card(cuda):
+    """x with a row stride above K (a view of wider rows, and one whose
+    rows are not 16-byte aligned) gives the contiguous x's bits."""
+    from tpuserver_torch.ops import quant
+
+    x, q, s = _int8_inputs(cuda, 17, 8, 1040, 200)
+    want = quant.int8_matmul(x, q, s)
+    for pad in (8, 3):
+        wide = torch.zeros(8, 1040 + pad, dtype=torch.bfloat16, device=cuda)
+        wide[:, pad:] = x
+        view = wide[:, pad:]
+        assert view.stride(0) == 1040 + pad
+        assert torch.equal(quant.int8_matmul(view, q, s), want), pad
+
+
+@pytest.mark.parametrize("n", [256, 200])
+def test_int8_kernel_converts_every_int8_exactly_on_card(cuda, n):
+    """A weight whose every column holds -127..127 (255 rows), one-hot x
+    rows: y[m, n] must be bf16(q[m, n] * bf16(s[n])) exactly, so each of
+    the 255 values goes through the int8 -> bf16 conversion unchanged."""
+    from tpuserver_torch.ops import quant
+
+    k = 255
+    idx = torch.arange(k, device=cuda)
+    q = ((idx[:, None] + torch.arange(n, device=cuda)[None, :]) % k
+         - 127).to(torch.int8)
+    gen = torch.Generator(device=cuda).manual_seed(18)
+    s = torch.rand(n, device=cuda, generator=gen) + 0.5
+    x = torch.eye(k, dtype=torch.bfloat16, device=cuda)
+    want = (q.float() * s.to(torch.bfloat16).float()).to(torch.bfloat16)
+    for rows in (slice(0, 8), slice(0, 40), slice(0, k)):
+        assert torch.equal(quant.int8_matmul(x[rows], q, s), want[rows])
+
+
 def test_int8_kernel_rejects_what_it_does_not_take(cuda):
     from tpuserver_torch.ops import quant
 

@@ -244,3 +244,21 @@ def test_int8_splits_follow_the_weight_shape_alone(k, n, want):
     assert (n_split, rows) == want
     assert rows % 256 == 0 and rows <= 1024
     assert n_split * rows >= k > (n_split - 1) * rows
+
+
+@pytest.mark.parametrize("k,n", [(4096, 4096), (4096, 1024), (14336, 4096),
+                                 (4096, 128256), (37, 29), (4099, 1005)])
+def test_int8_scratch_follows_the_weight_shape_and_rows(k, n):
+    """The launch's scratch: the split is the same at every row count (it
+    comes from (K, N) alone); with more than one split the float32 partial
+    sums are [n_split, M, N] and there is one ticket a tile of 128 columns
+    and up to 40 rows (the kernel's five n8 MMA tiles), none with one."""
+    want = tq.int8_splits(k, n)
+    for m in (1, 2, 7, 8, 9, 39, 40, 41, 80, 81, 512):
+        n_split, rows, part, tickets = tq.int8_scratch(m, k, n)
+        assert (n_split, rows) == want
+        if n_split == 1:
+            assert part is None and tickets == 0
+        else:
+            assert part == (n_split, m, n)
+            assert tickets == -(-n // 128) * -(-m // 40)

@@ -10,8 +10,12 @@ Each argument is the root of a tree holding ``src/python/tpuserver_torch``;
 each runs in its own process (the trees share module names) and builds
 its kernels into its own ``build/``.  One JSON line per run: decode
 attention at lengths 576 and 4096 and causal flash attention at T 512
-and 2048, Llama-3-8B shapes, bf16, and the method's floor (one
-elementwise kernel on one element), in ms.  Needs a CUDA card.
+and 2048, Llama-3-8B shapes, bf16, the W8A16 product
+(``ops/quant.py::int8_matmul``, where the tree has it) at Llama-3-8B's five
+weight shapes and 1, 8 and 40 rows beside the bf16 ``torch.matmul`` of the
+same weights, with one decode step's sums (32 layers x 7 products and the
+lm_head), and the method's floor (one elementwise kernel on one element),
+in ms.  Needs a CUDA card.
 """
 
 import json
@@ -58,10 +62,48 @@ def time_tree(root):
         row["flash_{}_ms".format(t)] = _time_ms(
             torch, lambda: fl.flash_attention(qq, kk, vv, causal=True), 50,
             flush)
+    try:
+        from tpuserver_torch.ops import quant
+    except ImportError:
+        quant = None
+    if quant is not None:
+        row.update(_int8_times(torch, quant, dev, gen, flush, _time_ms))
     # the method's floor: one elementwise kernel on one element
     one = torch.zeros(1, device=dev)
     row["event_floor_ms"] = _time_ms(torch, lambda: one.add_(1), 200, flush)
     print(json.dumps(row), flush=True)
+
+
+# Llama-3-8B's weight-only products, (K, N): how often one decode step
+# runs each (32 layers: wq and wo, wk and wv, w_gate and w_up, w_down; the
+# lm_head once)
+INT8_STEP_USES = {(4096, 4096): 64, (4096, 1024): 64, (4096, 14336): 64,
+                  (14336, 4096): 32, (4096, 128256): 1}
+
+
+def _int8_times(torch, quant, dev, gen, flush, time_ms):
+    out = {}
+    step = {}
+    for (k, n), uses in INT8_STEP_USES.items():
+        w = (torch.randn(k, n, device=dev, generator=gen) / k ** 0.5).to(
+            torch.bfloat16)
+        qw = quant.quantize_int8(w)
+        x = torch.randn(40, k, device=dev, generator=gen).to(torch.bfloat16)
+        for m in (1, 8, 40):
+            xm = x[:m]
+            ms = time_ms(torch, lambda: quant.int8_matmul(xm, qw["q"],
+                                                          qw["s"]), 50, flush)
+            bf = time_ms(torch, lambda: xm @ w, 50, flush)
+            out["int8_{}x{}_m{}_ms".format(k, n, m)] = ms
+            out["bf16_{}x{}_m{}_ms".format(k, n, m)] = bf
+            s = step.setdefault(m, [0.0, 0.0])
+            s[0] += uses * ms
+            s[1] += uses * bf
+        del w, qw, x
+    for m, (ms, bf) in step.items():
+        out["int8_step_m{}_ms".format(m)] = ms
+        out["bf16_step_m{}_ms".format(m)] = bf
+    return out
 
 
 def main(argv):
