@@ -78,7 +78,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
    tokens and prefix counts equal ``scheduler_stats()`` and whose step
    histogram counts the batched steps; ``nv_gpu_memory_used_bytes``
    beside ``torch.cuda.mem_get_info``; NOT_FOUND for an unknown model and
-   UNIMPLEMENTED for a repository verb;
+   an answer to a repository verb (no verb is UNIMPLEMENTED);
 5. model check: the 512-token prompt's last-position prefill logits
    through the kernels against the same model through the plain
    attention versions, and the greedy tokens of both;
@@ -127,7 +127,33 @@ Phases, in order; any failure exits non-zero and prints no result line:
    (``perf.mbu`` with 1-byte weights), peak memory and the tree's bytes,
    the kernel path's logits against the plain path's, the greedy tokens
    shared with bf16's (reported), and phase 6's profile of the int8 model
-   beside the bf16 one.
+   beside the bf16 one;
+8. vision, last, on a fresh core: ResNet-50 v1.5 and DenseNet-121 (full
+   width and depth, bf16, weights from the seed), the image preprocess
+   model, the image ensemble and the fixture models behind HTTP and gRPC,
+   every batch bucket (1 to 32) warmed first: (a) the served bf16 logits
+   (the ``logits`` hook) against a float32 forward of the same weights
+   (TF32 off) at batch 1 and 32 within ``VISION_TOL``, a planted fault
+   (the last block's last convolution skipped) caught, and
+   ``image_ensemble`` within it of ``resnet50`` on ``RAW_IMAGE / 255``
+   (whether bitwise, and whether ``resnet50`` repeats bitwise, printed); (b) 32 concurrent batch-1 requests over gRPC, then the same 32
+   reversed: each within ``VISION_TOL`` of the image served alone, fewer
+   executions than inferences, the mean batch printed; (c) the image in
+   a CUDA region and the output into a second one, registered over gRPC
+   by raw handle: the model's input lies inside the region, and
+   ``torch.profiler`` over the request records no host<->device copy of
+   either (every transfer is listed); (d) ``simple`` as JSON and binary,
+   ``simple_string``, ``identity_bf16`` (bits unchanged),
+   ``sequence_accumulate`` and ``repeat_int32``, exact; (e) ResNet-50
+   infer/s and p50/p99 over gRPC at concurrency 1 and 16 for in-band,
+   system-shm and CUDA-shm inputs and outputs, from a client process of
+   its own (``python3 chip_smoke.py --child-load <url>``, whose CUDA
+   regions the server maps over CUDA IPC), and each model's forward
+   at batch 1 and 32: device time by CUDA events against its bound (the
+   FLOPs of its convolutions and fc, 2 * H_out * W_out * k^2 * C_in *
+   C_out each, at the bf16 tensor-core peak), device time by kernel class
+   and the busy share.  No kernel of the port runs on this path (their
+   launches are read and must be 0).
 
 The peaks of every bound come from ``tpuserver_torch.ops.perf`` by the
 card's name (phase 1 fails on a card the table does not know).  The line
@@ -1922,8 +1948,8 @@ def phase_grpc(torch, np, cfg, params, prompts, budgets, tokens_4b,
     the stream dropped by ``grpc.stream_infer`` after 5 responses and each
     generation resumed; (c) a ``scheduler.step`` raise; (d) CoDel on a
     second model; (e) ``ServerMetrics`` against ``GET /metrics``, the
-    counters against ``scheduler_stats()``, a NOT_FOUND and an
-    UNIMPLEMENTED.  Every admission prefill's length is recorded into
+    counters against ``scheduler_stats()``, a NOT_FOUND and a
+    repository index.  Every admission prefill's length is recorded into
     ``readmits`` ((c)'s re-admissions depend on when the fault hit).
     Returns (a)'s launch counts."""
     import http.client
@@ -2183,8 +2209,8 @@ def phase_grpc(torch, np, cfg, params, prompts, budgets, tokens_4b,
             except grpc.RpcError as e:
                 codes.append(e.code().name)
         log("grpc (e): unknown model -> {}, RepositoryIndex -> {}".format(
-            *codes))
-        if codes != ["NOT_FOUND", "UNIMPLEMENTED"]:
+            *[c or "OK" for c in codes]))
+        if codes != ["NOT_FOUND", None]:
             fail("grpc (e): codes {}".format(codes))
     finally:
         fault_points.clear()
@@ -3046,6 +3072,705 @@ def phase_int8(torch, np, bf16_tokens, prompts, budgets):
     return cases, steps, launches, profile
 
 
+# -- phase 8: vision ---------------------------------------------------------
+
+# phase 8 (a): the served bf16 logits against a float32 forward of the same
+# weights on the card (TF32 off), row-relative as above over each image's
+# 1000 logits.  The bf16 error after 53 (ResNet-50) or 121 (DenseNet-121)
+# convolutions measured about 3e-3 at full width on the CPU; the planted
+# fault (the last block's last convolution skipped) moves the logits by
+# 0.13 (DenseNet-121) to 0.67 (ResNet-50).  The same limit holds (b)'s
+# batched answers against the same images served alone, and (c)'s region
+# answer against the in-band one.
+VISION_TOL = 1e-2
+VISION_BATCHES = (1, 32)
+IMAGE = (224, 224, 3)
+IMAGE_BYTES = 224 * 224 * 3 * 4
+OUTPUT_BYTES = 1000 * 4
+# (e): client threads, and timed requests per thread, at each concurrency
+VISION_LOAD = ((1, 100), (16, 20))
+# (e): CUDA-event samples per forward, each alone behind a hold of the
+# card while the host enqueues it (a DenseNet-121 forward is about 440
+# launches and 6 ms of host time; ten at once would overrun the launch
+# queue, and the host would pace the card)
+VISION_ITERS = 10
+VISION_HOLD_CYCLES = int(3e7)
+
+
+def _vision_infer_request(np, model, images=None, shm_in=None, shm_out=None,
+                          request_id=""):
+    """A ``ModelInferRequest`` of ``model``'s INPUT: ``images`` in band,
+    or ``shm_in`` (region, shape) by reference; OUTPUT into ``shm_out``
+    (region, bytes) or in band."""
+    from tpuserver_torch.grpc_proto import grpc_service_pb2 as pb
+
+    req = pb.ModelInferRequest(model_name=model, id=request_id)
+    t = req.inputs.add(name="INPUT", datatype="FP32")
+    if shm_in is None:
+        t.shape.extend(images.shape)
+        req.raw_input_contents.append(np.ascontiguousarray(images).tobytes())
+    else:
+        region, shape = shm_in
+        t.shape.extend(shape)
+        t.parameters["shared_memory_region"].string_param = region
+        t.parameters["shared_memory_byte_size"].int64_param = int(
+            np.prod(shape)) * 4
+    if shm_out is not None:
+        out = req.outputs.add(name="OUTPUT")
+        out.parameters["shared_memory_region"].string_param = shm_out[0]
+        out.parameters["shared_memory_byte_size"].int64_param = shm_out[1]
+    return req
+
+
+def _vision_output(np, resp):
+    out = resp.outputs[0]
+    return np.frombuffer(resp.raw_output_contents[0], np.float32).reshape(
+        list(out.shape))
+
+
+def _np_row_rel_err(np, out, ref):
+    out = np.asarray(out, np.float64)
+    ref = np.asarray(ref, np.float64)
+    return float((np.abs(out - ref).max(-1)
+                  / np.maximum(np.abs(ref).max(-1), 1e-30)).max())
+
+
+def _skip_last_conv(tv, model, params):
+    """The planted fault: ``params`` with the last block's last
+    convolution zeroed (the layer skipped), tensors otherwise shared."""
+    faulty = tv.tree_map(lambda t: t, params)
+    if "stages" in faulty:
+        leaf = faulty["stages"][-1][-1]
+        leaf["w3"] = leaf["w3"].new_zeros(leaf["w3"].shape)
+    else:
+        leaf = faulty["blocks"][-1][-1]
+        leaf["w2"] = leaf["w2"].new_zeros(leaf["w2"].shape)
+    return faulty
+
+
+def _leaves(tv, tree):
+    """The tensors of a vision parameter tree."""
+    out = []
+    tv.tree_map(out.append, tree)
+    return out
+
+
+def _vision_model_check(torch, np, tv, models, core):
+    """(a): each model's served bf16 logits against its float32 forward
+    at batch 1 and 32, the planted fault caught; the image ensemble equal
+    to resnet50 on RAW_IMAGE / 255 at each batch."""
+    from tpuserver_torch.core import InferRequest
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for model in models:
+            p32 = tv.tree_cast(model.params(), torch.float32)
+            faulty = _skip_last_conv(tv, model, p32)
+            for b in VISION_BATCHES:
+                x = torch.rand((b,) + IMAGE, generator=gen, device="cuda")
+                with torch.inference_mode():
+                    served = model.logits(x)
+                    ref = model.logits(x, p32)
+                    bad = model.logits(x, faulty)
+                err = row_rel_err(served, ref)
+                fault = row_rel_err(bad, ref)
+                log("vision (a): {} batch {}: bf16 logits vs float32 {:.6g} "
+                    "(limit {}), planted fault {:.6g}, logits |max| "
+                    "{:.4g}".format(model.name, b, err, VISION_TOL, fault,
+                                    ref.abs().max().item()))
+                if not err <= VISION_TOL or not fault > VISION_TOL:
+                    fail("vision (a): {} batch {}: error {} planted fault {} "
+                         "against the limit {}".format(model.name, b, err,
+                                                       fault, VISION_TOL))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = tf32
+    rng = np.random.RandomState(SEED)
+    for b in VISION_BATCHES:
+        raw = rng.randint(0, 256, (b,) + IMAGE, dtype=np.uint8)
+        ens = core.infer(InferRequest("image_ensemble", inputs={
+            "RAW_IMAGE": raw})).outputs[0][1]
+        pixels = raw.astype(np.float32) / 255.0
+        direct, again = (core.infer(InferRequest("resnet50", inputs={
+            "INPUT": pixels})).outputs[0][1] for _ in range(2))
+        err = _np_row_rel_err(np, ens, direct)
+        # cuDNN's autotuned algorithms need not be deterministic (split
+        # reductions): resnet50 run twice on the same input says whether
+        # a last-bit difference is the ensemble's or the card's
+        log("vision (a): image_ensemble vs resnet50 on RAW_IMAGE/255, batch "
+            "{}: error {:.3g} (limit {}), bitwise equal {}; resnet50 twice "
+            "on the same input bitwise equal {}".format(
+                b, err, VISION_TOL, np.array_equal(ens, direct),
+                np.array_equal(direct, again)))
+        if err > VISION_TOL:
+            fail("vision (a): the ensemble's answer differs from resnet50's "
+                 "at batch {}: {}".format(b, err))
+
+
+def _stats(port, model):
+    status, body = _http_json(port, "GET",
+                              "/v2/models/{}/stats".format(model))
+    if status != 200:
+        fail("stats of {}: {} {}".format(model, status, body))
+    st = json.loads(body)["model_stats"][0]
+    return st["inference_count"], st["execution_count"]
+
+
+def _vision_batching(np, calls, port, images):
+    """(b): 32 concurrent batch-1 requests over gRPC, then the same 32 in
+    reverse order; each within VISION_TOL of the image served alone, and
+    fewer executions than inferences."""
+    import threading
+
+    alone = [_vision_output(np, calls["ModelInfer"](_vision_infer_request(
+        np, "resnet50", images[i:i + 1]), timeout=120))
+        for i in range(len(images))]
+    for order in ("forward", "reversed"):
+        idx = list(range(len(images)))
+        if order == "reversed":
+            idx.reverse()
+        got = [None] * len(images)
+        barrier = threading.Barrier(len(images))
+
+        def call(i):
+            req = _vision_infer_request(np, "resnet50", images[i:i + 1])
+            barrier.wait()
+            got[i] = _vision_output(np, calls["ModelInfer"](req, timeout=120))
+
+        inf0, exe0 = _stats(port, "resnet50")
+        threads = [threading.Thread(target=call, args=(i,)) for i in idx]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300)
+        inf1, exe1 = _stats(port, "resnet50")
+        errs = [_np_row_rel_err(np, g, a) for g, a in zip(got, alone)]
+        log("vision (b) {}: {} requests in {} executions (mean batch "
+            "{:.2f}), largest error against the lone answers {:.6g} (limit "
+            "{})".format(order, inf1 - inf0, exe1 - exe0,
+                         (inf1 - inf0) / max(exe1 - exe0, 1), max(errs),
+                         VISION_TOL))
+        if inf1 - inf0 != len(images) or not exe1 - exe0 < inf1 - inf0:
+            fail("vision (b) {}: {} inferences in {} executions".format(
+                order, inf1 - inf0, exe1 - exe0))
+        if max(errs) > VISION_TOL:
+            fail("vision (b) {}: batched answers off their lone answers: "
+                 "{}".format(order, errs))
+    return alone
+
+
+def _memcpys(path):
+    """(kind, bytes) of each host<->device copy in a chrome trace."""
+    with open(path) as f:
+        trace = json.load(f)
+    out = []
+    for ev in trace.get("traceEvents", []):
+        name = ev.get("name", "")
+        if ev.get("cat") == "gpu_memcpy" or name.startswith("Memcpy"):
+            out.append((name, (ev.get("args") or {}).get("bytes")))
+    return out
+
+
+def _vision_zero_copy(torch, np, csm, calls, resnet, image, inband):
+    """(c): the image in a CUDA region, the output into a second one,
+    both registered over gRPC by raw handle: the model's input is a view
+    inside the region, and the profiled request moves neither the image
+    nor the output between host and device."""
+    import base64
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpuserver_torch.grpc_proto import grpc_service_pb2 as pb
+
+    region_in = csm.create_shared_memory_region("vision_in", IMAGE_BYTES)
+    region_out = csm.create_shared_memory_region("vision_out", OUTPUT_BYTES)
+    seen = []
+    forward = resnet.forward
+
+    def spy(INPUT):
+        seen.append((INPUT.data_ptr(), INPUT.numel() * INPUT.element_size()))
+        return forward(INPUT)
+
+    try:
+        csm.set_shared_memory_region(region_in, [torch.from_numpy(
+            np.ascontiguousarray(image)).cuda()])
+        for name, h in (("vision_in", region_in), ("vision_out", region_out)):
+            calls["CudaSharedMemoryRegister"](pb.CudaSharedMemoryRegisterRequest(
+                name=name, raw_handle=base64.b64decode(csm.get_raw_handle(h)),
+                device_id=0, byte_size=h.byte_size), timeout=60)
+        req = _vision_infer_request(np, "resnet50",
+                                    shm_in=("vision_in", (1,) + IMAGE),
+                                    shm_out=("vision_out", OUTPUT_BYTES))
+        calls["ModelInfer"](req, timeout=120)  # settle
+        resnet.forward = spy
+        trace = os.path.join(HERE, "build", "vision_cuda_shm_trace.json")
+        os.makedirs(os.path.dirname(trace), exist_ok=True)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            resp = calls["ModelInfer"](req, timeout=120)
+            torch.cuda.synchronize()
+        resnet.forward = forward
+        prof.export_chrome_trace(trace)
+        copies = _memcpys(trace)
+        base = region_in.tensor.data_ptr()
+        inside = bool(seen) and all(
+            base <= p and p + n <= base + region_in.byte_size
+            for p, n in seen)
+        host = [(k, n) for k, n in copies
+                if "HtoD" in k or "DtoH" in k]
+        of_tensors = [(k, n) for k, n in host
+                      if n is None or n >= OUTPUT_BYTES]
+        got = csm.get_contents_as_numpy(region_out, np.float32, [1, 1000])
+        err = _np_row_rel_err(np, got, inband)
+        params = resp.outputs[0].parameters
+        log("vision (c): model input at 0x{:x} ({} bytes) inside the region "
+            "[0x{:x}, +{}): {}; transfers during the request: {}; host<->"
+            "device: {}; the region's answer vs in-band {:.6g}; response "
+            "names region {!r}".format(
+                seen[0][0] if seen else 0, seen[0][1] if seen else 0, base,
+                region_in.byte_size, inside, copies or "none", host or "none",
+                err, params["shared_memory_region"].string_param))
+        if not inside:
+            fail("vision (c): the model's input is not the region's memory: "
+                 "{}".format(seen))
+        if of_tensors:
+            fail("vision (c): host<->device copies of the image or the "
+                 "output: {}".format(of_tensors))
+        if err > VISION_TOL or resp.raw_output_contents[0] != b"":
+            fail("vision (c): region answer error {} or in-band bytes".format(
+                err))
+    finally:
+        resnet.forward = forward
+        for name in ("vision_in", "vision_out"):
+            calls["CudaSharedMemoryUnregister"](
+                pb.CudaSharedMemoryUnregisterRequest(name=name), timeout=60)
+        csm.destroy_shared_memory_region(region_in)
+        csm.destroy_shared_memory_region(region_out)
+
+
+def _vision_fixtures(np, calls, port):
+    """(d): the fixture models on the card's server, each exact."""
+    import http.client
+
+    from tpuserver_torch import tensor_io
+    from tpuserver_torch.grpc_proto import grpc_service_pb2 as pb
+
+    in0 = np.arange(16, dtype=np.int32).reshape(1, 16)
+    in1 = np.full((1, 16), 3, dtype=np.int32)
+    want = [(in0 + in1).reshape(-1).tolist(), (in0 - in1).reshape(-1).tolist()]
+    body = {"inputs": [{"name": n, "datatype": "INT32", "shape": [1, 16],
+                        "data": a.reshape(-1).tolist()}
+                       for n, a in (("INPUT0", in0), ("INPUT1", in1))]}
+    status, data = _http_json(port, "POST", "/v2/models/simple/infer", body)
+    outs = json.loads(data)["outputs"] if status == 200 else []
+    json_ok = [o["data"] for o in outs] == want
+    header = json.dumps({"inputs": [
+        {"name": n, "datatype": "INT32", "shape": [1, 16],
+         "parameters": {"binary_data_size": 64}} for n in ("INPUT0",
+                                                           "INPUT1")],
+        "parameters": {"binary_data_output": True}}).encode()
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        conn.request("POST", "/v2/models/simple/infer",
+                     header + in0.tobytes() + in1.tobytes(),
+                     {"Inference-Header-Content-Length": str(len(header))})
+        resp = conn.getresponse()
+        raw = resp.read()
+        n = int(resp.getheader("Inference-Header-Content-Length"))
+    finally:
+        conn.close()
+    binary_ok = np.frombuffer(raw[n:], np.int32).reshape(2, 16).tolist() \
+        == want
+
+    def grpc_infer(model, tensors, params=None):
+        req = pb.ModelInferRequest(model_name=model)
+        for name, datatype, shape, data in tensors:
+            t = req.inputs.add(name=name, datatype=datatype)
+            t.shape.extend(shape)
+            req.raw_input_contents.append(data)
+        for key, value in (params or {}).items():
+            if isinstance(value, bool):
+                req.parameters[key].bool_param = value
+            else:
+                req.parameters[key].int64_param = value
+        return calls["ModelInfer"](req, timeout=60)
+
+    s0 = np.array([str(v).encode() for v in range(16)], dtype=np.object_)
+    s1 = np.array([b"5"] * 16, dtype=np.object_)
+    resp = grpc_infer("simple_string", [
+        (n, "BYTES", [1, 16], tensor_io.serialize_byte_tensor(a))
+        for n, a in (("INPUT0", s0), ("INPUT1", s1))])
+    strings = [tensor_io.deserialize_bytes_tensor(r).tolist()
+               for r in resp.raw_output_contents]
+    bytes_ok = strings == [[str(v + 5).encode() for v in range(16)],
+                           [str(v - 5).encode() for v in range(16)]]
+    bits = np.random.RandomState(SEED).randint(
+        0, 1 << 16, (2, 64)).astype(np.uint16)
+    resp = grpc_infer("identity_bf16",
+                      [("INPUT0", "BF16", [2, 64], bits.tobytes())])
+    bf16_ok = resp.raw_output_contents[0] == bits.tobytes() and \
+        resp.outputs[0].datatype == "BF16"
+    acc = []
+    for i, v in enumerate((4, 10, -3)):
+        resp = grpc_infer("sequence_accumulate", [
+            ("INPUT", "INT32", [1], np.array([v], np.int32).tobytes())],
+            {"sequence_id": 8008, "sequence_start": i == 0,
+             "sequence_end": i == 2})
+        acc.append(int(np.frombuffer(resp.raw_output_contents[0],
+                                     np.int32)[0]))
+    seq_ok = acc == [4, 14, 11]
+    values = np.array([7, 8, 9, 10], np.int32)
+    req = pb.ModelInferRequest(model_name="repeat_int32", id="rep")
+    for name, datatype, arr in (("IN", "INT32", values),
+                                ("DELAY", "UINT32", np.zeros(4, np.uint32)),
+                                ("WAIT", "UINT32", np.zeros(1, np.uint32))):
+        t = req.inputs.add(name=name, datatype=datatype)
+        t.shape.extend(arr.shape)
+        req.raw_input_contents.append(arr.tobytes())
+    streamed = [int(np.frombuffer(r.infer_response.raw_output_contents[0],
+                                  np.int32)[0])
+                for r in calls["ModelStreamInfer"](iter([req]), timeout=60)]
+    repeat_ok = streamed == values.tolist()
+    checks = {"simple_json": json_ok, "simple_binary": binary_ok,
+              "simple_string": bytes_ok, "identity_bf16": bf16_ok,
+              "sequence_accumulate": seq_ok, "repeat_int32": repeat_ok}
+    log("vision (d): fixtures on the card's server, exact: {}".format(
+        json.dumps(checks)))
+    if not all(checks.values()):
+        fail("vision (d): fixture mismatch: {}".format(checks))
+
+
+def _percentile(values, q):
+    ordered = sorted(values)
+    return ordered[min(len(ordered) - 1, int(round(q * (len(ordered) - 1))))]
+
+
+def _vision_load(torch, np, csm, url, calls, image, plane, clients, per):
+    """(e), in the load process: ``clients`` threads, each with its own
+    channel, sending ``per`` timed batch-1 ResNet-50 requests back to
+    back over gRPC (after one untimed), the image in band, in a system
+    region or in a CUDA region of this process (written once, as
+    perf_analyzer's shared-memory modes do; the server maps it over CUDA
+    IPC), the output in band or into a region of the same kind.  Returns
+    (infer/s, p50 ms, p99 ms)."""
+    import base64
+    import threading
+
+    from tpuserver_torch.grpc_proto import grpc_service_pb2 as pb
+
+    regions, files, handles = [], [], []
+    try:
+        reqs = []
+        for c in range(clients):
+            if plane == "inband":
+                reqs.append(_vision_infer_request(np, "resnet50",
+                                                  image[None]))
+                continue
+            names = ("vis_{}_{}_in".format(plane, c),
+                     "vis_{}_{}_out".format(plane, c))
+            if plane == "system":
+                for name, size in zip(names, (IMAGE_BYTES, OUTPUT_BYTES)):
+                    key = "/tt_{}_{}".format(os.getpid(), name)
+                    path = "/dev/shm" + key
+                    with open(path, "wb") as f:
+                        f.write(np.ascontiguousarray(image).tobytes()
+                                if size == IMAGE_BYTES else bytes(size))
+                    files.append(path)
+                    calls["SystemSharedMemoryRegister"](
+                        pb.SystemSharedMemoryRegisterRequest(
+                            name=name, key=key, offset=0, byte_size=size),
+                        timeout=60)
+                    regions.append(("system", name))
+            else:
+                for name, size in zip(names, (IMAGE_BYTES, OUTPUT_BYTES)):
+                    h = csm.create_shared_memory_region(name, size)
+                    handles.append(h)
+                    if size == IMAGE_BYTES:
+                        csm.set_shared_memory_region(h, [image])
+                    calls["CudaSharedMemoryRegister"](
+                        pb.CudaSharedMemoryRegisterRequest(
+                            name=name, raw_handle=base64.b64decode(
+                                csm.get_raw_handle(h)),
+                            device_id=0, byte_size=size), timeout=60)
+                    regions.append(("cuda", name))
+            reqs.append(_vision_infer_request(
+                np, "resnet50", shm_in=(names[0], (1,) + IMAGE),
+                shm_out=(names[1], OUTPUT_BYTES)))
+        lat = [[] for _ in range(clients)]
+        barrier = threading.Barrier(clients + 1)
+        errors = []
+
+        def client(c):
+            channel, own = _grpc_calls(url)
+            try:
+                own["ModelInfer"](reqs[c], timeout=120)
+                barrier.wait()
+                for _ in range(per):
+                    t0 = time.monotonic()
+                    own["ModelInfer"](reqs[c], timeout=120)
+                    lat[c].append((time.monotonic() - t0) * 1e3)
+            except Exception as e:  # noqa: BLE001 — reported below
+                errors.append(repr(e))
+                barrier.abort()
+            finally:
+                channel.close()
+
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(clients)]
+        for t in threads:
+            t.start()
+        barrier.wait()
+        t0 = time.monotonic()
+        for t in threads:
+            t.join(600)
+        wall = time.monotonic() - t0
+        if errors:
+            fail("vision (e) {} x{}: {}".format(plane, clients, errors[:3]))
+        every = [v for per_client in lat for v in per_client]
+        return (len(every) / wall, _percentile(every, 0.5),
+                _percentile(every, 0.99))
+    finally:
+        for kind, name in regions:
+            if kind == "system":
+                calls["SystemSharedMemoryUnregister"](
+                    pb.SystemSharedMemoryUnregisterRequest(name=name),
+                    timeout=60)
+            else:
+                calls["CudaSharedMemoryUnregister"](
+                    pb.CudaSharedMemoryUnregisterRequest(name=name),
+                    timeout=60)
+        for path in files:
+            os.unlink(path)
+        for h in handles:
+            csm.destroy_shared_memory_region(h)
+
+
+def _time_forward_ms(torch, fn, iters, flush):
+    """Mean device time of ``fn`` by CUDA events, each sample alone: the
+    card held (``VISION_HOLD_CYCLES``) while the host enqueues it, after
+    an L2 flush."""
+    for _ in range(3):
+        fn()
+    total = 0.0
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(VISION_HOLD_CYCLES)
+        flush.sum(dtype=torch.int32)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total / iters
+
+
+def child_load(torch, np, url):
+    """``--child-load <gRPC url>``: phase 8 (e)'s clients, in a process of
+    their own (as a load generator would be, so client and server do not
+    share an interpreter): every plane at every concurrency of
+    ``VISION_LOAD``, then one ``LOAD <json>`` line."""
+    from tpuserver_torch import cuda_shared_memory as csm
+
+    image = np.random.RandomState(SEED + 8).rand(*IMAGE).astype(np.float32)
+    channel, calls = _grpc_calls(url)
+    out = {}
+    try:
+        for plane in ("inband", "system", "cuda"):
+            for clients, per in VISION_LOAD:
+                rate, p50, p99 = _vision_load(torch, np, csm, url, calls,
+                                              image, plane, clients, per)
+                out["{}_c{}".format(plane, clients)] = {
+                    "infer_per_s": rate, "p50_ms": p50, "p99_ms": p99}
+    finally:
+        channel.close()
+    print("LOAD " + json.dumps(out), flush=True)
+
+
+def _vision_class(name):
+    low = name.lower()
+    if any(k in low for k in ("fprop", "conv", "implicit", "cudnn",
+                              "winograd", "nhwckrsc", "xmma_fprop")):
+        return "conv"
+    if any(k in low for k in ("gemm", "gemv", "nvjet", "cutlass")):
+        # cuBLAS: the fc, and the 1x1 convolutions cuDNN hands to it
+        return "gemm"
+    if "pool" in low:
+        return "pool"
+    if "cat" in low:
+        return "concat"
+    if "pad" in low:
+        return "pad"
+    if "softmax" in low:
+        return "softmax"
+    if "reduce" in low:
+        return "mean"
+    if "elementwise" in low or "addcmul" in low or "relu" in low:
+        return "elementwise"
+    return "other"
+
+
+def _vision_forward_numbers(torch, tv, models, smi):
+    """(e): each model's forward at batch 1 and 32: device time by CUDA
+    events (L2 flushed, the card held while the host enqueues) against
+    its bound, and under torch.profiler the device time by kernel class
+    and the busy share of the wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    out = {}
+    for model in models:
+        weight_bytes = sum(t.numel() * t.element_size()
+                           for t in _leaves(tv, model.params()))
+        for b in VISION_BATCHES:
+            x = torch.rand((b,) + IMAGE, generator=gen, device="cuda")
+
+            def fn():
+                with torch.inference_mode():
+                    return model.logits(x)
+
+            ms = _time_forward_ms(torch, fn, VISION_ITERS, flush)
+            ops = model.operations(b)
+            nbytes = weight_bytes + b * (IMAGE_BYTES + 1000 * 2)
+            bound_ms, bound_by = _bound_ms(nbytes, ops,
+                                           SPEC.peak_bf16_flops)
+            walls = []
+            for _ in range(WALL_REPS):
+                torch.cuda.synchronize()
+                t0 = time.monotonic()
+                fn()
+                torch.cuda.synchronize()
+                walls.append((time.monotonic() - t0) * 1e3)
+            wall_ms = sorted(walls)[WALL_REPS // 2]
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            by_class, kernels, launches = {}, [], 0
+            for ev in prof.key_averages():
+                dev_us = getattr(ev, "self_device_time_total",
+                                 getattr(ev, "self_cuda_time_total", 0))
+                if dev_us <= 0 or not str(ev.device_type).endswith("CUDA"):
+                    continue
+                cls = _vision_class(ev.key)
+                by_class[cls] = by_class.get(cls, 0.0) + dev_us / 1e3
+                kernels.append((dev_us / 1e3, ev.count, ev.key[:80]))
+                launches += ev.count
+            device_ms = sum(by_class.values())
+            key = "{}_b{}".format(model.name, b)
+            out[key] = {
+                "ms": ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                "gflop": ops / 1e9, "bytes": nbytes,
+                "images_per_s": b / ms * 1e3,
+                "wall_ms": wall_ms, "wall_ms_samples": walls,
+                "profiled_device_ms": device_ms,
+                "busy_share": device_ms / wall_ms if wall_ms else None,
+                "device_launches": launches,
+                "device_ms_by_class": by_class,
+                "top_kernels": sorted(kernels, reverse=True)[:6]}
+            log("vision (e) forward {}: {:.4f} ms device (events), bound "
+                "{:.4f} ms ({}; {:.3f} GFLOP), {:.1f} images/s; wall {:.3f} "
+                "ms, busy share {:.3f}, {} kernels; {}".format(
+                    key, ms, bound_ms, bound_by, ops / 1e9, b / ms * 1e3,
+                    wall_ms, device_ms / wall_ms if wall_ms else 0,
+                    launches, smi))
+    log("vision (e) forwards: {}".format(json.dumps(out)))
+
+
+def phase_vision(torch, np, smi):
+    """Phase 8: the vision zoo and the fixture models behind HTTP and
+    gRPC on a fresh core, bf16 at full width and depth, weights from the
+    script's seed: (a) the model check, (b) dynamic batching, (c) a CUDA
+    region in and out with no host copy, (d) the fixtures, (e) the
+    numbers.  No kernel of the port may run on this path (it runs cuDNN
+    and cuBLAS): their launch counts must stay 0."""
+    from tpuserver_torch import cuda_shared_memory as csm
+    from tpuserver_torch.core import InferenceServer
+    from tpuserver_torch.grpc_server import GrpcServer
+    from tpuserver_torch.http_server import HttpServer
+    from tpuserver_torch.models import default_models
+    from tpuserver_torch.models import vision as tv
+    from tpuserver_torch.ops import flash as fl
+    from tpuserver_torch.ops import quant
+
+    t_start = time.monotonic()
+    models = tv.vision_models(device="cuda", seed=SEED)
+    resnet, densenet = models[0], models[1]
+    core = InferenceServer(default_models() + models, ready=False)
+    http = HttpServer(core, port=0).start()
+    grpc_srv = GrpcServer(core, port=0).start()
+    channel, calls = _grpc_calls(grpc_srv.url)
+    try:
+        t0 = time.monotonic()
+        core.warmup()
+        core.mark_ready()
+        log("vision: warm-up of every bucket {} of both nets, on this "
+            "thread and each batcher executor, {:.1f} s; "
+            "weights {:.1f} MB (resnet50) and {:.1f} MB (densenet121); "
+            "torch peak {:.3f} GiB".format(
+                resnet.buckets(), time.monotonic() - t0,
+                *(sum(t.numel() * t.element_size()
+                      for t in _leaves(tv, m.params())) / 1e6
+                  for m in (resnet, densenet)),
+                torch.cuda.max_memory_allocated() / 2 ** 30))
+        fl.reset_launch_counts()
+        quant.int8_matmul.launches = 0
+        _vision_model_check(torch, np, tv, (resnet, densenet), core)
+        rng = np.random.RandomState(SEED + 8)
+        images = rng.rand(32, *IMAGE).astype(np.float32)
+        alone = _vision_batching(np, calls, http.port, images)
+        _vision_zero_copy(torch, np, csm, calls, resnet, images[0], alone[0])
+        _vision_fixtures(np, calls, http.port)
+        inf0, exe0 = _stats(http.port, "resnet50")
+        child = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--child-load",
+             grpc_srv.url], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True, timeout=900)
+        lines = [ln for ln in child.stdout.splitlines()
+                 if ln.startswith("LOAD ")]
+        if child.returncode != 0 or not lines:
+            fail("vision (e): the load process exited {}: {} {}".format(
+                child.returncode, child.stdout[-2000:],
+                child.stderr[-2000:]))
+        load = json.loads(lines[-1][len("LOAD "):])
+        for key, row in load.items():
+            plane, clients = key.rsplit("_c", 1)
+            log("vision (e) ResNet-50 over gRPC, {} plane, concurrency {}: "
+                "{:.1f} infer/s, p50 {:.3f} ms, p99 {:.3f} ms; {}".format(
+                    plane, clients, row["infer_per_s"], row["p50_ms"],
+                    row["p99_ms"], smi))
+        inf, exe = _stats(http.port, "resnet50")
+        log("vision (e) load process: {} inferences in {} executions (mean "
+            "batch {:.2f})".format(inf - inf0, exe - exe0,
+                                   (inf - inf0) / max(exe - exe0, 1)))
+        log("vision (e) load: {}; resnet50 served {} inferences in {} "
+            "executions (mean batch {:.2f})".format(
+                json.dumps(load), inf, exe, inf / max(exe, 1)))
+        torch.cuda.synchronize()
+        launches = {"flash_attention": fl.flash_attention.launches,
+                    "decode_attention": fl.decode_attention.launches,
+                    "int8_matmul": quant.int8_matmul.launches}
+        _vision_forward_numbers(torch, tv, (resnet, densenet), smi)
+        log("vision: the port's kernels launched on this path: {} (none "
+            "expected: convolutions, pools and products are cuDNN's and "
+            "cuBLAS's); phase {:.1f} s".format(
+                json.dumps(launches), time.monotonic() - t_start))
+        if any(launches.values()):
+            fail("vision: a kernel of the llama path ran on the vision path: "
+                 "{}".format(launches))
+    finally:
+        channel.close()
+        grpc_srv.stop()
+        http.stop()
+        core.close()
+
+
 # -- phase 5: model check ----------------------------------------------------
 
 
@@ -3188,6 +3913,17 @@ def main():
         return child_server(torch)
     if sys.argv[1:2] == ["--child-serve"]:
         return child_serve(torch, sys.argv[2:])
+    if sys.argv[1:2] == ["--child-load"]:
+        return child_load(torch, np, sys.argv[2])
+    if sys.argv[1:] == ["--vision-only"]:
+        # phases 1, 2 and 8 alone, for work on the vision path; prints no
+        # result line
+        name, smi = phase_device(torch)
+        log("nvidia-smi:", smi)
+        phase_build()
+        phase_vision(torch, np, smi)
+        log("vision-only: done")
+        return 1
     started = time.monotonic()
     log("installs: grpcio {grpcio}, protobuf {protobuf}".format(
         **_install_versions()))
@@ -3230,6 +3966,7 @@ def main():
         name: {"bf16": profile[name]["device_ms_by_class"],
                "int8": int8_profile[name]["device_ms_by_class"]}
         for name in int8_profile})))
+    phase_vision(torch, np, smi)
 
     kernels = []
     # each kernel once per path: the single-stream serve (phase 4, timed

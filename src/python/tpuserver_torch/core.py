@@ -1,11 +1,11 @@
 """The port's serving core: model registry, the lifecycle (readiness,
 drain, the in-flight cap) and the health snapshot a fleet router
-probes, metadata, decoupled (streaming) execution, statistics and
-metrics, and the shared-memory data plane — a slim copy of
-``tpuserver/core.py``'s ``TensorSpec``, ``InferRequest``,
-``InferResponse``, ``Model``, ``install_sigterm_drain`` and the
-``InferenceServer`` verbs the generation path and a fleet replica use.
-Transport-agnostic: ``tpuserver_torch.http_server`` speaks HTTP and
+probes, metadata, unary and decoupled (streaming) execution, the
+dynamic batcher, sequences and ensembles, statistics and metrics, the
+repository and the log and trace settings, and the shared-memory data
+plane — the port of ``tpuserver/core.py``.  ``TorchModel`` is the
+counterpart of its ``JaxModel``.  Transport-agnostic:
+``tpuserver_torch.http_server`` speaks HTTP and
 ``tpuserver_torch.grpc_server`` gRPC on top of it.
 
 Metrics: ``metrics`` is the server's ``tpuserver_torch.metrics``
@@ -40,7 +40,7 @@ import numpy as np
 import torch
 
 from tpuserver_torch import cuda_shared_memory as csm
-from tpuserver_torch import fault_points, shm_ring
+from tpuserver_torch import fault_points, resolve_device, shm_ring
 from tpuserver_torch.errors import (
     BadRequest,
     KvExportClaimed,
@@ -53,38 +53,41 @@ from tpuserver_torch.errors import (
     TorchServeError,
 )
 from tpuserver_torch.metrics import MetricsRegistry
+from tpuserver_torch.tensor_io import (
+    bf16_bits,
+    binary_from_array,
+    deserialize_bytes_tensor,
+    serialized_byte_size,
+    wire_datatype,
+    wire_to_np_dtype,
+)
 
 _log = logging.getLogger(__name__)
 
 SERVER_NAME = "tpuserver-torch"
 SERVER_VERSION = "0.1.0"
-
-#: KServe-v2 wire datatype of each numpy dtype the port's models emit
-_WIRE_DTYPES = {
-    np.dtype(np.bool_): "BOOL",
-    np.dtype(np.int8): "INT8",
-    np.dtype(np.int16): "INT16",
-    np.dtype(np.int32): "INT32",
-    np.dtype(np.int64): "INT64",
-    np.dtype(np.uint8): "UINT8",
-    np.dtype(np.float16): "FP16",
-    np.dtype(np.float32): "FP32",
-    np.dtype(np.float64): "FP64",
-}
-_NP_DTYPES = {v: k for k, v in _WIRE_DTYPES.items()}
+#: the KServe-v2 extensions the port serves (the JAX package's, with
+#: CUDA shared memory in the place of XLA's)
+SERVER_EXTENSIONS = [
+    "classification",
+    "sequence",
+    "model_repository",
+    "model_repository(unload_dependents)",
+    "schedule_policy",
+    "model_configuration",
+    "system_shared_memory",
+    "cuda_shared_memory",
+    "binary_tensor_data",
+    "parameters",
+    "statistics",
+    "trace",
+    "logging",
+]
 
 #: a model's response dict may carry per-response parameters under this
 #: key (the scheduled path's ``generation_id`` and ``seq``); the core
 #: moves them to ``InferResponse.parameters``
 RESPONSE_PARAMS_KEY = "__response_parameters__"
-
-
-def wire_to_np_dtype(datatype):
-    """numpy dtype of a KServe-v2 wire datatype (BadRequest if unknown)."""
-    try:
-        return _NP_DTYPES[datatype]
-    except KeyError:
-        raise BadRequest("unsupported datatype '{}'".format(datatype))
 
 
 class TensorSpec:
@@ -100,16 +103,35 @@ class TensorSpec:
                 "shape": list(self.shape)}
 
 
+class RequestedOutput:
+    """Server-side view of one requested output and its delivery options:
+    in-band (``binary_data`` or JSON), as ``class_count`` top-k
+    classification strings, or into a shared-memory region."""
+
+    def __init__(self, name, binary_data=True, class_count=0,
+                 shm_region=None, shm_byte_size=0, shm_offset=0):
+        self.name = name
+        self.binary_data = binary_data
+        self.class_count = class_count
+        self.shm_region = shm_region
+        self.shm_byte_size = shm_byte_size
+        self.shm_offset = shm_offset
+
+
 class InferRequest:
     """Transport-agnostic inference request."""
 
     def __init__(self, model_name, model_version="", request_id="",
-                 inputs=None, parameters=None):
+                 inputs=None, parameters=None, requested_outputs=None):
         self.model_name = model_name
         self.model_version = model_version
         self.id = request_id
-        self.inputs = inputs or {}  # name -> np.ndarray
+        # name -> np.ndarray (BYTES as np.object_, BF16 as np.uint16 bits)
+        # or a torch.Tensor view of a CUDA region
+        self.inputs = inputs or {}
         self.parameters = parameters or {}
+        # list[RequestedOutput], or None for every output in-band
+        self.requested_outputs = requested_outputs
         # time.monotonic() bound from the 'timeout' parameter, set by
         # InferenceServer.infer_stream; the scheduler expires by it
         self.deadline = None
@@ -117,25 +139,54 @@ class InferRequest:
         # model pins them for the stream's lifetime
         self.shm_input_regions = ()
 
+    @property
+    def sequence_id(self):
+        return self.parameters.get("sequence_id", 0)
+
+    @property
+    def sequence_start(self):
+        return bool(self.parameters.get("sequence_start", False))
+
+    @property
+    def sequence_end(self):
+        return bool(self.parameters.get("sequence_end", False))
+
+
+#: the delivery of an output that travels in-band as binary data
+DEFAULT_DELIVERY = {"binary_data": True, "shm_region": None,
+                    "shm_byte_size": 0, "shm_offset": 0}
+
 
 class InferResponse:
     """Transport-agnostic inference response; ``outputs`` is a list of
-    (spec dict name/datatype/shape, np.ndarray); ``parameters`` the
+    (spec dict name/datatype/shape, array or None), the array a numpy
+    array (BYTES as ``np.object_``, BF16 as ``np.uint16`` bits) and None
+    for an output delivered into shared memory; ``deliveries`` maps an
+    output's name to its delivery options when a request asked for any
+    (:data:`DEFAULT_DELIVERY` otherwise); ``parameters`` the
     per-response parameters (``generation_id``, ``seq``)."""
 
     def __init__(self, model_name, model_version, request_id, outputs,
-                 parameters=None):
+                 parameters=None, deliveries=None):
         self.model_name = model_name
         self.model_version = model_version
         self.id = request_id
         self.outputs = outputs
         self.parameters = parameters or {}
+        self.deliveries = deliveries or {}
+
+    def delivery(self, name):
+        return self.deliveries.get(name, DEFAULT_DELIVERY)
 
 
 class Model:
-    """Base model: subclasses define specs and ``execute_stream(inputs,
-    request)``, which yields ``dict name -> np.ndarray`` responses (the
-    decoupled contract: zero or many)."""
+    """Base model: subclasses define specs and ``execute(inputs,
+    request)``, which returns ``dict name -> array``; a decoupled model
+    instead implements ``execute_stream(inputs, request)``, which yields
+    such dicts (zero or many), and a sequence model
+    ``execute_sequence(inputs, state, request)``, which returns
+    ``(outputs, new_state)``.  An ensemble names its steps in
+    ``ensemble_steps``.  ``request`` is None inside a dynamic batch."""
 
     name = "model"
     platform = "pytorch"
@@ -144,8 +195,19 @@ class Model:
     inputs = ()
     outputs = ()
     decoupled = False
+    sequence = False
+    ensemble_steps = None  # list of step dicts for an ensemble
+    labels = None  # output name -> classification labels
     version = "1"
+    #: dynamic batching (the model-config ``dynamic_batching`` block):
+    #: concurrent requests coalesce into one ``execute`` over the stacked
+    #: batch, padded to a power of two up to ``max_batch_size``
+    dynamic_batching = False
+    max_queue_delay_us = 2000
+    #: executor threads of the batcher (the ``instance_group`` count)
     instance_count = 1
+    #: idle time after which a sequence's state is dropped
+    max_sequence_idle_us = 60_000_000
     #: "gpu" for models that run on the card, "cpu" otherwise
     device_kind = "gpu"
 
@@ -171,6 +233,26 @@ class Model:
         }
         if self.decoupled:
             cfg["model_transaction_policy"] = {"decoupled": True}
+        if self.dynamic_batching and self.max_batch_size > 1:
+            cfg["dynamic_batching"] = {
+                "preferred_batch_size": [self.max_batch_size],
+                "max_queue_delay_microseconds": self.max_queue_delay_us,
+            }
+        if self.sequence:
+            cfg["sequence_batching"] = {
+                "max_sequence_idle_microseconds": 60000000,
+                "control_input": [
+                    {"name": "START",
+                     "control": [{"kind": "CONTROL_SEQUENCE_START",
+                                  "int32_false_true": [0, 1]}]},
+                    {"name": "END",
+                     "control": [{"kind": "CONTROL_SEQUENCE_END",
+                                  "int32_false_true": [0, 1]}]},
+                ],
+            }
+        if self.ensemble_steps is not None:
+            cfg["platform"] = "ensemble"
+            cfg["ensemble_scheduling"] = {"step": self.ensemble_steps}
         return cfg
 
     def metadata_dict(self):
@@ -182,11 +264,56 @@ class Model:
             "outputs": [t.as_metadata() for t in self.outputs],
         }
 
+    def execute(self, inputs, request):
+        raise NotImplementedError
+
     def execute_stream(self, inputs, request):
         raise NotImplementedError
 
+    def execute_sequence(self, inputs, state, request):
+        raise NotImplementedError
+
+    def warmup(self):
+        """Run representative shapes once before serving (optional)."""
+
     def close(self):
         """Release what the model holds (optional)."""
+
+
+class TorchModel(Model):
+    """A model whose compute is PyTorch on ``device`` (the card unless the
+    caller asks for the CPU), the counterpart of ``JaxModel``.
+
+    ``forward(**inputs)`` gets tensors on ``device`` and returns ``dict
+    name -> tensor``; it runs under ``torch.inference_mode()``.  A host
+    input moves to the device in one copy (a BF16 input's ``np.uint16``
+    bits become a ``torch.bfloat16`` tensor); a tensor already there (a
+    CUDA region's view) is used where it lies.  Outputs stay on the device
+    until a response needs their host bytes."""
+
+    def __init__(self, device=None):
+        self.device = resolve_device(device)
+        self._bf16_inputs = {t.name for t in self.inputs
+                             if t.datatype == "BF16"}
+
+    def forward(self, **inputs):
+        raise NotImplementedError
+
+    def to_device(self, name, array):
+        if not isinstance(array, torch.Tensor):
+            array = np.asarray(array)
+            if name in self._bf16_inputs:
+                array = array.view(np.int16)
+            array = torch.from_numpy(array)
+            if name in self._bf16_inputs:
+                array = array.view(torch.bfloat16)
+        return array.to(self.device)
+
+    def execute(self, inputs, request):
+        with torch.inference_mode():
+            return dict(self.forward(**{
+                name: self.to_device(name, array)
+                for name, array in inputs.items()}))
 
 
 def wall_clock_ms():
@@ -197,9 +324,10 @@ def wall_clock_ms():
 
 
 class _ModelStats:
-    """A model's inference statistics (the KServe statistics extension),
-    recorded by the streaming verb: one execution per completed
-    generation, one failure per generation that raised."""
+    """A model's inference statistics (the KServe statistics extension):
+    one execution per model call (a dynamic batch counts once, however
+    many requests it served), one success per request, one failure per
+    request or generation that raised."""
 
     def __init__(self):
         self.lock = threading.Lock()
@@ -215,11 +343,12 @@ class _ModelStats:
         self.compute_infer_ns = 0    # guarded-by: lock
         self.compute_output_ns = 0   # guarded-by: lock
 
-    def record(self, batch, queue_ns, ci_ns, cf_ns, co_ns, ok=True):
+    def record(self, batch, queue_ns, ci_ns, cf_ns, co_ns, ok=True,
+               executions=1):
         with self.lock:
             if ok:
                 self.inference_count += batch
-                self.execution_count += 1
+                self.execution_count += executions
                 self.last_inference_ms = wall_clock_ms()
                 self.success_count += 1
                 self.success_ns += queue_ns + ci_ns + cf_ns + co_ns
@@ -257,6 +386,266 @@ class _ModelStats:
                 },
                 "batch_stats": [],
             }
+
+
+class _BatchSlot:
+    """One queued request inside the dynamic batcher."""
+
+    __slots__ = ("inputs", "rows", "event", "outputs", "error",
+                 "enqueue_ns", "queue_ns", "executions")
+
+    def __init__(self, inputs, rows):
+        self.inputs = inputs
+        self.rows = rows
+        self.event = threading.Event()
+        self.outputs = None
+        self.error = None
+        # the model calls this slot accounts for: 1 for the first slot of
+        # a batch, 0 for the others
+        self.executions = 0
+        # the KServe queue bucket: from the enqueue to the start of the
+        # batch this slot landed in
+        self.enqueue_ns = time.monotonic_ns()
+        self.queue_ns = 0
+
+
+class _DynamicBatcher:
+    """Coalesces concurrent requests for one model into batched calls
+    (``tpuserver/core.py``'s, on torch).  Each of ``instance_count``
+    executor threads drains the queue: the first waiting request opens a
+    window of ``model.max_queue_delay_us``; every compatible request
+    (same input names, dtypes and trailing dims) that arrives inside it
+    is stacked along the batch axis, padded to a bucket by copies of row
+    0, executed as one call, and the outputs split back per request.
+    Requests left over (another signature, or past ``max_batch_size``)
+    seed the next batch.
+
+    Host parts are stacked on the host, so the model moves the batch to
+    the device in one copy; parts already on the device (CUDA-region
+    views) are stacked there with ``torch.cat``.  On the card each
+    executor runs on a CUDA stream of its own, which first waits for the
+    work queued on the device's default stream (a region write, a
+    previous response's copy), and is synchronized before the batch's
+    outputs are split and handed back: a request's outputs are complete
+    device tensors, which its response copies where they go.
+
+    PyTorch keeps cuDNN's execution plans per thread, so on the card each
+    executor first runs ``model.warmup()`` on its stream: the first
+    request it serves builds no plan.  The batcher is ready (``submit``
+    waits for it) once every executor has."""
+
+    def __init__(self, model):
+        self._model = model
+        self._cond = threading.Condition()
+        self._queue = []   # of _BatchSlot  # guarded-by: _cond
+        self._stop = False  # guarded-by: _cond
+        device = getattr(model, "device", None)
+        self._cuda = device if (device is not None
+                                and device.type == "cuda") else None
+        self._threads = [
+            threading.Thread(target=self._run,
+                             name="batcher-{}-{}".format(model.name, i),
+                             daemon=True)
+            for i in range(max(1, model.instance_count))]
+        # executors that finished their warm-up  # guarded-by: _cond
+        self._warm = 0
+        for t in self._threads:
+            t.start()
+
+    def wait_warm(self):
+        """Block until every executor has run its warm-up."""
+        with self._cond:
+            while self._warm < len(self._threads) and not self._stop:
+                self._cond.wait()
+
+    @staticmethod
+    def _signature(inputs):
+        return tuple(sorted(
+            (name, str(arr.dtype), tuple(arr.shape[1:]))
+            for name, arr in inputs.items()))
+
+    def submit(self, inputs, rows):
+        """Queue one request's inputs and wait for its batch: returns
+        ``(outputs, queue_ns, executions)``, the request's slice of the
+        batch's outputs, the nanoseconds it waited in the batching window
+        and the model calls it accounts for (1 for one request of each
+        batch, 0 for the rest); raises the batch's error when its
+        execution failed."""
+        slot = _BatchSlot(inputs, rows)
+        self.wait_warm()
+        with self._cond:
+            if self._stop:
+                raise ServerUnavailable(
+                    "model '{}' is unloading".format(self._model.name))
+            self._queue.append(slot)
+            self._cond.notify_all()
+        slot.event.wait()
+        if slot.error is not None:
+            raise slot.error
+        return slot.outputs, slot.queue_ns, slot.executions
+
+    def stop(self):
+        with self._cond:
+            self._stop = True
+            self._cond.notify_all()
+        for t in self._threads:
+            t.join(timeout=5)
+        # an executor that outlived the join completes the slots it took;
+        # the ones still queued fail
+        with self._cond:
+            pending, self._queue = self._queue, []
+        for slot in pending:
+            slot.error = ServerUnavailable(
+                "model '{}' is unloading".format(self._model.name))
+            slot.event.set()
+
+    def _take_batch_locked(self):
+        """One compatible batch.  Called with ``_cond`` held."""
+        max_rows = self._model.max_batch_size
+        sig = self._signature(self._queue[0].inputs)
+        batch, rest, rows = [], [], 0
+        for slot in self._queue:
+            if rows + slot.rows <= max_rows and \
+                    self._signature(slot.inputs) == sig:
+                batch.append(slot)
+                rows += slot.rows
+            else:
+                rest.append(slot)
+        if not batch:
+            # an oversized request runs alone: the model's own shape
+            # checks decide its fate
+            batch, rest = [rest[0]], rest[1:]
+            rows = batch[0].rows
+        self._queue = rest
+        return batch, rows
+
+    def _run(self):
+        stream = (torch.cuda.Stream(self._cuda)
+                  if self._cuda is not None else None)
+        if stream is not None:
+            try:
+                with torch.cuda.stream(stream):
+                    self._model.warmup()
+                stream.synchronize()
+            except Exception:  # noqa: BLE001 — requests will report it
+                _log.exception("warm-up of an executor of model '%s' "
+                               "failed", self._model.name)
+        with self._cond:
+            self._warm += 1
+            self._cond.notify_all()
+        delay_s = self._model.max_queue_delay_us / 1e6
+        while True:
+            with self._cond:
+                while not self._queue and not self._stop:
+                    self._cond.wait()
+                if self._stop:
+                    return
+                # the batching window: wait for companions until the
+                # delay passes or a full batch is queued
+                deadline = time.monotonic() + delay_s
+                while (sum(s.rows for s in self._queue)
+                       < self._model.max_batch_size and not self._stop):
+                    remaining = deadline - time.monotonic()
+                    if remaining <= 0:
+                        break
+                    self._cond.wait(remaining)
+                if self._stop:
+                    return
+                if not self._queue:
+                    continue  # a sibling executor took the queue
+                batch, rows = self._take_batch_locked()
+            if stream is None:
+                self._execute(batch, rows)
+            else:
+                stream.wait_stream(torch.cuda.default_stream(self._cuda))
+                with torch.cuda.stream(stream):
+                    self._execute(batch, rows, stream)
+
+    def _bucket(self, rows):
+        """The least power of two of at least ``rows``, up to
+        ``max_batch_size``: a model sees a few batch shapes only."""
+        b = 1
+        while b < rows:
+            b <<= 1
+        return min(b, max(self._model.max_batch_size, rows))
+
+    def _stack(self, batch, rows, padded):
+        """The batched inputs: host parts concatenated on the host (one
+        copy to the device later), device parts with ``torch.cat``; the
+        padding rows replicate row 0."""
+        stacked = {}
+        for name in batch[0].inputs:
+            parts = [s.inputs[name] for s in batch]
+            if all(isinstance(p, np.ndarray) for p in parts):
+                if padded > rows:
+                    parts = parts + [np.repeat(parts[0][:1], padded - rows,
+                                               axis=0)]
+                stacked[name] = (np.concatenate(parts, axis=0)
+                                 if len(parts) > 1 else parts[0])
+                continue
+            # device parts come to TorchModels only (_batchable)
+            parts = [p if isinstance(p, torch.Tensor)
+                     else self._model.to_device(name, p) for p in parts]
+            x = torch.cat(parts, dim=0) if len(parts) > 1 else parts[0]
+            if padded > rows:
+                x = torch.cat([x, x[:1].expand(
+                    (padded - rows,) + tuple(x.shape[1:]))], dim=0)
+            stacked[name] = x
+        return stacked
+
+    def _execute(self, batch, rows, stream=None):
+        t_start = time.monotonic_ns()
+        for slot in batch:
+            slot.queue_ns = max(0, t_start - slot.enqueue_ns)
+        batch[0].executions = 1
+        try:
+            padded = self._bucket(rows)
+            outputs = self._model.execute(self._stack(batch, rows, padded),
+                                          None)
+            if stream is not None:
+                stream.synchronize()
+            # a batching model's declared outputs carry the batch dim, so
+            # they split by declaration; an undeclared output splits when
+            # its first dim is the padded batch, and is handed whole to
+            # every request otherwise
+            declared = {t.name for t in self._model.outputs}
+            for name, arr in outputs.items():
+                if name in declared and (
+                        getattr(arr, "ndim", 0) < 1
+                        or arr.shape[0] not in (rows, padded)):
+                    # a misdeclared unbatched output would be cut into
+                    # wrong per-request rows: fail loudly instead
+                    raise ValueError(
+                        "declared output '{}' of model '{}' must carry "
+                        "the batch dim (shape[0] in ({}, {})), got shape "
+                        "{}".format(name, self._model.name, rows, padded,
+                                    tuple(getattr(arr, "shape", ()))))
+            offset = 0
+            for slot in batch:
+                slot.outputs = {}
+                for name, arr in outputs.items():
+                    ndim = getattr(arr, "ndim", 0)
+                    if ndim >= 1 and (name in declared
+                                      or arr.shape[0] == padded):
+                        slot.outputs[name] = (
+                            arr if len(batch) == 1
+                            and arr.shape[0] == slot.rows
+                            else arr[offset:offset + slot.rows])
+                    else:
+                        slot.outputs[name] = arr
+                offset += slot.rows
+        except Exception as e:  # noqa: BLE001 — the failure fans out
+            # one error instance per slot: concurrent raises of one
+            # instance would race on its __traceback__
+            code = getattr(e, "code",
+                           400 if isinstance(e, ValueError) else 500)
+            for slot in batch:
+                slot.error = TorchServeError(
+                    "batched execution failed for model '{}': {}".format(
+                        self._model.name, e), code=code)
+        finally:
+            for slot in batch:
+                slot.event.set()
 
 
 class _SystemShmRegion:
@@ -402,6 +791,32 @@ class InferenceServer:
             "kv_exports_made", "kv_exports_attached",
             "kv_exports_dropped"), 0)
         self._shm_lock = threading.Lock()
+        # name -> _DynamicBatcher, made at a model's first batched
+        # request  # guarded-by: _lock
+        self._batchers = {}
+        # set by close() and the last front end's detach: no batcher is
+        # made again until a front end attaches  # guarded-by: _lock
+        self._closed = False
+        # (model, sequence id) -> (state, last touch)  # guarded-by: _seq_lock
+        self._sequence_state = {}
+        self._last_sequence_sweep = 0.0  # guarded-by: _seq_lock
+        self._seq_lock = threading.Lock()
+        self._trace_settings = {
+            "trace_file": [""],
+            "trace_level": ["OFF"],
+            "trace_rate": ["1000"],
+            "trace_count": ["-1"],
+            "log_frequency": ["0"],
+        }
+        self._log_settings = {
+            "log_file": "",
+            "log_info": True,
+            "log_warning": True,
+            "log_error": True,
+            "log_verbose_level": 0,
+            "log_format": "default",
+        }
+        self._settings_lock = threading.Lock()
         # the telemetry plane: owned per-verb instruments, plus
         # scrape-time collectors over the scheduler's and the data
         # plane's counters.  Verb children are bound once, so a request
@@ -447,12 +862,15 @@ class InferenceServer:
         return model
 
     def requires_stream_order(self, name, version=""):
-        """Whether stream requests to this model run in arrival order:
-        a decoupled model's response bursts are contractual, unless it
+        """Whether stream requests to this model run in arrival order: a
+        sequence model's steps, and a decoupled model's response bursts,
+        which are contractual, unless it
         is ``concurrent_decoupled`` (the continuous-batching scheduler),
         whose generations run interleaved, each response carrying its
         request id."""
         model = self._get_model(name, version)
+        if model.sequence:
+            return True  # a sequence's state depends on its step order
         if model.decoupled:
             return not getattr(model, "concurrent_decoupled", False)
         return False
@@ -471,21 +889,30 @@ class InferenceServer:
         opens again (a ``starting`` one stays starting)."""
         with self._lock:
             self._frontends += 1
+            self._closed = False
         with self._inflight_cond:
             if self._state == "stopped":
                 self._state = "ready"
 
     def detach_frontend(self):
-        """The last detach stops the core to new requests (the port's
-        core runs no background workers of its own to stop; each
-        model's scheduler stops with :meth:`close`)."""
+        """The last detach stops the core to new requests and stops its
+        dynamic batchers (each model's scheduler stops with
+        :meth:`close`)."""
+        to_stop = []
         with self._lock:
             self._frontends = max(0, self._frontends - 1)
             last = self._frontends == 0
+            if last:
+                # decided and marked under one hold: an attach runs
+                # wholly before or after, never under a stop
+                self._closed = True
+                to_stop, self._batchers = list(self._batchers.values()), {}
         if last:
             with self._inflight_cond:
                 self._state = "stopped"
                 self._inflight_cond.notify_all()
+        for batcher in to_stop:
+            batcher.stop()
 
     def model_statistics(self, name="", version=""):
         """The KServe statistics of every model (``name=""``) or of one;
@@ -765,7 +1192,75 @@ class InferenceServer:
 
     def server_metadata(self):
         return {"name": SERVER_NAME, "version": SERVER_VERSION,
-                "extensions": ["model_configuration"]}
+                "extensions": list(SERVER_EXTENSIONS)}
+
+    def warmup(self):
+        """Warm every model (``model.warmup()``) and start the dynamic
+        batcher of each batching model, waiting until its executors are
+        warm: the first requests then pay no first call."""
+        with self._lock:
+            models = list(self._models.values())
+        for model in models:
+            model.warmup()
+            if model.dynamic_batching and model.max_batch_size > 1:
+                self._batcher_of(model).wait_warm()
+
+    # -- model repository and settings -------------------------------------
+
+    def load_model(self, name):
+        with self._lock:
+            if name not in self._models:
+                raise BadRequest(
+                    "failed to load '{}', no such model".format(name))
+            self._ready[name] = True
+
+    def unload_model(self, name, unload_dependents=False):
+        """Mark ``name`` unavailable (and with ``unload_dependents`` the
+        models an ensemble's steps name)."""
+        with self._lock:
+            model = self._models.get(name)
+            if model is None:
+                raise BadRequest(
+                    "failed to unload '{}', no such model".format(name))
+            self._ready[name] = False
+            if unload_dependents:
+                for step in model.ensemble_steps or []:
+                    if step["model_name"] in self._models:
+                        self._ready[step["model_name"]] = False
+
+    def repository_index(self, ready_only=False):
+        with self._lock:
+            items = sorted((n, m, self._ready.get(n, False))
+                           for n, m in self._models.items())
+        return [{"name": n, "version": m.version,
+                 "state": "READY" if ready else "UNAVAILABLE", "reason": ""}
+                for n, m, ready in items if ready or not ready_only]
+
+    def get_trace_settings(self, model_name=None):
+        with self._settings_lock:
+            return {"settings": dict(self._trace_settings)}
+
+    def update_trace_settings(self, model_name=None, settings=None):
+        with self._settings_lock:
+            for key, val in (settings or {}).items():
+                if val is None:
+                    continue
+                self._trace_settings[key] = (
+                    [str(v) for v in val] if isinstance(val, list)
+                    else [str(val)])
+        return self.get_trace_settings(model_name)
+
+    def get_log_settings(self):
+        with self._settings_lock:
+            return dict(self._log_settings)
+
+    def update_log_settings(self, settings):
+        with self._settings_lock:
+            for key, val in (settings or {}).items():
+                if key not in self._log_settings:
+                    raise BadRequest("unknown log setting '{}'".format(key))
+                self._log_settings[key] = val
+        return self.get_log_settings()
 
     def model_metadata(self, name, version=""):
         return self._get_model(name, version).metadata_dict()
@@ -1125,6 +1620,20 @@ class InferenceServer:
         region = self._shm_region(region_name)
         np_dtype = wire_to_np_dtype(datatype)
         shape = [int(s) for s in shape]
+        if datatype == "BYTES":
+            # length-prefixed elements: the reference names its own size,
+            # and the tensor is decoded on the host
+            byte_size, offset = self._check_shm_bounds(
+                region, byte_size, offset, "input")
+            array = deserialize_bytes_tensor(region.read(offset, byte_size))
+            self._count(shm_bytes_read=byte_size)
+            try:
+                return array.reshape(shape)
+            except ValueError as e:
+                raise BadRequest(
+                    "BYTES input of {} elements in region '{}' does not "
+                    "match its shape {}: {}".format(array.size, region_name,
+                                                    shape, e))
         want = int(np.prod(shape, dtype=np.int64)) * np_dtype.itemsize
         byte_size, offset = self._check_shm_bounds(
             region, byte_size or want, offset, "input")
@@ -1135,7 +1644,8 @@ class InferenceServer:
                     byte_size, region_name, shape, datatype, want))
         if isinstance(region, _CudaShmRegion):
             view = region.get_device_tensor(
-                offset, csm._torch_dtype(np_dtype), shape)
+                offset, csm._torch_dtype(
+                    "BF16" if datatype == "BF16" else np_dtype), shape)
             self._count(shm_bytes_read=byte_size, shm_zero_copy_reads=1)
             return view
         self._count(shm_bytes_read=byte_size)
@@ -1143,9 +1653,9 @@ class InferenceServer:
                              dtype=np_dtype).reshape(shape)
 
     def write_shm_output(self, region_name, offset, array, datatype):
-        """An output tensor into a registered region: a tensor on the
-        card is copied device to device, anything else through the
-        host."""
+        """An output tensor into a registered region: a tensor into a
+        CUDA region is copied device to device, anything else through the
+        host (BYTES length-prefixed, BF16 as its bits)."""
         region = self._shm_region(region_name)
         if isinstance(array, torch.Tensor) and isinstance(
                 region, _CudaShmRegion):
@@ -1154,10 +1664,7 @@ class InferenceServer:
                                                "output")
             region.put_device_tensor(offset, array)
         else:
-            if isinstance(array, torch.Tensor):
-                array = csm.to_host(array)
-            data = np.ascontiguousarray(np.asarray(
-                array, dtype=wire_to_np_dtype(datatype))).tobytes()
+            data = binary_from_array(array, datatype)
             nbytes = len(data)
             _, offset = self._check_shm_bounds(region, nbytes, offset,
                                                "output")
@@ -1209,9 +1716,10 @@ class InferenceServer:
                 "request deadline expired {} execution".format(when))
 
     def infer(self, request):
-        """The unary verb.  A decoupled model answers JAX's typed 400 (it
-        is served over the streaming endpoint only); the port's core
-        serves decoupled models only, so any other is a typed 501."""
+        """The unary verb: execute one request and return its
+        InferResponse.  A decoupled model answers a typed 400 (it is
+        served over the streaming endpoint only); a result produced past
+        the request's deadline is a typed 504."""
         t0 = time.monotonic()
         self._m_infer_count.inc()
         try:
@@ -1226,9 +1734,7 @@ class InferenceServer:
                         "model '{}' is a decoupled model: it can only be "
                         "served over the streaming endpoint".format(
                             model.name))
-                raise TorchServeError(
-                    "model '{}': unary inference is not served by this "
-                    "server yet".format(model.name), code=501)
+                return self._execute(model, request)
             finally:
                 self._exit_inflight()
         except TorchServeError as e:
@@ -1236,6 +1742,279 @@ class InferenceServer:
             raise
         finally:
             self._m_infer_hist.observe(time.monotonic() - t0)
+
+    @staticmethod
+    def _batch_of(model, inputs):
+        if model.max_batch_size > 0 and inputs:
+            shape = getattr(next(iter(inputs.values())), "shape", ())
+            return int(shape[0]) if len(shape) > 0 else 1
+        return 1
+
+    def _execute(self, model, request):
+        """Run a request that is not decoupled: check its inputs against
+        the model's, dispatch it (ensemble, sequence, dynamic batcher or
+        the model itself) and build its response.  Records the model's
+        statistics."""
+        stats = self._stats[model.name]
+        t_queue0 = time.monotonic_ns()
+        inputs = dict(request.inputs)
+        declared = {t.name for t in model.inputs}
+        for t in model.inputs:
+            if t.name not in inputs:
+                raise BadRequest(
+                    "expected {} inputs but got {} inputs for model '{}': "
+                    "missing '{}'".format(len(model.inputs), len(inputs),
+                                          model.name, t.name))
+        for name in inputs:
+            if declared and name not in declared:
+                raise BadRequest(
+                    "unexpected inference input '{}' for model '{}'".format(
+                        name, model.name))
+        if not isinstance(model, TorchModel) and model.ensemble_steps is None:
+            # a host model reads a CUDA region's view from the host
+            inputs = {name: self._host_array(
+                arr, "BF16" if arr.dtype == torch.bfloat16 else None)
+                if isinstance(arr, torch.Tensor) else arr
+                for name, arr in inputs.items()}
+        t_cf0 = time.monotonic_ns()
+        batch_queue_ns = 0
+        executions = 1
+        try:
+            if model.ensemble_steps is not None:
+                outputs = self._execute_ensemble(model, inputs, request)
+            elif model.sequence:
+                outputs = self._execute_sequence(model, inputs, request)
+            elif self._batchable(model, inputs, request):
+                # the batching window's wait goes to the queue bucket
+                outputs, batch_queue_ns, executions = self._batcher_of(
+                    model).submit(inputs,
+                                  int(next(iter(inputs.values())).shape[0]))
+            else:
+                outputs = model.execute(inputs, request)
+        except TorchServeError:
+            stats.record(0, 0, 0, 0, 0, ok=False)
+            raise
+        except Exception as e:
+            stats.record(0, 0, 0, 0, 0, ok=False)
+            # a malformed tensor surfaces as ValueError from the model's
+            # array ops: a client error, as on the batched path
+            raise TorchServeError(
+                "inference failed for model '{}': {}".format(model.name, e),
+                code=400 if isinstance(e, ValueError) else 500)
+        t_co0 = time.monotonic_ns()
+        if request.deadline is not None and \
+                time.monotonic() >= request.deadline:
+            stats.record(0, 0, 0, 0, 0, ok=False)
+            raise RequestTimedOut(
+                "request deadline expired during execution")
+        resp = self._make_response(model, request, outputs)
+        t_end = time.monotonic_ns()
+        stats.record(self._batch_of(model, inputs),
+                     batch_queue_ns, t_cf0 - t_queue0,
+                     max(0, (t_co0 - t_cf0) - batch_queue_ns),
+                     t_end - t_co0, executions=executions)
+        return resp
+
+    @staticmethod
+    def _batchable(model, inputs, request):
+        """Through the dynamic batcher? The model opts in; every input has
+        a leading batch dim with one row count, on the host or (for a
+        TorchModel) on the device; and the request carries no parameter
+        but its deadline and priority (a batch sees no request)."""
+        if not (model.dynamic_batching and model.max_batch_size > 1):
+            return False
+        if set(request.parameters) - {"timeout", "priority"} or not inputs:
+            return False
+        on_device = isinstance(model, TorchModel)
+        rows = None
+        for arr in inputs.values():
+            ok = isinstance(arr, np.ndarray) or (
+                on_device and isinstance(arr, torch.Tensor))
+            if not ok or arr.ndim < 1:
+                return False
+            if rows is None:
+                rows = arr.shape[0]
+            elif arr.shape[0] != rows:
+                return False
+        return True
+
+    def _batcher_of(self, model):
+        with self._lock:
+            if self._closed:
+                # a request racing close() must not make a batcher anew
+                raise ServerUnavailable(
+                    "server is shut down; not accepting new requests")
+            batcher = self._batchers.get(model.name)
+            if batcher is None:
+                batcher = _DynamicBatcher(model)
+                self._batchers[model.name] = batcher
+        return batcher
+
+    def _execute_sequence(self, model, inputs, request):
+        if request.sequence_id == 0:
+            raise BadRequest(
+                "inference request to model '{}' must specify a non-zero "
+                "sequence id".format(model.name))
+        self._expire_idle_sequences(model)
+        key = (model.name, request.sequence_id)
+        with self._seq_lock:
+            entry = self._sequence_state.get(key)
+        if request.sequence_start:
+            state = None
+        elif entry is None:
+            raise BadRequest(
+                "inference request for sequence {} to model '{}' must "
+                "specify the START flag on the first request of the "
+                "sequence".format(request.sequence_id, model.name))
+        else:
+            state = entry[0]
+        outputs, new_state = model.execute_sequence(inputs, state, request)
+        with self._seq_lock:
+            if request.sequence_end:
+                self._sequence_state.pop(key, None)
+            else:
+                self._sequence_state[key] = (new_state, time.monotonic())
+        return outputs
+
+    def _expire_idle_sequences(self, model):
+        """Drop the sequences, of every model, idle past their model's
+        ``max_sequence_idle_us`` (abandoned without an END), sweeping at
+        most once per half the triggering model's window (at least 50
+        ms)."""
+        now = time.monotonic()
+        gap = max(model.max_sequence_idle_us / 1e6 / 2.0, 0.05)
+        with self._lock:
+            idle_s = {n: m.max_sequence_idle_us / 1e6
+                      for n, m in self._models.items()}
+        with self._seq_lock:
+            if now - self._last_sequence_sweep < gap:
+                return
+            self._last_sequence_sweep = now
+            for key, (_, touched) in list(self._sequence_state.items()):
+                if touched < now - idle_s.get(key[0], 0.0):
+                    del self._sequence_state[key]
+
+    def _execute_ensemble(self, model, inputs, request):
+        """Run an ensemble's steps in order, each step's outputs mapped
+        into the next one's inputs; tensors stay where a step left them
+        (on the device between two TorchModels).  A step whose model
+        batches goes through its dynamic batcher."""
+        tensors = dict(inputs)
+        for step in model.ensemble_steps:
+            sub = self._get_model(step["model_name"])
+            sub_inputs = {model_in: tensors[ens_name]
+                          for model_in, ens_name in step["input_map"].items()}
+            sub_req = InferRequest(sub.name, "", request.id, sub_inputs,
+                                   request.parameters)
+            if self._batchable(sub, sub_inputs, sub_req):
+                # a batching step runs on its model's executors, whose
+                # cuDNN plans are warm (they are kept per thread)
+                sub_out = self._batcher_of(sub).submit(
+                    sub_inputs,
+                    int(next(iter(sub_inputs.values())).shape[0]))[0]
+            else:
+                sub_out = sub.execute(sub_inputs, sub_req)
+            for model_out, ens_name in step["output_map"].items():
+                tensors[ens_name] = sub_out[model_out]
+        return {t.name: tensors[t.name] for t in model.outputs}
+
+    @staticmethod
+    def _host_array(array, datatype):
+        """An output's host array for the wire: a tensor is copied off
+        the device here (BF16 as its bits), and BF16 floats round to
+        bits."""
+        if datatype == "BF16":
+            return bf16_bits(array)
+        if isinstance(array, torch.Tensor):
+            return csm.to_host(array)
+        return np.asarray(array)
+
+    @staticmethod
+    def _classify(array, class_count, labels):
+        """Top-k classification strings ``value:index[:label]`` per batch
+        row (``np.object_`` bytes)."""
+        arr = (csm.to_host(array.float()) if isinstance(array, torch.Tensor)
+               else np.asarray(array))
+        squeeze = arr.ndim == 1
+        mat = arr.reshape(1, -1) if squeeze else arr.reshape(arr.shape[0], -1)
+        k = min(class_count, mat.shape[-1])
+        idx = np.argsort(-mat, axis=-1)[:, :k]
+        rows = []
+        for r in range(mat.shape[0]):
+            row = []
+            for i in idx[r]:
+                entry = "{:f}:{}".format(float(mat[r, i]), int(i))
+                if labels is not None and int(i) < len(labels):
+                    entry += ":" + labels[int(i)]
+                row.append(entry.encode("utf-8"))
+            rows.append(row)
+        out = np.array(rows, dtype=np.object_)
+        return out.reshape(-1) if squeeze else out
+
+    def _make_response(self, model, request, outputs):
+        """The response of ``outputs``: every output in-band when the
+        request named none; otherwise the requested ones, each as
+        classification strings, into its shared-memory region (a tensor
+        into a CUDA region device to device) or in-band."""
+        declared = {t.name: t for t in model.outputs}
+        requested = request.requested_outputs
+
+        def datatype_of(name, array):
+            spec = declared.get(name)
+            return spec.datatype if spec is not None and spec.datatype \
+                else wire_datatype(array)
+
+        resp_outputs = []
+        if not requested:
+            for name, array in outputs.items():
+                datatype = datatype_of(name, array)
+                host = self._host_array(array, datatype)
+                resp_outputs.append(({"name": name, "datatype": datatype,
+                                      "shape": list(host.shape)}, host))
+            return InferResponse(model.name, model.version, request.id,
+                                 resp_outputs)
+        for ro in requested:
+            if ro.name not in outputs:
+                raise BadRequest(
+                    "unexpected inference output '{}' for model "
+                    "'{}'".format(ro.name, model.name))
+        deliveries = {}
+        for ro in requested:
+            array = outputs[ro.name]
+            if ro.class_count > 0:
+                array = self._classify(array, ro.class_count,
+                                       (model.labels or {}).get(ro.name))
+                datatype = "BYTES"
+            else:
+                datatype = datatype_of(ro.name, array)
+            spec = {"name": ro.name, "datatype": datatype,
+                    "shape": list(array.shape)}
+            deliveries[ro.name] = {
+                "binary_data": ro.binary_data, "shm_region": ro.shm_region,
+                "shm_byte_size": ro.shm_byte_size,
+                "shm_offset": ro.shm_offset}
+            if ro.shm_region is None:
+                resp_outputs.append(
+                    (spec, self._host_array(array, datatype)))
+                continue
+            if datatype == "BYTES":
+                expected = serialized_byte_size(array)
+            elif isinstance(array, torch.Tensor):
+                expected = array.numel() * array.element_size()
+            else:
+                expected = int(np.prod(array.shape, dtype=np.int64)) * (
+                    2 if datatype == "BF16"
+                    else wire_to_np_dtype(datatype).itemsize)
+            if expected > int(ro.shm_byte_size):
+                raise BadRequest(
+                    "shared memory size specified with the request for "
+                    "output '{}' ({} bytes) should be at least {} "
+                    "bytes".format(ro.name, ro.shm_byte_size, expected))
+            self.write_shm_output(ro.shm_region, ro.shm_offset, array,
+                                  datatype)
+            resp_outputs.append((spec, None))
+        return InferResponse(model.name, model.version, request.id,
+                             resp_outputs, deliveries=deliveries)
 
     def infer_stream(self, request):
         """Execute a decoupled request; yields one InferResponse per
@@ -1268,11 +2047,15 @@ class InferenceServer:
             self._m_stream_hist.observe(time.monotonic() - t0)
 
     def _infer_stream_inner(self, model, request):
-        if not model.decoupled:
-            raise BadRequest(
-                "model '{}' is not a decoupled model".format(model.name))
         want_final = bool(
             request.parameters.get("triton_enable_empty_final_response"))
+        if not model.decoupled:
+            # one response, as the unary verb gives it
+            resp = self._execute(model, request)
+            if want_final:
+                resp.parameters["triton_final_response"] = True
+            yield resp
+            return
         declared = {t.name: t for t in model.outputs}
         stats = self._stats[model.name]
         t0 = time.monotonic_ns()
@@ -1290,7 +2073,7 @@ class InferenceServer:
                     array = np.asarray(array)
                     spec = declared.get(name)
                     datatype = (spec.datatype if spec is not None
-                                else _WIRE_DTYPES[array.dtype])
+                                else wire_datatype(array))
                     outputs.append(({"name": name, "datatype": datatype,
                                      "shape": list(array.shape)}, array))
                 if want_final:
@@ -1320,7 +2103,11 @@ class InferenceServer:
             self._state = "stopped"
             self._inflight_cond.notify_all()
         with self._lock:
+            self._closed = True
+            batchers, self._batchers = list(self._batchers.values()), {}
             models = list(self._models.values())
+        for batcher in batchers:
+            batcher.stop()
         for model in models:
             model.close()
         with self._shm_lock:

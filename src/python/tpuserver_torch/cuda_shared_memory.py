@@ -257,6 +257,10 @@ def create_shared_memory_region(triton_shm_name, byte_size, device_id=0,
             _check(lib.tt_ipc_free(ptr, dev.index), "cudaFree")
             raise
     with _REGIONS_LOCK:
+        # cudaMalloc may give a new allocation the handle bytes of one
+        # this process destroyed (the same address reused): it is live
+        # again
+        _RETIRED.pop(handle.raw, None)
         _LOCAL_REGIONS[handle.raw] = handle
     return handle
 

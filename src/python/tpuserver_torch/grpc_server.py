@@ -4,14 +4,18 @@ a ``grpc.server``, over the port's own copies of the service's messages
 ``tpuserver_torch.core.InferenceServer`` — the port of
 ``tpuserver/grpc_frontend.py`` for the verbs the port's core has.
 
-Served: the health, metadata and config verbs, ``ModelStatistics``,
-``ServerMetrics`` (the ``/metrics`` exposition in a
-``LogSettingsResponse`` string param ``metrics``), the system, CUDA and
-XLA shared-memory register/status/unregister verbs (a CUDA
-``raw_handle`` is the bare 64-byte ``cudaIpcMemHandle_t``; an XLA
-register is a typed 400, as over HTTP), ``ModelInfer`` (a decoupled
-model answers a typed 400) and ``ModelStreamInfer``.  The repository
-and trace/log settings verbs answer ``UNIMPLEMENTED``.
+Served: every verb of the service.  The health, metadata and config
+verbs, ``ModelStatistics``, ``ServerMetrics`` (the ``/metrics``
+exposition in a ``LogSettingsResponse`` string param ``metrics``), the
+repository verbs (index, load, unload), ``TraceSetting`` and
+``LogSettings``, the system, CUDA and XLA shared-memory
+register/status/unregister verbs (a CUDA ``raw_handle`` is the bare
+64-byte ``cudaIpcMemHandle_t``; an XLA register is a typed 400, as over
+HTTP), ``ModelInfer`` (a decoupled model answers a typed 400) and
+``ModelStreamInfer``.  Tensors travel as ``raw_input_contents`` and
+``raw_output_contents`` for every datatype (BYTES length-prefixed, BF16
+as its bits), or as typed contents on input; an output may be asked for
+as ``classification`` strings or into a shared-memory region.
 
 ``ModelStreamInfer`` runs the requests of a ``concurrent_decoupled``
 model (llama with ``max_slots > 1``) side by side and unbounded, so
@@ -49,12 +53,16 @@ import numpy as np
 from google.protobuf import json_format
 
 from tpuserver_torch import fault_points
-from tpuserver_torch.core import InferRequest, wire_to_np_dtype
+from tpuserver_torch.core import InferRequest, RequestedOutput
 from tpuserver_torch.errors import BadRequest, TorchServeError
 from tpuserver_torch.grpc_proto import grpc_service_pb2 as pb
 from tpuserver_torch.grpc_proto import model_config_pb2
 from tpuserver_torch.grpc_proto.service import METHODS, SERVICE
-from tpuserver_torch.tensor_io import array_from_binary, binary_from_array
+from tpuserver_torch.tensor_io import (
+    array_from_binary,
+    binary_from_array,
+    wire_to_np_dtype,
+)
 
 _log = logging.getLogger(__name__)
 
@@ -66,13 +74,13 @@ _TYPED_FIELDS = {
     "INT32": "int_contents",
     "INT64": "int64_contents",
     "UINT8": "uint_contents",
+    "UINT16": "uint_contents",
+    "UINT32": "uint_contents",
+    "UINT64": "uint64_contents",
     "FP32": "fp32_contents",
     "FP64": "fp64_contents",
+    "BYTES": "bytes_contents",
 }
-
-#: verbs of the service whose core counterparts the port lacks
-_UNIMPLEMENTED = ("RepositoryIndex", "RepositoryModelLoad",
-                  "RepositoryModelUnload", "TraceSetting", "LogSettings")
 
 
 def _param_value(p):
@@ -145,9 +153,21 @@ class _CoreBridge:
                     ).reshape(shape)
                 except ValueError as e:
                     raise BadRequest("input '{}': {}".format(tensor.name, e))
+        requested = None
+        if request.outputs:
+            requested = []
+            for out in request.outputs:
+                oparams = _params_dict(out.parameters)
+                requested.append(RequestedOutput(
+                    out.name, binary_data=True,
+                    class_count=oparams.get("classification", 0),
+                    shm_region=oparams.get("shared_memory_region"),
+                    shm_byte_size=oparams.get("shared_memory_byte_size", 0),
+                    shm_offset=oparams.get("shared_memory_offset", 0)))
         core_request = InferRequest(request.model_name,
                                     request.model_version, request.id,
-                                    inputs, _params_dict(request.parameters))
+                                    inputs, _params_dict(request.parameters),
+                                    requested)
         core_request.shm_input_regions = tuple(pinned)
         return core_request
 
@@ -171,8 +191,19 @@ class _CoreBridge:
             tensor.name = spec["name"]
             tensor.datatype = spec["datatype"]
             tensor.shape.extend(int(s) for s in spec["shape"])
-            out.raw_output_contents.append(
-                binary_from_array(array, spec["datatype"]))
+            if array is None:  # delivered into a shared-memory region
+                delivery = resp.delivery(spec["name"])
+                self._set_params(tensor.parameters, {
+                    "shared_memory_region": delivery["shm_region"],
+                    "shared_memory_byte_size": int(
+                        delivery["shm_byte_size"])})
+                if delivery["shm_offset"]:
+                    tensor.parameters["shared_memory_offset"].int64_param = \
+                        int(delivery["shm_offset"])
+                out.raw_output_contents.append(b"")
+            else:
+                out.raw_output_contents.append(
+                    binary_from_array(array, spec["datatype"]))
         return out
 
     @staticmethod
@@ -292,11 +323,52 @@ class _CoreBridge:
         self._core.unregister_xla_shm(request.name)
         return pb.XlaSharedMemoryUnregisterResponse()
 
-    def unimplemented(self, name):
-        def handler(request, context):
-            raise TorchServeError(
-                "{} is not served by this server".format(name), code=501)
-        return handler
+    # -- repository and settings -------------------------------------------
+
+    def RepositoryIndex(self, request, context):
+        resp = pb.RepositoryIndexResponse()
+        for entry in self._core.repository_index(ready_only=request.ready):
+            resp.models.add(**entry)
+        return resp
+
+    def RepositoryModelLoad(self, request, context):
+        self._core.load_model(request.model_name)
+        return pb.RepositoryModelLoadResponse()
+
+    def RepositoryModelUnload(self, request, context):
+        p = request.parameters.get("unload_dependents")
+        self._core.unload_model(
+            request.model_name,
+            bool(_param_value(p)) if p is not None else False)
+        return pb.RepositoryModelUnloadResponse()
+
+    def TraceSetting(self, request, context):
+        settings = {k: list(v.value) for k, v in request.settings.items()}
+        model = request.model_name or None
+        result = (self._core.update_trace_settings(model, settings)
+                  if settings else self._core.get_trace_settings(model))
+        resp = pb.TraceSettingResponse()
+        for key, values in result["settings"].items():
+            resp.settings[key].value.extend(values)
+        return resp
+
+    def LogSettings(self, request, context):
+        settings = {}
+        for key, val in request.settings.items():
+            field = val.WhichOneof("parameter_choice")
+            if field is not None:
+                settings[key] = getattr(val, field)
+        result = (self._core.update_log_settings(settings) if settings
+                  else self._core.get_log_settings())
+        resp = pb.LogSettingsResponse()
+        for key, value in result.items():
+            if isinstance(value, bool):
+                resp.settings[key].bool_param = value
+            elif isinstance(value, int):
+                resp.settings[key].uint32_param = value
+            else:
+                resp.settings[key].string_param = str(value)
+        return resp
 
     # -- inference ---------------------------------------------------------
 
@@ -489,11 +561,8 @@ class GrpcServer:
         handlers = {}
         for name, (req_cls, resp_cls, kind) in METHODS.items():
             if kind == "unary":
-                method = (bridge.unimplemented(name)
-                          if name in _UNIMPLEMENTED
-                          else getattr(bridge, name))
                 handlers[name] = grpc.unary_unary_rpc_method_handler(
-                    _wrap_unary(method),
+                    _wrap_unary(getattr(bridge, name)),
                     request_deserializer=req_cls.FromString,
                     response_serializer=resp_cls.SerializeToString)
             else:

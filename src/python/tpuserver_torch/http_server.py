@@ -1,19 +1,35 @@
-"""HTTP front end of the port: the KServe-v2 health, metadata and
-generate endpoints over ``http.server.ThreadingHTTPServer`` (the port of
-``tpuserver/http_frontend.py``'s generation surface).
+"""HTTP front end of the port: the KServe-v2 REST protocol with the
+binary-tensor extension over ``http.server.ThreadingHTTPServer`` (the
+port of ``tpuserver/http_frontend.py``).
 
 Routes::
 
-    GET  /v2/health/live | /v2/health/ready | /v2/health/stats
+    GET  /v2 | /v2/health/live | /v2/health/ready | /v2/health/stats
     GET  /metrics
+    GET|POST /v2/logging | /v2/trace/setting
     GET  /v2/models/stats
     GET  /v2/models/<m>[/versions/<v>] | .../config | .../ready | .../stats
+    GET|POST /v2/models/<m>[/versions/<v>]/trace/setting
+    POST /v2/models/<m>[/versions/<v>]/infer
     POST /v2/models/<m>[/versions/<v>]/generate
     POST /v2/models/<m>[/versions/<v>]/generate_stream
+    POST /v2/repository/index
+    POST /v2/repository/models/<m>/{load,unload}
     GET|POST /v2/{systemsharedmemory,cudasharedmemory,xlasharedmemory}
              [/region/<name>]/{status,register,unregister}
     GET  /v2/kvexport/<generation_id>
     POST /v2/kvexport/<generation_id>/release
+
+``/infer`` takes a JSON body, or with an ``Inference-Header-Content-
+Length`` header a JSON header and then the inputs' raw bytes (each
+input's ``binary_data_size`` parameter), gzip or deflate compressed when
+``Content-Encoding`` says so.  An output comes back as JSON ``data``, as
+raw bytes after the JSON header (its ``binary_data`` parameter, or the
+request's ``binary_data_output``), as top-k ``classification`` strings,
+or into a shared-memory region (``shared_memory_region``,
+``shared_memory_byte_size``, ``shared_memory_offset``); the response is
+gzip or deflate compressed as ``Accept-Encoding`` asks.  BYTES travel
+length-prefixed, BF16 as its bits (binary only).
 
 ``/generate`` and ``/generate_stream`` take the infer JSON shape
 (``inputs`` with ``name``/``datatype``/``shape``/``data``, optional
@@ -53,18 +69,25 @@ each SSE event write: ``raise`` severs the connection mid-stream, with
 no terminal chunk, which drives a client's ``Last-Event-ID`` resume.
 """
 
+import gzip
 import json
 import re
 import threading
 import time
+import zlib
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import unquote
 
-import numpy as np
 
 from tpuserver_torch import fault_points
-from tpuserver_torch.core import InferRequest, wire_to_np_dtype
+from tpuserver_torch.core import InferRequest, RequestedOutput
 from tpuserver_torch.errors import BadRequest, ModelNotFound, TorchServeError
+from tpuserver_torch.tensor_io import (
+    array_from_binary,
+    array_from_json_data,
+    binary_from_array,
+    json_from_array,
+)
 
 _MODEL_URI = re.compile(
     r"^/v2/models/(?P<model>[^/]+)(/versions/(?P<version>[^/]+))?"
@@ -77,6 +100,9 @@ _SHM_URI = re.compile(
 _KVEXPORT_URI = re.compile(
     r"^/v2/kvexport/(?P<gen>[^/]+)(?P<release>/release)?$"
 )
+_REPO_URI = re.compile(
+    r"^/v2/repository(/models/(?P<model>[^/]+)/(?P<verb>load|unload)|/index)$"
+)
 
 
 def _array_from_json(tin):
@@ -84,11 +110,9 @@ def _array_from_json(tin):
     if not datatype:
         raise BadRequest(
             "generate input '{}' needs a datatype".format(tin.get("name")))
-    try:
-        return np.asarray(tin.get("data"), dtype=wire_to_np_dtype(
-            datatype)).reshape(tin["shape"])
-    except (KeyError, TypeError, ValueError) as e:
-        raise BadRequest("input '{}': {}".format(tin.get("name"), e))
+    if "shape" not in tin:
+        raise BadRequest("input '{}' needs a shape".format(tin.get("name")))
+    return array_from_json_data(tin.get("data"), datatype, tin["shape"])
 
 
 def _response_json(resp):
@@ -98,7 +122,7 @@ def _response_json(resp):
         out["id"] = resp.id
     for spec, array in resp.outputs:
         entry = dict(spec)
-        entry["data"] = array.reshape(-1).tolist()
+        entry["data"] = json_from_array(array, spec["datatype"])
         out["outputs"].append(entry)
     return out
 
@@ -132,10 +156,27 @@ class _Handler(BaseHTTPRequestHandler):
     def _send_json(self, obj, code=200, headers=()):
         self._send(code, json.dumps(obj).encode("utf-8"), headers=headers)
 
-    def _read_json(self):
-        n = int(self.headers.get("Content-Length") or 0)
+    def _read_body(self):
+        """The request body, decompressed as ``Content-Encoding`` says."""
         try:
-            return json.loads(self.rfile.read(n) or b"{}")
+            n = int(self.headers.get("Content-Length") or 0)
+        except ValueError:
+            raise BadRequest("malformed Content-Length")
+        body = self.rfile.read(n)
+        encoding = self.headers.get("Content-Encoding")
+        try:
+            if encoding == "gzip":
+                body = gzip.decompress(body)
+            elif encoding == "deflate":
+                body = zlib.decompress(body)
+        except (OSError, EOFError, zlib.error) as e:
+            raise BadRequest("malformed {} body: {}".format(encoding, e))
+        return body
+
+    def _read_json(self, body=None):
+        try:
+            return json.loads(
+                (self._read_body() if body is None else body) or b"{}")
         except ValueError as e:
             raise BadRequest("malformed request: {}".format(e))
 
@@ -191,6 +232,29 @@ class _Handler(BaseHTTPRequestHandler):
                               content_type="text/plain; version=0.0.4")
         if path == "/v2/models/stats":
             return self._send_json(core.model_statistics())
+        if path == "/v2/logging":
+            if method == "POST":
+                return self._send_json(
+                    core.update_log_settings(self._read_json()))
+            return self._send_json(core.get_log_settings())
+        if path == "/v2/trace/setting":
+            if method == "POST":
+                return self._send_json(core.update_trace_settings(
+                    None, self._read_json())["settings"])
+            return self._send_json(core.get_trace_settings()["settings"])
+        m = _REPO_URI.match(path)
+        if m:
+            body = self._read_json()
+            if m.group("verb") == "load":
+                core.load_model(unquote(m.group("model")))
+                return self._send_json({})
+            if m.group("verb") == "unload":
+                params = body.get("parameters") or {}
+                core.unload_model(unquote(m.group("model")),
+                                  params.get("unload_dependents", False))
+                return self._send_json({})
+            return self._send_json(core.repository_index(
+                ready_only=bool(body.get("ready", False))))
         m = _KVEXPORT_URI.match(path)
         if m:
             gen_id = unquote(m.group("gen"))
@@ -221,6 +285,14 @@ class _Handler(BaseHTTPRequestHandler):
                 return self._send_json(core.model_config(model, version))
             if rest == "/stats" and method == "GET":
                 return self._send_json(core.model_statistics(model, version))
+            if rest == "/trace/setting":
+                if method == "POST":
+                    return self._send_json(core.update_trace_settings(
+                        model, self._read_json())["settings"])
+                return self._send_json(
+                    core.get_trace_settings(model)["settings"])
+            if rest == "/infer" and method == "POST":
+                return self._infer(model, version)
             if rest in ("/generate", "/generate_stream") and method == "POST":
                 return self._generate(model, version,
                                       stream=rest == "/generate_stream")
@@ -259,6 +331,132 @@ class _Handler(BaseHTTPRequestHandler):
             raise BadRequest("shared memory register request lacks "
                              "{}".format(e))
         return self._send_json({})
+
+    def _infer(self, model, version):
+        pinned = []
+        try:
+            self._infer_pinned(model, version, pinned)
+        finally:
+            self._unpin(pinned)
+
+    def _infer_pinned(self, model, version, pinned):
+        """``/infer``'s body; ``pinned`` collects the input regions it
+        pinned for the request's execution."""
+        core = self.server.core
+        body = self._read_body()
+        header_length = self.headers.get("Inference-Header-Content-Length")
+        if header_length is not None:
+            try:
+                json_len = int(header_length)
+            except ValueError:
+                raise BadRequest("malformed Inference-Header-Content-Length")
+            request_json = self._read_json(body[:json_len])
+            binary = body[json_len:]
+        else:
+            request_json = self._read_json(body)
+            binary = b""
+        parameters = dict(request_json.get("parameters") or {})
+        binary_all_outputs = parameters.pop("binary_data_output", False)
+        declared_in = None  # the model's inputs, for one without datatype
+        inputs = {}
+        offset = 0
+        for tin in request_json.get("inputs", []):
+            name = tin.get("name")
+            datatype = tin.get("datatype")
+            if not datatype:
+                if declared_in is None:
+                    declared_in = {t["name"]: t for t in core.model_metadata(
+                        model, version)["inputs"]}
+                datatype = declared_in.get(name, {}).get("datatype")
+            if "shape" not in tin or not datatype:
+                raise BadRequest(
+                    "input '{}' needs a shape and a datatype".format(name))
+            shape = tin["shape"]
+            tparams = tin.get("parameters") or {}
+            region = tparams.get("shared_memory_region")
+            if region is not None:
+                core.pin_shm_region(region)
+                pinned.append(region)
+                inputs[name] = core.read_shm_input(
+                    region, tparams.get("shared_memory_byte_size", 0),
+                    tparams.get("shared_memory_offset", 0), datatype, shape)
+            elif "binary_data_size" in tparams:
+                size = int(tparams["binary_data_size"])
+                if offset + size > len(binary):
+                    raise BadRequest(
+                        "input '{}' runs past the binary data ({} + {} > {} "
+                        "bytes)".format(name, offset, size, len(binary)))
+                inputs[name] = array_from_binary(
+                    binary[offset:offset + size], datatype, shape)
+                offset += size
+            elif "data" in tin:
+                inputs[name] = array_from_json_data(tin["data"], datatype,
+                                                    shape)
+            else:
+                raise BadRequest("input '{}' has no data and no "
+                                 "shared-memory reference".format(name))
+        requested = None
+        if "outputs" in request_json:
+            requested = []
+            for tout in request_json["outputs"]:
+                oparams = tout.get("parameters") or {}
+                requested.append(RequestedOutput(
+                    tout["name"],
+                    binary_data=oparams.get("binary_data", False)
+                    or binary_all_outputs,
+                    class_count=oparams.get("classification", 0),
+                    shm_region=oparams.get("shared_memory_region"),
+                    shm_byte_size=oparams.get("shared_memory_byte_size", 0),
+                    shm_offset=oparams.get("shared_memory_offset", 0)))
+        request = InferRequest(model, version, request_json.get("id", ""),
+                               inputs, parameters, requested)
+        request.shm_input_regions = tuple(pinned)
+        response = core.infer(request)
+        self._unpin(pinned)
+
+        out_json = {"model_name": response.model_name,
+                    "model_version": response.model_version, "outputs": []}
+        if response.id:
+            out_json["id"] = response.id
+        binary_parts = []
+        for spec, array in response.outputs:
+            entry = dict(spec)
+            delivery = response.delivery(spec["name"])
+            oparams = {}
+            if array is None:
+                oparams["shared_memory_region"] = delivery["shm_region"]
+                oparams["shared_memory_byte_size"] = \
+                    delivery["shm_byte_size"]
+                if delivery["shm_offset"]:
+                    oparams["shared_memory_offset"] = delivery["shm_offset"]
+            elif (delivery["binary_data"] if requested is not None
+                  else binary_all_outputs):
+                raw = binary_from_array(array, spec["datatype"])
+                oparams["binary_data_size"] = len(raw)
+                binary_parts.append(raw)
+            else:
+                entry["data"] = json_from_array(array, spec["datatype"])
+            if oparams:
+                entry["parameters"] = oparams
+            out_json["outputs"].append(entry)
+        header = json.dumps(out_json).encode("utf-8")
+        headers = []
+        if binary_parts:
+            payload = header + b"".join(binary_parts)
+            headers.append(("Inference-Header-Content-Length",
+                            str(len(header))))
+            content_type = "application/octet-stream"
+        else:
+            payload = header
+            content_type = "application/json"
+        accept = self.headers.get("Accept-Encoding", "")
+        if "gzip" in accept:
+            payload = gzip.compress(payload)
+            headers.append(("Content-Encoding", "gzip"))
+        elif "deflate" in accept:
+            payload = zlib.compress(payload)
+            headers.append(("Content-Encoding", "deflate"))
+        self._send(200, payload, content_type=content_type, headers=headers)
 
     def _generate(self, model, version, stream):
         pinned = []

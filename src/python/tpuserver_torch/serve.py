@@ -2,11 +2,21 @@
 
     python -m tpuserver_torch.serve --config llama3_8b --max-seq 4096 \\
         --port 8000 [--grpc-port 8001] [--device cuda] [--seed 0] \\
+        [--models llama,fixtures,vision] \\
         [--quantize] [--max-slots 8 [--page-size 16] [--kv-pages N]
         [--spec-tokens K] [--step-timeout-s S] [--kv-export]
         [--target-queue-ms MS [--shed-interval-ms MS]]] \\
         [--fault-scope NAME] \\
         [--role prefill|decode] [--spawn-nonce N] [--drain-timeout S]
+
+``--models`` names what is served, a comma-separated list (default
+``llama``): ``llama`` (``llama_generate``, the options below),
+``fixtures`` (the fixture models of ``models/simple.py``: ``simple``,
+``simple_string``, the identities, ``sequence_accumulate``,
+``repeat_int32``) and ``vision`` (ResNet-50, DenseNet-121, the image
+preprocess model and ``image_ensemble``, bf16, every batch bucket warmed
+before the server turns ready), all through the KServe-v2 ``/infer`` and
+``ModelInfer`` verbs.
 
 Weights are random, drawn from ``--seed`` on the device; ``--quantize``
 serves them as int8 with per-output-channel scales
@@ -56,8 +66,11 @@ import threading
 from tpuserver_torch import resolve_device
 from tpuserver_torch.core import InferenceServer, install_sigterm_drain
 from tpuserver_torch.http_server import HttpServer
-from tpuserver_torch.models import llama
+from tpuserver_torch.models import default_models, llama
 from tpuserver_torch.models.llama_serving import LlamaGenerateModel
+
+#: the model groups ``--models`` may name
+MODEL_GROUPS = ("llama", "fixtures", "vision")
 
 
 def main(argv=None):
@@ -72,6 +85,10 @@ def main(argv=None):
     parser.add_argument("--device", default=None,
                         help="torch device (default: the card)")
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--models", default="llama",
+                        help="comma-separated model groups to serve: "
+                             "{} (default: llama)".format(
+                                 ", ".join(MODEL_GROUPS)))
     parser.add_argument("--quantize", action="store_true",
                         help="serve int8 weights (per-output-channel "
                              "scales) instead of bf16")
@@ -113,24 +130,33 @@ def main(argv=None):
                         help="seconds a SIGTERM drain lets live streams "
                              "run before it fails them")
     args = parser.parse_args(argv)
+    groups = [g for g in args.models.split(",") if g]
+    unknown = sorted(set(groups) - set(MODEL_GROUPS))
+    if unknown or not groups:
+        parser.error("--models: unknown group(s) {}; choose from {}".format(
+            unknown, ", ".join(MODEL_GROUPS)))
 
     device = resolve_device(args.device)
     cfg = llama.PRESETS[args.config]()
-    model = LlamaGenerateModel(cfg=cfg,
-                               max_seq=args.max_seq, seed=args.seed,
-                               device=device, max_slots=args.max_slots,
-                               page_size=args.page_size,
-                               kv_pages=args.kv_pages,
-                               spec_tokens=args.spec_tokens,
-                               step_timeout_s=args.step_timeout_s,
-                               kv_export=args.kv_export,
-                               target_queue_ms=args.target_queue_ms,
-                               shed_interval_ms=args.shed_interval_ms,
-                               fault_scope=args.fault_scope,
-                               quantize=args.quantize)
+    models = []
+    if "llama" in groups:
+        models.append(LlamaGenerateModel(
+            cfg=cfg, max_seq=args.max_seq, seed=args.seed, device=device,
+            max_slots=args.max_slots, page_size=args.page_size,
+            kv_pages=args.kv_pages, spec_tokens=args.spec_tokens,
+            step_timeout_s=args.step_timeout_s, kv_export=args.kv_export,
+            target_queue_ms=args.target_queue_ms,
+            shed_interval_ms=args.shed_interval_ms,
+            fault_scope=args.fault_scope, quantize=args.quantize))
+    if "fixtures" in groups:
+        models += default_models()
+    if "vision" in groups:
+        from tpuserver_torch.models.vision import vision_models
+
+        models += vision_models(device=device, seed=args.seed)
     # registered before the warm-up builds the scheduler, whose latency
     # histograms go into the server's registry; not ready until it ends
-    core = InferenceServer([model], ready=False, fault_scope=args.fault_scope,
+    core = InferenceServer(models, ready=False, fault_scope=args.fault_scope,
                            role=args.role, spawn_nonce=args.spawn_nonce)
     http = HttpServer(core, host=args.host, port=args.port).start()
     frontends = [http]
@@ -146,7 +172,7 @@ def main(argv=None):
     # would close the model the warm-up is still building
     term = threading.Event()
     signal.signal(signal.SIGTERM, lambda *_: term.set())
-    model.warmup()
+    core.warmup()
     install_sigterm_drain(core, drain_timeout=args.drain_timeout)
     if term.is_set():
         print("SIGTERM during the warm-up: draining", flush=True)
@@ -155,13 +181,18 @@ def main(argv=None):
         # a SIGTERM from here on drains on its own thread, and this
         # switch from starting never undoes that drain
         core.mark_ready(undrain=False)
-        print("serving {} on http://{} ({}, {} weights, max_slots {}, role "
-              "{}, pid {})".format(args.config, http.url, device,
-                                   "int8" if args.quantize else
-                                   str(cfg.dtype).split(".")[-1],
-                                   args.max_slots,
-                                   args.role or "fused", os.getpid()),
-              flush=True)
+        if "llama" in groups:
+            print("serving {} on http://{} ({}, {} weights, max_slots {}, "
+                  "role {}, pid {})".format(
+                      args.config, http.url, device,
+                      "int8" if args.quantize else
+                      str(cfg.dtype).split(".")[-1], args.max_slots,
+                      args.role or "fused", os.getpid()), flush=True)
+        others = [m.name for m in models if m.name != "llama_generate"]
+        if others:
+            print("serving {} on http://{} ({}, pid {})".format(
+                ", ".join(others), http.url, device, os.getpid()),
+                flush=True)
         if args.grpc_port is not None:
             print("serving gRPC on {}".format(frontends[-1].url),
                   flush=True)

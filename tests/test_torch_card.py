@@ -624,3 +624,89 @@ def test_w8a8_product_is_exact_on_card(cuda):
         got = quant._int8_product(xq, q)
         exact = (xq.double() @ q.double()).to(torch.int32)
         assert got.shape == (rows, 1024) and torch.equal(got, exact), rows
+
+
+# -- the vision zoo (bf16 forwards against float32 on the card) ---------------
+
+# as chip_smoke.py's VISION_TOL: bf16 logits against float32 after the
+# full depth (about 3e-3 on the CPU); a skipped last convolution moves
+# them by 0.13 to 0.67
+VISION_TOL = 1e-2
+
+
+@pytest.mark.parametrize("name", ["resnet50", "densenet121"])
+def test_vision_bf16_forward_matches_float32_on_card(cuda, name):
+    from tpuserver_torch.models import vision as tv
+
+    cls = {"resnet50": tv.ResNet50Model,
+           "densenet121": tv.DenseNet121Model}[name]
+    model = cls(device=cuda, seed=0)
+    p32 = tv.tree_cast(model.params(), torch.float32)
+    x = torch.rand((4, 224, 224, 3), device=cuda,
+                   generator=torch.Generator(device=cuda).manual_seed(0))
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.inference_mode():
+            served = model.logits(x)
+            ref = model.logits(x, p32)
+            faulty = tv.tree_map(lambda t: t, p32)
+            if name == "resnet50":
+                blk = faulty["stages"][-1][-1]
+                blk["w3"] = torch.zeros_like(blk["w3"])
+            else:
+                blk = faulty["blocks"][-1][-1]
+                blk["w2"] = torch.zeros_like(blk["w2"])
+            bad = model.logits(x, faulty)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = tf32
+    assert served.dtype == torch.bfloat16 and served.shape == (4, 1000)
+    assert _row_rel_err(served, ref) <= VISION_TOL
+    assert _row_rel_err(bad, ref) > VISION_TOL
+
+
+def test_cuda_region_input_equals_inband_on_card(cuda):
+    """ResNet-50 through the core: the image from a CUDA region (the
+    model reads a view of it) and the output into another region, equal
+    to the in-band answer."""
+    import base64
+
+    import numpy as np
+
+    from tpuserver_torch import cuda_shared_memory as csm
+    from tpuserver_torch.core import (InferenceServer, InferRequest,
+                                      RequestedOutput)
+    from tpuserver_torch.models import vision as tv
+
+    model = tv.ResNet50Model(device=cuda, seed=0)
+    core = InferenceServer([model])
+    image = np.random.RandomState(0).rand(1, 224, 224, 3).astype(np.float32)
+    region_in = csm.create_shared_memory_region("card_in", image.nbytes)
+    region_out = csm.create_shared_memory_region("card_out", 4000)
+    try:
+        csm.set_shared_memory_region(region_in, [image])
+        for name, h in (("card_in", region_in), ("card_out", region_out)):
+            core.register_cuda_shm(
+                name, base64.b64encode(base64.b64decode(
+                    csm.get_raw_handle(h))), 0, h.byte_size)
+        inband = core.infer(InferRequest("resnet50", inputs={
+            "INPUT": image})).outputs[0][1]
+        view = core.read_shm_input("card_in", image.nbytes, 0, "FP32",
+                                   list(image.shape))
+        assert view.data_ptr() == region_in.tensor.data_ptr()
+        core.infer(InferRequest(
+            "resnet50", inputs={"INPUT": view},
+            requested_outputs=[RequestedOutput(
+                "OUTPUT", shm_region="card_out", shm_byte_size=4000)]))
+        got = csm.get_contents_as_numpy(region_out, np.float32, [1, 1000])
+        assert _row_rel_err(torch.from_numpy(got),
+                            torch.from_numpy(inband)) <= VISION_TOL
+    finally:
+        core.unregister_cuda_shm("card_in")
+        core.unregister_cuda_shm("card_out")
+        core.close()
+        csm.destroy_shared_memory_region(region_in)
+        csm.destroy_shared_memory_region(region_out)
