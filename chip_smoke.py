@@ -153,7 +153,34 @@ Phases, in order; any failure exits non-zero and prints no result line:
    FLOPs of its convolutions and fc, 2 * H_out * W_out * k^2 * C_in *
    C_out each, at the bf16 tensor-core peak), device time by kernel class
    and the busy share.  No kernel of the port runs on this path (their
-   launches are read and must be 0).
+   launches are read and must be 0);
+9. bert, last, on a fresh core: BERT-base (BASELINE config #4: 12
+   layers, d_model 768, 12 heads, d_ff 3072, vocab 30522, 128 tokens;
+   bf16, weights from the seed), the tokenizer, the ensemble and the
+   fixture models behind HTTP and gRPC, the encoder warmed at batch 1 and
+   8: (a) the served bf16 pooler logits (before the tanh: most of
+   ``POOLED`` saturates) against a float32 forward of the same weights
+   (TF32 off) at batch 1 and 8 within ``BERT_TOL``, ``POOLED``'s error
+   printed, and two planted faults (the last layer's MLP skipped; the
+   mask ignored, on the padded row) each beyond ten times it on the
+   batch of 8 (the skipped MLP beyond it on the lone row); (b)
+   ``bert_ensemble`` over one ``ModelStreamInfer`` stream against
+   ``bert_encoder`` on ``bert_tokenizer``'s output, then pipelined
+   streams of 200 distinct texts from a client process of its own
+   (``python3 chip_smoke.py --child-bert <url>``), each answer against
+   the same text's unary answer (whether bitwise printed); (c) config
+   #4's infer/s and p50/p99 on the stream at 1 and 16 in flight, and the
+   encoder's forward at batch 1 and 8: device time by CUDA events
+   against its bound, device time by class and the busy share; (d) ids
+   -1, 30522 and 10**6 answer 200, equal to the request with them
+   clamped as JAX clamps them, and the next request succeeds; (e) the
+   CUDA-region example clients as processes: ``simple_grpc_cudashm_
+   client.py`` on the fixtures, ``llama_streaming_cudashm_client.py`` in
+   ring and KV-park mode on a ``llama3_8b`` registered with the same
+   core; and ``serve.py --models bert`` as a process on the card,
+   answering as this phase's server.  The three kernels' launches over
+   (a)-(d) must be 0; (e)'s llama launches make the ``cudashm_client``
+   rows.
 
 The peaks of every bound come from ``tpuserver_torch.ops.perf`` by the
 card's name (phase 1 fails on a card the table does not know).  The line
@@ -3089,12 +3116,13 @@ IMAGE_BYTES = 224 * 224 * 3 * 4
 OUTPUT_BYTES = 1000 * 4
 # (e): client threads, and timed requests per thread, at each concurrency
 VISION_LOAD = ((1, 100), (16, 20))
-# (e): CUDA-event samples per forward, each alone behind a hold of the
-# card while the host enqueues it (a DenseNet-121 forward is about 440
-# launches and 6 ms of host time; ten at once would overrun the launch
-# queue, and the host would pace the card)
-VISION_ITERS = 10
-VISION_HOLD_CYCLES = int(3e7)
+# (e) and phase 9 (c): CUDA-event samples per forward, each alone behind
+# a hold of the card while the host enqueues it (a DenseNet-121 forward is
+# about 440 launches and 6 ms of host time, a BERT-base one about 480 and
+# 9-12 ms; ten at once would overrun the launch queue, and the host would
+# pace the card); 6e7 cycles hold it about 30 ms
+FORWARD_ITERS = 10
+FORWARD_HOLD_CYCLES = int(6e7)
 
 
 def _vision_infer_request(np, model, images=None, shm_in=None, shm_out=None,
@@ -3146,13 +3174,6 @@ def _skip_last_conv(tv, model, params):
         leaf = faulty["blocks"][-1][-1]
         leaf["w2"] = leaf["w2"].new_zeros(leaf["w2"].shape)
     return faulty
-
-
-def _leaves(tv, tree):
-    """The tensors of a vision parameter tree."""
-    out = []
-    tv.tree_map(out.append, tree)
-    return out
 
 
 def _vision_model_check(torch, np, tv, models, core):
@@ -3551,7 +3572,7 @@ def _vision_load(torch, np, csm, url, calls, image, plane, clients, per):
 
 def _time_forward_ms(torch, fn, iters, flush):
     """Mean device time of ``fn`` by CUDA events, each sample alone: the
-    card held (``VISION_HOLD_CYCLES``) while the host enqueues it, after
+    card held (``FORWARD_HOLD_CYCLES``) while the host enqueues it, after
     an L2 flush."""
     for _ in range(3):
         fn()
@@ -3560,7 +3581,7 @@ def _time_forward_ms(torch, fn, iters, flush):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
-        torch.cuda._sleep(VISION_HOLD_CYCLES)
+        torch.cuda._sleep(FORWARD_HOLD_CYCLES)
         flush.sum(dtype=torch.int32)
         start.record()
         fn()
@@ -3615,19 +3636,59 @@ def _vision_class(name):
     return "other"
 
 
-def _vision_forward_numbers(torch, tv, models, smi):
-    """(e): each model's forward at batch 1 and 32: device time by CUDA
-    events (L2 flushed, the card held while the host enqueues) against
-    its bound, and under torch.profiler the device time by kernel class
-    and the busy share of the wall time."""
+def _forward_numbers(torch, fn, ops, nbytes, classify):
+    """One forward's numbers: device time by CUDA events (L2 flushed, the
+    card held while the host enqueues) against its bound (``ops`` at the
+    bf16 tensor-core peak, ``nbytes`` at the memory rate), the median
+    wall time of ``WALL_REPS``, and under torch.profiler the device time
+    by kernel class (``classify(name)``) and the busy share."""
     from torch.profiler import ProfilerActivity, profile
 
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    ms = _time_forward_ms(torch, fn, FORWARD_ITERS, flush)
+    bound_ms, bound_by = _bound_ms(nbytes, ops, SPEC.peak_bf16_flops)
+    walls = []
+    for _ in range(WALL_REPS):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.monotonic() - t0) * 1e3)
+    wall_ms = sorted(walls)[WALL_REPS // 2]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_class, kernels, launches = {}, [], 0
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0))
+        if dev_us <= 0 or not str(ev.device_type).endswith("CUDA"):
+            continue
+        cls = classify(ev.key)
+        by_class[cls] = by_class.get(cls, 0.0) + dev_us / 1e3
+        kernels.append((dev_us / 1e3, ev.count, ev.key[:80]))
+        launches += ev.count
+    device_ms = sum(by_class.values())
+    return {"ms": ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "gflop": ops / 1e9, "bytes": nbytes,
+            "wall_ms": wall_ms, "wall_ms_samples": walls,
+            "profiled_device_ms": device_ms,
+            "busy_share": device_ms / wall_ms if wall_ms else None,
+            "device_launches": launches, "device_ms_by_class": by_class,
+            "top_kernels": sorted(kernels, reverse=True)[:6]}
+
+
+def _vision_forward_numbers(torch, models, smi):
+    """(e): each model's forward at batch 1 and 32 (``_forward_numbers``;
+    the bound's bytes: the weights, the images in, the logits out)."""
+    from tpuserver_torch.models.tree import tree_leaves
+
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     out = {}
     for model in models:
         weight_bytes = sum(t.numel() * t.element_size()
-                           for t in _leaves(tv, model.params()))
+                           for t in tree_leaves(model.params()))
         for b in VISION_BATCHES:
             x = torch.rand((b,) + IMAGE, generator=gen, device="cuda")
 
@@ -3635,51 +3696,17 @@ def _vision_forward_numbers(torch, tv, models, smi):
                 with torch.inference_mode():
                     return model.logits(x)
 
-            ms = _time_forward_ms(torch, fn, VISION_ITERS, flush)
-            ops = model.operations(b)
-            nbytes = weight_bytes + b * (IMAGE_BYTES + 1000 * 2)
-            bound_ms, bound_by = _bound_ms(nbytes, ops,
-                                           SPEC.peak_bf16_flops)
-            walls = []
-            for _ in range(WALL_REPS):
-                torch.cuda.synchronize()
-                t0 = time.monotonic()
-                fn()
-                torch.cuda.synchronize()
-                walls.append((time.monotonic() - t0) * 1e3)
-            wall_ms = sorted(walls)[WALL_REPS // 2]
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                fn()
-                torch.cuda.synchronize()
-            by_class, kernels, launches = {}, [], 0
-            for ev in prof.key_averages():
-                dev_us = getattr(ev, "self_device_time_total",
-                                 getattr(ev, "self_cuda_time_total", 0))
-                if dev_us <= 0 or not str(ev.device_type).endswith("CUDA"):
-                    continue
-                cls = _vision_class(ev.key)
-                by_class[cls] = by_class.get(cls, 0.0) + dev_us / 1e3
-                kernels.append((dev_us / 1e3, ev.count, ev.key[:80]))
-                launches += ev.count
-            device_ms = sum(by_class.values())
             key = "{}_b{}".format(model.name, b)
-            out[key] = {
-                "ms": ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                "gflop": ops / 1e9, "bytes": nbytes,
-                "images_per_s": b / ms * 1e3,
-                "wall_ms": wall_ms, "wall_ms_samples": walls,
-                "profiled_device_ms": device_ms,
-                "busy_share": device_ms / wall_ms if wall_ms else None,
-                "device_launches": launches,
-                "device_ms_by_class": by_class,
-                "top_kernels": sorted(kernels, reverse=True)[:6]}
+            row = out[key] = _forward_numbers(
+                torch, fn, model.operations(b),
+                weight_bytes + b * (IMAGE_BYTES + 1000 * 2), _vision_class)
+            row["images_per_s"] = b / row["ms"] * 1e3
             log("vision (e) forward {}: {:.4f} ms device (events), bound "
                 "{:.4f} ms ({}; {:.3f} GFLOP), {:.1f} images/s; wall {:.3f} "
                 "ms, busy share {:.3f}, {} kernels; {}".format(
-                    key, ms, bound_ms, bound_by, ops / 1e9, b / ms * 1e3,
-                    wall_ms, device_ms / wall_ms if wall_ms else 0,
-                    launches, smi))
+                    key, row["ms"], row["bound_ms"], row["bound_by"],
+                    row["gflop"], row["images_per_s"], row["wall_ms"],
+                    row["busy_share"] or 0, row["device_launches"], smi))
     log("vision (e) forwards: {}".format(json.dumps(out)))
 
 
@@ -3696,6 +3723,7 @@ def phase_vision(torch, np, smi):
     from tpuserver_torch.http_server import HttpServer
     from tpuserver_torch.models import default_models
     from tpuserver_torch.models import vision as tv
+    from tpuserver_torch.models.tree import tree_leaves
     from tpuserver_torch.ops import flash as fl
     from tpuserver_torch.ops import quant
 
@@ -3716,7 +3744,7 @@ def phase_vision(torch, np, smi):
             "torch peak {:.3f} GiB".format(
                 resnet.buckets(), time.monotonic() - t0,
                 *(sum(t.numel() * t.element_size()
-                      for t in _leaves(tv, m.params())) / 1e6
+                      for t in tree_leaves(m.params())) / 1e6
                   for m in (resnet, densenet)),
                 torch.cuda.max_memory_allocated() / 2 ** 30))
         fl.reset_launch_counts()
@@ -3756,7 +3784,7 @@ def phase_vision(torch, np, smi):
         launches = {"flash_attention": fl.flash_attention.launches,
                     "decode_attention": fl.decode_attention.launches,
                     "int8_matmul": quant.int8_matmul.launches}
-        _vision_forward_numbers(torch, tv, (resnet, densenet), smi)
+        _vision_forward_numbers(torch, (resnet, densenet), smi)
         log("vision: the port's kernels launched on this path: {} (none "
             "expected: convolutions, pools and products are cuDNN's and "
             "cuBLAS's); phase {:.1f} s".format(
@@ -3764,6 +3792,528 @@ def phase_vision(torch, np, smi):
         if any(launches.values()):
             fail("vision: a kernel of the llama path ran on the vision path: "
                  "{}".format(launches))
+    finally:
+        channel.close()
+        grpc_srv.stop()
+        http.stop()
+        core.close()
+
+
+# -- phase 9: the BERT ensemble (config #4) ------------------------------------
+
+# bf16 pooler logits (before the tanh) against a float32 forward of the same
+# weights, row-relative, at full width: 0.0101-0.0105 measured on the CPU
+# over 8 rows; the last layer's MLP skipped moves them by 0.20-0.23 and the
+# mask ignored a padded row by 0.79-1.26 (tests/test_torch_bert.py).  The
+# same limit holds (b)'s streamed answers against the unary ones.
+BERT_TOL = 1.5e-2
+BERT_BATCHES = (1, 8)
+BERT_SEQ = 128
+BERT_D = 768
+# (b), (c): distinct texts a pipelined stream carries at each in-flight depth
+BERT_TEXTS = 200
+BERT_INFLIGHT = (1, 16)
+# (e): the park region of llama3_8b's whole KV cache at max_seq 4096 (bf16)
+LLAMA_KV_BYTES = 512 << 20
+BERT_WORDS = ("alpha", "brown", "crane", "delta", "ember", "frost", "grove",
+              "heron")
+
+
+def _bert_text(i):
+    """bench_full.py's distinct text of request ``i``."""
+    return "bench {} {} {}".format(i, BERT_WORDS[i % 8],
+                                   BERT_WORDS[(i // 8) % 8]).encode()
+
+
+def _bytes_contents(texts):
+    """The raw wire bytes of a BYTES tensor: each element's 4-byte
+    little-endian length, then its bytes."""
+    import struct
+
+    return b"".join(struct.pack("<I", len(t)) + t for t in texts)
+
+
+def _bert_request(model, request_id, texts=None, ids=None, mask=None):
+    """A ``ModelInferRequest``: ``texts`` as TEXT [n, 1] (the ensemble,
+    the tokenizer), or ``ids`` and ``mask`` [n, 128] (the encoder)."""
+    from tpuserver_torch.grpc_proto import grpc_service_pb2 as pb
+
+    req = pb.ModelInferRequest(model_name=model, id=request_id)
+    if texts is not None:
+        t = req.inputs.add(name="TEXT", datatype="BYTES")
+        t.shape.extend([len(texts), 1])
+        req.raw_input_contents.append(_bytes_contents(texts))
+        return req
+    for name, arr in (("INPUT_IDS", ids), ("ATTENTION_MASK", mask)):
+        t = req.inputs.add(name=name, datatype="INT32")
+        t.shape.extend(arr.shape)
+        req.raw_input_contents.append(arr.astype("<i4").tobytes())
+    return req
+
+
+def _bert_outputs(np, resp):
+    """{output name: array} of a ``ModelInferResponse``."""
+    dtypes = {"FP32": np.float32, "INT32": np.int32}
+    return {out.name: np.frombuffer(raw, dtypes[out.datatype]).reshape(
+        list(out.shape))
+        for out, raw in zip(resp.outputs, resp.raw_output_contents)}
+
+
+def _bert_stream(np, calls, requests, inflight):
+    """Send ``requests`` on ONE ``ModelStreamInfer`` stream with at most
+    ``inflight`` of them unanswered (the next goes out as an answer comes
+    back, bench_full.py's pipelined client).  Returns ({id: POOLED},
+    {id: seconds from send to answer}, wall seconds)."""
+    import queue
+
+    pending = queue.Queue()
+    sent = {}
+
+    def feed():
+        while True:
+            req = pending.get()
+            if req is None:
+                return
+            sent[req.id] = time.monotonic()
+            yield req
+
+    for req in requests[:inflight]:
+        pending.put(req)
+    nxt = inflight
+    out, lat = {}, {}
+    t0 = time.monotonic()
+    for resp in calls["ModelStreamInfer"](feed(), timeout=600):
+        if resp.error_message:
+            fail("bert: stream request {} failed: {}".format(
+                resp.infer_response.id, resp.error_message))
+        r = resp.infer_response
+        lat[r.id] = time.monotonic() - sent[r.id]
+        out[r.id] = _bert_outputs(np, r)["POOLED"]
+        if nxt < len(requests):
+            pending.put(requests[nxt])
+            nxt += 1
+        elif len(out) == len(requests):
+            pending.put(None)  # the request side ends; the stream follows
+    return out, lat, time.monotonic() - t0
+
+
+def _skip_last_mlp(params):
+    """The planted fault: the last layer's MLP skipped (its output
+    projection zeroed), tensors otherwise shared."""
+    faulty = dict(params, layers=list(params["layers"]))
+    last = dict(faulty["layers"][-1])
+    last["w_out"] = last["w_out"].new_zeros(last["w_out"].shape)
+    faulty["layers"][-1] = last
+    return faulty
+
+
+def _bert_inputs(torch, np, batch):
+    """(a)'s rows on the card: ids in the tokenizer's range after [CLS];
+    row 1 (the second) padded from token 40.  Batch 1 is row 0."""
+    rng = np.random.RandomState(SEED + 9)
+    ids = rng.randint(1000, 29000, (8, BERT_SEQ)).astype(np.int32)
+    ids[:, 0] = 101
+    mask = np.ones((8, BERT_SEQ), np.int32)
+    mask[1, 40:] = 0
+    ids[1, 40:] = 0
+    ids[1, 39] = 102
+    return (torch.from_numpy(ids[:batch]).cuda(),
+            torch.from_numpy(mask[:batch]).cuda())
+
+
+def _bert_model_check(torch, np, encoder):
+    """(a): the served bf16 pooler logits against a float32 forward of the
+    same weights (TF32 off) at batch 1 and 8, and two planted faults: the
+    last layer's MLP skipped, and the mask ignored (it changes only the
+    padded row).  The error must stay within ``BERT_TOL``; each fault
+    must pass ten times it on the batch of 8, which holds both, and the
+    first must pass ``BERT_TOL`` on the lone row too (one row's move
+    varies 0.14-0.23 with the row, 8 rows' largest 0.20-0.23)."""
+    from tpuserver_torch.models.tree import tree_cast
+
+    p32 = tree_cast(encoder.params(), torch.float32)
+    faulty = _skip_last_mlp(encoder.params())
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for b in BERT_BATCHES:
+            ids, mask = _bert_inputs(torch, np, b)
+            with torch.inference_mode():
+                served = encoder.pooled_logits(ids, mask)
+                ref = encoder.pooled_logits(ids, mask, params=p32)
+                skipped = encoder.pooled_logits(ids, mask, params=faulty)
+                unmasked = encoder.pooled_logits(
+                    ids, torch.ones_like(mask)) if b > 1 else None
+            err = row_rel_err(served, ref)
+            pooled = row_rel_err(torch.tanh(served), torch.tanh(ref))
+            faults = {"last_mlp_skipped": row_rel_err(skipped, ref)}
+            if unmasked is not None:
+                faults["mask_ignored_padded_row"] = row_rel_err(
+                    unmasked[1], ref[1])
+            log("bert (a): batch {}: bf16 pooler logits vs float32 {:.6g} "
+                "(limit {}), POOLED (after the tanh) {:.6g}, planted "
+                "faults {} ({} the limit), logits |max| {:.4g}, POOLED "
+                "entries beyond 0.999 {:.3f}".format(
+                    b, err, BERT_TOL, pooled, json.dumps(faults),
+                    json.dumps({k: round(v / BERT_TOL, 2)
+                                for k, v in faults.items()}),
+                    ref.abs().max().item(),
+                    (torch.tanh(ref).abs() > 0.999).float().mean().item()))
+            if not err <= BERT_TOL:
+                fail("bert (a): batch {}: bf16 error {} over the limit "
+                     "{}".format(b, err, BERT_TOL))
+            need = 10 * BERT_TOL if b > 1 else BERT_TOL
+            small = {k: v for k, v in faults.items() if not v > need}
+            if small:
+                fail("bert (a): batch {}: planted faults within {} : "
+                     "{}".format(b, need, small))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def _bert_ensemble_check(np, calls):
+    """(b), first half: ``bert_ensemble`` over one gRPC stream (7 texts
+    alone and 8 at once) against ``bert_encoder`` on ``bert_tokenizer``'s
+    output for the same texts, each by unary ``ModelInfer``."""
+    groups = [[_bert_text(i)] for i in range(7)] + [
+        [_bert_text(100 + i) for i in range(8)], [b""]]
+    reqs = [_bert_request("bert_ensemble", str(i), texts=g)
+            for i, g in enumerate(groups)]
+    streamed, _, _ = _bert_stream(np, calls, reqs, len(reqs))
+    worst, bitwise = 0.0, True
+    for i, texts in enumerate(groups):
+        tok = _bert_outputs(np, calls["ModelInfer"](_bert_request(
+            "bert_tokenizer", "t{}".format(i), texts=texts), timeout=120))
+        enc = _bert_outputs(np, calls["ModelInfer"](_bert_request(
+            "bert_encoder", "e{}".format(i), ids=tok["INPUT_IDS"],
+            mask=tok["ATTENTION_MASK"]), timeout=120))["POOLED"]
+        got = streamed[str(i)]
+        if got.shape != (len(texts), BERT_D) or not np.isfinite(got).all():
+            fail("bert (b): ensemble answer {} of shape {} (finite {})".format(
+                i, got.shape, np.isfinite(got).all()))
+        worst = max(worst, _np_row_rel_err(np, got, enc))
+        bitwise = bitwise and np.array_equal(got, enc)
+    log("bert (b): bert_ensemble over one ModelStreamInfer stream ({} "
+        "requests, batches 1 and 8) vs bert_encoder on bert_tokenizer's "
+        "output: largest POOLED error {:.3g} (limit {}), bitwise equal "
+        "{}".format(len(groups), worst, BERT_TOL, bitwise))
+    if worst > BERT_TOL:
+        fail("bert (b): the ensemble differs from the encoder on the "
+             "tokenizer's output: {}".format(worst))
+
+
+def child_bert(np, url):
+    """``--child-bert <gRPC url>``: (b)'s and (c)'s client, in a process
+    of its own: at each in-flight depth of ``BERT_INFLIGHT``, a pipelined
+    stream of ``BERT_TEXTS`` distinct texts to ``bert_ensemble`` (after
+    one untimed), its infer/s and p50/p99; then each text's unary
+    ``ModelInfer`` answer, which every streamed answer must match.  Ends
+    with one ``BERT <json>`` line."""
+    channel, calls = _grpc_calls(url)
+    out = {}
+    try:
+        offset = 0
+        for inflight in BERT_INFLIGHT:
+            texts = [_bert_text(offset + i) for i in range(BERT_TEXTS)]
+            offset += BERT_TEXTS
+            _bert_stream(np, calls, [_bert_request(
+                "bert_ensemble", "warm", texts=[b"warm up"])], 1)
+            reqs = [_bert_request("bert_ensemble", str(i), texts=[t])
+                    for i, t in enumerate(texts)]
+            got, lat, wall = _bert_stream(np, calls, reqs, inflight)
+            ms = [v * 1e3 for v in lat.values()]
+            worst, same = 0.0, 0
+            for i, text in enumerate(texts):
+                unary = _bert_outputs(np, calls["ModelInfer"](_bert_request(
+                    "bert_ensemble", "u{}".format(i), texts=[text]),
+                    timeout=120))["POOLED"]
+                worst = max(worst, _np_row_rel_err(np, got[str(i)], unary))
+                same += bool(np.array_equal(got[str(i)], unary))
+            out["c{}".format(inflight)] = {
+                "requests": len(got), "infer_per_s": len(got) / wall,
+                "p50_ms": _percentile(ms, 0.5), "p99_ms": _percentile(ms, 0.99),
+                "wall_s": wall, "vs_unary_max_err": worst,
+                "bitwise_equal": same,
+                "distinct_answers": len({got[k].tobytes() for k in got})}
+    finally:
+        channel.close()
+    print("BERT " + json.dumps(out), flush=True)
+
+
+def _bert_class(name):
+    low = name.lower()
+    if any(k in low for k in ("gemm", "gemv", "nvjet", "cutlass", "xmma")):
+        return "gemm"
+    if "softmax" in low:
+        return "softmax"
+    if "gelu" in low:
+        return "gelu"
+    if "index" in low or "gather" in low or "embedding" in low:
+        return "gather"
+    if "reduce" in low:
+        return "layernorm_stats"
+    if "copy" in low or "cast" in low:
+        return "copy_cast"
+    if "elementwise" in low or "where" in low or "clamp" in low:
+        return "elementwise"
+    return "other"
+
+
+def _bert_forward_numbers(torch, np, encoder, smi):
+    """(c): the encoder's forward at batch 1 and 8 (``_forward_numbers``;
+    the bound's bytes: the weights read whole, one gathered table row a
+    token, the ids and mask in, POOLED out)."""
+    weight_bytes = encoder.weight_bytes()
+    out = {}
+    for b in BERT_BATCHES:
+        ids, mask = _bert_inputs(torch, np, b)
+
+        def fn():
+            with torch.inference_mode():
+                return encoder.forward(ids, mask)
+
+        key = "bert_encoder_b{}".format(b)
+        row = out[key] = _forward_numbers(
+            torch, fn, encoder.operations(b),
+            weight_bytes + b * (BERT_SEQ * BERT_D * 2 + 2 * BERT_SEQ * 4
+                                + BERT_D * 4), _bert_class)
+        row["sequences_per_s"] = b / row["ms"] * 1e3
+        log("bert (c) forward {}: {:.4f} ms device (events), bound {:.4f} ms "
+            "({}; {:.3f} GFLOP, {} bytes), {:.1f} sequences/s; wall {:.3f} "
+            "ms, busy share {:.3f}, {} kernels; by class {}; {}".format(
+                key, row["ms"], row["bound_ms"], row["bound_by"],
+                row["gflop"], row["bytes"], row["sequences_per_s"],
+                row["wall_ms"], row["busy_share"] or 0,
+                row["device_launches"], json.dumps(row["device_ms_by_class"]),
+                smi))
+    log("bert (c) forwards: {}".format(json.dumps(out)))
+
+
+def _bert_bad_ids(np, port):
+    """(d): ``bert_encoder`` over HTTP with ids -1, 30522 and 10**6 in a
+    row answers 200, equal to the same request with them clamped as JAX
+    clamps them (30521 each), and the next request still succeeds: the
+    CUDA context survived."""
+    ids, mask = [0] * BERT_SEQ, [1] * BERT_SEQ
+    ids[:6] = [101, -1, 30522, 10 ** 6, 2000, 102]
+
+    def infer(row):
+        body = {"inputs": [
+            {"name": "INPUT_IDS", "datatype": "INT32", "shape": [1, BERT_SEQ],
+             "data": row},
+            {"name": "ATTENTION_MASK", "datatype": "INT32",
+             "shape": [1, BERT_SEQ], "data": mask}]}
+        status, raw = _http_json(port, "POST", "/v2/models/bert_encoder/infer",
+                                 body)
+        data = json.loads(raw) if status == 200 else raw[:300]
+        return status, (np.asarray(data["outputs"][0]["data"], np.float32)
+                        if status == 200 else data)
+
+    bad_status, bad = infer(ids)
+    clamped = list(ids)
+    clamped[1:4] = [30521, 30521, 30521]
+    ok_status, ref = infer(clamped)
+    next_status, nxt = infer([101, 3000, 102] + [0] * (BERT_SEQ - 3))
+    log("bert (d): ids -1, 30522, 10**6 -> {} (clamped request {}, equal "
+        "{}); the next request -> {} (finite {})".format(
+            bad_status, ok_status,
+            bad_status == ok_status == 200 and np.array_equal(bad, ref),
+            next_status, next_status == 200 and bool(np.isfinite(nxt).all())))
+    if not (bad_status == ok_status == next_status == 200
+            and np.array_equal(bad, ref) and np.isfinite(nxt).all()):
+        fail("bert (d): out-of-range ids: {} {} {}".format(
+            bad_status, ok_status, next_status))
+
+
+def _bert_ensemble_json(np, port, text):
+    """``bert_ensemble``'s POOLED for ``text`` over HTTP /infer."""
+    body = {"inputs": [{"name": "TEXT", "datatype": "BYTES", "shape": [1, 1],
+                        "data": [text]}]}
+    status, raw = _http_json(port, "POST", "/v2/models/bert_ensemble/infer",
+                             body)
+    if status != 200:
+        fail("bert (e): bert_ensemble answered {}: {}".format(status,
+                                                             raw[:300]))
+    return np.asarray(json.loads(raw)["outputs"][0]["data"], np.float32)
+
+
+def _bert_serve_py(np, port):
+    """(e): ``serve.py --models bert`` as a process on the card (no
+    ``--device``: the card; the script's seed, so this phase's weights)
+    answers ``bert_ensemble`` as this phase's server on ``port`` does,
+    then stops on SIGINT."""
+    import signal
+    import threading
+
+    own = _free_port()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "tpuserver_torch.serve", "--models", "bert",
+         "--port", str(own), "--seed", str(SEED)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=dict(os.environ, PYTHONPATH=os.path.join(HERE, "src", "python")))
+    watchdog = threading.Timer(300, proc.kill)
+    watchdog.start()
+    try:
+        t0 = time.monotonic()
+        line = proc.stdout.readline()
+        while line and "serving" not in line:
+            line = proc.stdout.readline()
+        if "bert_ensemble" not in line:
+            fail("bert (e): serve.py --models bert never served: {!r}".format(
+                line))
+        text = "served by serve.py alpha brown"
+        got = _bert_ensemble_json(np, own, text)
+        want = _bert_ensemble_json(np, port, text)
+        err = _np_row_rel_err(np, got[None], want[None])
+        log("bert (e): serve.py --models bert on the card, ready in {:.1f} "
+            "s: {}; its bert_ensemble vs this phase's server {:.3g} (limit "
+            "{}), bitwise equal {}".format(
+                time.monotonic() - t0, line.strip(), err, BERT_TOL,
+                np.array_equal(got, want)))
+        if err > BERT_TOL:
+            fail("bert (e): serve.py's answer differs: {}".format(err))
+    finally:
+        watchdog.cancel()
+        proc.send_signal(signal.SIGINT)
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+
+
+def _example(script, argv):
+    """Run an example client of ``src/python/examples`` as a process;
+    returns its output after checking its PASS line."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src", "python"))
+    proc = subprocess.run(
+        [sys.executable, os.path.join(HERE, "src", "python", "examples",
+                                      script)] + argv,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        timeout=600, env=env)
+    passed = [ln for ln in proc.stdout.splitlines() if ln.startswith("PASS")]
+    log("bert (e): {} {} -> exit {}: {}".format(
+        script, " ".join(argv), proc.returncode, passed))
+    if proc.returncode != 0 or not passed:
+        fail("bert (e): {} {} failed: {} {}".format(
+            script, argv, proc.stdout[-2000:], proc.stderr[-2000:]))
+    return proc.stdout
+
+
+def _bert_clients(core, url):
+    """(e): the CUDA-region example clients as processes against this
+    phase's gRPC front end: ``simple_grpc_cudashm_client.py`` on the
+    fixtures, then ``llama_streaming_cudashm_client.py`` in ring and in
+    KV-park mode on a ``llama3_8b`` registered with the same core (drawn
+    again from the script's seed: phase 4's weights were released for
+    phase 4g).  Returns the kernel launches of the llama runs."""
+    from tpuserver_torch.models import llama
+    from tpuserver_torch.models.llama_serving import LlamaGenerateModel
+    from tpuserver_torch.ops import flash as fl
+
+    _example("simple_grpc_cudashm_client.py", ["-u", url])
+    t0 = time.monotonic()
+    model = LlamaGenerateModel(cfg=llama.PRESETS["llama3_8b"](),
+                               max_seq=4096, seed=SEED, device="cuda")
+    core.register_model(model)
+    fl.reset_launch_counts()
+    ring = _example("llama_streaming_cudashm_client.py",
+                    ["-u", url, "--mode", "ring", "-n", "16"])
+    park = _example("llama_streaming_cudashm_client.py",
+                    ["-u", url, "--mode", "kv-park", "-n", "16",
+                     "--kv-bytes", str(LLAMA_KV_BYTES)])
+    launches = {"flash_attention": fl.flash_attention.launches,
+                "decode_attention": fl.decode_attention.launches}
+    ring_tokens = [ln for ln in ring.splitlines()
+                   if ln.startswith("ring tokens:")]
+    log("bert (e): llama3_8b over CUDA regions: {}; {}; launches {}; "
+        "{:.1f} s with the draw".format(
+            ring_tokens, [ln for ln in park.splitlines()
+                          if ln.startswith(("first:", "resumed:"))],
+            json.dumps(launches), time.monotonic() - t0))
+    return launches
+
+
+def phase_bert(torch, np, smi):
+    """Phase 9: the BERT ensemble and the fixture models behind HTTP and
+    gRPC on a fresh core, bf16 at full width (BERT-base, weights from the
+    script's seed): (a) the model check, (b) the ensemble over a stream,
+    (c) the numbers, (d) out-of-range ids, (e) ``serve.py --models
+    bert`` and the CUDA-region example clients.  No kernel of the port may run on (a)-(d): the encoder is
+    cuBLAS and elementwise torch; (e)'s llama runs are counted apart.
+    Returns (e)'s launch counts."""
+    from tpuserver_torch.core import InferenceServer
+    from tpuserver_torch.grpc_server import GrpcServer
+    from tpuserver_torch.http_server import HttpServer
+    from tpuserver_torch.models import bert as tb
+    from tpuserver_torch.models import default_models
+    from tpuserver_torch.ops import flash as fl
+    from tpuserver_torch.ops import quant
+
+    t_start = time.monotonic()
+    models = tb.bert_models(device="cuda", seed=SEED)
+    encoder = models[1]
+    core = InferenceServer(default_models() + models, ready=False)
+    http = HttpServer(core, port=0).start()
+    grpc_srv = GrpcServer(core, port=0).start()
+    channel, calls = _grpc_calls(grpc_srv.url)
+    try:
+        t0 = time.monotonic()
+        core.warmup()
+        core.mark_ready()
+        log("bert: warm-up (batch 1 and 8) {:.1f} s; weights {:.1f} MB read "
+            "whole a forward plus a {:.1f} MB token table; torch peak {:.3f} "
+            "GiB".format(time.monotonic() - t0, encoder.weight_bytes() / 1e6,
+                         encoder.params()["tok_embed"].numel() * 2 / 1e6,
+                         torch.cuda.max_memory_allocated() / 2 ** 30))
+        fl.reset_launch_counts()
+        quant.int8_matmul.launches = 0
+        _bert_model_check(torch, np, encoder)
+        _bert_ensemble_check(np, calls)
+        child = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--child-bert",
+             grpc_srv.url], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True, timeout=900)
+        lines = [ln for ln in child.stdout.splitlines()
+                 if ln.startswith("BERT ")]
+        if child.returncode != 0 or not lines:
+            fail("bert (b): the client process exited {}: {} {}".format(
+                child.returncode, child.stdout[-2000:],
+                child.stderr[-2000:]))
+        load = json.loads(lines[-1][len("BERT "):])
+        for key, row in sorted(load.items()):
+            log("bert (b) stream of {} distinct texts, {} in flight: each "
+                "answer vs its unary ModelInfer answer, largest error {:.3g} "
+                "(limit {}), bitwise equal {}/{}, {} distinct answers".format(
+                    row["requests"], key[1:], row["vs_unary_max_err"],
+                    BERT_TOL, row["bitwise_equal"], row["requests"],
+                    row["distinct_answers"]))
+            log("bert (c) bert_ensemble over a gRPC stream, {} in flight: "
+                "{:.1f} infer/s, p50 {:.3f} ms, p99 {:.3f} ms; {}".format(
+                    key[1:], row["infer_per_s"], row["p50_ms"],
+                    row["p99_ms"], smi))
+            if row["vs_unary_max_err"] > BERT_TOL or \
+                    row["requests"] < BERT_TEXTS:
+                fail("bert (b): streamed answers vs unary: {}".format(row))
+        log("bert (c) load: {}".format(json.dumps(load)))
+        torch.cuda.synchronize()
+        _bert_forward_numbers(torch, np, encoder, smi)
+        _bert_bad_ids(np, http.port)
+        launches = {"flash_attention": fl.flash_attention.launches,
+                    "decode_attention": fl.decode_attention.launches,
+                    "int8_matmul": quant.int8_matmul.launches}
+        log("bert: the port's kernels launched on (a)-(d): {} (none "
+            "expected: the encoder's products are cuBLAS's); {:.1f} s".format(
+                json.dumps(launches), time.monotonic() - t_start))
+        if any(launches.values()):
+            fail("bert: a kernel of the llama path ran on the BERT path: "
+                 "{}".format(launches))
+        _bert_serve_py(np, http.port)
+        client_launches = _bert_clients(core, grpc_srv.url)
+        log("bert: phase {:.1f} s; torch peak {:.3f} GiB".format(
+            time.monotonic() - t_start,
+            torch.cuda.max_memory_allocated() / 2 ** 30))
+        return client_launches
     finally:
         channel.close()
         grpc_srv.stop()
@@ -3915,6 +4465,17 @@ def main():
         return child_serve(torch, sys.argv[2:])
     if sys.argv[1:2] == ["--child-load"]:
         return child_load(torch, np, sys.argv[2])
+    if sys.argv[1:2] == ["--child-bert"]:
+        return child_bert(np, sys.argv[2])
+    if sys.argv[1:] == ["--bert-only"]:
+        # phases 1, 2 and 9 alone, for work on the BERT path; prints no
+        # result line
+        name, smi = phase_device(torch)
+        log("nvidia-smi:", smi)
+        phase_build()
+        phase_bert(torch, np, smi)
+        log("bert-only: done")
+        return 1
     if sys.argv[1:] == ["--vision-only"]:
         # phases 1, 2 and 8 alone, for work on the vision path; prints no
         # result line
@@ -3967,6 +4528,7 @@ def main():
                "int8": int8_profile[name]["device_ms_by_class"]}
         for name in int8_profile})))
     phase_vision(torch, np, smi)
+    client_launches = phase_bert(torch, np, smi)
 
     kernels = []
     # each kernel once per path: the single-stream serve (phase 4, timed
@@ -4024,6 +4586,13 @@ def main():
         paths.append(
             ("flash_attention", flash_src, flash_tpu, "fleet_handoff",
              "flash_attention_handoff", fleet_launches["fleet_handoff"]))
+    # phase 9 (e): the llama client's single-stream generations over CUDA
+    # regions (4-token prompts: their prefills run dense, no flash)
+    paths.append(("decode_attention", decode_src, decode_tpu,
+                  "cudashm_client", "decode_attention", client_launches))
+    if client_launches["flash_attention"]:
+        paths.append(("flash_attention", flash_src, flash_tpu,
+                      "cudashm_client", "flash_attention", client_launches))
     # phase 7's int8 paths: single-stream, batched, speculative
     for path, timed_as in (("serve_int8", "decode_attention"),
                            ("serve_int8_batched", "decode_attention_batched"),

@@ -1155,6 +1155,11 @@ class InferenceServer:
             if self._state != "ready":
                 self._inflight_cond.notify_all()
 
+    def inflight_count(self):
+        """The requests and streams in flight now."""
+        with self._inflight_cond:
+            return self._inflight
+
     def begin_drain(self):
         """Stop admission and flip readiness; in-flight work goes on.
         The first half of :meth:`drain`."""

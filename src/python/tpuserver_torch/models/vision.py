@@ -41,6 +41,11 @@ import torch
 import torch.nn.functional as F
 
 from tpuserver_torch.core import Model, TensorSpec, TorchModel
+from tpuserver_torch.models.tree import (  # noqa: F401 (re-exported)
+    tree_cast,
+    tree_from_jax,
+    tree_map,
+)
 
 IMAGE_SIZE = 224
 N_CLASSES = 1000
@@ -109,44 +114,15 @@ def _fc(generator, device, cin, dtype):
             "b": torch.zeros((N_CLASSES,), dtype=dtype, device=device)}
 
 
-def _leaf_from_jax(key, arr, device):
-    """One JAX leaf as the port's: HWIO -> OIHW (channels_last), a
-    batch-norm vector -> [C, 1, 1]; bf16 through its bits."""
-    arr = np.asarray(arr)
-    if arr.dtype.name == "bfloat16":
-        t = torch.from_numpy(np.array(arr).view(np.int16)).view(
-            torch.bfloat16)
-    else:
-        t = torch.from_numpy(np.array(arr))
+def _leaf_to_port(key, t, device):
+    """One JAX leaf's layout in the port: HWIO -> OIHW (channels_last), a
+    batch-norm vector -> [C, 1, 1]."""
     if t.ndim == 4:
         return t.permute(3, 2, 0, 1).to(device).contiguous(
             memory_format=torch.channels_last)
     if key in ("scale", "shift"):
         return t.reshape(-1, 1, 1).to(device)
     return t.to(device)
-
-
-def tree_from_jax(tree, device, key=None):
-    """A JAX parameter tree (numpy leaves) as the port's, same
-    structure."""
-    if isinstance(tree, dict):
-        return {k: tree_from_jax(v, device, k) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [tree_from_jax(v, device, key) for v in tree]
-    return _leaf_from_jax(key, tree, device)
-
-
-def tree_map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [tree_map(fn, v) for v in tree]
-    return fn(tree)
-
-
-def tree_cast(tree, dtype):
-    """Every floating leaf cast to ``dtype`` (layouts kept)."""
-    return tree_map(lambda t: t.to(dtype), tree)
 
 
 class _ImageNetModel(TorchModel):
@@ -180,7 +156,7 @@ class _ImageNetModel(TorchModel):
     def params_from_jax(cls, np_tree, device):
         """The JAX package's parameter tree (``_init_params()`` with
         ``jax.tree_util.tree_map(np.asarray, ...)``) as the port's."""
-        return tree_from_jax(np_tree, device)
+        return tree_from_jax(np_tree, device, _leaf_to_port)
 
     def params(self):
         if self._params is None:

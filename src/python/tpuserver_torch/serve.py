@@ -2,7 +2,7 @@
 
     python -m tpuserver_torch.serve --config llama3_8b --max-seq 4096 \\
         --port 8000 [--grpc-port 8001] [--device cuda] [--seed 0] \\
-        [--models llama,fixtures,vision] \\
+        [--models llama,fixtures,vision,bert] \\
         [--quantize] [--max-slots 8 [--page-size 16] [--kv-pages N]
         [--spec-tokens K] [--step-timeout-s S] [--kv-export]
         [--target-queue-ms MS [--shed-interval-ms MS]]] \\
@@ -13,10 +13,12 @@
 ``llama``): ``llama`` (``llama_generate``, the options below),
 ``fixtures`` (the fixture models of ``models/simple.py``: ``simple``,
 ``simple_string``, the identities, ``sequence_accumulate``,
-``repeat_int32``) and ``vision`` (ResNet-50, DenseNet-121, the image
+``repeat_int32``), ``vision`` (ResNet-50, DenseNet-121, the image
 preprocess model and ``image_ensemble``, bf16, every batch bucket warmed
-before the server turns ready), all through the KServe-v2 ``/infer`` and
-``ModelInfer`` verbs.
+before the server turns ready) and ``bert`` (``bert_tokenizer`` on the
+host, ``bert_encoder``, bf16, warmed at batch 1 and 8, and
+``bert_ensemble``), all through the KServe-v2 ``/infer`` and
+``ModelInfer`` verbs and the ``ModelStreamInfer`` stream.
 
 Weights are random, drawn from ``--seed`` on the device; ``--quantize``
 serves them as int8 with per-output-channel scales
@@ -70,7 +72,7 @@ from tpuserver_torch.models import default_models, llama
 from tpuserver_torch.models.llama_serving import LlamaGenerateModel
 
 #: the model groups ``--models`` may name
-MODEL_GROUPS = ("llama", "fixtures", "vision")
+MODEL_GROUPS = ("llama", "fixtures", "vision", "bert")
 
 
 def main(argv=None):
@@ -154,6 +156,10 @@ def main(argv=None):
         from tpuserver_torch.models.vision import vision_models
 
         models += vision_models(device=device, seed=args.seed)
+    if "bert" in groups:
+        from tpuserver_torch.models.bert import bert_models
+
+        models += bert_models(device=device, seed=args.seed)
     # registered before the warm-up builds the scheduler, whose latency
     # histograms go into the server's registry; not ready until it ends
     core = InferenceServer(models, ready=False, fault_scope=args.fault_scope,

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+import tritonclient.grpc as grpcclient
 from tpuserver.core import InferenceServer as JaxServer
 from tpuserver.grpc_frontend import GrpcFrontend
 from tpuserver.http_frontend import HttpFrontend
@@ -139,3 +140,132 @@ def test_perf_analyzer_system_shm_equals_jax(servers):
         if key in rows["jax"]:
             assert rows["port"][key] == rows["jax"][key], key
     assert rows["port"]["value"] > 0
+
+
+# -- the CUDA-region clients ----------------------------------------------------
+#
+# ``simple_grpc_cudashm_client.py`` and ``llama_streaming_cudashm_client.py``
+# make their regions on the card.  Here, without one, their argument
+# parsing and their typed exit are tested as processes; a CPU region
+# attaches only in the process that made it, so their region paths run
+# here only in-process, with ``create_shared_memory_region`` made to give
+# CPU regions.  Over CUDA IPC from a process of their own they run on the
+# card alone (``chip_smoke.py`` phase 9 (e)).
+
+CUDASHM_CLIENTS = ("simple_grpc_cudashm_client.py",
+                   "llama_streaming_cudashm_client.py")
+
+
+def _example(script):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        script[:-3], os.path.join(EXAMPLES, script))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+ARGV_CASES = [
+    ("simple_grpc_cudashm_client.py", [],
+     {"url": "localhost:8001", "device_id": 0, "verbose": False}),
+    ("simple_grpc_cudashm_client.py", ["-u", "h:9", "--device-id", "1", "-v"],
+     {"url": "h:9", "device_id": 1, "verbose": True}),
+    ("llama_streaming_cudashm_client.py", [],
+     {"url": "localhost:8001", "mode": "kv-park", "max_tokens": 8,
+      "kv_bytes": 512 << 20}),
+    ("llama_streaming_cudashm_client.py",
+     ["--mode", "ring", "-n", "5", "--kv-bytes", "4096"],
+     {"mode": "ring", "max_tokens": 5, "kv_bytes": 4096}),
+    ("llama_streaming_cudashm_client.py", ["--mode", "xla"], None),
+    ("llama_streaming_cudashm_client.py", ["--kv-bytes", "0"], None),
+    ("llama_streaming_cudashm_client.py", ["-n", "-1"], None),
+]
+
+
+@pytest.mark.parametrize("script,argv,want", ARGV_CASES,
+                         ids=["simple_default", "simple_set", "llama_default",
+                              "llama_set", "llama_bad_mode",
+                              "llama_zero_kv_bytes", "llama_negative_n"])
+def test_cudashm_client_arguments(script, argv, want):
+    module = _example(script)
+    if want is None:
+        with pytest.raises(SystemExit) as exc:
+            module.parse_args(argv)
+        assert exc.value.code == 2
+        return
+    args = vars(module.parse_args(argv))
+    assert {k: args[k] for k in want} == want
+
+
+@pytest.mark.parametrize("script", CUDASHM_CLIENTS)
+def test_cudashm_client_without_a_card_exits_typed(servers, script):
+    """Without a card each client prints a FAILED line naming the missing
+    card and exits ``NO_CARD`` (2), leaving no region registered."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src", "python"),
+               CUDA_VISIBLE_DEVICES="")
+    result = subprocess.run(
+        [sys.executable, os.path.join(EXAMPLES, script), "-u",
+         servers["port"][1]], capture_output=True, text=True, timeout=300,
+        env=env)
+    assert result.returncode == _example(script).NO_CARD == 2, \
+        result.stdout + result.stderr
+    assert "FAILED: CUDA shared memory needs a CUDA card" in result.stdout
+    assert "Traceback" not in result.stderr
+    client = grpcclient.InferenceServerClient(servers["port"][1])
+    try:
+        assert len(client.get_cuda_shared_memory_status().regions) == 0
+    finally:
+        client.close()
+
+
+@pytest.fixture
+def cpu_regions(monkeypatch):
+    """``create_shared_memory_region`` giving CPU regions (in-process
+    attach only)."""
+    from tpuserver_torch import cuda_shared_memory as csm
+
+    make = csm.create_shared_memory_region
+    monkeypatch.setattr(
+        csm, "create_shared_memory_region",
+        lambda name, size, device_id=0: make(name, size, device="cpu"))
+    return csm
+
+
+def test_simple_cudashm_client_in_process(servers, cpu_regions, capsys):
+    module = _example("simple_grpc_cudashm_client.py")
+    module.main(["-u", servers["port"][1]])
+    out = capsys.readouterr().out
+    assert "PASS: cuda shared memory" in out and "0 + 1 = 1" in out
+    assert cpu_regions.allocated_shared_memory_regions() == []
+
+
+@pytest.fixture(scope="module")
+def llama_port():
+    """A float32 ``tiny`` llama behind the port's gRPC front end."""
+    import dataclasses
+
+    from tpuserver_torch.models import llama as tl
+    from tpuserver_torch.models.llama_serving import LlamaGenerateModel
+
+    model = LlamaGenerateModel(
+        cfg=dataclasses.replace(tl.tiny(vocab=512), dtype=torch.float32),
+        max_seq=64, device="cpu", decode_chunk=4)
+    core = InferenceServer([model])
+    grpc_fe = GrpcServer(core, port=0).start()
+    yield "127.0.0.1:{}".format(grpc_fe.port)
+    grpc_fe.stop()
+    core.close()
+
+
+@pytest.mark.parametrize("mode", ["ring", "kv-park"])
+def test_llama_cudashm_client_in_process(llama_port, cpu_regions, capsys,
+                                         mode):
+    """Ring mode: the ring's tokens equal the in-band ones; kv-park mode:
+    both generations complete from a parked cache."""
+    module = _example("llama_streaming_cudashm_client.py")
+    module.main(["-u", llama_port, "--mode", mode, "-n", "6",
+                 "--kv-bytes", str(1 << 20)])
+    out = capsys.readouterr().out
+    assert "PASS: llama streaming (cuda shared memory" in out, out
+    assert cpu_regions.allocated_shared_memory_regions() == []

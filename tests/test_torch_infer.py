@@ -733,13 +733,16 @@ def test_batchers_stop_with_the_last_front_end():
 
 
 def test_serving_zoo_names_match_jax():
-    """``serving_models`` names the JAX package's vision zoo (BERT is a
-    later slice), with the same specs and batching configuration."""
+    """``serving_models`` names the JAX package's vision zoo and BERT
+    ensemble, with the same specs, batching and ensemble steps.  The
+    tokenizer runs on the host: KIND_CPU in the port, where the JAX
+    package's ``Model`` default gives it KIND_TPU; the ensembles are
+    ``ensemble`` on both sides."""
     port = {m.name: m for m in serving_models(include_llama=False,
                                               device="cpu")}
-    jax_zoo = {m.name: m for m in jax_serving_models(
-        include_bert=False, include_llama=False)}
+    jax_zoo = {m.name: m for m in jax_serving_models(include_llama=False)}
     assert set(port) == set(jax_zoo)
+    assert {"bert_tokenizer", "bert_encoder", "bert_ensemble"} <= set(port)
     for name, model in port.items():
         ref = jax_zoo[name]
         assert [t.as_metadata() for t in model.inputs] == [
@@ -752,7 +755,45 @@ def test_serving_zoo_names_match_jax():
             assert cfg.get(key) == ref_cfg.get(key), (name, key)
         # the deliberate difference: the card's kind where JAX has TPU
         assert ref_cfg["instance_group"][0]["kind"] == "KIND_TPU"
-        assert cfg["instance_group"][0]["kind"] == "KIND_GPU"
+        assert cfg["instance_group"][0]["kind"] == (
+            "KIND_CPU" if name == "bert_tokenizer" else "KIND_GPU"), name
+        if model.ensemble_steps is not None:
+            assert cfg["platform"] == ref_cfg["platform"] == "ensemble"
+
+
+def test_inflight_count_polls_as_jax():
+    """``inflight_count()`` counts a request while it runs, as JAX's
+    drain test polls it: a slow request is seen in flight, the drain
+    lets it finish and the count returns to 0."""
+    from tpuserver_torch.core import InferRequest
+    from tpuserver_torch.models.simple import DelayedIdentityModel
+
+    core = InferenceServer([DelayedIdentityModel(), SimpleModel()])
+    assert core.inflight_count() == 0
+    results = {}
+
+    def slow_infer():
+        req = InferRequest("delayed_identity", inputs={
+            "INPUT0": np.array([7], dtype=np.int32),
+            "DELAY_US": np.array([300_000], dtype=np.uint32)})
+        try:
+            results["resp"] = core.infer(req)
+        except Exception as e:  # noqa: BLE001 — asserted below
+            results["error"] = e
+
+    t = threading.Thread(target=slow_infer)
+    t.start()
+    while core.inflight_count() == 0 and t.is_alive():
+        time.sleep(0.005)
+    assert core.inflight_count() == 1
+    t0 = time.monotonic()
+    core.drain(timeout=5.0)
+    t.join(timeout=5)
+    assert "error" not in results, results.get("error")
+    assert results["resp"].outputs[0][1].tolist() == [7]
+    assert time.monotonic() - t0 < 5.0
+    assert core.inflight_count() == 0
+    assert core.server_state() == "stopped"
 
 
 def _free_port():
