@@ -182,12 +182,38 @@ Phases, in order; any failure exits non-zero and prints no result line:
    (a)-(d) must be 0; (e)'s llama launches make the ``cudashm_client``
    rows.
 
+10. tp, last: tensor-parallel serving of ``llama3_8b`` (full width and
+   depth, ``max_seq`` 4096, the seed's weights, each rank drawing every
+   leaf and keeping its slice; ``python3 chip_smoke.py --tp-only`` runs
+   phases 1-4b and 10 alone and prints no result line).  The card is one:
+   (a) tp=1 over NCCL, ``LlamaGenerateModel(mesh=)`` single-stream and
+   ``max_slots=8``: phase 4's and 4b's tokens bitwise, and the reference
+   logits (the 512-token prompt's prefill and 16 teacher-forced steps);
+   (b) tp=4, four ranks sharing the card over gloo (collectives through
+   host memory; this process the driver, three spawned followers): those
+   logits within ``TP_LOGITS_TOL`` row-relative, a planted fault (layer
+   0's wo all-reduce dropped) ten times beyond it, the prompt served for
+   64 tokens and again for 16 (the same; greedy agreement reported), a
+   prefill's and an 8-token chunk's wall time and rank 0's device time by
+   class (the collectives' host copies apart), 4b's 12 requests (8 tokens
+   each: every tp=4 collective passes through gloo on the host) at
+   ``max_slots=8`` both ways (same tokens per prompt), each rank's
+   memory; (c) int8 at tp=4 (each full leaf quantized, then sharded): 16
+   tokens twice, the same, the W8A16 kernel on every rank; (d) a tp=4 generation parked in a CUDA
+   region (the full layout) resumed at tp=4, bitwise the unparked
+   continuation, and attached at tp=1 within the tolerance of tp=4's
+   logits.  Each rank's launches of the three kernels make the
+   ``tp1_*`` and ``tp4_*`` rows (summed, and by rank); phase 3 holds the
+   kernels at one rank's shapes (flash and decode at H 8, Hkv 2; W8A16 at
+   the shard shapes, one row).
+
 The peaks of every bound come from ``tpuserver_torch.ops.perf`` by the
 card's name (phase 1 fails on a card the table does not know).  The line
 before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
+import contextlib
 import gc
 import json
 import os
@@ -246,6 +272,32 @@ SPEC_HEAL_BUDGET = 32
 SPEC_HEAL_TRIGGER_POS = 512 + 12
 # phase 6's wall-time samples per step
 WALL_REPS = 5
+# phase 10: tensor-parallel serving, four ranks sharing the one card over
+# gloo (NCCL refuses two ranks on one device) and one rank over NCCL
+TP_RANKS = 4
+# phase 10 (b): tp=4 logits against the unsharded model's, row-relative
+# as TOL.  Every row-parallel product sums four bf16 partials that the
+# unsharded product sums in float32 inside one GEMM, each partial rounded
+# to bf16 first (2^-9 of its size), and the 32 layers carry that on; the
+# kernel-vs-plain model check moves the same logits by about 0.09 of a
+# largest |logit| near 5 (phase 5).  A planted fault (layer 0's wo
+# all-reduce dropped: three quarters of its heads missing) must move
+# them ten times as far
+TP_LOGITS_TOL = 0.05
+TP_FAULT_LAYER = 0
+# seconds a tp collective may wait (the followers' first kernel loads)
+TP_TIMEOUT_S = 300.0
+# phase 10's depth at tp=4, where every collective passes through gloo on
+# the host (about 5.5 ms each among four processes on one H100's host,
+# tools/torch_tp_collectives.py) and a decode step makes 66 of them: the
+# teacher-forced steps, the repeat's and int8's tokens, 4b's budgets
+# (capped), the tokens before a park, and the profile's wall samples
+TP_FORCED_STEPS = 16
+TP_REPEAT_TOKENS = 16
+TP_BATCHED_BUDGET = 8
+TP_INT8_TOKENS = 16
+TP_PARK_TOKENS = 16
+TP_WALL_REPS = 3
 # phase 4e (b): the child process's region: the 512-token prompt at 0, a
 # ring of 64 slots of 8 bytes, then their 4-byte seq words
 CHILD_RING_OFF = 2048
@@ -498,23 +550,31 @@ def phase_kernels(torch):
     prefill_ts = sorted({512, READMIT_LENGTH, *_flash_admissions(
         llama, llama.llama3_8b(), s,
         BATCHED_PROMPT_LENGTHS + HEAL_PROMPT_LENGTHS)})
+    # one rank's heads at tp 4 (phase 10): H 8, Hkv 2
+    h4, hkv4 = h // TP_RANKS, hkv // TP_RANKS
     for b, t, causal, dtype, hh, kk, dd in (
             *((1, t, True, bf16, h, hkv, d) for t in prefill_ts),
             (1, 512, False, bf16, h, hkv, d),
             (1, 2048, True, bf16, h, hkv, d),
             (1, 2048, False, bf16, h, hkv, d),
-            (2, 256, True, bf16, 16, 8, 64)):  # Llama-3.2-1B head dim
-        main = (t == 512 and causal and dtype == bf16)
+            (2, 256, True, bf16, 16, 8, 64),  # Llama-3.2-1B head dim
+            # phase 10's tp=4 prefills: 4b's tileable prompt lengths
+            (1, 512, True, bf16, h4, hkv4, d),
+            (1, 256, True, bf16, h4, hkv4, d)):
+        main = (t == 512 and causal and dtype == bf16 and hh == h)
         readmit = (t == READMIT_LENGTH and b == 1)
+        tp4 = (t == 512 and hh == h4)
         row = _flash_case(torch, F, fl, dev, gen, b, t, hh, kk, dd, causal,
-                          dtype, main or readmit or (t == 2048 and causal),
-                          flush)
+                          dtype, main or readmit or tp4 or (
+                              t == 2048 and causal), flush)
         row["kernel"] = "flash_attention"
         rows.append(row)
         if main:
             timed["flash_attention"] = row
         if readmit:
             timed["flash_attention_readmission"] = row
+        if tp4:
+            timed["flash_attention_tp4"] = row
     n_sms = fl._sm_count(dev)
     for lengths, ss, dtype, hh, kk, dd in (
             ((576,), s, bf16, h, hkv, d),    # the main path's longest decode
@@ -531,24 +591,50 @@ def phase_kernels(torch):
             # the batched step's shape: 8 slots, ragged, inert rows at 1
             ((1, 77, 1, 600, 4096, 1, 3000, 1), s, bf16, h, hkv, d),
             (BATCHED_LENGTHS, s, bf16, h, hkv, d),
-            ((40, 17), 64, f32, 6, 2, 16)):
-        main = lengths == (576,)
-        batched = lengths == BATCHED_LENGTHS
+            ((40, 17), 64, f32, 6, 2, 16),
+            # phase 10's tp=4 decode: one rank's heads
+            ((576,), s, bf16, h4, hkv4, d),
+            (BATCHED_LENGTHS, s, bf16, h4, hkv4, d)):
+        main = lengths == (576,) and hh == h
+        batched = lengths == BATCHED_LENGTHS and hh == h
+        tp4 = hh == h4 and kk == hkv4 and dd == d
         row = _decode_case(torch, F, fl, dev, gen, lengths, ss, hh, kk, dd,
-                           dtype, main or batched or lengths == (4096,),
-                           flush)
+                           dtype, main or batched or tp4
+                           or lengths == (4096,), flush)
         row["kernel"] = "decode_attention"
         rows.append(row)
         if main:
             timed["decode_attention"] = row
         if batched:
             timed["decode_attention_batched"] = row
+        if tp4:
+            timed["decode_attention_tp4" + (
+                "_batched" if len(lengths) > 1 else "")] = row
         if len(lengths) == 34 and row["n_split"] != 1:
             fail("decode_splits chose {} splits for B 34 (want 1)".format(
                 row["n_split"]))
         if lengths == (1,) and not row["n_split"] > 1:
             fail("decode_splits chose 1 split for one 8B stream on {} "
                  "SMs".format(n_sms))
+    # the W8A16 kernel at one tp=4 rank's shard shapes (phase 10's int8
+    # decode steps), one row
+    from tpuserver_torch.ops import perf, quant
+
+    int8_tp4 = {}
+    for k, n in sorted({(k, n) for _, k, n in INT8_TP4_WEIGHTS}):
+        for row in _int8_cases(torch, quant, perf, dev, gen, k, n, flush,
+                               m_rows=(1,)):
+            log("kernel_case:", json.dumps(row))
+            int8_tp4[(1, k, n)] = row
+            if not row["row_rel_err"] <= INT8_TOL or not row[
+                    "planted_fault_err"]["skipped_rows"] > INT8_TOL:
+                fail("int8_matmul at a tp=4 shard shape: {}".format(row))
+    timed["int8_matmul_tp4_step"] = _int8_step_sum(
+        int8_tp4, 1, llama.llama3_8b().n_layers, INT8_TP4_WEIGHTS)
+    timed["int8_matmul_tp4_step"]["max_abs_err"] = max(
+        r["max_abs_err"] for r in int8_tp4.values())
+    log("timed: int8_matmul, one tp=4 rank's decode step at M 1: {}".format(
+        json.dumps(timed["int8_matmul_tp4_step"])))
     bad, blind = [], []
     for row in rows:
         if "lengths" in row and len(row["lengths"]) > 8:
@@ -765,7 +851,8 @@ def phase_serve(torch, np):
     if launches["decode_attention"] < cfg.n_layers * 95:
         fail("decode kernel launched {} times (want >= {})".format(
             launches["decode_attention"], cfg.n_layers * 95))
-    return model, core, long_prompt, launches, runs[0], rates
+    return model, core, long_prompt, launches, runs[0], rates, {
+        "long": (long_prompt, runs[0]), "short": (short_prompt, runs[1])}
 
 
 # -- phase 4b: continuous batching -------------------------------------------
@@ -2704,6 +2791,11 @@ INT8_WEIGHTS = (("wq", 4096, 4096), ("wk", 4096, 1024), ("wv", 4096, 1024),
 # speculative sub-step of 8 slots (8), and 40 (8 slots x 5 verify
 # positions, for a verify in one pass: the port's chains 5 steps of 8)
 INT8_ROWS = (1, 8, 40)
+# one rank's shards of those weights at tp 4 (phase 10): column-parallel
+# weights split on N, row-parallel (wo, w_down) on K
+INT8_TP4_WEIGHTS = tuple(
+    (name, k // 4, n) if name in ("wo", "w_down") else (name, k, n // 4)
+    for name, k, n in INT8_WEIGHTS)
 # W8A16 kernel vs plain, row-relative as TOL: both round the float32 sum
 # to bf16 and then the product with the bf16 scale, but sum in another
 # order, so a rounding can move by one bf16 step, twice (at most 2^-7 of
@@ -2721,9 +2813,10 @@ INT8_LOGITS_TOL = 2 * LOGITS_TOL
 INT8_BUDGET_REPETITIVE = 32
 
 
-def _int8_cases(torch, quant, perf, dev, gen, k, n, flush):
+def _int8_cases(torch, quant, perf, dev, gen, k, n, flush,
+                m_rows=INT8_ROWS):
     """The W8A16 kernel against its plain version at one weight shape and
-    each of ``INT8_ROWS``: two calls equal, each row equal bit for bit to
+    each of ``m_rows``: two calls equal, each row equal bit for bit to
     the row computed alone, the row-relative error, a planted fault (the
     last 32 weight rows zeroed), and the times of the kernel, the plain
     version, the bf16 ``torch.matmul`` of the unquantized weight and the
@@ -2734,7 +2827,7 @@ def _int8_cases(torch, quant, perf, dev, gen, k, n, flush):
         torch.bfloat16)
     qw = quant.quantize_int8(w)
     q, s = qw["q"], qw["s"]
-    x = torch.randn(max(INT8_ROWS), k, device=dev, generator=gen).to(
+    x = torch.randn(max(m_rows), k, device=dev, generator=gen).to(
         torch.bfloat16)
     alone = torch.cat([quant.int8_matmul(x[i:i + 1], q, s)
                        for i in range(len(x))])
@@ -2742,7 +2835,7 @@ def _int8_cases(torch, quant, perf, dev, gen, k, n, flush):
     cut[-32:] = 0
     wt, sb = q.t().contiguous(), s.to(torch.bfloat16)
     rows = []
-    for m in INT8_ROWS:
+    for m in m_rows:
         xm = x[:m]
         before = quant.int8_matmul.launches
         out = quant.int8_matmul(xm, q, s)
@@ -2787,11 +2880,12 @@ def _int8_cases(torch, quant, perf, dev, gen, k, n, flush):
     return rows
 
 
-def _int8_step_sum(cases, m, n_layers):
-    """One decode step's W8A16 work at ``m`` rows from the timed shapes:
-    every layer's seven products and the lm_head's, summed."""
+def _int8_step_sum(cases, m, n_layers, weights=INT8_WEIGHTS):
+    """One decode step's W8A16 work at ``m`` rows from the timed shapes
+    (``weights``: the model's, or one tp rank's shards): every layer's
+    seven products and the lm_head's, summed."""
     uses = {}
-    for name, k, n in INT8_WEIGHTS:
+    for name, k, n in weights:
         uses[(k, n)] = uses.get((k, n), 0) + (1 if name == "lm_head"
                                               else n_layers)
     out = {"m": m, "shape": "{} layers x (wq, wk, wv, wo, w_gate, w_up, "
@@ -4390,34 +4484,49 @@ def phase_profile(torch, model, prompt, batched_steps, label="profile"):
     time by class and the top kernels
     (torch.profiler), and the device's busy share, logged under
     ``label`` and returned."""
-    from torch.profiler import ProfilerActivity, profile
-
     from tpuserver_torch.models import llama
 
     params, cfg = model._ensure_params(), model._cfg
     tokens = torch.tensor(prompt, dtype=torch.long, device="cuda")[None, :]
-    out = {}
     with torch.inference_mode():
         cache = llama.init_kv_cache(cfg, 1, 4096, "cuda")
         logits, _ = llama.prefill(params, cache, tokens, cfg)
-        steps = {
+        out = _profile_fns(torch, {
             "prefill_512": lambda: llama.prefill(params, cache, tokens, cfg),
             "decode_chunk_8": lambda: llama.decode_chunk(
                 params, cache, logits, tokens.shape[1], cfg, 8),
             **batched_steps,
-        }
+        })
+        del cache
+    log(label + ":", json.dumps(out))
+    if not any(v["device_ms"] > 0 for v in out.values()):
+        log(label + ": torch.profiler recorded no device time")
+    return out
+
+
+def _profile_fns(torch, steps, classify=_kernel_class, reps=WALL_REPS,
+                 warm=True):
+    """Each of ``steps`` (name -> function): its wall time (no profiler;
+    the median of ``reps`` runs, each kept, after one warm-up run unless
+    ``warm`` is False), its device kernel time by ``classify``'s class
+    and the top kernels (torch.profiler), and the device's busy share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    with torch.inference_mode():
         for name, fn in steps.items():
-            fn()
+            if warm:
+                fn()
             # the host's clock moves far more than device time between
             # machines: keep every sample, rate by the median
             walls = []
-            for _ in range(WALL_REPS):
+            for _ in range(reps):
                 torch.cuda.synchronize()
                 t0 = time.monotonic()
                 fn()
                 torch.cuda.synchronize()
                 walls.append((time.monotonic() - t0) * 1e3)
-            wall_ms = sorted(walls)[WALL_REPS // 2]
+            wall_ms = sorted(walls)[reps // 2]
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA],
                          acc_events=True) as prof:
@@ -4432,7 +4541,7 @@ def phase_profile(torch, model, prompt, batched_steps, label="profile"):
                                  getattr(ev, "self_cuda_time_total", 0))
                 if dev_us <= 0 or not str(ev.device_type).endswith("CUDA"):
                     continue
-                cls = _kernel_class(ev.key)
+                cls = classify(ev.key)
                 by_class[cls] = by_class.get(cls, 0.0) + dev_us / 1e3
                 kernels.append((dev_us / 1e3, ev.count, ev.key[:80]))
             device_ms = sum(by_class.values())
@@ -4443,11 +4552,337 @@ def phase_profile(torch, model, prompt, batched_steps, label="profile"):
                 "device_ms_by_class": by_class,
                 "top_kernels": sorted(kernels, reverse=True)[:6],
                 "top_host_ops_ms": sorted(host, reverse=True)[:6]}
-        del cache
-    log(label + ":", json.dumps(out))
-    if not any(v["device_ms"] > 0 for v in out.values()):
-        log(label + ": torch.profiler recorded no device time")
     return out
+
+
+# -- phase 10: tensor-parallel serving ---------------------------------------
+
+
+def _tp_world(n, backend):
+    """Ranks 1 .. n-1 spawned as followers of this process (rank 0, the
+    driver) on the one card; ``backend`` carries the collectives."""
+    from tpuserver_torch.parallel import MeshConfig, spmd
+
+    store = os.path.join(HERE, "build", "tp_store", "{}-{}-{}".format(
+        os.getpid(), n, time.monotonic_ns()))
+    os.makedirs(os.path.dirname(store), exist_ok=True)
+    t0 = time.monotonic()
+    mesh, followers = spmd.start(n, store, device="cuda", backend=backend,
+                                 config=MeshConfig(tp=n),
+                                 timeout_s=TP_TIMEOUT_S)
+    log("tp: {} rank(s) over {} on one card up in {:.1f} s".format(
+        n, backend, time.monotonic() - t0))
+    return mesh, followers
+
+
+def _tp_close(torch, mesh, followers):
+    from tpuserver_torch.parallel import spmd
+
+    codes = spmd.shutdown(mesh, followers, timeout=60)
+    gc.collect()
+    torch.cuda.empty_cache()
+    if any(codes):
+        fail("tp followers exited with {}".format(codes))
+
+
+def _tp_reports(mesh, **resets):
+    """Every rank's ``spmd.rank_report`` (launches, memory), tp order."""
+    from tpuserver_torch.parallel import spmd
+
+    return spmd.mirror(mesh).gather(spmd.rank_report, **resets)
+
+
+def _tp_launches(mesh):
+    """Each kernel's launches on every rank since the last reset."""
+    reports = _tp_reports(mesh)
+    return {k: [r["launches"][k] for r in reports]
+            for k in ("flash_attention", "decode_attention", "int8_matmul")}
+
+
+def _gib(reports, key):
+    return [round(r[key] / 2 ** 30, 3) for r in reports]
+
+
+@contextlib.contextmanager
+def _served(model):
+    """``model`` behind a fresh core and HTTP server; yields the port."""
+    from tpuserver_torch.core import InferenceServer
+    from tpuserver_torch.http_server import HttpServer
+
+    core = InferenceServer([model])
+    http = HttpServer(core, port=0).start()
+    try:
+        yield http.port
+    finally:
+        http.stop()
+        core.close()
+
+
+def _tp_forced_logits(torch, np, llama, mesh, cfg, params, prompt, tokens):
+    """The prefill logits of ``prompt`` and the decode logits after
+    feeding each of ``tokens`` (teacher forcing), [1 + len(tokens),
+    vocab] float32, through ``make_tp_serving`` and ``make_tp_step``."""
+    init_cache, prefill_fn, _ = llama.make_tp_serving(mesh, cfg)
+    step = llama.make_tp_step(mesh, cfg)
+    with torch.inference_mode():
+        cache = init_cache(1, 4096)
+        logits, cache = prefill_fn(params, cache, np.asarray(prompt)[None, :])
+        rows = [logits[0].clone()]
+        for i, t in enumerate(tokens):
+            logits, cache = step(params, cache, np.array([t]),
+                                 len(prompt) + i)
+            rows.append(logits[0].clone())
+    return torch.stack(rows)
+
+
+def _sse_tokens(port, prompt, max_tokens, parameters):
+    status, events, final, _ = _sse(port, prompt, max_tokens,
+                                    parameters=parameters)
+    if status != 200 or not final:
+        fail("generate_stream answered {} (final {}): {}".format(
+            status, final, events))
+    return [e[1] for e in events]
+
+
+def _tp_class(name):
+    # the gloo collectives' staging through host memory
+    return "collective_copy" if "memcpy" in name.lower() else _kernel_class(
+        name)
+
+
+def phase_tp(torch, np, single, prompts, budgets, tokens_4b):
+    """Tensor-parallel serving of ``llama3_8b`` (full width and depth,
+    ``max_seq`` 4096, the seed's weights, each rank drawing every leaf and
+    keeping its slice).  (a) tp=1 over NCCL: ``LlamaGenerateModel(mesh=)``
+    single-stream on phase 4's two prompts and ``max_slots=8`` on 4b's
+    12, bitwise phase 4's and 4b's tokens; the logits of the 512-token
+    prompt and of ``TP_FORCED_STEPS`` steps teacher-forced with phase 4's
+    tokens kept as the reference.  (b) tp=4, four ranks sharing the card
+    over gloo: those logits within ``TP_LOGITS_TOL`` of the reference,
+    layer 0's wo all-reduce dropped ten times beyond it; the prompt
+    served for 64 tokens (greedy agreement with phase 4 reported) and
+    again for ``TP_REPEAT_TOKENS`` (the same tokens); a prefill's and an
+    8-token chunk's wall time and rank 0's device time by class; 4b's 12
+    requests, budgets capped at ``TP_BATCHED_BUDGET``, at ``max_slots=8``
+    both ways (same tokens per prompt); each rank's memory.  (c) int8 at
+    tp=4: ``TP_INT8_TOKENS`` tokens twice, the same, the W8A16 kernel
+    launched on every rank.  (d) a tp=4 generation parked in a
+    CUDA region (full layout) resumed at tp=4, bitwise the unparked
+    continuation, and attached at tp=1, its logits within the tolerance
+    of tp=4's.  Returns each path's launches by rank."""
+    from tpuserver_torch import cuda_shared_memory as csm
+    from tpuserver_torch.models import llama
+    from tpuserver_torch.models.llama_serving import LlamaGenerateModel
+    from tpuserver_torch.parallel import spmd
+
+    t_phase = time.monotonic()
+    cfg = llama.llama3_8b()
+    long_prompt, long_tokens = single["long"]
+    short_prompt, short_tokens = single["short"]
+    paths = {}
+    log("tp: this process holds {:.3f} GiB before phase 10".format(
+        torch.cuda.memory_allocated() / 2 ** 30))
+
+    # (a) tp=1 over NCCL: every line of the TP path, trivial collectives
+    mesh, followers = _tp_world(1, "nccl")
+    model = LlamaGenerateModel(cfg=cfg, max_seq=4096, seed=SEED, mesh=mesh)
+    t0 = time.monotonic()
+    model.warmup()
+    torch.cuda.synchronize()
+    log("tp1: weights drawn in {:.1f} s".format(time.monotonic() - t0))
+    params = model._ensure_params()
+    with _served(model) as port:
+        _tp_reports(mesh, reset_launches=True)
+        got_long = _stream(port, long_prompt, len(long_tokens))[0]
+        got_short = _stream(port, short_prompt, len(short_tokens))[0]
+        paths["tp1_single"] = _tp_launches(mesh)
+    batched = LlamaGenerateModel(cfg=cfg, max_seq=4096, max_slots=8,
+                                 params=params, mesh=mesh)
+    with _served(batched) as port:
+        _tp_reports(mesh, reset_launches=True)
+        results, wall = _batched_round(port, prompts, budgets, range(12))
+        paths["tp1_batched"] = _tp_launches(mesh)
+    same = sum(results[i][0] == tokens_4b[i] for i in range(12))
+    log("tp1: single-stream tokens equal phase 4's: {} and {}; batched "
+        "equal phase 4b's: {}/12 ({:.1f} s round); launches {}".format(
+            got_long == long_tokens, got_short == short_tokens, same, wall,
+            json.dumps(paths)))
+    if got_long != long_tokens or got_short != short_tokens or same != 12:
+        fail("tp=1 tokens differ from the unsharded model's")
+    reference = _tp_forced_logits(torch, np, llama, mesh, cfg, params,
+                                  long_prompt, long_tokens[:TP_FORCED_STEPS])
+    if not (torch.isfinite(reference).all()
+            and reference.shape == (TP_FORCED_STEPS + 1, cfg.vocab)):
+        fail("tp=1 logits not finite or of the wrong shape")
+    del model, batched, params
+    _tp_close(torch, mesh, followers)
+
+    # (b) tp=4: four ranks sharing the card, gloo through host memory
+    mesh, followers = _tp_world(TP_RANKS, "gloo")
+    mirror = spmd.mirror(mesh)
+    _tp_reports(mesh, reset_peak=True)
+    model = LlamaGenerateModel(cfg=cfg, max_seq=4096, seed=SEED, mesh=mesh)
+    t0 = time.monotonic()
+    model.warmup()
+    load_s = time.monotonic() - t0
+    load = _tp_reports(mesh, reset_peak=True)
+    params = model._ensure_params()
+    log("tp4: weights drawn in {:.1f} s; GiB by rank: held {}, draw peak "
+        "{}".format(load_s, _gib(load, "allocated_bytes"),
+                    _gib(load, "peak_bytes")))
+    forced = _tp_forced_logits(torch, np, llama, mesh, cfg, params,
+                               long_prompt, long_tokens[:TP_FORCED_STEPS])
+    err_prefill = row_rel_err(forced[:1], reference[:1])
+    err_decode = row_rel_err(forced[1:], reference[1:])
+    init_cache, prefill_fn, decode_fn = llama.make_tp_serving(mesh, cfg)
+    mirror.call(llama.tp_plant_fault, TP_FAULT_LAYER, tp=spmd.LOCAL)
+    try:
+        with torch.inference_mode():
+            faulty, _ = prefill_fn(params, init_cache(1, 4096),
+                                   long_prompt[None, :])
+    finally:
+        mirror.call(llama.tp_plant_fault, None, tp=spmd.LOCAL)
+    err_fault = row_rel_err(faulty, reference[:1])
+    del faulty
+    log("tp4 logits vs the unsharded model (row-relative, tolerance {}): "
+        "prefill {}, {} teacher-forced decode steps {}; layer {}'s wo "
+        "all-reduce dropped: {} ({:.1f}x the tolerance)".format(
+            TP_LOGITS_TOL, err_prefill, TP_FORCED_STEPS, err_decode,
+            TP_FAULT_LAYER, err_fault, err_fault / TP_LOGITS_TOL))
+    if not max(err_prefill, err_decode) <= TP_LOGITS_TOL:
+        fail("tp=4 logits differ from the unsharded model's")
+    if not err_fault >= 10 * TP_LOGITS_TOL:
+        fail("the planted fault moves the logits less than ten times the "
+             "tolerance")
+    with _served(model) as port:
+        _tp_reports(mesh, reset_launches=True)
+        served = [_stream(port, long_prompt, n)
+                  for n in (len(long_tokens), TP_REPEAT_TOKENS)]
+        paths["tp4_single"] = _tp_launches(mesh)
+    tp4_tokens = served[0][0]
+    agree = sum(a == b for a, b in zip(tp4_tokens, long_tokens))
+    repeat_same = served[1][0] == tp4_tokens[:TP_REPEAT_TOKENS]
+    log("tp4 single: ttft {} ms, decode {} tokens/s; a repeat's {} tokens "
+        "identical {}; greedy agreement with the unsharded tokens {}/{}; "
+        "launches {}".format([round(r[1] * 1e3, 1) for r in served],
+                             [round(r[2], 2) for r in served],
+                             TP_REPEAT_TOKENS, repeat_same, agree,
+                             len(long_tokens),
+                             json.dumps(paths["tp4_single"])))
+    if not repeat_same or len(tp4_tokens) != len(long_tokens):
+        fail("tp=4 repeat gave other tokens")
+    with torch.inference_mode():
+        cache = init_cache(1, 4096)
+        logits, _ = prefill_fn(params, cache, long_prompt[None, :])
+        times = _profile_fns(torch, {
+            "prefill_512": lambda: prefill_fn(params, cache,
+                                              long_prompt[None, :]),
+            "decode_chunk_8": lambda: decode_fn(params, cache, logits,
+                                                len(long_prompt))},
+            classify=_tp_class, reps=TP_WALL_REPS, warm=False)
+        del cache, logits
+    log("tp4 profile (gloo through host, four ranks sharing one card; "
+        "rank 0's device time):", json.dumps(times))
+    batched = LlamaGenerateModel(cfg=cfg, max_seq=4096, max_slots=8,
+                                 params=params, mesh=mesh)
+    capped = [min(n, TP_BATCHED_BUDGET) for n in budgets]
+    with _served(batched) as port:
+        _tp_reports(mesh, reset_launches=True)
+        fwd, fwd_s = _batched_round(port, prompts, capped, range(12))
+        rev, rev_s = _batched_round(port, prompts, capped,
+                                    range(11, -1, -1))
+        paths["tp4_batched"] = _tp_launches(mesh)
+    serving = _tp_reports(mesh)
+    same = [fwd[i][0] == rev[i][0] for i in range(12)]
+    agree = sum(fwd[i][0] == tokens_4b[i][:TP_BATCHED_BUDGET]
+                for i in range(12))
+    log("tp4 batched ({} tokens a request): rounds {:.1f} s and {:.1f} s; "
+        "rows identical across arrival orders {}/12; prompts equal to phase "
+        "4b's first tokens {}/12 (reported); launches {}; GiB by rank: held "
+        "{}, serving peak {}".format(
+            TP_BATCHED_BUDGET, fwd_s, rev_s, sum(same), agree,
+            json.dumps(paths["tp4_batched"]),
+            _gib(serving, "allocated_bytes"), _gib(serving, "peak_bytes")))
+    if not all(same):
+        fail("tp=4: a prompt streamed other tokens in reverse order")
+    del batched
+
+    # (c) int8 at tp=4: each full leaf quantized, then sharded
+    qmodel = LlamaGenerateModel(cfg=cfg, max_seq=4096, seed=SEED, mesh=mesh,
+                                quantize=True)
+    t0 = time.monotonic()
+    qmodel.warmup()
+    log("tp4 int8: weights drawn and quantized in {:.1f} s".format(
+        time.monotonic() - t0))
+    with _served(qmodel) as port:
+        _tp_reports(mesh, reset_launches=True)
+        qruns = [_stream(port, long_prompt, TP_INT8_TOKENS)[0]
+                 for _ in range(2)]
+        paths["tp4_int8"] = _tp_launches(mesh)
+    agree = sum(a == b for a, b in zip(qruns[0], tp4_tokens))
+    log("tp4 int8: repeat identical {}; greedy agreement with tp4 bf16 "
+        "{}/{} (reported); launches {}".format(
+            qruns[0] == qruns[1], agree, TP_INT8_TOKENS,
+            json.dumps(paths["tp4_int8"])))
+    if qruns[0] != qruns[1]:
+        fail("tp=4 int8 repeat gave other tokens")
+    del qmodel
+
+    # (d) park at tp=4 (the full layout), attach at tp=4 and at tp=1
+    n = TP_PARK_TOKENS
+    nbytes = cfg.n_layers * 2 * 4096 * cfg.n_kv_heads * cfg.head_dim * 2
+    region = csm.create_shared_memory_region("tp_park", nbytes)
+    pos = len(long_prompt) + n - 1
+    try:
+        with _served(model) as port:
+            _register(port, "tp_park", csm.get_raw_handle(region).decode(),
+                      nbytes)
+            first = _sse_tokens(port, long_prompt, n, {
+                "kv_cache_region": "tp_park"})
+            second = _sse_tokens(port, first[-1:], n, {
+                "kv_cache_region": "tp_park", "kv_cache_resume": True,
+                "kv_cache_position": pos})
+            # the model's core is this server's: read the park there
+            parked = model._server.cuda_shm_region(
+                "tp_park").parked_tensor(0).clone()
+            _unregister(port, "tp_park")
+    finally:
+        csm.destroy_shared_memory_region(region)
+    step = llama.make_tp_step(mesh, cfg)
+    with torch.inference_mode():
+        logits4 = step(params, llama.tp_scatter_cache(mesh, parked),
+                       np.array(first[-1:]), pos)[0][0].clone()
+    log("tp4 park: shape {} ({} tokens then {} resumed); park equal to the "
+        "unparked tokens {}, resume equal to the unparked continuation "
+        "{}".format(tuple(parked.shape), n, n, first == tp4_tokens[:n],
+                    second == tp4_tokens[n:2 * n]))
+    if first != tp4_tokens[:n] or second != tp4_tokens[n:2 * n]:
+        fail("tp=4 park and resume differ from the unparked generation")
+    del model, params, step, init_cache, prefill_fn, decode_fn, mirror
+    _tp_close(torch, mesh, followers)
+    mesh, followers = _tp_world(1, "nccl")
+    params = llama.tp_params(mesh, cfg, seed=SEED)
+    with torch.inference_mode():
+        logits1 = llama.make_tp_step(mesh, cfg)(
+            params, llama.tp_scatter_cache(mesh, parked),
+            np.array(first[-1:]), pos)[0][0].clone()
+    err = row_rel_err(logits1, logits4)
+    log("tp1 attach of the tp4 park: logits vs tp4's {} (tolerance {}); "
+        "next token {} and {}".format(
+            err, TP_LOGITS_TOL, int(logits1.argmax()), int(logits4.argmax())))
+    del params, parked
+    _tp_close(torch, mesh, followers)
+    if not err <= TP_LOGITS_TOL:
+        fail("a tp=4 park attached at tp=1 differs from tp=4")
+    for path, counts in paths.items():
+        idle = [k for k in ("flash_attention", "decode_attention")
+                + (("int8_matmul",) if "int8" in path else ())
+                if not all(counts[k])]
+        if idle:
+            fail("tp path {}: {} not launched on every rank: {}".format(
+                path, idle, counts))
+    log("tp: phase 10 {:.1f} s".format(time.monotonic() - t_phase))
+    return paths
 
 
 # -- main --------------------------------------------------------------------
@@ -4476,6 +4911,25 @@ def main():
         phase_bert(torch, np, smi)
         log("bert-only: done")
         return 1
+    if sys.argv[1:] == ["--tp-only"]:
+        # phases 1-4b and 10 alone, for work on the TP path (4 and 4b
+        # give the unsharded tokens phase 10 holds tp=1 to); prints no
+        # result line
+        name, smi = phase_device(torch)
+        log("nvidia-smi:", smi)
+        phase_build()
+        phase_kernels(torch)
+        model, core, prompt, _, tokens, rates, single = phase_serve(torch, np)
+        b_prompts, b_budgets, b_tokens = phase_serve_batched(
+            torch, np, model, prompt, tokens, rates)[3:]
+        core.close()
+        del model, core
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_tp(torch, np, single, b_prompts, b_budgets, b_tokens)
+        log("tp-only: done")
+        log(smi)
+        return 1
     if sys.argv[1:] == ["--vision-only"]:
         # phases 1, 2 and 8 alone, for work on the vision path; prints no
         # result line
@@ -4492,7 +4946,8 @@ def main():
     log("nvidia-smi:", smi)
     phase_build()
     rows = phase_kernels(torch)
-    model, core, prompt, launches, tokens, rates = phase_serve(torch, np)
+    model, core, prompt, launches, tokens, rates, single = phase_serve(
+        torch, np)
     batched_launches, batched_steps, batched, b_prompts, b_budgets, \
         b_tokens = phase_serve_batched(torch, np, model, prompt, tokens,
                                        rates)
@@ -4529,6 +4984,7 @@ def main():
         for name in int8_profile})))
     phase_vision(torch, np, smi)
     client_launches = phase_bert(torch, np, smi)
+    tp_launches = phase_tp(torch, np, single, b_prompts, b_budgets, b_tokens)
 
     kernels = []
     # each kernel once per path: the single-stream serve (phase 4, timed
@@ -4631,7 +5087,48 @@ def main():
             "bf16_matmul_ms": step["bf16_matmul_ms"],
             "timed_as": "one decode step at M {}: {}".format(
                 m, step["shape"])})
-    idle = [(k["name"], k["path"]) for k in kernels if not k["launches"]]
+    # phase 10's paths: launches summed over the ranks (each rank's
+    # beside them); the tp=4 rows timed at one rank's shapes (H 8, Hkv 2;
+    # the W8A16 shard products of one decode step), tp=1 at the model's
+    int8_src = "src/python/tpuserver_torch/csrc/int8_matmul.cu"
+    for kname, src, replaces, path, timed_as in (
+            ("flash_attention", flash_src, flash_tpu, "tp1_single",
+             "flash_attention"),
+            ("decode_attention", decode_src, decode_tpu, "tp1_single",
+             "decode_attention"),
+            ("flash_attention", flash_src, flash_tpu, "tp1_batched",
+             "flash_attention"),
+            ("decode_attention", decode_src, decode_tpu, "tp1_batched",
+             "decode_attention_batched"),
+            ("flash_attention", flash_src, flash_tpu, "tp4_single",
+             "flash_attention_tp4"),
+            ("decode_attention", decode_src, decode_tpu, "tp4_single",
+             "decode_attention_tp4"),
+            ("flash_attention", flash_src, flash_tpu, "tp4_batched",
+             "flash_attention_tp4"),
+            ("decode_attention", decode_src, decode_tpu, "tp4_batched",
+             "decode_attention_tp4_batched"),
+            ("flash_attention", flash_src, flash_tpu, "tp4_int8",
+             "flash_attention_tp4"),
+            ("decode_attention", decode_src, decode_tpu, "tp4_int8",
+             "decode_attention_tp4"),
+            ("int8_matmul", int8_src, "src/python/tpuserver/ops/quant.py:68",
+             "tp4_int8", "int8_matmul_tp4_step")):
+        row = rows["timed"][timed_as]
+        by_rank = tp_launches[path][kname]
+        kernels.append({
+            "name": kname, "route": "cuda", "source": src,
+            "replaces": replaces, "path": path, "launches": sum(by_rank),
+            "launches_by_rank": by_rank,
+            "max_abs_err": (row["max_abs_err"] if kname == "int8_matmul"
+                            else rows["max_err"][kname]),
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
+            "timed_as": row.get("shape") or "h {} hkv {}".format(
+                row["h"], row["hkv"])})
+    idle = [(k["name"], k["path"]) for k in kernels if not k["launches"] or
+            not all(k.get("launches_by_rank", [1]))]
     if idle:
         fail("kernels of a path never launched on it: {}".format(idle))
     log("chip_smoke: {:.1f} s".format(time.monotonic() - started))

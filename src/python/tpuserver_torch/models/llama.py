@@ -26,10 +26,20 @@ Pieces:
   ``paged_scheduler_step``, ``paged_spec_step``, ``paged_admit``,
   ``paged_gather``), the admission prefills (``prefill_bucket``, ``prefill_to_length``,
   ``prefill_span``) and the scheduler's bundle (``make_scheduler_fns``)
+- tensor-parallel serving over ``torch.distributed``: ``param_specs``,
+  ``cache_spec``, ``serving_shardings``, ``tp_params`` (each rank's
+  shard), ``make_tp_serving``, ``make_tp_step``,
+  ``make_scheduler_fns(mesh=)`` and the park layout (``tp_gather_cache``,
+  ``tp_scatter_cache``).  The serving functions take ``tp=``, a rank's
+  ``tpuserver_torch.parallel.spmd.TPContext`` (local head counts, the
+  all-reduce after each row-parallel product, the vocab-split embedding
+  and the gathered logits); the mesh's driver mirrors each call on every
+  rank (``tpuserver_torch.parallel.spmd``)
 """
 
 import dataclasses
 import functools
+import gc
 
 import numpy as np
 import torch
@@ -37,6 +47,8 @@ import torch.nn.functional as F
 
 from tpuserver_torch import resolve_device
 from tpuserver_torch.ops import decode_attention, flash_attention, quant
+from tpuserver_torch.parallel import spmd
+from tpuserver_torch.parallel.mesh import mesh_state, shard, shard_tree
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,11 +114,10 @@ PRESETS = {"tiny": tiny, "llama3_1b": llama3_1b, "llama3_3b": llama3_3b,
 # -- parameters --------------------------------------------------------------
 
 
-def init_params(cfg, generator, device):
-    """Random params in ``cfg.dtype`` on ``device``: normal / sqrt(fan_in)
-    for projections and embeddings, ones for the norm weights (the JAX
-    init's distribution; the numbers differ, as the generators do).
-    ``generator`` is a seeded ``torch.Generator`` on ``device``."""
+def _draw(cfg, generator, device):
+    """:func:`init_params`' leaves one at a time, in its draw order, as
+    (path, tensor): ``("embed",)``, ``("lm_head",)``, ``("layers", i,
+    name)`` and ``("norm",)``."""
 
     def dense(shape, fan_in):
         w = torch.randn(shape, generator=generator, device=device,
@@ -118,23 +129,40 @@ def init_params(cfg, generator, device):
 
     hd = cfg.head_dim
     dm = cfg.d_model
-    embed = dense((cfg.vocab, dm), dm)
-    lm_head = dense((dm, cfg.vocab), dm)
-    layers = []
-    for _ in range(cfg.n_layers):
-        layers.append({
-            "attn_norm": ones(),
-            "wq": dense((dm, cfg.n_heads * hd), dm),
-            "wk": dense((dm, cfg.n_kv_heads * hd), dm),
-            "wv": dense((dm, cfg.n_kv_heads * hd), dm),
-            "wo": dense((cfg.n_heads * hd, dm), cfg.n_heads * hd),
-            "mlp_norm": ones(),
-            "w_gate": dense((dm, cfg.d_ff), dm),
-            "w_up": dense((dm, cfg.d_ff), dm),
-            "w_down": dense((cfg.d_ff, dm), cfg.d_ff),
-        })
-    return {"embed": embed, "layers": layers, "norm": ones(),
-            "lm_head": lm_head}
+    yield ("embed",), dense((cfg.vocab, dm), dm)
+    yield ("lm_head",), dense((dm, cfg.vocab), dm)
+    for i in range(cfg.n_layers):
+        yield ("layers", i, "attn_norm"), ones()
+        yield ("layers", i, "wq"), dense((dm, cfg.n_heads * hd), dm)
+        yield ("layers", i, "wk"), dense((dm, cfg.n_kv_heads * hd), dm)
+        yield ("layers", i, "wv"), dense((dm, cfg.n_kv_heads * hd), dm)
+        yield ("layers", i, "wo"), dense((cfg.n_heads * hd, dm),
+                                         cfg.n_heads * hd)
+        yield ("layers", i, "mlp_norm"), ones()
+        yield ("layers", i, "w_gate"), dense((dm, cfg.d_ff), dm)
+        yield ("layers", i, "w_up"), dense((dm, cfg.d_ff), dm)
+        yield ("layers", i, "w_down"), dense((cfg.d_ff, dm), cfg.d_ff)
+    yield ("norm",), ones()
+
+
+def _tree(cfg, leaves):
+    """The params dict of :func:`_draw`'s (path, leaf) pairs."""
+    params = {"embed": None, "layers": [{} for _ in range(cfg.n_layers)],
+              "norm": None, "lm_head": None}
+    for path, leaf in leaves:
+        if path[0] == "layers":
+            params["layers"][path[1]][path[2]] = leaf
+        else:
+            params[path[0]] = leaf
+    return params
+
+
+def init_params(cfg, generator, device):
+    """Random params in ``cfg.dtype`` on ``device``: normal / sqrt(fan_in)
+    for projections and embeddings, ones for the norm weights (the JAX
+    init's distribution; the numbers differ, as the generators do).
+    ``generator`` is a seeded ``torch.Generator`` on ``device``."""
+    return _tree(cfg, _draw(cfg, generator, device))
 
 
 def _tensor_from_numpy(a, device):
@@ -207,15 +235,53 @@ def _flash_blocks(T, cfg):
     return bq, bk
 
 
-def _mm(x, w):
-    """Matmul against a plain or int8-quantized weight leaf."""
-    return quant.matmul(x, w)
+def _mm(x, w, reduce=None):
+    """Matmul against a plain or int8-quantized weight leaf; ``reduce``
+    (a row-parallel product's all-reduce over tp) applies to its partial
+    sums (``quant.matmul``)."""
+    return quant.matmul(x, w, reduce=reduce)
 
 
-def _embed_rows(params, tokens, cfg):
+def _embed_rows(params, tokens, cfg, tp=None):
     """Embedding lookup from a plain or row-quantized table, dequantized
-    rows in ``cfg.dtype``."""
-    return quant.gather_rows(params["embed"], tokens, dtype=cfg.dtype)
+    rows in ``cfg.dtype``.  Under tp the table is split on vocab: each
+    rank gathers the rows it holds (zeros for the others) and the
+    all-reduce sums them, as JAX's ``_forward_spmd`` does."""
+    table = params["embed"]
+    if tp is None:
+        return quant.gather_rows(table, tokens, dtype=cfg.dtype)
+    vloc = (table["q"] if quant.is_quantized(table) else table).shape[0]
+    local = tokens - tp.rank * vloc
+    hit = (local >= 0) & (local < vloc)
+    rows = quant.gather_rows(table, local.clamp(0, vloc - 1),
+                             dtype=cfg.dtype)
+    return tp.all_reduce(torch.where(hit[..., None], rows,
+                                     rows.new_zeros(())))
+
+
+def _logits(x, params, tp=None):
+    """float32 logits of the final-normed ``x``; under tp the lm_head is
+    column-parallel and its slices are gathered, so that every rank
+    holds the full logits."""
+    y = _mm(x, params["lm_head"])
+    if tp is not None:
+        y = tp.all_gather(y, dim=-1)
+    return y.float()
+
+
+def _tp_kwargs(cfg, tp, layer):
+    """``_block``'s local head counts and reduction for block ``layer``
+    under tp ({} without)."""
+    if tp is None:
+        return {}
+    return {"n_heads": cfg.n_heads // tp.size,
+            "n_kv_heads": cfg.n_kv_heads // tp.size,
+            "reduce": tp.faults.get(layer, tp.all_reduce)}
+
+
+def _kv_heads(cfg, tp):
+    """The kv heads a rank's cache holds."""
+    return cfg.n_kv_heads // (tp.size if tp is not None else 1)
 
 
 def _rms_norm(x, w, eps):
@@ -246,22 +312,29 @@ def _expand_kv(k, n_rep):
     return k.repeat_interleave(n_rep, dim=2)
 
 
-def _block(params, x, positions, cfg, attn_fn):
+def _block(params, x, positions, cfg, attn_fn, n_heads=None,
+           n_kv_heads=None, reduce=None):
     """One transformer block: x [B, T, Dm] -> [B, T, Dm]; ``attn_fn(q, k,
-    v)`` takes q [B, T, H, D] and un-expanded k/v [B, T, Hkv, D]."""
+    v)`` takes q [B, T, H, D] and un-expanded k/v [B, T, Hkv, D].
+
+    ``n_heads``/``n_kv_heads`` are the local head counts (a tp shard's);
+    ``reduce(partial, op)`` is the all-reduce of the row-parallel
+    products (wo, w_down) over tp, None without tp."""
     B, T, _ = x.shape
     hd = cfg.head_dim
+    nh = n_heads if n_heads is not None else cfg.n_heads
+    nkv = n_kv_heads if n_kv_heads is not None else cfg.n_kv_heads
     h = _rms_norm(x, params["attn_norm"], cfg.norm_eps)
-    q = _mm(h, params["wq"]).reshape(B, T, cfg.n_heads, hd)
-    k = _mm(h, params["wk"]).reshape(B, T, cfg.n_kv_heads, hd)
-    v = _mm(h, params["wv"]).reshape(B, T, cfg.n_kv_heads, hd)
+    q = _mm(h, params["wq"]).reshape(B, T, nh, hd)
+    k = _mm(h, params["wk"]).reshape(B, T, nkv, hd)
+    v = _mm(h, params["wv"]).reshape(B, T, nkv, hd)
     q = _rope(q, positions, cfg.rope_theta)
     k = _rope(k, positions, cfg.rope_theta)
     attn = attn_fn(q, k, v)
-    x = x + _mm(attn.reshape(B, T, cfg.n_heads * hd), params["wo"])
+    x = x + _mm(attn.reshape(B, T, nh * hd), params["wo"], reduce)
     h = _rms_norm(x, params["mlp_norm"], cfg.norm_eps)
     gated = F.silu(_mm(h, params["w_gate"])) * _mm(h, params["w_up"])
-    return x + _mm(gated, params["w_down"])
+    return x + _mm(gated, params["w_down"], reduce)
 
 
 def _dense_causal(q, k, v, n_rep):
@@ -299,10 +372,11 @@ def forward(params, tokens, cfg):
 # -- decode (serving) --------------------------------------------------------
 
 
-def init_kv_cache(cfg, batch, max_seq, device, dtype=None):
-    """[n_layers, 2, B, max_seq, n_kv_heads, head_dim] zeros."""
+def init_kv_cache(cfg, batch, max_seq, device, dtype=None, tp=None):
+    """[n_layers, 2, B, max_seq, n_kv_heads, head_dim] zeros (under tp a
+    rank's shard: its kv heads, ``cache_spec``)."""
     return torch.zeros(
-        (cfg.n_layers, 2, batch, max_seq, cfg.n_kv_heads, cfg.head_dim),
+        (cfg.n_layers, 2, batch, max_seq, _kv_heads(cfg, tp), cfg.head_dim),
         dtype=dtype or cfg.dtype, device=device)
 
 
@@ -312,12 +386,14 @@ def _decode_block(max_seq):
     return next((b for b in (256, 128) if max_seq % b == 0), None)
 
 
-def _run_cached(params, cache, x, positions, write_pos, lengths, cfg):
+def _run_cached(params, cache, x, positions, write_pos, lengths, cfg,
+                tp=None):
     """Shared decode/prefill body: run all blocks, writing new K/V into
     ``cache`` IN PLACE at ``write_pos`` and attending over
     ``cache[:lengths]``.
 
-    x: [B, T, Dm] embedded inputs; write_pos and lengths are ints.
+    x: [B, T, Dm] embedded inputs; write_pos and lengths are ints; under
+    ``tp`` the cache and the attention hold the rank's heads.
     Returns (x_out, cache) — the same cache object, updated."""
     n_rep = cfg.n_heads // cfg.n_kv_heads
     max_seq = cache.shape[3]
@@ -351,7 +427,8 @@ def _run_cached(params, cache, x, positions, write_pos, lengths, cfg):
             return _attend_cached(q, cache[i, 0], cache[i, 1], positions,
                                   lengths, n_rep)
 
-        x = _block(layer, x, positions, cfg, attn_fn)
+        x = _block(layer, x, positions, cfg, attn_fn,
+                   **_tp_kwargs(cfg, tp, i))
     return x, cache
 
 
@@ -373,7 +450,7 @@ def _attend_cached(q, cache_k, cache_v, q_pos, length, n_rep):
     return torch.einsum("bhqk,bkhd->bqhd", p, v).to(q.dtype)
 
 
-def decode_step(params, cache, tokens, pos, cfg):
+def decode_step(params, cache, tokens, pos, cfg, tp=None):
     """One token of autoregressive decode.
 
     tokens: [B] int64/int32; pos: int (current position, same for the
@@ -381,27 +458,26 @@ def decode_step(params, cache, tokens, pos, cfg):
     B = tokens.shape[0]
     positions = torch.full((B, 1), pos, dtype=torch.long,
                            device=tokens.device)
-    x = _embed_rows(params, tokens, cfg)[:, None, :]  # [B, 1, Dm]
-    x, cache = _run_cached(params, cache, x, positions, pos, pos + 1, cfg)
+    x = _embed_rows(params, tokens, cfg, tp)[:, None, :]  # [B, 1, Dm]
+    x, cache = _run_cached(params, cache, x, positions, pos, pos + 1, cfg,
+                           tp)
     x = _rms_norm(x, params["norm"], cfg.norm_eps)
-    logits = _mm(x[:, 0, :], params["lm_head"]).float()
-    return logits, cache
+    return _logits(x[:, 0, :], params, tp), cache
 
 
-def prefill(params, cache, tokens, cfg):
+def prefill(params, cache, tokens, cfg, tp=None):
     """Run the prompt tokens [B, T] through the cache in one batched
     pass from position 0; returns (last logits [B, vocab] fp32, cache
     updated in place)."""
     B, T = tokens.shape
     positions = torch.arange(T, device=tokens.device)[None, :].expand(B, T)
-    x = _embed_rows(params, tokens, cfg)
-    x, cache = _run_cached(params, cache, x, positions, 0, T, cfg)
+    x = _embed_rows(params, tokens, cfg, tp)
+    x, cache = _run_cached(params, cache, x, positions, 0, T, cfg, tp)
     x = _rms_norm(x, params["norm"], cfg.norm_eps)
-    logits = _mm(x[:, -1, :], params["lm_head"]).float()
-    return logits, cache
+    return _logits(x[:, -1, :], params, tp), cache
 
 
-def decode_chunk(params, cache, logits, pos, cfg, chunk):
+def decode_chunk(params, cache, logits, pos, cfg, chunk, tp=None):
     """Greedy-decode ``chunk`` tokens: each step takes the argmax of the
     current logits and decodes it.  Runs without a host sync, so the
     card works ahead while the caller waits for the chunk.
@@ -415,7 +491,7 @@ def decode_chunk(params, cache, logits, pos, cfg, chunk):
         token = torch.argmax(logits, dim=-1)
         tokens.append(token)
         logps.append(logp.gather(-1, token[:, None])[:, 0])
-        logits, cache = decode_step(params, cache, token, pos + i, cfg)
+        logits, cache = decode_step(params, cache, token, pos + i, cfg, tp)
     return torch.stack(tokens), torch.stack(logps), logits, cache
 
 
@@ -446,7 +522,7 @@ def prefill_bucket(cfg, max_seq, true_len):
     return bucket if dense(true_len) and dense(bucket) else true_len
 
 
-def prefill_to_length(params, cache, tokens, true_len, cfg):
+def prefill_to_length(params, cache, tokens, true_len, cfg, tp=None):
     """Prefill a PADDED prompt [B, T] from position 0, returning the
     logits at ``true_len - 1`` (and the cache, updated in place).
 
@@ -456,11 +532,10 @@ def prefill_to_length(params, cache, tokens, true_len, cfg):
     until decode steps overwrite them."""
     B, T = tokens.shape
     positions = torch.arange(T, device=tokens.device)[None, :].expand(B, T)
-    x = _embed_rows(params, tokens, cfg)
-    x, cache = _run_cached(params, cache, x, positions, 0, T, cfg)
+    x = _embed_rows(params, tokens, cfg, tp)
+    x, cache = _run_cached(params, cache, x, positions, 0, T, cfg, tp)
     x = _rms_norm(x, params["norm"], cfg.norm_eps)
-    logits = _mm(x[:, true_len - 1, :], params["lm_head"]).float()
-    return logits, cache
+    return _logits(x[:, true_len - 1, :], params, tp), cache
 
 
 def _live_lengths(positions, max_seq):
@@ -475,7 +550,7 @@ def _live_lengths(positions, max_seq):
     return live, lengths.to(torch.int32)
 
 
-def batched_decode_step(params, cache, tokens, positions, cfg):
+def batched_decode_step(params, cache, tokens, positions, cfg, tp=None):
     """One decode token per cache SLOT at per-slot positions: the compute
     heart of the continuous-batching scheduler (``tpuserver_torch.
     scheduler``).
@@ -504,7 +579,7 @@ def batched_decode_step(params, cache, tokens, positions, cfg):
     n_rep = cfg.n_heads // cfg.n_kv_heads
     block_k = _decode_block(max_seq)
     decode_kernel = block_k is not None and cfg.decode_impl == "auto"
-    x = _embed_rows(params, tokens, cfg)[:, None, :]  # [S, 1, Dm]
+    x = _embed_rows(params, tokens, cfg, tp)[:, None, :]  # [S, 1, Dm]
 
     for i, layer in enumerate(params["layers"]):
         def attn_fn(q, k, v, i=i):
@@ -521,10 +596,9 @@ def batched_decode_step(params, cache, tokens, positions, cfg):
             return _attend_cached(q, cache[i, 0], cache[i, 1], q_pos,
                                   lengths, n_rep)
 
-        x = _block(layer, x, q_pos, cfg, attn_fn)
+        x = _block(layer, x, q_pos, cfg, attn_fn, **_tp_kwargs(cfg, tp, i))
     x = _rms_norm(x, params["norm"], cfg.norm_eps)
-    logits = _mm(x[:, 0, :], params["lm_head"]).float()
-    return logits, cache
+    return _logits(x[:, 0, :], params, tp), cache
 
 
 def _sample(logits_all, forced, forced_mask):
@@ -537,7 +611,7 @@ def _sample(logits_all, forced, forced_mask):
 
 
 def scheduler_step(params, cache, logits_all, positions, active, forced,
-                   forced_mask, cfg):
+                   forced_mask, cfg, tp=None):
     """One continuous-batching iteration over every cache slot.
 
     Each slot's next token is sampled greedily from its ``logits_all``
@@ -548,7 +622,7 @@ def scheduler_step(params, cache, logits_all, positions, active, forced,
     Returns (tokens [S], logprobs [S], next logits [S, vocab], cache)."""
     tokens, tok_logp = _sample(logits_all, forced, forced_mask)
     new_logits, cache = batched_decode_step(params, cache, tokens, positions,
-                                            cfg)
+                                            cfg, tp)
     new_logits = torch.where(active[:, None], new_logits, logits_all)
     return tokens, tok_logp, new_logits, cache
 
@@ -570,7 +644,8 @@ def scheduler_extract(cache, slot):
 # -- paged KV (block-granular cache pool) ------------------------------------
 
 
-def init_paged_kv_cache(cfg, n_pages, page_size, device, dtype=None):
+def init_paged_kv_cache(cfg, n_pages, page_size, device, dtype=None,
+                        tp=None):
     """[L, 2, n_pages + 1, page_size, Hkv, D] zeros: the paged form of
     :func:`init_kv_cache`.  A sequence's KV lives scattered across the
     pages its page table names.  Page id ``n_pages`` is the sentinel and
@@ -579,12 +654,12 @@ def init_paged_kv_cache(cfg, n_pages, page_size, device, dtype=None):
     drops those writes with ``mode="drop"``, which has no counterpart
     here: an out-of-bounds write on the card is a device-side assert)."""
     return torch.zeros(
-        (cfg.n_layers, 2, n_pages + 1, page_size, cfg.n_kv_heads,
+        (cfg.n_layers, 2, n_pages + 1, page_size, _kv_heads(cfg, tp),
          cfg.head_dim), dtype=dtype or cfg.dtype, device=device)
 
 
 def paged_batched_decode_step(params, pages, tokens, page_tables, positions,
-                              cfg):
+                              cfg, tp=None):
     """:func:`batched_decode_step` over a paged pool: one decode token per
     sequence row, with each row's KV scattered across the physical pages
     its ``page_tables`` row names.
@@ -618,7 +693,7 @@ def paged_batched_decode_step(params, pages, tokens, page_tables, positions,
     n_rep = cfg.n_heads // cfg.n_kv_heads
     block_k = _decode_block(max_seq)
     decode_kernel = block_k is not None and cfg.decode_impl == "auto"
-    x = _embed_rows(params, tokens, cfg)[:, None, :]  # [S, 1, Dm]
+    x = _embed_rows(params, tokens, cfg, tp)[:, None, :]  # [S, 1, Dm]
 
     for i, layer in enumerate(params["layers"]):
         def attn_fn(q, k, v, i=i):
@@ -637,26 +712,26 @@ def paged_batched_decode_step(params, pages, tokens, page_tables, positions,
                 return out[:, None]
             return _attend_cached(q, k_seq, v_seq, q_pos, lengths, n_rep)
 
-        x = _block(layer, x, q_pos, cfg, attn_fn)
+        x = _block(layer, x, q_pos, cfg, attn_fn, **_tp_kwargs(cfg, tp, i))
     x = _rms_norm(x, params["norm"], cfg.norm_eps)
-    logits = _mm(x[:, 0, :], params["lm_head"]).float()
-    return logits, pages
+    return _logits(x[:, 0, :], params, tp), pages
 
 
 def paged_scheduler_step(params, pages, logits_all, page_tables, positions,
-                         active, forced, forced_mask, cfg):
+                         active, forced, forced_mask, cfg, tp=None):
     """:func:`scheduler_step` on the paged pool: greedy-or-forced token
     per row, then one :func:`paged_batched_decode_step`.  The page
     indirection changes where K/V bytes live, never what they are."""
     tokens, tok_logp = _sample(logits_all, forced, forced_mask)
     new_logits, pages = paged_batched_decode_step(
-        params, pages, tokens, page_tables, positions, cfg)
+        params, pages, tokens, page_tables, positions, cfg, tp)
     new_logits = torch.where(active[:, None], new_logits, logits_all)
     return tokens, tok_logp, new_logits, pages
 
 
 def paged_spec_step(params, pages, logits_all, page_tables, positions,
-                    active, forced, forced_mask, draft, draft_len, cfg):
+                    active, forced, forced_mask, draft, draft_len, cfg,
+                    tp=None):
     """Multi-token speculative verify: :func:`paged_scheduler_step`
     followed by up to K drafted continuation tokens, all in one call
     (``tpuserver_torch.speculative`` is the draft source).
@@ -691,7 +766,7 @@ def paged_spec_step(params, pages, logits_all, page_tables, positions,
     draft = draft.long()
     t0, lp0 = _sample(logits_all, forced, forced_mask)
     cur, pages = paged_batched_decode_step(params, pages, t0, page_tables,
-                                           positions, cfg)
+                                           positions, cfg, tp)
     toks, lps = [t0], [lp0]
     stack = [cur]  # stack[j]: the logits after feeding sub-step j
     matches = []
@@ -705,7 +780,7 @@ def paged_spec_step(params, pages, logits_all, page_tables, positions,
         pos_j = torch.where(fed, positions + j,
                             torch.full_like(positions, max_seq))
         cur, pages = paged_batched_decode_step(params, pages, cand,
-                                               page_tables, pos_j, cfg)
+                                               page_tables, pos_j, cfg, tp)
         stack.append(cur)
     accept = torch.cumprod(torch.stack(matches).int(), dim=0).sum(dim=0)
     final = torch.stack(stack)[accept, torch.arange(S, device=cur.device)]
@@ -772,7 +847,7 @@ def paged_gather(pages, page_ids):
                         *pages.shape[4:])
 
 
-def prefill_span(params, cache, tokens, start, logits_at, cfg):
+def prefill_span(params, cache, tokens, start, logits_at, cfg, tp=None):
     """Prefill a token span [B, T] at positions ``start..start+T-1`` into
     a single-row contiguous cache: the chunked-prefill and
     shared-prefix-suffix building block.
@@ -789,12 +864,11 @@ def prefill_span(params, cache, tokens, start, logits_at, cfg):
     B, T = tokens.shape
     positions = start + torch.arange(T, device=tokens.device)[None, :].expand(
         B, T)
-    x = _embed_rows(params, tokens, cfg)
+    x = _embed_rows(params, tokens, cfg, tp)
     x, cache = _run_cached(params, cache, x, positions, start, start + T,
-                           cfg)
+                           cfg, tp)
     x = _rms_norm(x, params["norm"], cfg.norm_eps)
-    logits = _mm(x[:, logits_at, :], params["lm_head"]).float()
-    return logits, cache
+    return _logits(x[:, logits_at, :], params, tp), cache
 
 
 class _HostFetch:
@@ -821,7 +895,7 @@ class _HostFetch:
 
 
 def make_scheduler_fns(cfg, max_seq, max_slots, page_size=16, kv_pages=None,
-                       device=None):
+                       device=None, mesh=None, quantized=False):
     """The function bundle of the continuous-batching scheduler, over a
     paged KV pool on ``device`` (the card unless the caller asks for the
     CPU).
@@ -866,8 +940,24 @@ def make_scheduler_fns(cfg, max_seq, max_slots, page_size=16, kv_pages=None,
       prefills: a dense span against a one-shot flash pass could flip a
       near-tie greedy argmax, the hazard :func:`prefill_bucket` guards,
       so the scheduler prefills whole prompts there)
+
+    With a ``mesh`` (``tpuserver_torch.parallel.make_mesh``) the bundle is
+    the tensor-parallel form, run on the mesh's driver: params
+    Megatron-split (``param_specs``), the page pool and slot cache
+    kv-head-sharded over tp (``cache_spec``: the page axes are unsharded,
+    so the gather and scatter indexing stays collective-free), the
+    logits and control inputs replicated.  Each function is mirrored on
+    every rank (``tpuserver_torch.parallel.spmd``); ``device`` is the
+    mesh's.  A parked or attached cache in the full layout given to
+    ``admit`` scatters its kv heads to their ranks.  ``quantized`` is
+    JAX's argument (there it picks the shardings) and is accepted for
+    its signature: the port reads the weight format from the params.
     """
-    device = resolve_device(device)
+    if mesh is not None:
+        m = _tp_mirror(mesh, cfg, device)
+        device, tp, run = spmd.DEVICE, spmd.LOCAL, m.call
+    else:
+        device, tp, run = resolve_device(device), None, _direct
     page_size = int(page_size)
     if page_size < 1 or max_seq % page_size:
         raise ValueError(
@@ -881,67 +971,48 @@ def make_scheduler_fns(cfg, max_seq, max_slots, page_size=16, kv_pages=None,
         raise ValueError(
             "kv_pages={} cannot hold even one full-length sequence ({} "
             "pages of {} tokens)".format(n_pages, pages_per_seq, page_size))
-
-    def tokens_in(tokens):
-        if isinstance(tokens, torch.Tensor):
-            # already on the device (a prompt read from a CUDA-shm
-            # region): cast there, no host round trip
-            return tokens.to(device=device, dtype=torch.int64)
-        return _host_tensor(np.asarray(tokens, np.int64), device)
+    geometry = (max_slots, pages_per_seq)
 
     def init_cache():
-        return init_paged_kv_cache(cfg, n_pages, page_size, device)
+        if mesh is not None:
+            # a restarted loop's dead pool (in a reference cycle, say)
+            # frees on every rank before its successor is allocated
+            gc.collect()
+        return run(init_paged_kv_cache, cfg, n_pages, page_size, device,
+                   tp=tp)
 
     def init_slot_cache():
-        return init_kv_cache(cfg, 1, max_seq, device)
+        return run(init_kv_cache, cfg, 1, max_seq, device, tp=tp)
 
     def init_logits():
-        return torch.zeros((max_slots, cfg.vocab), dtype=torch.float32,
-                           device=device)
+        return run(_zero_logits, max_slots, cfg.vocab, device)
 
     def prefill(params, slot_cache, tokens, true_len):
-        return prefill_to_length(params, slot_cache, tokens_in(tokens),
-                                 int(true_len), cfg)
+        return run(_bundle_prefill, params, slot_cache, tokens,
+                   int(true_len), cfg, device, tp=tp)
 
     def prefill_span_fn(params, slot_cache, tokens, start, logits_at):
-        return prefill_span(params, slot_cache, tokens_in(tokens),
-                            int(start), int(logits_at), cfg)
+        return run(_bundle_prefill_span, params, slot_cache, tokens,
+                   int(start), int(logits_at), cfg, device, tp=tp)
 
     def step(params, pages, logits, page_tables, positions, active, forced,
              forced_mask):
-        # one staged copy for all five control inputs
-        s = max_slots * pages_per_seq
-        packed = tokens_in(np.concatenate([
-            np.asarray(page_tables).reshape(-1), np.asarray(positions),
-            np.asarray(active), np.asarray(forced),
-            np.asarray(forced_mask)]))
-        tables_d = packed[:s].view(max_slots, pages_per_seq)
-        pos_d, active_d, forced_d, fmask_d = packed[s:].view(4, max_slots)
-        toks, logps, logits, pages = paged_scheduler_step(
-            params, pages, logits, tables_d, pos_d, active_d != 0, forced_d,
-            fmask_d != 0, cfg)
-        return _HostFetch(toks), _HostFetch(logps), logits, pages
+        return run(_bundle_step, params, pages, logits,
+                   page_tables, positions, active, forced, forced_mask,
+                   geometry, cfg, device, tp=tp)
 
     def spec_step(params, pages, logits, page_tables, positions, active,
                   forced, forced_mask, draft, draft_len):
-        # one staged copy for the step's five control inputs and the
-        # drafts
-        s = max_slots * pages_per_seq
-        k = np.asarray(draft).shape[1]
-        packed = tokens_in(np.concatenate([
-            np.asarray(page_tables).reshape(-1), np.asarray(positions),
-            np.asarray(active), np.asarray(forced),
-            np.asarray(forced_mask), np.asarray(draft_len),
-            np.asarray(draft).reshape(-1)]))
-        tables_d = packed[:s].view(max_slots, pages_per_seq)
-        pos_d, active_d, forced_d, fmask_d, dlen_d = packed[
-            s:s + 5 * max_slots].view(5, max_slots)
-        draft_d = packed[s + 5 * max_slots:].view(max_slots, k)
-        toks, logps, accept, logits, pages = paged_spec_step(
-            params, pages, logits, tables_d, pos_d, active_d != 0, forced_d,
-            fmask_d != 0, draft_d, dlen_d, cfg)
-        return (_HostFetch(toks), _HostFetch(logps), _HostFetch(accept),
-                logits, pages)
+        return run(_bundle_spec_step, params, pages, logits,
+                   page_tables, positions, active, forced, forced_mask,
+                   draft, draft_len, geometry, cfg, device, tp=tp)
+
+    def admit(pages, logits, slot_cache, slot_logits, dest_ids, slot):
+        return run(_bundle_admit, pages, logits, slot_cache, slot_logits,
+                   dest_ids, slot, tp=tp)
+
+    def gather(pages, page_ids):
+        return run(paged_gather, pages, page_ids)
 
     return {
         "init_cache": init_cache,
@@ -952,10 +1023,325 @@ def make_scheduler_fns(cfg, max_seq, max_slots, page_size=16, kv_pages=None,
         "prefill_bucket": functools.partial(prefill_bucket, cfg, max_seq),
         "step": step,
         "spec_step": spec_step,
-        "admit": paged_admit,
-        "gather": paged_gather,
+        "admit": admit,
+        "gather": gather,
         "page_size": page_size,
         "pages_per_seq": pages_per_seq,
         "n_pages": n_pages,
         "span_safe": cfg.attn_impl != "kernel",
     }
+
+
+def _direct(fn, *args, **kwargs):
+    """A bundle function's body run here alone (no mesh)."""
+    return fn(*args, **kwargs)
+
+
+def _tokens(tokens, device):
+    """Token ids as int64 on ``device``: a host array is staged without
+    waiting; a tensor already on the device (a prompt read from a
+    CUDA-shm region) is cast there, with no host round trip."""
+    if isinstance(tokens, torch.Tensor):
+        return tokens.to(device=device, dtype=torch.int64)
+    return _host_tensor(np.asarray(tokens, np.int64), device)
+
+
+def _zero_logits(rows, vocab, device):
+    return torch.zeros((rows, vocab), dtype=torch.float32, device=device)
+
+
+def _bundle_prefill(params, slot_cache, tokens, true_len, cfg, device,
+                    tp=None):
+    return prefill_to_length(params, slot_cache, _tokens(tokens, device),
+                             true_len, cfg, tp)
+
+
+def _bundle_prefill_span(params, slot_cache, tokens, start, logits_at, cfg,
+                         device, tp=None):
+    return prefill_span(params, slot_cache, _tokens(tokens, device), start,
+                        logits_at, cfg, tp)
+
+
+def _bundle_step(params, pages, logits, page_tables, positions, active,
+                 forced, forced_mask, geometry, cfg, device, tp=None):
+    max_slots, pages_per_seq = geometry
+    # one staged copy for all five control inputs
+    s = max_slots * pages_per_seq
+    packed = _tokens(np.concatenate([
+        np.asarray(page_tables).reshape(-1), np.asarray(positions),
+        np.asarray(active), np.asarray(forced),
+        np.asarray(forced_mask)]), device)
+    tables_d = packed[:s].view(max_slots, pages_per_seq)
+    pos_d, active_d, forced_d, fmask_d = packed[s:].view(4, max_slots)
+    toks, logps, logits, pages = paged_scheduler_step(
+        params, pages, logits, tables_d, pos_d, active_d != 0, forced_d,
+        fmask_d != 0, cfg, tp)
+    return _HostFetch(toks), _HostFetch(logps), logits, pages
+
+
+def _bundle_spec_step(params, pages, logits, page_tables, positions, active,
+                      forced, forced_mask, draft, draft_len, geometry, cfg,
+                      device, tp=None):
+    max_slots, pages_per_seq = geometry
+    # one staged copy for the step's five control inputs and the drafts
+    s = max_slots * pages_per_seq
+    k = np.asarray(draft).shape[1]
+    packed = _tokens(np.concatenate([
+        np.asarray(page_tables).reshape(-1), np.asarray(positions),
+        np.asarray(active), np.asarray(forced),
+        np.asarray(forced_mask), np.asarray(draft_len),
+        np.asarray(draft).reshape(-1)]), device)
+    tables_d = packed[:s].view(max_slots, pages_per_seq)
+    pos_d, active_d, forced_d, fmask_d, dlen_d = packed[
+        s:s + 5 * max_slots].view(5, max_slots)
+    draft_d = packed[s + 5 * max_slots:].view(max_slots, k)
+    toks, logps, accept, logits, pages = paged_spec_step(
+        params, pages, logits, tables_d, pos_d, active_d != 0, forced_d,
+        fmask_d != 0, draft_d, dlen_d, cfg, tp)
+    return (_HostFetch(toks), _HostFetch(logps), _HostFetch(accept),
+            logits, pages)
+
+
+def _bundle_admit(pages, logits, slot_cache, slot_logits, dest_ids, slot,
+                  tp=None):
+    if tp is not None and slot_cache.shape[4] != pages.shape[4]:
+        # a parked or attached cache in the full layout: this rank's heads
+        slot_cache = shard(slot_cache, 4, tp.size, tp.rank)
+    return paged_admit(pages, logits, slot_cache, slot_logits, dest_ids,
+                       slot)
+
+
+# -- tensor-parallel serving -------------------------------------------------
+
+
+def param_specs(cfg, quantized=False, quantized_embed=False):
+    """The shard dim of every params leaf over tp (None: replicated):
+    the Megatron split, as the JAX package's ``param_specs``.  wq, wk,
+    wv, w_gate, w_up and lm_head are column-parallel (dim 1), wo and
+    w_down row-parallel (dim 0), embed split on vocab (dim 0), the norms
+    replicated.
+
+    With ``quantized=True`` the specs match the ``quantize_params`` tree:
+    each int8 weight keeps its spec and its per-output-channel scale
+    shards with the weight's outputs (replicated for the row-parallel
+    weights, whose outputs are whole).  ``quantized_embed=True`` iff
+    ``quantize_params`` ran with ``quantize_embed=True`` (its per-row
+    scales shard with the vocab rows)."""
+
+    def wspec(dim, scale_dim):
+        return dim if not quantized else {"q": dim, "s": scale_dim}
+
+    col, row = wspec(1, 0), wspec(0, None)
+    layer = {"attn_norm": None, "wq": col, "wk": col, "wv": col, "wo": row,
+             "mlp_norm": None, "w_gate": col, "w_up": col, "w_down": row}
+    return {
+        "embed": ({"q": 0, "s": 0} if quantized and quantized_embed
+                  else 0),
+        "layers": [dict(layer) for _ in range(cfg.n_layers)],
+        "norm": None,
+        "lm_head": col,
+    }
+
+
+def cache_spec(cfg):
+    """The shard dim of the KV cache [n_layers, 2, B, S, n_kv_heads, hd]
+    and of the page pool [n_layers, 2, pages, page, n_kv_heads, hd]: the
+    kv heads (dim 4).  Each rank owns its heads' cache rows, so decode's
+    cache reads and writes are collective-free."""
+    return 4
+
+
+def serving_shardings(mesh, cfg, quantized=False, quantized_embed=False):
+    """``(param specs, cache spec, None)`` for TP serving, the shape of
+    the JAX package's ``(param_sh, cache_sh, repl)``: a torch tensor
+    carries no layout, so the shardings are the shard dims each rank
+    applies (``shard_params``), and a replicated value has none."""
+    _check_tp(cfg, mesh_state(mesh).tp)
+    return (param_specs(cfg, quantized=quantized,
+                        quantized_embed=quantized_embed),
+            cache_spec(cfg), None)
+
+
+def _check_tp(cfg, tp):
+    if cfg.n_heads % tp or cfg.n_kv_heads % tp:
+        raise ValueError(
+            "tp={} must divide n_heads={} and n_kv_heads={}".format(
+                tp, cfg.n_heads, cfg.n_kv_heads))
+    if cfg.vocab % tp or cfg.d_ff % tp:
+        raise ValueError(
+            "tp={} must divide vocab={} and d_ff={} (the port shards "
+            "evenly)".format(tp, cfg.vocab, cfg.d_ff))
+
+
+def _tp_mirror(mesh, cfg, device=None):
+    """The mesh's mirror, after checking that ``cfg`` shards over its tp
+    and that ``device`` (when given) is the mesh's kind."""
+    state = mesh_state(mesh)
+    if device is not None and resolve_device(device).type != \
+            state.device.type:
+        raise ValueError("device {} is not the mesh's ({})".format(
+            device, state.device))
+    _check_tp(cfg, state.tp)
+    return spmd.mirror(mesh)
+
+
+def _draw_shard(cfg, seed, quantize, device, tp=None):
+    """This rank's shard of ``init_params`` drawn from ``seed``: every full
+    leaf is drawn in ``init_params``' order on ``device`` (the same
+    numbers on every rank), int8-quantized when asked (the full leaf, as
+    ``quantize_params`` does, so that the scales are the unsharded
+    ones), then cut to this rank's slice; the rest is freed before the
+    next leaf.  The shards concatenate to the unsharded params bit for
+    bit."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    specs = param_specs(cfg, quantized=quantize)
+    size, rank = (tp.size, tp.rank) if tp is not None else (1, 0)
+
+    def one(path, leaf):
+        spec = specs
+        for p in path:
+            spec = spec[p]
+        if quantize and path[-1] in _QUANTIZED_LAYER_WEIGHTS + ("lm_head",):
+            leaf = quant.quantize_int8(leaf, axis=0)
+        return shard_tree(leaf, spec, size, rank)
+
+    return _tree(cfg, ((path, one(path, leaf))
+                       for path, leaf in _draw(cfg, gen, device)))
+
+
+def _shard_local(params, specs, tp=None):
+    return shard_tree(params, specs, tp.size, tp.rank)
+
+
+def tp_params(mesh, cfg, params=None, seed=0, quantize=False):
+    """The served params over a mesh, as the driver's handles to every
+    rank's shard.  ``params=None``: each rank draws them from ``seed``
+    (:func:`_draw_shard`; ``quantize`` makes them int8).  Given full
+    ``params`` (e.g. from :func:`params_from_jax`) on the driver, they
+    are quantized first when ``quantize`` asks and they are not yet, then
+    sent to every rank, which keeps its slice (``shard_params``)."""
+    m = _tp_mirror(mesh, cfg)
+    if params is None:
+        return m.call(_draw_shard, cfg, int(seed), bool(quantize),
+                      spmd.DEVICE, tp=spmd.LOCAL)
+    if quantize and not quant.is_quantized(params["lm_head"]):
+        params = quantize_params(params)
+    specs = param_specs(cfg, quantized=quant.is_quantized(params["lm_head"]),
+                        quantized_embed=quant.is_quantized(params["embed"]))
+    return m.call(_shard_local, params, specs, tp=spmd.LOCAL)
+
+
+def _full_heads(cache, tp=None):
+    return tp.all_gather(cache, dim=4)
+
+
+def _local_heads(full, tp=None):
+    local = shard(full, 4, tp.size, tp.rank)
+    return local.clone() if local is full else local
+
+
+def tp_gather_cache(mesh, cache):
+    """A sharded cache (or slot cache) in the full ``[L, 2, B, S, Hkv,
+    D]`` layout, on the driver: the ranks' kv heads all-gathered.  The
+    park of a TP generation, which any tp degree can attach."""
+    return spmd.mirror(mesh).call(_full_heads, cache, tp=spmd.LOCAL,
+                                  keep=False)
+
+
+def tp_scatter_cache(mesh, full):
+    """A full-layout cache given on the driver as a sharded cache: each
+    rank keeps a copy of its kv heads (the attach of a park)."""
+    return spmd.mirror(mesh).call(_local_heads, full, tp=spmd.LOCAL)
+
+
+def _tp_prefill(params, cache, tokens, cfg, device, tp=None):
+    return prefill(params, cache, _tokens(tokens, device), cfg, tp)
+
+
+def _tp_decode_chunk(params, cache, logits, pos, cfg, chunk, donate,
+                     tp=None):
+    if not donate:
+        cache = cache.clone()
+    return decode_chunk(params, cache, logits, pos, cfg, chunk, tp)
+
+
+def _tp_step(params, cache, tokens, pos, cfg, donate, device, tp=None):
+    if not donate:
+        cache = cache.clone()
+    return decode_step(params, cache, _tokens(tokens, device).reshape(-1),
+                       pos, cfg, tp)
+
+
+def tp_plant_fault(layer, tp=None):
+    """The planted fault of the TP checks, on the rank that runs it
+    (mirror it to set it on every rank): block ``layer``'s wo all-reduce
+    is dropped, so each rank adds only its own heads' share; None clears
+    it.  A block makes two sums a forward, wo's then w_down's (a w8a8
+    product's amax maximum in between is kept), so every other sum is
+    dropped."""
+    tp.faults.clear()
+    if layer is None:
+        return
+    wo_next = [True]
+
+    def reduce(t, op="sum"):
+        if op != "sum":
+            return tp.all_reduce(t, op)
+        drop, wo_next[0] = wo_next[0], not wo_next[0]
+        return t if drop else tp.all_reduce(t, op)
+
+    tp.faults[layer] = reduce
+
+
+def make_tp_serving(mesh, cfg, chunk=8, donate=True, quantized=False):
+    """Tensor-parallel prefill and chunked greedy decode over a mesh's
+    ``tp`` axis, on the mesh's driver: params Megatron-split
+    (:func:`param_specs`), the cache kv-head-sharded (:func:`cache_spec`),
+    one all-reduce after each row-parallel product (``TPContext.
+    all_reduce``: a float sum in one order for every element), the
+    vocab-split embedding summed over tp, and the logits gathered to
+    every rank.  The
+    attention is collective-free: each rank holds its own heads' Q and KV
+    rows, and runs the flash and decode kernels at those head counts.
+
+    Requires tp | n_heads, n_kv_heads, vocab and d_ff.  Returns
+    ``(init_cache, prefill_fn, decode_fn)``: ``init_cache(batch,
+    max_seq)``, ``prefill_fn(params, cache, tokens)`` (tokens [B, T], a
+    host array or a device tensor; the cache is written in place) and
+    ``decode_fn(params, cache, logits, pos, n=chunk)``,
+    :func:`decode_chunk` of ``n`` tokens (a shorter tail is one call
+    too).  ``donate=False`` leaves the decode's input cache as it was
+    (the port's decode otherwise writes in place, where JAX donates).
+    ``params`` come from :func:`tp_params`; ``quantized`` is accepted for
+    JAX's signature (the port reads the weight format from the
+    params)."""
+    m = _tp_mirror(mesh, cfg)
+
+    def init_cache(batch, max_seq):
+        return m.call(init_kv_cache, cfg, int(batch), int(max_seq),
+                      spmd.DEVICE, tp=spmd.LOCAL)
+
+    def prefill_fn(params, cache, tokens):
+        return m.call(_tp_prefill, params, cache, tokens, cfg, spmd.DEVICE,
+                      tp=spmd.LOCAL)
+
+    def decode_fn(params, cache, logits, pos, n=chunk):
+        return m.call(_tp_decode_chunk, params, cache, logits, int(pos), cfg,
+                      int(n), bool(donate), tp=spmd.LOCAL)
+
+    return init_cache, prefill_fn, decode_fn
+
+
+def make_tp_step(mesh, cfg, donate=True, quantized=False):
+    """Single-token tensor-parallel :func:`decode_step` (the sharding of
+    :func:`make_tp_serving`): ``step(params, cache, tokens, pos)``, tokens
+    [B] a host array or a device tensor.  Serving uses it to feed a
+    resumed prompt into a parked cache.  ``quantized`` as in
+    :func:`make_tp_serving`."""
+    m = _tp_mirror(mesh, cfg)
+
+    def step(params, cache, tokens, pos):
+        return m.call(_tp_step, params, cache, tokens, int(pos), cfg,
+                      bool(donate), spmd.DEVICE, tp=spmd.LOCAL)
+
+    return step

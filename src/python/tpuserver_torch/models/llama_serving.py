@@ -3,6 +3,15 @@
 
 One request carries the prompt ids and streams one response per token.
 
+- ``mesh=``: tensor-parallel serving over a mesh's ``tp`` axis
+  (``tpuserver_torch.parallel.make_mesh``), on the mesh's driver while
+  the other ranks run ``tpuserver_torch.parallel.follow``: the weights
+  Megatron-split (``llama.tp_params``: each rank draws every leaf from
+  the seed and keeps its slice), the KV cache kv-head-sharded, both
+  paths (``llama.make_tp_serving``/``make_tp_step``, and
+  ``make_scheduler_fns(mesh=)``).  A parked or exported cache takes the
+  full ``[L, 2, 1, max_seq, Hkv, D]`` layout (the kv heads gathered to
+  the driver), so any tp degree attaches it.
 - ``quantize=True``: int8 weights with per-output-channel scales
   (``llama.quantize_params``), about half the bytes of bf16; a product
   over few rows runs the W8A16 kernel, a prompt's the w8a8 product
@@ -70,6 +79,8 @@ from tpuserver_torch.errors import (
 )
 from tpuserver_torch.models import llama
 from tpuserver_torch.ops import _build, quant
+from tpuserver_torch.parallel import spmd
+from tpuserver_torch.parallel.mesh import mesh_state
 from tpuserver_torch.scheduler import DecodeScheduler
 
 
@@ -98,7 +109,8 @@ class LlamaGenerateModel(Model):
                  max_slots=1, params=None, seed=0, device=None,
                  page_size=16, kv_pages=None, spec_tokens=0,
                  step_timeout_s=None, kv_export=False, target_queue_ms=None,
-                 shed_interval_ms=100.0, fault_scope=None, quantize=False):
+                 shed_interval_ms=100.0, fault_scope=None, quantize=False,
+                 mesh=None):
         """``params``: weights to serve (a params dict of tensors, e.g.
         from ``llama.params_from_jax``, or another model's, which is then
         shared, not copied), moved to ``device``; None draws random ones
@@ -118,8 +130,27 @@ class LlamaGenerateModel(Model):
         ``DecodeScheduler``).  ``kv_export`` is the default of the
         ``kv_park`` request parameter.  ``target_queue_ms`` (None: off)
         and ``shed_interval_ms`` set the scheduler's adaptive shedding,
-        ``fault_scope`` its scope at the fault points."""
-        self._device = resolve_device(device)
+        ``fault_scope`` its scope at the fault points.
+
+        ``mesh`` serves tensor-parallel over its ``tp`` axis (a mesh
+        without one raises ValueError); the device is the mesh's
+        (``device``, when given, must be of its kind).  ``params`` are then
+        the full weights, sharded at first use, or this mesh's sharded
+        params (another TP model's, shared)."""
+        self._mesh = mesh
+        if mesh is not None:
+            names = tuple(getattr(mesh, "mesh_dim_names", None) or ())
+            if "tp" not in names:
+                raise ValueError(
+                    "llama serving mesh needs a 'tp' axis (got {})".format(
+                        names))
+            self._device = mesh_state(mesh).device
+            if device is not None and \
+                    resolve_device(device).type != self._device.type:
+                raise ValueError("device {} is not the mesh's ({})".format(
+                    device, self._device))
+        else:
+            self._device = resolve_device(device)
         self.device_kind = "gpu" if self._device.type == "cuda" else "cpu"
         if max_slots < 1:
             raise ValueError("max_slots must be >= 1 (got {})".format(
@@ -137,7 +168,12 @@ class LlamaGenerateModel(Model):
                 raise ValueError(
                     "decode_chunk must be >= 1 (got {})".format(decode_chunk))
             self.decode_chunk = decode_chunk
-        if params is not None:
+        # full weights of a mesh model, sharded at first use
+        self._unsharded = None
+        if params is not None and mesh is not None and not \
+                spmd.mirror(mesh).owns(_first_leaf(params)):
+            self._unsharded, params = params, None
+        elif params is not None and mesh is None:
             params = _to_device(params, self._device)
             if self._quantize and not quant.is_quantized(params["lm_head"]):
                 params = llama.quantize_params(params)
@@ -147,8 +183,15 @@ class LlamaGenerateModel(Model):
         # first use
         self._fns = (llama.make_scheduler_fns(
             self._cfg, self._max_seq, self._max_slots, page_size=page_size,
-            kv_pages=kv_pages, device=self._device)
+            kv_pages=kv_pages, device=self._device, mesh=mesh)
             if self._max_slots > 1 else None)
+        self._tp = None
+        if mesh is not None and self._max_slots == 1:
+            init_cache, prefill_fn, chunk_fn = llama.make_tp_serving(
+                mesh, self._cfg, chunk=self.decode_chunk)
+            self._tp = {"init_cache": init_cache, "prefill": prefill_fn,
+                        "chunk": chunk_fn,
+                        "step": llama.make_tp_step(mesh, self._cfg)}
         self._spec_tokens = spec_tokens
         self._step_timeout_s = step_timeout_s
         self._kv_export = bool(kv_export)
@@ -168,7 +211,12 @@ class LlamaGenerateModel(Model):
         self._server = server
 
     def _ensure_params(self):
-        if self._params is None:
+        if self._params is None and self._mesh is not None:
+            self._params = llama.tp_params(
+                self._mesh, self._cfg, params=self._unsharded,
+                seed=self._seed, quantize=self._quantize)
+            self._unsharded = None
+        elif self._params is None:
             gen = torch.Generator(device=self._device).manual_seed(self._seed)
             params = llama.init_params(self._cfg, gen, self._device)
             if self._quantize:
@@ -201,7 +249,8 @@ class LlamaGenerateModel(Model):
 
     def _export_kv(self, generation_id, cache, position):
         if self._server is not None:
-            self._server.export_kv_region(generation_id, cache, position)
+            self._server.export_kv_region(
+                generation_id, self._park_cache(cache), position)
 
     def _import_kv(self, generation_id):
         if self._server is None:
@@ -450,7 +499,7 @@ class LlamaGenerateModel(Model):
             if region is not None:
                 # park: the cache's rows past the resume position (chunks
                 # that ran on after an eos) stay masked behind it
-                region.put_device_tensor(0, state["cache"])
+                region.put_device_tensor(0, self._park_cache(state["cache"]))
 
     def _execute_scheduled(self, prompt, max_tokens, eos_id, request,
                            ring_write=None, prompt_dev=None,
@@ -478,7 +527,7 @@ class LlamaGenerateModel(Model):
                 def on_finish(cache):
                     # the stream's gathered cache, in the single-stream
                     # park shape: either path may resume it
-                    region.put_device_tensor(0, cache)
+                    region.put_device_tensor(0, self._park_cache(cache))
 
             gen_id = str(request.parameters.get("generation_id")
                          or uuid.uuid4().hex)
@@ -546,21 +595,24 @@ class LlamaGenerateModel(Model):
         generation continues from ``pos``: a copy of it takes the prompt
         token by token (or as a prefill at position 0).  The cache is left
         in ``state["cache"]`` for a park."""
-        cfg = self._cfg
         params = self._ensure_params()
         if parked is not None:
-            cache = parked.clone()  # the park stays valid for another resume
+            # a copy (of this rank's heads, under a mesh): the park stays
+            # valid for another resume
+            cache = (llama.tp_scatter_cache(self._mesh, parked)
+                     if self._tp else parked.clone())
         else:
-            cache = llama.init_kv_cache(cfg, 1, self._max_seq, self._device)
+            cache = (self._tp["init_cache"](1, self._max_seq) if self._tp
+                     else llama.init_kv_cache(self._cfg, 1, self._max_seq,
+                                              self._device))
             pos = 0
         state["cache"] = cache
         if pos == 0:
-            logits, cache = llama.prefill(params, cache, tokens, cfg)
+            logits, cache = self._prefill(params, cache, tokens)
             pos = tokens.shape[1]
         else:
             for t in range(tokens.shape[1]):
-                logits, cache = llama.decode_step(params, cache,
-                                                  tokens[:, t], pos, cfg)
+                logits, cache = self._step(params, cache, tokens[:, t], pos)
                 pos += 1
         if max_tokens == 0:
             return
@@ -575,14 +627,47 @@ class LlamaGenerateModel(Model):
         done = 0 if max_tokens > 1 else max_tokens
         while done < max_tokens:
             n = min(self.decode_chunk, max_tokens - done)
-            toks, logps, logits, cache = llama.decode_chunk(
-                params, cache, logits, pos, cfg, n)
+            toks, logps, logits, cache = self._chunk(params, cache, logits,
+                                                     pos, n)
             # the first chunk's token 0 is the early token: skip it
             skip = 1 if done == 0 else 0
             pos += n
             done += n
             yield (toks[skip:, 0].cpu().numpy().astype(np.int32),
                    logps[skip:, 0].cpu().numpy().astype(np.float32))
+
+    # the single-stream steps, sharded under a mesh
+
+    def _prefill(self, params, cache, tokens):
+        if self._tp:
+            return self._tp["prefill"](params, cache, tokens)
+        return llama.prefill(params, cache, tokens, self._cfg)
+
+    def _step(self, params, cache, tokens, pos):
+        if self._tp:
+            return self._tp["step"](params, cache, tokens, pos)
+        return llama.decode_step(params, cache, tokens, pos, self._cfg)
+
+    def _chunk(self, params, cache, logits, pos, n):
+        """``llama.decode_chunk`` of ``n`` tokens (one mirrored call
+        under a mesh)."""
+        if self._tp:
+            return self._tp["chunk"](params, cache, logits, pos, n)
+        return llama.decode_chunk(params, cache, logits, pos, self._cfg, n)
+
+    def _park_cache(self, cache):
+        """A cache in the park layout: the full kv heads (gathered to the
+        driver under a mesh)."""
+        if self._mesh is None:
+            return cache
+        return llama.tp_gather_cache(self._mesh, cache)
+
+
+def _first_leaf(tree):
+    while isinstance(tree, (dict, list, tuple)):
+        tree = next(iter(tree.values())) if isinstance(tree, dict) \
+            else tree[0]
+    return tree
 
 
 def _quantize_on_load(params):

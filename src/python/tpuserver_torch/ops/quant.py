@@ -65,7 +65,7 @@ def is_quantized(w):
     return isinstance(w, dict) and "q" in w and "s" in w
 
 
-def matmul(x, w):
+def matmul(x, w, reduce=None):
     """``x @ w`` for a plain or int8-quantized weight.
 
     Two quantized regimes, selected by the activation shape, exactly as
@@ -81,12 +81,22 @@ def matmul(x, w):
     the token axis.  For a 2-D activation (the lm_head input ``x[:, -1,
     :]`` of shape [B, D]) axis -2 is the server-side batch, and switching
     regimes with batch size would change the same request's logits
-    between a quiet and a loaded server."""
+    between a quiet and a loaded server.
+
+    ``reduce(partial, op)`` makes this a row-parallel product over tp (x
+    and w split on K, ``op`` "sum" or "max"): a plain product's partial
+    sums are summed; the W8A16 kernel's come scaled and are summed after
+    (JAX sums first and scales after: the bits differ there); the w8a8
+    product takes its per-row activation scale from the amax over the
+    full K and sums the exact int32 partials before the rescale, as
+    GSPMD's all-reduces do."""
     if not is_quantized(w):
-        return x @ w
+        y = x @ w
+        return y if reduce is None else reduce(y)
     if x.dim() >= 3 and x.shape[-2] >= 8:
-        return _w8a8_matmul(x, w)
-    return int8_matmul(x, w["q"], w["s"])
+        return _w8a8_matmul(x, w, reduce)
+    y = int8_matmul(x, w["q"], w["s"])
+    return y if reduce is None else reduce(y)
 
 
 def _int8_product(xq, q):
@@ -105,19 +115,26 @@ def _int8_product(xq, q):
     return torch._int_mm(xq, q)[:rows]
 
 
-def _w8a8_matmul(x, w):
+def _w8a8_matmul(x, w, reduce=None):
     """Dynamic per-row activation quantization and an int8 x int8 ->
     int32 product (exact), rescaled by (row scale x channel scale) in
     float32 before the cast back to the activation dtype.
 
     x: [..., rows, in]; w: {"q": int8 [in, out], "s": float32 [out]}.
     Plain tensor code: the reference computes this product outside any
-    Pallas kernel (``lax.dot_general``)."""
+    Pallas kernel (``lax.dot_general``).  With ``reduce`` (row-parallel,
+    see :func:`matmul`) the row amax and the int32 product are reduced
+    over tp."""
     xf = x.float()
-    sx = torch.clamp_min(xf.abs().amax(dim=-1, keepdim=True) / 127.0, 1e-8)
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    if reduce is not None:
+        amax = reduce(amax, "max")
+    sx = torch.clamp_min(amax / 127.0, 1e-8)
     xq = torch.div(xf, sx).round_().clamp_(-127, 127).to(torch.int8)
     lead = x.shape[:-1]
     y = _int8_product(xq.reshape(-1, x.shape[-1]), w["q"])
+    if reduce is not None:
+        y = reduce(y, "sum")
     y = y.reshape(*lead, y.shape[-1])
     return (y.float() * sx * w["s"]).to(x.dtype)
 
