@@ -206,6 +206,29 @@ Phases, in order; any failure exits non-zero and prints no result line:
    ``tp1_*`` and ``tp4_*`` rows (summed, and by rank); phase 3 holds the
    kernels at one rank's shapes (flash and decode at H 8, Hkv 2; W8A16 at
    the shard shapes, one row).
+11. train, last: SPMD training (``llama.make_train_step``), each run in
+   processes of its own (``--child-train``; ``python3 chip_smoke.py
+   --train-only`` runs phases 1, 2 and 11 alone and prints no result
+   line).  (a) ``llama3_8b`` at full width and depth, tp=1 (world 1 over
+   NCCL), bf16, three steps on one repeated batch (B 1, T 512, seed 0,
+   targets the tokens rolled by one, lr 3e-4): step 0's loss within
+   ``TRAIN_LOSS_TOL`` of the unsharded ``forward``'s on the same params,
+   finite and falling losses; each step's wall time, one more step
+   profiled (device time by class: matmul, the attention fold forward
+   and backward, optimizer, collectives, other), the busy share, the peak
+   memory and the step's share of the bf16 peak (6 N tokens over its
+   time).  (b) the (dp 1, sp 2, tp 2) mesh as four processes sharing the
+   card over gloo, full width at depth 4, B 2, T 1024: a world-1 run of
+   the same model, batch and seed first (its step 0 gradients saved),
+   then the mesh with ring attention and with Ulysses, three steps each:
+   the losses within ``TRAIN_MESH_LOSS_TOL`` of world 1's and rank 0's
+   gradient of every leaf within ``TRAIN_GRAD_TOL`` (relative norm) of
+   the matching slice, ring within ``TRAIN_SP_TOL`` of Ulysses, and the
+   planted fault (layer 0's ``copy_to_tp`` without its backward sum)
+   ten times beyond the gradient limit; each rank's peak memory, step
+   time and collectives.  The training steps launch none of the port's
+   kernels (their count is printed); the reference forward's flash
+   launches make the ``train_reference_forward`` row.
 
 The peaks of every bound come from ``tpuserver_torch.ops.perf`` by the
 card's name (phase 1 fails on a card the table does not know).  The line
@@ -214,8 +237,10 @@ before the last is ``{"kernels": [...]}``; the last line is
 """
 
 import contextlib
+import dataclasses
 import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -298,6 +323,49 @@ TP_BATCHED_BUDGET = 8
 TP_INT8_TOKENS = 16
 TP_PARK_TOKENS = 16
 TP_WALL_REPS = 3
+# phase 11 (a): llama3_8b at full width and depth trains at tp=1 (world 1
+# over NCCL) for TRAIN_STEPS steps on one repeated batch of TRAIN_BATCH x
+# TRAIN_LEN tokens at JAX's default learning rate
+TRAIN_BATCH = 1
+TRAIN_LEN = 512
+TRAIN_STEPS = 3
+TRAIN_LR = 3e-4
+# (a): step 0's loss against the unsharded forward's loss on the same
+# params and tokens (mean NLL near ln(128256) = 11.8).  The two differ in
+# attention alone: the flash kernel rounds its probabilities to bf16
+# before P.V, the training fold keeps float32, and phase 5 finds the two
+# paths' logits about 0.09 apart (of a largest |logit| near 5).  A
+# token's NLL moves by at most twice its logits' largest move and the
+# mean over 512 tokens averages the moves out
+TRAIN_LOSS_TOL = 0.05
+# (b): the (dp, sp, tp) mesh mesh_factorize(4) gives, JAX's dry-run mesh,
+# as four processes sharing the card over gloo (NCCL refuses two ranks on
+# one device), full width, depth cut to TRAIN_MESH_LAYERS (four ranks'
+# params, gradients and AdamW state at full depth would need about 128
+# GB), B 2 and T 1024 (512 a rank)
+TRAIN_MESH = (1, 2, 2)
+TRAIN_MESH_LAYERS = 4
+TRAIN_MESH_BATCH = 2
+TRAIN_MESH_LEN = 1024
+# (b) against a world-1 run of the same model, batch and seed, both bf16:
+# rank 0's gradient of each leaf against the matching slice, relative
+# norm.  The mesh rounds each rank's bf16 partial (tp partial products,
+# each rank's share of a gradient over dp x sp) before the float32 sum,
+# where world 1 sums inside one GEMM: a few bf16 roundings (2^-9 each)
+# per value, carried through four layers.  The planted fault drops half
+# of the gradient at layer 0's norm outputs (the other tp rank's heads
+# and columns), about 0.7 of layer 0's norm gradients, which must be ten
+# times this.  These functions run on the CPU at a narrow width (d_model
+# 512, vocab 4096, bf16, depth 4) gave a worst leaf of 0.025 and the
+# fault 0.85
+TRAIN_GRAD_TOL = 0.06
+# (b): the three steps' losses against world 1's (the same roundings, a
+# loss near 12)
+TRAIN_MESH_LOSS_TOL = 0.02
+# (b): ring against Ulysses, step 0's loss: JAX's own limit
+# (tests/test_llama.py)
+TRAIN_SP_TOL = 5e-3
+TRAIN_FAULT_LAYER = 0
 # phase 4e (b): the child process's region: the 512-token prompt at 0, a
 # ring of 64 slots of 8 bytes, then their 4-byte seq words
 CHILD_RING_OFF = 2048
@@ -4885,6 +4953,501 @@ def phase_tp(torch, np, single, prompts, budgets, tokens_4b):
     return paths
 
 
+# -- phase 11: SPMD training -------------------------------------------------
+
+
+def _train_tokens(np, batch, length, vocab):
+    """The seed's [batch, length] tokens and their next-token targets
+    (``roll(tokens, -1)``, as JAX's own training check takes them)."""
+    tokens = np.random.RandomState(SEED).randint(
+        0, vocab, (batch, length)).astype(np.int64)
+    return tokens, np.roll(tokens, -1, axis=1)
+
+
+def _train_mesh(torch, config, rank, world, store, device, backend):
+    """The default group (``world`` ranks over the ``file://`` store) and
+    a mesh of ``config`` over it, on ``device``."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from tpuserver_torch.parallel import make_mesh
+
+    dist.init_process_group(
+        backend, init_method="file://" + store, rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=TP_TIMEOUT_S))
+    return make_mesh(config, device=device, backend=backend,
+                     timeout_s=TP_TIMEOUT_S)
+
+
+def _sync(torch, device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _peak_gib(torch, device, reset=False):
+    if torch.device(device).type != "cuda":
+        return None
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if reset:
+        torch.cuda.reset_peak_memory_stats()
+    return peak
+
+
+def _launch_counts(reset=False):
+    from tpuserver_torch.ops import flash, quant
+
+    counts = {"flash_attention": flash.flash_attention.launches,
+              "decode_attention": flash.decode_attention.launches,
+              "int8_matmul": quant.int8_matmul.launches}
+    if reset:
+        flash.reset_launch_counts()
+        quant.reset_launch_counts()
+    return counts
+
+
+def _timed_steps(torch, device, step_fn, params, opt, tokens, targets, n,
+                 after_first=None):
+    """``n`` train steps, each timed on the host clock to its end (the
+    step returns its loss as a float): (params, opt, losses, ms)."""
+    losses, walls = [], []
+    for i in range(n):
+        _sync(torch, device)
+        t0 = time.monotonic()
+        params, opt, loss = step_fn(params, opt, tokens, targets)
+        _sync(torch, device)
+        walls.append((time.monotonic() - t0) * 1e3)
+        losses.append(loss)
+        if i == 0 and after_first is not None:
+            after_first(params)
+    return params, opt, losses, walls
+
+
+def _train_class(name):
+    low = name.lower()
+    if "adam" in low:
+        return "optimizer"
+    if "nccl" in low or "memcpy" in low:
+        # NCCL's kernels, and the host copies of gloo's staging (and of
+        # the step's tokens in and its loss out)
+        return "collectives"
+    if any(k in low for k in ("gemm", "gemv", "cutlass", "xmma", "nvjet",
+                              "matmul")):
+        return "matmul"
+    return "other"
+
+
+def _train_profile(torch, llama, fn):
+    """One call of ``fn`` (a train step) under ``torch.profiler``: the
+    device ms by class: ``attention_fold`` (the ring fold's forward,
+    inside a ``record_function`` range, and its backward: the autograd
+    nodes whose sequence numbers the fold's forward ops recorded),
+    ``matmul`` (the other GEMMs), ``optimizer`` (the fused AdamW
+    kernels), ``collectives`` and ``other``; and the profiled wall ms."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    ring = llama.ring_attention
+
+    def fold(*args, **kwargs):
+        with record_function("attention_fold"):
+            return ring(*args, **kwargs)
+
+    llama.ring_attention = fold
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.monotonic() - t0) * 1e3
+    finally:
+        llama.ring_attention = ring
+    events = prof.events()
+
+    def subtree(e):
+        yield e
+        for c in e.cpu_children:
+            yield from subtree(c)
+
+    by_class, fold_kernels, fold_seq = {}, [], set()
+    for e in events:
+        if str(e.device_type).endswith("CUDA"):
+            cls = _train_class(e.name)
+            by_class[cls] = by_class.get(cls, 0.0) + \
+                e.time_range.elapsed_us() / 1e3
+        elif e.name == "attention_fold":
+            for d in subtree(e):
+                fold_kernels += d.kernels
+                if d.sequence_nr >= 0:
+                    fold_seq.add(d.sequence_nr)
+    backward = 0
+    for e in events:
+        if e.name.startswith("autograd::engine::evaluate_function:") and \
+                e.sequence_nr in fold_seq:
+            backward += 1
+            for d in subtree(e):
+                fold_kernels += d.kernels
+    fold_ms = 0.0
+    for k in fold_kernels:
+        cls = _train_class(k.name)
+        by_class[cls] = by_class.get(cls, 0.0) - k.duration / 1e3
+        fold_ms += k.duration / 1e3
+    by_class["attention_fold"] = fold_ms
+    return {"wall_ms": wall_ms, "device_ms": sum(by_class.values()),
+            "device_ms_by_class": by_class,
+            "fold_backward_nodes": backward}
+
+
+def train_single(torch, np, cfg, device="cuda", backend="nccl", store=None,
+                 batch=TRAIN_BATCH, length=TRAIN_LEN):
+    """Phase 11 (a), in a process of its own: ``cfg`` at tp=1, world 1,
+    ``TRAIN_STEPS`` steps on one repeated batch.  Step 0's loss beside the
+    unsharded ``forward``'s on the same params (the flash kernel's
+    launches there counted apart), the losses, each step's wall ms, the
+    peak memory, the launches of the three kernels during the steps, and
+    on the card one more step profiled."""
+    import torch.nn.functional as F
+
+    from tpuserver_torch.models import llama
+    from tpuserver_torch.ops import perf
+    from tpuserver_torch.parallel import MeshConfig
+    from tpuserver_torch.parallel.collectives import mesh_context
+
+    mesh = _train_mesh(torch, MeshConfig(), 0, 1, store, device, backend)
+    tokens, targets = _train_tokens(np, batch, length, cfg.vocab)
+    step_fn, init_fn = llama.make_train_step(mesh, cfg,
+                                             learning_rate=TRAIN_LR,
+                                             device=device)
+    t0 = time.monotonic()
+    params, opt = init_fn(SEED, tokens)
+    _sync(torch, device)
+    draw_s = time.monotonic() - t0
+    _launch_counts(reset=True)
+    with torch.no_grad():
+        logits = llama.forward(params, torch.from_numpy(tokens).to(device),
+                               cfg)
+        ref_loss = F.cross_entropy(
+            logits.reshape(-1, cfg.vocab),
+            torch.from_numpy(targets).to(device).reshape(-1)).item()
+    del logits
+    ref_launches = _launch_counts(reset=True)
+    held_gib = _peak_gib(torch, device, reset=True)
+    mesh_context(mesh).stats(reset=True)
+    params, opt, losses, walls = _timed_steps(
+        torch, device, step_fn, params, opt, tokens, targets, TRAIN_STEPS)
+    out = {"draw_s": draw_s, "reference_loss": ref_loss, "losses": losses,
+           "step_ms": walls, "held_before_steps_gib": held_gib,
+           "peak_gib": _peak_gib(torch, device),
+           "reference_launches": ref_launches,
+           "step_launches": _launch_counts(),
+           "collectives": mesh_context(mesh).stats(reset=True),
+           "params": perf.param_count(cfg), "tokens": batch * length}
+    if torch.device(device).type == "cuda":
+        median_ms = sorted(walls)[len(walls) // 2]
+        prof = _train_profile(torch, llama, lambda: step_fn(
+            params, opt, tokens, targets))
+        prof["busy_share"] = prof["device_ms"] / median_ms
+        out["profile"] = prof
+        out["median_step_ms"] = median_ms
+        out["mfu"] = perf.mfu(perf.train_step_flops(cfg, batch * length),
+                              median_ms / 1e3, perf.chip_spec(0))
+        out["step_launches"] = _launch_counts()
+    return out
+
+
+def _leaf_paths(params):
+    """{"embed": t, "layers.0.wq": t, ...} of a params tree."""
+    out = {}
+
+    def walk(tree, prefix):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                walk(v, prefix + (k,))
+        elif isinstance(tree, list):
+            for i, v in enumerate(tree):
+                walk(v, prefix + (str(i),))
+        else:
+            out[".".join(prefix)] = tree
+
+    walk(params, ())
+    return out
+
+
+def train_reference(torch, np, cfg, ref_path, device="cuda",
+                    backend="nccl", store=None, batch=TRAIN_MESH_BATCH,
+                    length=TRAIN_MESH_LEN):
+    """Phase 11 (b)'s reference, in a process of its own: ``cfg`` (the
+    depth-cut model) at world 1 on the mesh's batch, ``TRAIN_STEPS``
+    steps; step 0's gradient of every leaf, cut to the mesh's rank 0
+    slice (tp coordinate 0), saved to ``ref_path``."""
+    from tpuserver_torch.models import llama
+    from tpuserver_torch.parallel import MeshConfig
+    from tpuserver_torch.parallel.mesh import shard
+
+    mesh = _train_mesh(torch, MeshConfig(), 0, 1, store, device, backend)
+    tokens, targets = _train_tokens(np, batch, length, cfg.vocab)
+    step_fn, init_fn = llama.make_train_step(mesh, cfg,
+                                             learning_rate=TRAIN_LR,
+                                             device=device)
+    params, opt = init_fn(SEED, tokens)
+    specs = _leaf_paths(llama.param_specs(cfg))
+
+    def save(params):
+        torch.save({path: shard(t.grad, specs[path], TRAIN_MESH[2], 0).cpu()
+                    for path, t in _leaf_paths(params).items()}, ref_path)
+
+    _peak_gib(torch, device, reset=True)
+    params, opt, losses, walls = _timed_steps(
+        torch, device, step_fn, params, opt, tokens, targets, TRAIN_STEPS,
+        after_first=save)
+    return {"losses": losses, "step_ms": walls,
+            "peak_gib": _peak_gib(torch, device)}
+
+
+def _grad_errors(torch, params, ref):
+    """Each leaf's gradient against ``ref`` (path -> the same slice of the
+    reference gradient): |g - ref| / |ref| in float32."""
+    out = {}
+    for path, t in _leaf_paths(params).items():
+        r = ref[path].to(t.grad.device).float()
+        out[path] = (torch.linalg.vector_norm(t.grad.float() - r)
+                     / torch.linalg.vector_norm(r)).item()
+    return out
+
+
+def train_mesh_rank(torch, np, cfg, rank, store, ref_path, device="cuda",
+                    backend="gloo", batch=TRAIN_MESH_BATCH,
+                    length=TRAIN_MESH_LEN):
+    """One rank of phase 11 (b), in a process of its own: the
+    ``TRAIN_MESH`` mesh over ``backend``; ``TRAIN_STEPS`` steps with ring
+    attention, the same with Ulysses, then one step with ring attention
+    and the planted fault (layer ``TRAIN_FAULT_LAYER``'s ``copy_to_tp``
+    without its backward sum), each from the seed's params.  Every run:
+    the losses, each step's wall ms and the part of it the gradient sum
+    over dp x sp took, this rank's collectives in step 0, its peak
+    memory; on rank 0 also step 0's gradient of every leaf
+    against the reference's slice (``ref_path``)."""
+    from tpuserver_torch.models import llama
+    from tpuserver_torch.parallel import MeshConfig
+    from tpuserver_torch.parallel.collectives import mesh_context
+
+    world = MeshConfig(*TRAIN_MESH).size
+    mesh = _train_mesh(torch, MeshConfig(*TRAIN_MESH), rank, world, store,
+                       device, backend)
+    ctx = mesh_context(mesh)
+    ref = torch.load(ref_path) if rank == 0 else None
+    tokens, targets = _train_tokens(np, batch, length, cfg.vocab)
+    out = {"rank": rank,
+           "coords": [ctx.dp_rank, ctx.sp.rank, ctx.tp.rank]}
+    sum_grads, sums = llama._sum_grads, []
+
+    def timed_sum(*args, **kwargs):
+        # each step's gradient sum over dp x sp, on the host clock
+        _sync(torch, device)
+        t0 = time.monotonic()
+        sum_grads(*args, **kwargs)
+        _sync(torch, device)
+        sums.append((time.monotonic() - t0) * 1e3)
+
+    for run, strategy, fault, steps in (
+            ("ring", "ring", None, TRAIN_STEPS),
+            ("ulysses", "ulysses", None, TRAIN_STEPS),
+            ("fault", "ring", TRAIN_FAULT_LAYER, 1)):
+        c = dataclasses.replace(cfg, sp_strategy=strategy)
+        step_fn, init_fn = llama.make_train_step(mesh, c,
+                                                 learning_rate=TRAIN_LR,
+                                                 device=device)
+        params, opt = init_fn(SEED, tokens)
+        _peak_gib(torch, device, reset=True)
+        ctx.stats(reset=True)
+        seen = {}
+
+        def first(params):
+            seen["collectives"] = ctx.stats(reset=True)
+            if ref is not None:
+                seen["grad_err"] = _grad_errors(torch, params, ref)
+
+        llama.train_plant_fault(mesh, fault)
+        llama._sum_grads = timed_sum
+        try:
+            params, opt, losses, walls = _timed_steps(
+                torch, device, step_fn, params, opt, tokens, targets, steps,
+                after_first=first)
+        finally:
+            llama.train_plant_fault(mesh, None)
+            llama._sum_grads = sum_grads
+        out[run] = dict(seen, losses=losses, step_ms=walls,
+                        grad_sum_ms=sums[-steps:],
+                        peak_gib=_peak_gib(torch, device))
+        del params, opt, step_fn, init_fn
+        gc.collect()
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()
+    out["step_launches"] = _launch_counts()
+    return out
+
+
+def child_train(torch, np, argv):
+    """``--child-train <mode> <rank> <store> <reference path>``: one
+    process of phase 11 (modes ``single``, ``reference``, ``mesh``); its
+    result is the line ``train-result: <json>``."""
+    import torch.distributed as dist
+
+    from tpuserver_torch.models import llama
+
+    mode, rank, store, ref_path = argv[0], int(argv[1]), argv[2], argv[3]
+    cfg = llama.llama3_8b()
+    cut = dataclasses.replace(cfg, n_layers=TRAIN_MESH_LAYERS)
+    try:
+        if mode == "single":
+            result = train_single(torch, np, cfg, store=store)
+        elif mode == "reference":
+            result = train_reference(torch, np, cut, ref_path, store=store)
+        else:
+            result = train_mesh_rank(torch, np, cut, rank, store, ref_path)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    print("train-result: " + json.dumps(result), flush=True)
+
+
+def _train_children(mode, world=1, ref_path="", timeout=900):
+    """``world`` processes of ``--child-train <mode>`` (one per rank, all
+    started at once, one store), their output in files under build/;
+    each one's result, in rank order.  Fails if any exits non-zero."""
+    run = os.path.join(HERE, "build", "train", "{}-{}-{}".format(
+        mode, os.getpid(), time.monotonic_ns()))
+    os.makedirs(run, exist_ok=True)
+    store = os.path.join(run, "store")
+    procs, files = [], []
+    for rank in range(world):
+        files.append(open(os.path.join(run, "rank{}.log".format(rank)), "w+"))
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--child-train",
+             mode, str(rank), store, ref_path],
+            stdout=files[-1], stderr=subprocess.STDOUT, text=True))
+    results = []
+    try:
+        for rank, (proc, f) in enumerate(zip(procs, files)):
+            try:
+                code = proc.wait(timeout=timeout)
+            except subprocess.TimeoutExpired:
+                code = "timeout"
+            f.seek(0)
+            lines = f.read().splitlines()
+            found = [ln[len("train-result: "):] for ln in lines
+                     if ln.startswith("train-result: ")]
+            if code != 0 or not found:
+                log("\n".join("  train {} rank {}: {}".format(mode, rank, ln)
+                              for ln in lines[-40:]))
+                fail("phase 11 {} rank {} exited {}".format(mode, rank,
+                                                            code))
+            results.append(json.loads(found[0]))
+    finally:
+        for proc, f in zip(procs, files):
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=60)
+            f.close()
+    return results
+
+
+def phase_train(torch, np):
+    """SPMD training (``make_train_step``), each run in processes of its
+    own, none of which holds this process's memory.  (a) ``llama3_8b`` at
+    full width and depth, tp=1 over NCCL, three steps on one repeated
+    batch (B ``TRAIN_BATCH``, T ``TRAIN_LEN``, lr ``TRAIN_LR``): step 0's
+    loss within ``TRAIN_LOSS_TOL`` of the unsharded ``forward``'s, finite
+    and falling losses; a step's wall time, device time by class, busy
+    share, peak memory and share of the bf16 peak.  (b) the ``TRAIN_MESH``
+    mesh (dp 1, sp 2, tp 2), four processes sharing the card over gloo,
+    full width at depth ``TRAIN_MESH_LAYERS``, B ``TRAIN_MESH_BATCH``, T
+    ``TRAIN_MESH_LEN``, ring then Ulysses: step 0's loss and rank 0's
+    gradient of every leaf within ``TRAIN_MESH_LOSS_TOL`` and
+    ``TRAIN_GRAD_TOL`` of a world-1 run of the same model, batch and seed,
+    the three steps' losses too, ring within ``TRAIN_SP_TOL`` of Ulysses,
+    the planted fault at least ten times the gradient limit.  Returns the
+    reference forward's launches and the steps' (which should be 0)."""
+    t_phase = time.monotonic()
+    log("train: this process holds {:.3f} GiB before phase 11".format(
+        torch.cuda.memory_allocated() / 2 ** 30))
+
+    (a,) = _train_children("single")
+    prof = a["profile"]
+    err0 = abs(a["losses"][0] - a["reference_loss"])
+    log("train (a) llama3_8b tp=1: draw {:.1f} s; losses {}; step 0 vs "
+        "forward's {} (|diff| {}, tolerance {}); step ms {} (median {}); "
+        "peak {} GiB (before the steps: {} GiB, the draw and the "
+        "forward); 6ND share of the bf16 peak {}; "
+        "profiled step: wall {} ms, device {} ms by class {}, busy share "
+        "{} ({} fold backward nodes); launches: forward {}, steps {}".format(
+            a["draw_s"], a["losses"], a["reference_loss"], err0,
+            TRAIN_LOSS_TOL, a["step_ms"], a["median_step_ms"], a["peak_gib"],
+            a["held_before_steps_gib"], a["mfu"], prof["wall_ms"],
+            prof["device_ms"], json.dumps(prof["device_ms_by_class"]),
+            prof["busy_share"], prof["fold_backward_nodes"],
+            a["reference_launches"], a["step_launches"]))
+    if not all(math.isfinite(x) for x in a["losses"]):
+        fail("train (a): a loss is not finite")
+    if not a["losses"][-1] < a["losses"][0]:
+        fail("train (a): the loss did not fall")
+    if not err0 <= TRAIN_LOSS_TOL:
+        fail("train (a): step 0's loss differs from forward's")
+
+    ref_path = os.path.join(HERE, "build", "train_reference.pt")
+    (ref,) = _train_children("reference", ref_path=ref_path)
+    log("train (b) reference, world 1, depth {}: losses {}; step ms {}; "
+        "peak {} GiB".format(TRAIN_MESH_LAYERS, ref["losses"],
+                             ref["step_ms"], ref["peak_gib"]))
+    ranks = _train_children("mesh", world=math.prod(TRAIN_MESH),
+                            ref_path=ref_path)
+    os.remove(ref_path)
+    r0 = ranks[0]
+    for run in ("ring", "ulysses"):
+        worst = max(r0[run]["grad_err"].items(), key=lambda kv: kv[1])
+        loss_err = max(abs(x - y) for x, y in zip(r0[run]["losses"],
+                                                  ref["losses"]))
+        log("train (b) mesh {} {}: losses {} (vs world 1: {}; tolerance "
+            "{}); rank 0's worst leaf gradient {} (tolerance {}); step ms "
+            "by rank {}, of which the gradient sum over dp x sp {}; peak "
+            "GiB by rank {}; rank 0's collectives in step 0 {}".format(
+                TRAIN_MESH, run, r0[run]["losses"], loss_err,
+                TRAIN_MESH_LOSS_TOL, worst, TRAIN_GRAD_TOL,
+                [r[run]["step_ms"] for r in ranks],
+                [r[run]["grad_sum_ms"] for r in ranks],
+                [r[run]["peak_gib"] for r in ranks],
+                json.dumps(r0[run]["collectives"])))
+        if any(r[run]["losses"] != r0[run]["losses"] for r in ranks):
+            fail("train (b) {}: the ranks return other losses".format(run))
+        if not loss_err <= TRAIN_MESH_LOSS_TOL:
+            fail("train (b) {}: the losses differ from world 1's".format(run))
+        if not worst[1] <= TRAIN_GRAD_TOL:
+            fail("train (b) {}: a gradient differs from world 1's".format(
+                run))
+    sp_err = abs(r0["ring"]["losses"][0] - r0["ulysses"]["losses"][0])
+    fault = max(r0["fault"]["grad_err"].items(), key=lambda kv: kv[1])
+    log("train (b): ring vs Ulysses step 0 loss {} (tolerance {}), all "
+        "steps {}; planted fault (layer {}'s copy_to_tp without its "
+        "backward sum): worst leaf {} ({:.1f}x the tolerance)".format(
+            sp_err, TRAIN_SP_TOL,
+            [abs(x - y) for x, y in zip(r0["ring"]["losses"],
+                                        r0["ulysses"]["losses"])],
+            TRAIN_FAULT_LAYER, fault, fault[1] / TRAIN_GRAD_TOL))
+    if not sp_err < TRAIN_SP_TOL:
+        fail("train (b): ring and Ulysses disagree")
+    if not fault[1] >= 10 * TRAIN_GRAD_TOL:
+        fail("train (b): the planted fault moves the gradients less than "
+             "ten times the tolerance")
+    steps = {k: a["step_launches"][k] + sum(r["step_launches"][k]
+                                            for r in ranks)
+             for k in a["step_launches"]}
+    log("train: the steps launched {} of the port's kernels; phase 11 "
+        "{:.1f} s".format(steps, time.monotonic() - t_phase))
+    return {"reference_launches": a["reference_launches"],
+            "step_launches": steps}
+
+
 # -- main --------------------------------------------------------------------
 
 
@@ -4902,6 +5465,18 @@ def main():
         return child_load(torch, np, sys.argv[2])
     if sys.argv[1:2] == ["--child-bert"]:
         return child_bert(np, sys.argv[2])
+    if sys.argv[1:2] == ["--child-train"]:
+        return child_train(torch, np, sys.argv[2:])
+    if sys.argv[1:] == ["--train-only"]:
+        # phases 1, 2 and 11 alone, for work on the training path; prints
+        # no result line
+        name, smi = phase_device(torch)
+        log("nvidia-smi:", smi)
+        phase_build()
+        phase_train(torch, np)
+        log("train-only: done")
+        log(smi)
+        return 1
     if sys.argv[1:] == ["--bert-only"]:
         # phases 1, 2 and 9 alone, for work on the BERT path; prints no
         # result line
@@ -4985,6 +5560,7 @@ def main():
     phase_vision(torch, np, smi)
     client_launches = phase_bert(torch, np, smi)
     tp_launches = phase_tp(torch, np, single, b_prompts, b_budgets, b_tokens)
+    train = phase_train(torch, np)
 
     kernels = []
     # each kernel once per path: the single-stream serve (phase 4, timed
@@ -5127,6 +5703,21 @@ def main():
             "library_ms": row["library_ms"],
             "timed_as": row.get("shape") or "h {} hkv {}".format(
                 row["h"], row["hkv"])})
+    # phase 11: the training steps run none of the kernels (JAX trains
+    # through its ring fold, no Pallas kernel, and so does the port); the
+    # unsharded forward that step 0's loss is held against runs flash at
+    # T 512.  Their launches (the steps', 0 when all is well) stand in
+    # that row as ``train_step_launches``
+    row = rows["timed"]["flash_attention"]
+    kernels.append({
+        "name": "flash_attention", "route": "cuda", "source": flash_src,
+        "replaces": flash_tpu, "path": "train_reference_forward",
+        "launches": train["reference_launches"]["flash_attention"],
+        "max_abs_err": rows["max_err"]["flash_attention"],
+        "ms": row["ms"], "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+        "library_ms": row["library_ms"],
+        "train_step_launches": train["step_launches"]})
     idle = [(k["name"], k["path"]) for k in kernels if not k["launches"] or
             not all(k.get("launches_by_rank", [1]))]
     if idle:

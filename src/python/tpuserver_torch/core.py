@@ -311,9 +311,16 @@ class TorchModel(Model):
 
     def execute(self, inputs, request):
         with torch.inference_mode():
-            return dict(self.forward(**{
+            out = dict(self.forward(**{
                 name: self.to_device(name, array)
                 for name, array in inputs.items()}))
+        if self.device.type == "cuda":
+            # a response reads the outputs on the shm copy stream
+            # (cuda_shared_memory.to_host), which does not wait for this
+            # one: without this wait it can copy an output before the
+            # kernel that writes it has run
+            torch.cuda.current_stream(self.device).synchronize()
+        return out
 
 
 def wall_clock_ms():

@@ -35,6 +35,11 @@ Pieces:
   all-reduce after each row-parallel product, the vocab-split embedding
   and the gathered logits); the mesh's driver mirrors each call on every
   rank (``tpuserver_torch.parallel.spmd``)
+- SPMD training over a (dp, sp, tp) mesh: ``sharded_forward`` and
+  ``_forward_spmd`` (the vocab-split embedding, ``copy_to_tp`` and
+  ``reduce_from_tp`` around the Megatron products, ring or Ulysses
+  attention over sp, the logits gathered over tp) and ``make_train_step``
+  (AdamW, gradients summed over dp x sp); every rank runs its own loop
 """
 
 import dataclasses
@@ -48,7 +53,15 @@ import torch.nn.functional as F
 from tpuserver_torch import resolve_device
 from tpuserver_torch.ops import decode_attention, flash_attention, quant
 from tpuserver_torch.parallel import spmd
+from tpuserver_torch.parallel.collectives import (
+    copy_to_tp,
+    gather_from_tp,
+    mesh_context,
+    reduce_from_tp,
+)
 from tpuserver_torch.parallel.mesh import mesh_state, shard, shard_tree
+from tpuserver_torch.parallel.ring import ring_attention
+from tpuserver_torch.parallel.ulysses import ulysses_attention
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,6 +75,11 @@ class LlamaConfig:
     rope_theta: float = 500000.0
     norm_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16
+    # sequence-parallel attention of the SPMD (training) forward: "ring"
+    # (K/V rotate around the sp ring: any head count) or "ulysses" (two
+    # all-to-alls, full-sequence attention per head shard: local heads
+    # divisible by sp)
+    sp_strategy: str = "ring"
     # prefill/forward attention: "kernel" (the CUDA flash kernel,
     # tpuserver_torch.ops.flash_attention, at lengths _flash_blocks
     # tiles) or "dense" (plain masked softmax) — the JAX "pallas"/"xla"
@@ -242,11 +260,12 @@ def _mm(x, w, reduce=None):
     return quant.matmul(x, w, reduce=reduce)
 
 
-def _embed_rows(params, tokens, cfg, tp=None):
+def _embed_rows(params, tokens, cfg, tp=None, reduce=None):
     """Embedding lookup from a plain or row-quantized table, dequantized
     rows in ``cfg.dtype``.  Under tp the table is split on vocab: each
     rank gathers the rows it holds (zeros for the others) and the
-    all-reduce sums them, as JAX's ``_forward_spmd`` does."""
+    all-reduce (``reduce``, default ``tp.all_reduce``) sums them, as JAX's
+    ``_forward_spmd`` does."""
     table = params["embed"]
     if tp is None:
         return quant.gather_rows(table, tokens, dtype=cfg.dtype)
@@ -255,8 +274,8 @@ def _embed_rows(params, tokens, cfg, tp=None):
     hit = (local >= 0) & (local < vloc)
     rows = quant.gather_rows(table, local.clamp(0, vloc - 1),
                              dtype=cfg.dtype)
-    return tp.all_reduce(torch.where(hit[..., None], rows,
-                                     rows.new_zeros(())))
+    return (reduce or tp.all_reduce)(torch.where(hit[..., None], rows,
+                                                 rows.new_zeros(())))
 
 
 def _logits(x, params, tp=None):
@@ -313,18 +332,23 @@ def _expand_kv(k, n_rep):
 
 
 def _block(params, x, positions, cfg, attn_fn, n_heads=None,
-           n_kv_heads=None, reduce=None):
+           n_kv_heads=None, reduce=None, enter=None):
     """One transformer block: x [B, T, Dm] -> [B, T, Dm]; ``attn_fn(q, k,
     v)`` takes q [B, T, H, D] and un-expanded k/v [B, T, Hkv, D].
 
     ``n_heads``/``n_kv_heads`` are the local head counts (a tp shard's);
     ``reduce(partial, op)`` is the all-reduce of the row-parallel
-    products (wo, w_down) over tp, None without tp."""
+    products (wo, w_down) over tp, None without tp; ``enter(h)`` applies
+    to each norm's output before the column-parallel products (training's
+    ``copy_to_tp``, whose backward sums the gradient over tp), None when
+    serving."""
     B, T, _ = x.shape
     hd = cfg.head_dim
     nh = n_heads if n_heads is not None else cfg.n_heads
     nkv = n_kv_heads if n_kv_heads is not None else cfg.n_kv_heads
     h = _rms_norm(x, params["attn_norm"], cfg.norm_eps)
+    if enter is not None:
+        h = enter(h)
     q = _mm(h, params["wq"]).reshape(B, T, nh, hd)
     k = _mm(h, params["wk"]).reshape(B, T, nkv, hd)
     v = _mm(h, params["wv"]).reshape(B, T, nkv, hd)
@@ -333,6 +357,8 @@ def _block(params, x, positions, cfg, attn_fn, n_heads=None,
     attn = attn_fn(q, k, v)
     x = x + _mm(attn.reshape(B, T, nh * hd), params["wo"], reduce)
     h = _rms_norm(x, params["mlp_norm"], cfg.norm_eps)
+    if enter is not None:
+        h = enter(h)
     gated = F.silu(_mm(h, params["w_gate"])) * _mm(h, params["w_up"])
     return x + _mm(gated, params["w_down"], reduce)
 
@@ -1173,15 +1199,21 @@ def _check_tp(cfg, tp):
             "evenly)".format(tp, cfg.vocab, cfg.d_ff))
 
 
-def _tp_mirror(mesh, cfg, device=None):
-    """The mesh's mirror, after checking that ``cfg`` shards over its tp
-    and that ``device`` (when given) is the mesh's kind."""
+def _mesh_device(mesh, device=None):
+    """The mesh's state, after checking that ``device`` (when given) is
+    the mesh's kind."""
     state = mesh_state(mesh)
     if device is not None and resolve_device(device).type != \
             state.device.type:
         raise ValueError("device {} is not the mesh's ({})".format(
             device, state.device))
-    _check_tp(cfg, state.tp)
+    return state
+
+
+def _tp_mirror(mesh, cfg, device=None):
+    """The mesh's mirror, after checking that ``cfg`` shards over its tp
+    and that ``device`` (when given) is the mesh's kind."""
+    _check_tp(cfg, _mesh_device(mesh, device).tp)
     return spmd.mirror(mesh)
 
 
@@ -1345,3 +1377,220 @@ def make_tp_step(mesh, cfg, donate=True, quantized=False):
                       bool(donate), spmd.DEVICE, tp=spmd.LOCAL)
 
     return step
+
+
+# -- SPMD training over a (dp, sp, tp) mesh ----------------------------------
+
+# bytes of one bucket of the gradient sum over dp x sp: gloo on the card
+# stages each bucket through pinned host memory, so this bounds what a sum
+# pins at once (a leaf larger than a bucket is cut across buckets)
+GRAD_BUCKET_BYTES = 256 << 20
+
+
+def _local_block(tokens, ctx):
+    """This rank's [B/dp, T/sp] block of the global [B, T] ``tokens`` (a
+    host array or a tensor), int64 on the rank's device."""
+    t = _tokens(tokens, ctx.device)
+    B, T = t.shape
+    if B % ctx.dp or T % ctx.sp.size:
+        raise ValueError(
+            "dp={} must divide the batch ({}) and sp={} the length "
+            "({})".format(ctx.dp, B, ctx.sp.size, T))
+    return t.chunk(ctx.dp, 0)[ctx.dp_rank].chunk(ctx.sp.size, 1)[
+        ctx.sp.rank]
+
+
+def sharded_forward(mesh, cfg, device=None):
+    """The forward over a (dp, sp, tp) mesh, as JAX's ``shard_map`` of
+    ``_forward_spmd``: batch on dp, time on sp, weights on tp.  Returns
+    ``fn(params, tokens)``: ``params`` this rank's tp shards
+    (:func:`param_specs`), ``tokens`` the global [B, T] batch (a host
+    array or a tensor); the result is this rank's [B/dp, T/sp, vocab]
+    float32 block of the logits, whole on vocab (JAX's ``out_specs=P("dp",
+    "sp", "tp")``).  Every rank of the mesh calls it."""
+    _mesh_device(mesh, device)
+    ctx = mesh_context(mesh)
+
+    def fn(params, tokens):
+        return _forward_spmd(params, _local_block(tokens, ctx), cfg, ctx)
+
+    return fn
+
+
+def _forward_spmd(params, tokens, cfg, ctx):
+    """One rank's forward: ``tokens`` its [B/dp, T/sp] block, ``params``
+    its tp shards, ``ctx`` its ``MeshContext``.  The tp partial sums are
+    reduced explicitly and differentiably (``reduce_from_tp`` after the
+    row-parallel products, ``copy_to_tp`` before the column-parallel
+    ones); attention runs over sp by ``cfg.sp_strategy``."""
+    B, T = tokens.shape
+    tp = ctx.tp.size
+    if cfg.n_kv_heads % tp != 0 or cfg.n_heads % tp != 0:
+        raise ValueError(
+            "tp={} must divide n_heads={} and n_kv_heads={} (KV-head "
+            "replication across tp is not supported)".format(
+                tp, cfg.n_heads, cfg.n_kv_heads
+            )
+        )
+    nh_loc = cfg.n_heads // tp
+    nkv_loc = cfg.n_kv_heads // tp
+    n_rep = nh_loc // nkv_loc
+    positions = ctx.sp.rank * T + torch.arange(T, device=tokens.device)
+
+    if cfg.sp_strategy not in ("ring", "ulysses"):
+        raise ValueError(
+            "unknown sp_strategy '{}' (expected 'ring' or "
+            "'ulysses')".format(cfg.sp_strategy)
+        )
+
+    def attn_fn(q, k, v):
+        if cfg.sp_strategy == "ulysses":
+            # unexpanded kv heads ride the all-to-alls; GQA replication
+            # happens after redistribution
+            return ulysses_attention(q, k, v, axis=ctx.sp, causal=True,
+                                     kv_repeat=n_rep)
+        return ring_attention(q, _expand_kv(k, n_rep), _expand_kv(v, n_rep),
+                              axis=ctx.sp, causal=True)
+
+    def reduce(y, op="sum"):
+        return reduce_from_tp(y, ctx.tp)
+
+    def enter(h):
+        return copy_to_tp(h, ctx.tp)
+
+    x = _embed_rows(params, tokens, cfg, ctx.tp if tp > 1 else None, reduce)
+    for i, layer in enumerate(params["layers"]):
+        x = _block(layer, x, positions, cfg, attn_fn, n_heads=nh_loc,
+                   n_kv_heads=nkv_loc, reduce=reduce,
+                   enter=ctx.faults.get(i, enter))
+    x = _rms_norm(x, params["norm"], cfg.norm_eps)
+    y = _mm(copy_to_tp(x, ctx.tp), params["lm_head"])
+    return gather_from_tp(y, ctx.tp, dim=-1).float()
+
+
+def _leaves(tree):
+    """The tensors of a params tree, in its order."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def _map_leaves(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_leaves(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map_leaves(fn, v) for v in tree]
+    return fn(tree)
+
+
+def _sum_grads(leaves, group, bucket_bytes=GRAD_BUCKET_BYTES):
+    """Each leaf's gradient replaced by its sum over ``group``
+    (``GroupContext.all_reduce``: rank order, float32, one rounding), in
+    buckets of at most ``bucket_bytes``."""
+    if group.size == 1:
+        return
+    pieces, nbytes = [], 0
+    for p in leaves:
+        flat = p.grad.view(-1)
+        for piece in flat.split(max(1, bucket_bytes // flat.element_size())):
+            size = piece.numel() * piece.element_size()
+            if pieces and nbytes + size > bucket_bytes:
+                _sum_bucket(pieces, group)
+                pieces, nbytes = [], 0
+            pieces.append(piece)
+            nbytes += size
+    if pieces:
+        _sum_bucket(pieces, group)
+
+
+def _sum_bucket(pieces, group):
+    summed = group.all_reduce(torch.cat(pieces))
+    for piece, part in zip(pieces, summed.split([p.numel() for p in pieces])):
+        piece.copy_(part)
+
+
+def make_train_step(mesh, cfg, learning_rate=3e-4, device=None):
+    """The SPMD train step over (dp, sp, tp): every rank of the mesh runs
+    it on the same global batch (no driver, no mirror).
+
+    Loss: the mean next-token cross-entropy over the global batch; each
+    rank takes its block's sum over B * T, and the step returns the sum of
+    those over dp x sp (a float, the same on every rank).  Gradients:
+    autograd through the differentiable collectives gives each rank its
+    block's share of every leaf's gradient (whole over tp), summed over
+    dp x sp in place (:func:`_sum_grads`, buckets of
+    ``GRAD_BUCKET_BYTES``).  Optimizer: ``torch.optim.AdamW`` with
+    optax.adamw's defaults (betas 0.9 and 0.999, eps 1e-8, weight decay
+    1e-4, not torch's 1e-2), its state in the params' dtype as optax's mu
+    and nu are, ``fused=True``: one multi-tensor kernel per group of
+    leaves, in place, with no temporaries the size of the state (the
+    default multi-tensor path allocates them, 16 GB at 8B).
+
+    Returns ``(step_fn, init_fn)``.  ``init_fn(seed, tokens, params=None)``
+    returns ``(params, opt_state)``: this rank's shards, drawn from
+    ``seed`` as :func:`tp_params` draws them, or cut from full ``params``
+    (e.g. from :func:`params_from_jax`; copied, replicated over dp and
+    sp), and the optimizer.  ``step_fn(params, opt_state, tokens,
+    targets)`` returns ``(params, opt_state, loss)``, updating the params
+    and the optimizer in place (where JAX donates); each leaf's ``grad``
+    holds the step's summed gradient after it."""
+    _mesh_device(mesh, device)
+    ctx = mesh_context(mesh)
+    fwd = sharded_forward(mesh, cfg)
+
+    def loss_fn(params, tokens, targets):
+        logits = fwd(params, tokens)
+        tgt = _local_block(targets, ctx)
+        nll = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                              tgt.reshape(-1), reduction="sum")
+        return nll / (tgt.numel() * ctx.dp * ctx.sp.size)
+
+    def init_fn(seed, tokens, params=None):
+        if params is None:
+            params = _draw_shard(cfg, int(seed), False, ctx.device,
+                                 tp=ctx.tp)
+        else:
+            params = _map_leaves(
+                lambda t: t.detach().to(ctx.device, copy=True),
+                shard_tree(params, param_specs(cfg), ctx.tp.size,
+                           ctx.tp.rank))
+        leaves = list(_leaves(params))
+        for t in leaves:
+            t.requires_grad_(True)
+        opt = torch.optim.AdamW(leaves, lr=learning_rate, betas=(0.9, 0.999),
+                                eps=1e-8, weight_decay=1e-4, fused=True)
+        return params, opt
+
+    def step_fn(params, opt_state, tokens, targets):
+        opt_state.zero_grad(set_to_none=True)
+        loss = loss_fn(params, tokens, targets)
+        loss.backward()
+        _sum_grads(opt_state.param_groups[0]["params"], ctx.dpsp)
+        opt_state.step()
+        total = loss.detach().reshape(1)
+        if ctx.dpsp.size > 1:
+            total = ctx.dpsp.all_reduce(total)
+        return params, opt_state, float(total[0])
+
+    return step_fn, init_fn
+
+
+def train_plant_fault(mesh, layer):
+    """The planted fault of the training checks, on the rank that runs it
+    (every rank runs it): block ``layer``'s ``copy_to_tp`` hooks lose
+    their backward sum over tp, so each rank keeps only its own heads'
+    and columns' share of the gradient at the norms' outputs; None
+    clears it."""
+    ctx = mesh_context(mesh)
+    ctx.faults.clear()
+    if layer is not None:
+        ctx.faults[layer] = _no_tp_sum
+
+
+def _no_tp_sum(h):
+    return h

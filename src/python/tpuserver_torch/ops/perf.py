@@ -82,6 +82,13 @@ def prefill_flops(cfg, seq_len):
     return matmul + attn
 
 
+def train_step_flops(cfg, tokens):
+    """FLOPs of one training step over ``tokens`` tokens by the usual
+    6 * N * tokens (forward 2N, backward 4N a token, N every parameter);
+    attention's own FLOPs and the optimizer are left out."""
+    return 6 * param_count(cfg) * tokens
+
+
 def decode_bytes_per_token(cfg, ctx_len, dtype_bytes=2,
                            weight_bytes_per_param=None):
     """Device-memory bytes touched to decode one token: every matmul

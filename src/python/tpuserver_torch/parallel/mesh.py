@@ -78,10 +78,13 @@ def mesh_factorize(n_devices, want_sp=True):
 @dataclasses.dataclass
 class MeshState:
     """What the port keeps beside a ``DeviceMesh``: the device this rank
-    computes on, the data backend, and its tp groups: ``data`` carries
-    the model's collectives, ``control`` (gloo, no practical timeout) the
-    driver's messages, ``status`` (gloo) each call's outcome; see
-    ``tpuserver_torch.parallel.spmd``."""
+    computes on, the data backend, and its groups.  Of its tp group,
+    ``data`` carries the model's collectives, ``control`` (gloo, no
+    practical timeout) the driver's messages, ``status`` (gloo) each
+    call's outcome; see ``tpuserver_torch.parallel.spmd``.  The sp, dp
+    and dp x sp groups (``data``'s backend) serve the training path
+    (``tpuserver_torch.parallel.collectives``); an axis of size 1 has no
+    group (None) and its ranks are this rank alone."""
     device: torch.device
     backend: str
     tp: int
@@ -93,6 +96,17 @@ class MeshState:
     timeout_s: float
     mirror: object = None
     context: object = None
+    dp: int = 1
+    sp: int = 1
+    dp_rank: int = 0
+    sp_rank: int = 0
+    sp_ranks: tuple = ()
+    sp_group: object = None
+    dp_ranks: tuple = ()
+    dp_group: object = None
+    dpsp_ranks: tuple = ()
+    dpsp_group: object = None
+    train: object = None
 
 
 def make_mesh(config=None, device=None, backend=None,
@@ -107,7 +121,8 @@ def make_mesh(config=None, device=None, backend=None,
     card (several ranks sharing one card, which NCCL refuses) is taken
     only when the caller passes it, and is logged: its collectives pass
     through host memory.  ``timeout_s`` bounds every collective of the
-    tp groups, so a rank that fails surfaces as an error on its peers
+    mesh's groups (tp; sp, dp and dp x sp where the axis has more than
+    one rank), so a rank that fails surfaces as an error on its peers
     rather than a hang."""
     dev = resolve_device(device)
     if not dist.is_initialized():
@@ -151,11 +166,42 @@ def make_mesh(config=None, device=None, backend=None,
         if rank in ranks:
             mine = (ranks, data, control, status)
     ranks, data, control, status = mine
-    mesh._tpuserver = MeshState(
+    state = MeshState(
         device=dev, backend=want, tp=config.tp, tp_rank=ranks.index(rank),
         tp_ranks=ranks, data=data, control=control, status=status,
-        timeout_s=timeout_s)
+        timeout_s=timeout_s, dp=config.dp, sp=config.sp,
+        dp_rank=rank // (config.sp * config.tp),
+        sp_rank=rank // config.tp % config.sp)
+    _axis_groups(state, config, rank, timeout, want)
+    mesh._tpuserver = state
     return mesh
+
+
+def _axis_groups(state, config, rank, timeout, backend):
+    """The sp groups (same dp and tp coordinate), the dp groups (same sp
+    and tp coordinate) and one dp x sp group per tp coordinate, in that
+    order on every rank, in JAX's layout ``reshape(dp, sp, tp)``: rank =
+    (d * sp + s) * tp + t.  An axis of size 1 makes no group."""
+    dp, sp, tp = config.dp, config.sp, config.tp
+
+    def at(d, s, t):
+        return (d * sp + s) * tp + t
+
+    kinds = (
+        ("sp", sp, [[at(d, s, t) for s in range(sp)]
+                    for d in range(dp) for t in range(tp)]),
+        ("dp", dp, [[at(d, s, t) for d in range(dp)]
+                    for s in range(sp) for t in range(tp)]),
+        ("dpsp", dp * sp, [[at(d, s, t) for d in range(dp)
+                            for s in range(sp)] for t in range(tp)]),
+    )
+    for name, size, groups in kinds:
+        for ranks in groups:
+            group = (dist.new_group(ranks, timeout=timeout, backend=backend)
+                     if size > 1 else None)
+            if rank in ranks:
+                setattr(state, name + "_ranks", tuple(ranks))
+                setattr(state, name + "_group", group)
 
 
 def mesh_state(mesh):

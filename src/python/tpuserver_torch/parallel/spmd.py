@@ -50,6 +50,7 @@ import torch
 import torch.distributed as dist
 
 from tpuserver_torch import resolve_device
+from tpuserver_torch.parallel.collectives import GroupContext
 from tpuserver_torch.parallel.mesh import (
     DEFAULT_TIMEOUT_S,
     MeshConfig,
@@ -58,8 +59,6 @@ from tpuserver_torch.parallel.mesh import (
 )
 
 _log = logging.getLogger(__name__)
-
-_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 
 
 class FollowerError(RuntimeError):
@@ -83,107 +82,17 @@ LOCAL = _Sentinel("LOCAL")
 DEVICE = _Sentinel("DEVICE")
 
 
-class TPContext:
+class TPContext(GroupContext):
     """One rank's view of its tp group: the collectives of the sharded
-    model, run on the data group.  With gloo on the card (several ranks
-    sharing one card) each collective passes through host memory: the
-    tensor is copied to the host, reduced there and copied back."""
+    model (:class:`~tpuserver_torch.parallel.collectives.GroupContext`),
+    run on the data group."""
 
     def __init__(self, state):
-        self.size = state.tp
-        self.rank = state.tp_rank
-        self.device = state.device
-        self.group = state.data
-        self._src = state.tp_ranks[0]
-        self._staged = state.backend == "gloo" and state.device.type == "cuda"
-        self._scatter = state.backend == "nccl"
+        super().__init__("tp", state.data, state.tp_ranks, state.tp_rank,
+                         state.device, state.backend)
         # planted faults of the port's tp check: block -> the reduction
         # that stands for all_reduce there (``llama.tp_plant_fault``)
         self.faults = {}
-
-    def all_reduce(self, t, op="sum"):
-        """``t`` reduced over the tp group (``op`` "sum" or "max");
-        returns the result.
-
-        A floating-point sum adds the ranks' tensors in rank order, in
-        float32, the same order for every element, and rounds once to
-        ``t``'s dtype: a ring all-reduce sums each chunk of the tensor in
-        another order, so a row's bits would depend on where in the
-        tensor it lies (its slot in a batched step).  Over NCCL it is a
-        reduce-scatter and an all-gather (:meth:`_sum_scattered`, an
-        all-reduce's bytes); over gloo, whose collectives cost a fixed
-        latency each, one all-gather and the sum on every rank
-        (:meth:`_sum_gathered`).  Both give the same bits.  Integer sums
-        and maxima are exact in any order and run as one all-reduce."""
-        if op == "sum" and t.is_floating_point():
-            return (self._sum_scattered(t) if self._scatter
-                    else self._sum_gathered(t))
-        buf = self._host(t) if self._staged else t.contiguous()
-        dist.all_reduce(buf, op=_OPS[op], group=self.group)
-        return buf.to(t.device, non_blocking=True) if self._staged else buf
-
-    def _sum_gathered(self, t):
-        """The float sum as one all-gather of the whole tensors: each rank
-        receives (size - 1) tensors and sums all of them."""
-        return _rank_order_sum(self._gather(t)).to(t.dtype)
-
-    def _sum_scattered(self, t):
-        """The float sum with an all-reduce's bytes (each rank sends and
-        receives 2 (size - 1) / size of the tensor): ``all_to_all`` hands
-        rank r block r of every rank's tensor, r sums its block's parts in
-        rank order, and the summed blocks are all-gathered.  Device
-        tensors on the card's own backend, or host tensors (no staging)."""
-        n = self.size
-        flat = t.reshape(-1)
-        pad = -flat.numel() % n
-        if pad:
-            flat = torch.cat([flat, flat.new_zeros(pad)])
-        flat = flat.contiguous()
-        parts = torch.empty_like(flat)
-        dist.all_to_all_single(parts, flat, group=self.group)
-        block = _rank_order_sum(parts.view(n, -1)).to(t.dtype)
-        out = block.new_empty((n, block.numel()))
-        dist.all_gather(list(out.unbind(0)), block, group=self.group)
-        return out.view(-1)[:t.numel()].view(t.shape)
-
-    def all_gather(self, t, dim):
-        """Every rank's ``t`` concatenated on ``dim`` in tp order."""
-        return torch.cat(self._gather(t).unbind(0), dim=dim)
-
-    def broadcast(self, t):
-        """``t`` (the driver's value; each follower's allocation) sent
-        from the driver to every rank, in place."""
-        buf = self._host(t) if self._staged else t
-        dist.broadcast(buf, src=self._src, group=self.group)
-        return t.copy_(buf, non_blocking=True) if self._staged else t
-
-    def _gather(self, t):
-        """Every rank's ``t`` stacked in tp order, [size, *t.shape], on
-        ``t``'s device (the list form of all-gather: the single-tensor
-        form's output shape differs between torch versions on gloo)."""
-        src = self._host(t) if self._staged else t.contiguous()
-        shape = (self.size,) + tuple(src.shape)
-        out = (torch.empty(shape, dtype=src.dtype, pin_memory=True)
-               if self._staged else src.new_empty(shape))
-        dist.all_gather(list(out.unbind(0)), src, group=self.group)
-        return out.to(t.device, non_blocking=True) if self._staged else out
-
-    @staticmethod
-    def _host(t):
-        """A pinned host copy of a device tensor, its copy waited for."""
-        buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-        buf.copy_(t, non_blocking=True)
-        torch.cuda.current_stream(t.device).synchronize()
-        return buf
-
-
-def _rank_order_sum(parts):
-    """float32 sum of ``parts`` [size, ...] over its first dim, added in
-    index order (the same order for every element)."""
-    acc = parts[0].to(torch.float32, copy=True)
-    for part in parts[1:]:
-        acc += part
-    return acc
 
 
 class _Handle:

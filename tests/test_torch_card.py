@@ -710,3 +710,30 @@ def test_cuda_region_input_equals_inband_on_card(cuda):
         core.close()
         csm.destroy_shared_memory_region(region_in)
         csm.destroy_shared_memory_region(region_out)
+
+
+def test_a_model_output_reads_back_complete_on_card(cuda):
+    """A ``TorchModel``'s output is read for a response on the shm copy
+    stream (``cuda_shared_memory.to_host``), which does not wait for the
+    model's stream: ``execute`` finishes its outputs first.  The model
+    holds its stream for about 50 ms before it writes the output, and
+    each call's values differ from the last's, whose freed block the
+    next output may reuse."""
+    from tpuserver_torch.core import InferenceServer, TensorSpec, TorchModel
+
+    class Slow(TorchModel):
+        name = "slow"
+        inputs = (TensorSpec("X", "FP32", [4096]),)
+        outputs = (TensorSpec("Y", "FP32", [4096]),)
+
+        def forward(self, X):
+            torch.cuda._sleep(int(1e8))
+            return {"Y": X * 2 + 1}
+
+    model = Slow(device=cuda)
+    for i in range(3):
+        x = np.arange(4096, dtype=np.float32) + 4096 * i
+        out = model.execute({"X": x}, None)
+        got = InferenceServer._host_array(out["Y"], "FP32")
+        np.testing.assert_array_equal(got, x * 2 + 1)
+
