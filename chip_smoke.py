@@ -92,9 +92,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
    ``--child-serve`` mode (``llama3_8b``, ``max_seq`` 4096, ``max_slots``
    8, this script's seed, so 4b's weights; a ``--role prefill`` replica P
    and a ``--role decode`` replica D; ``reset`` and ``counts`` of the
-   kernel launches on stdin), behind the JAX package's router run as a
-   process (``tools/router.py --probe-interval 0.2``, reached over HTTP
-   only; its first log line is printed, and its exit fails the phase):
+   kernel launches on stdin), behind the port's router run as a process
+   (``python -m tpuserver_torch.router_cli --probe-interval 0.2``, reached
+   over HTTP only; its first log line is printed, and its exit fails the
+   phase):
    (a) 4b's 12 prompts 50 ms apart through the router, phase-split: 4b's
    tokens, gap-free ``seq``s, 12 splits and 12 transfers, on P flash = 32
    x the tileable admissions and decode >= 32 x its steps, on D no flash,
@@ -110,7 +111,19 @@ Phases, in order; any failure exits non-zero and prints no result line:
    off to P and complete, gap-free, the continuation tokens' agreement
    reported, P's flash launches = 32 x (tileable prefill legs + tileable
    re-prefills), and flash held against its plain version at those
-   re-prefill lengths; (d) P SIGTERMed exits 0;
+   re-prefill lengths; (d) P SIGTERMed exits 0; (e) a supervised fleet:
+   ``python -m tpuserver_torch.fleet_cli`` under a manifest, one prefill
+   and one decode replica (``python -m tpuserver_torch.serve``, the same
+   config and seed) and a ``router_cli`` process as its children: 4b's
+   12 prompts phase-split (4b's tokens, gap-free, 12 splits and 12
+   transfers); the round again with the decode replica SIGKILLed once
+   every stream has 5 events (one restart, every stream complete and
+   gap-free, the continuation's agreement reported); a SIGTERM hands
+   the fleet over with every child serving; a second supervisor on the
+   manifest adopts both replicas and the router (the same pids, no
+   spawn) and serves 4 prompts with 4b's tokens; SIGINT drains every
+   replica and leaves no child; ``python3 chip_smoke.py --fleet-only``
+   runs phases 1, 2, 4, 4b and 4g alone and prints no result line;
 7. int8, last: (a) the W8A16 kernel (``csrc/int8_matmul.cu``) against its
    plain version at the five distinct Llama-3-8B weight shapes and 1, 8
    and 40 rows (row-relative ``INT8_TOL``, a planted fault, each row bit
@@ -2409,6 +2422,9 @@ def phase_grpc(torch, np, cfg, params, prompts, budgets, tokens_4b,
 
 FLEET_PROBE_S = 0.2
 FLEET_DRAIN_S = 120.0
+# (e)'s replicas: phase 4's model (with this script's seed, its weights)
+FLEET_REPLICA_ARGS = ("--config", "llama3_8b", "--max-seq", "4096",
+                      "--max-slots", "8")
 
 
 def child_serve(torch, argv):
@@ -2560,10 +2576,20 @@ def _handoff_offset(ids):
     return int(off) if tilde and off.isdigit() else 0
 
 
+def _port_env():
+    """The environment of a ``python -m tpuserver_torch.*`` child: this
+    checkout's package first on its path."""
+    path = os.path.join(HERE, "src", "python")
+    if os.environ.get("PYTHONPATH"):
+        path += os.pathsep + os.environ["PYTHONPATH"]
+    return dict(os.environ, PYTHONPATH=path)
+
+
 def phase_fleet(torch, np, cfg, prompts, budgets, tokens_4b):
     """Phase 4g: two ``llama3_8b`` replica processes (``--child-serve``,
-    ``--role prefill`` and ``--role decode``) behind the JAX package's
-    router (``tools/router.py``, a process reached over HTTP only): (a)
+    ``--role prefill`` and ``--role decode``) behind the port's router
+    (``python -m tpuserver_torch.router_cli``, a process reached over
+    HTTP only): (a)
     4b's 12 prompts phase-split, (b) a SIGTERM drain of the decode
     replica mid-round, (c) a respawn with a new nonce and a SIGKILL
     mid-round, every stream handed off to the prefill replica, (d) a
@@ -2582,11 +2608,11 @@ def phase_fleet(torch, np, cfg, prompts, budgets, tokens_4b):
     procs = {"prefill replica": _replica(pport, "prefill", "p-1"),
              "decode replica": _replica(dport, "decode", "d-1")}
     router = subprocess.Popen(
-        [sys.executable, os.path.join(HERE, "tools", "router.py"),
+        [sys.executable, "-m", "tpuserver_torch.router_cli",
          "--backends", "127.0.0.1:{},127.0.0.1:{}".format(pport, dport),
          "--port", str(rport), "--probe-interval", str(FLEET_PROBE_S)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        bufsize=1)
+        bufsize=1, env=_port_env())
     router_lines = []
     out = {}
     try:
@@ -2845,6 +2871,270 @@ def phase_fleet(torch, np, cfg, prompts, budgets, tokens_4b):
                 proc.wait(timeout=60)
         log("fleet: router log after its first line:",
             json.dumps([x.rstrip() for x in router_lines][-20:]))
+
+
+def _heartbeat(path):
+    """The supervisor's heartbeat file (its pid, counters and each
+    child's pid and state), or None while it is not written."""
+    try:
+        with open(path) as fh:
+            return json.load(fh)
+    except (OSError, ValueError):
+        return None
+
+
+def _pools(port):
+    """``(prefill, decode)`` replicas in a router's role pools once every
+    member is eligible, else None (also while the router does not
+    answer)."""
+    try:
+        status, body = _http_json(port, "GET", "/router/stats")
+    except OSError:
+        return None
+    if status != 200:
+        return None
+    stats = json.loads(body)
+    if not stats["replicas"] or not all(r["eligible"]
+                                        for r in stats["replicas"]):
+        return None
+    return (stats["disagg"]["prefill_replicas"],
+            stats["disagg"]["decode_replicas"])
+
+
+def phase_fleet_supervised(np, prompts, budgets, tokens_4b):
+    """Phase 4g (e): a supervised fleet, ``python -m
+    tpuserver_torch.fleet_cli`` under a manifest, one prefill and one
+    decode ``llama3_8b`` replica (``python -m tpuserver_torch.serve``,
+    ``max_seq`` 4096, ``max_slots`` 8, this script's seed: 4b's weights)
+    and a ``router_cli`` process, all the supervisor's children: 4b's 12
+    prompts phase-split; the round again with the decode replica
+    SIGKILLed once every stream has 5 events (the supervisor restarts it);
+    a SIGTERM hands the fleet over; a second supervisor on the manifest
+    adopts it and serves 4 prompts; SIGINT stops it.  The counters are
+    the supervisor's heartbeat file's (the same ones its in-process
+    router exposes as ``tpu_fleet_*`` and ``tpu_supervisor_*``).  No
+    kernel count is read: the replicas are the supervisor's children,
+    and 4b's tokens are what the kernel path produced."""
+    import shutil
+    import signal
+    import tempfile
+    import threading
+
+    from tpuserver_torch import fleetmanifest
+
+    t_phase = time.monotonic()
+    work = tempfile.mkdtemp(prefix="fleet-e-")
+    beat = os.path.join(work, "heartbeat.json")
+    rport = _free_port()
+    argv = [sys.executable, "-m", "tpuserver_torch.fleet_cli"] + list(
+        FLEET_REPLICA_ARGS) + [
+            "--seed", str(SEED), "--prefill-replicas", "1",
+            "--decode-replicas", "1", "--min-replicas", "1",
+            "--max-replicas", "1", "--router-processes", "--router-port",
+            str(rport), "--manifest", os.path.join(work, "manifest"),
+            "--heartbeat-file", beat, "--probe-interval",
+            str(FLEET_PROBE_S), "--drain-timeout", str(FLEET_DRAIN_S),
+            "-v"]
+    logs, sups, children = [], [], set()
+
+    def start():
+        logs.append(os.path.join(work, "supervisor{}.log".format(len(logs))))
+        with open(logs[-1], "w") as fh:
+            sups.append(subprocess.Popen(argv, stdout=fh,
+                                         stderr=subprocess.STDOUT,
+                                         env=_port_env()))
+        return sups[-1]
+
+    def alive(pid):
+        return fleetmanifest.process_start_token(pid) is not None
+
+    def fleet(sup, boot=None, t0=None):
+        """The heartbeat once ``sup`` reports every child up and the
+        router routes both pools; ``boot`` gathers each replica's seconds
+        from ``t0`` to its first "up"."""
+        snap = _heartbeat(beat)
+        if snap is None or snap["pid"] != sup.pid:
+            return None
+        children.update(r["pid"] for r in snap["replicas"] + snap["routers"]
+                        if r["pid"])
+        if boot is not None:
+            for r in snap["replicas"]:
+                if r["state"] == "up" and r["pid"] not in boot:
+                    boot[r["pid"]] = time.monotonic() - t0
+        if not snap["routers"] or any(
+                r["state"] != "up" for r in snap["replicas"]
+                + snap["routers"]):
+            return None
+        return snap if _pools(rport) == (1, 1) else None
+
+    def roles(snap):
+        out = {}
+        for r in snap["replicas"]:
+            health = _health(int(r["url"].rsplit(":", 1)[1]))
+            out[health["role"]] = r
+        return out
+
+    def tail(path, n=30):
+        with open(path) as fh:
+            return [line.rstrip() for line in fh][-n:]
+
+    try:
+        # 1. the fleet, 4b's 12 prompts phase-split
+        boot = {}
+        t0 = time.monotonic()
+        sup = start()
+        _fleet_wait("the supervised fleet up and routed",
+                    lambda: fleet(sup, boot, t0), {"supervisor": sup})
+        snap = fleet(sup)
+        by_role = roles(snap)
+        up_s = time.monotonic() - t0
+        log("fleet (e): supervisor pid {}, replicas {} and the router (pid "
+            "{}) up and routed in {:.1f} s; each replica's boot: prefill "
+            "{:.1f} s, decode {:.1f} s".format(
+                sup.pid, {k: v["pid"] for k, v in by_role.items()},
+                snap["routers"][0]["pid"], up_s,
+                boot[by_role["prefill"]["pid"]],
+                boot[by_role["decode"]["pid"]]))
+        s0 = _router_stats(rport)["disagg"]
+        results = _fleet_results(_fleet_round(rport, prompts, budgets),
+                                 budgets, "(e) 1")
+        s1 = _router_stats(rport)["disagg"]
+        same = sum(results[i][0] == tokens_4b[i] for i in range(12))
+        splits, transfers = (s1["splits"] - s0["splits"],
+                             s1["transfers"] - s0["transfers"])
+        log("fleet (e) 1: 12 streams complete and gap-free, equal to 4b's "
+            "tokens {}/12; splits {}, transfers {} ({} bytes), fallbacks "
+            "{}".format(same, splits, transfers,
+                        s1["transfer_bytes"] - s0["transfer_bytes"],
+                        s1["fallbacks"]))
+        if same != 12 or (splits, transfers) != (12, 12):
+            fail("fleet (e) 1: tokens {}/12, splits {}, transfers {}".format(
+                same, splits, transfers))
+
+        # 2. the round again, the decode replica SIGKILLed mid-round
+        seen = [0] * len(prompts)
+        all5 = threading.Event()
+
+        def count(i, n):
+            seen[i] = n
+            if min(seen) >= 5:
+                all5.set()
+
+        restarts0 = snap["replica_restarts"]
+        s0 = _router_stats(rport)
+        runner = _fleet_round(rport, prompts, budgets, count)
+        if not all5.wait(600):
+            fail("fleet (e) 2: streams' events {} after 600 s".format(seen))
+        victim = by_role["decode"]["pid"]
+        t0 = time.monotonic()
+        os.kill(victim, signal.SIGKILL)
+        results = _fleet_results(runner, budgets, "(e) 2")
+        s1 = _router_stats(rport)
+        boot = {}
+        _fleet_wait("the decode replica respawned and routed",
+                    lambda: fleet(sup, boot, t0), {"supervisor": sup})
+        snap = fleet(sup)
+        by_role = roles(snap)
+        offsets = [_handoff_offset(results[i][1]) for i in range(12)]
+        agree = sum(sum(a == b for a, b in zip(results[i][0][o:],
+                                               tokens_4b[i][o:]))
+                    for i, o in enumerate(offsets))
+        total = sum(budgets[i] - o for i, o in enumerate(offsets))
+        restarts = snap["replica_restarts"] - restarts0
+        respawned = by_role["decode"]["pid"]
+        log("fleet (e) 2: SIGKILL of the decode replica (pid {}) once every "
+            "stream had 5 events; 12/12 streams complete and gap-free; "
+            "router handoffs +{}, handoff offsets {}; continuation tokens "
+            "equal to 4b's {}/{} (reported, not required: a bf16 re-prefill "
+            "can flip near-ties); replica restarts +{} "
+            "(tpu_fleet_replica_restarts_total), the decode replica back as "
+            "pid {} and routed {:.1f} s after the kill (boot {:.1f} s)".format(
+                victim, s1["handoffs"] - s0["handoffs"], offsets, agree,
+                total, restarts, respawned, time.monotonic() - t0,
+                boot.get(respawned, float("nan"))))
+        if restarts != 1 or respawned == victim or alive(victim):
+            fail("fleet (e) 2: restarts +{}, decode pid {} -> {}".format(
+                restarts, victim, respawned))
+
+        # 3. SIGTERM: the supervisor hands over, its children serve on
+        pids = sorted(r["pid"] for r in snap["replicas"] + snap["routers"])
+        sup.send_signal(signal.SIGTERM)
+        code = sup.wait(timeout=120)
+        handed = tail(logs[0])
+        if code != 0 or not all(alive(p) for p in pids) or \
+                "fleet handed over (children still serving)" not in handed:
+            fail("fleet (e) 3: supervisor exit {}, children alive {}, log "
+                 "{}".format(code, [alive(p) for p in pids], handed[-5:]))
+        log("fleet (e) 3: SIGTERM: the supervisor exited {} (handover), its "
+            "children {} serving".format(code, pids))
+
+        # 4. a second supervisor on the manifest adopts the fleet
+        t0 = time.monotonic()
+        sup = start()
+        _fleet_wait("the fleet adopted", lambda: fleet(sup),
+                    {"supervisor": sup})
+        snap = fleet(sup)
+        adopted_s = time.monotonic() - t0
+        now = sorted(r["pid"] for r in snap["replicas"] + snap["routers"])
+        with open(logs[1]) as fh:
+            text = fh.read()
+        adopted = (text.count("adopted replica"),
+                   text.count("adopted active router"))
+        results = _fleet_results(_fleet_round(rport, prompts[:4],
+                                              budgets[:4]),
+                                 budgets[:4], "(e) 4")
+        same = sum(results[i][0] == tokens_4b[i] for i in range(4))
+        log("fleet (e) 4: a second supervisor (pid {}) adopted the fleet in "
+            "{:.1f} s: adoptions {} ({} replicas and {} router: the counter "
+            "counts each child it adopts), handovers {}, pids {} (unchanged: "
+            "{}), spawns {}; 4 prompts equal to 4b's tokens {}/4".format(
+                sup.pid, adopted_s, snap["adoptions"], adopted[0], adopted[1],
+                snap["clean_handovers"], now, now == pids,
+                text.count("spawned"), same))
+        if now != pids or adopted != (2, 1) or snap["adoptions"] != 3 or \
+                "spawned" in text or same != 4:
+            fail("fleet (e) 4: pids {} -> {}, adopted {}, adoptions {}, "
+                 "tokens {}/4".format(pids, now, adopted, snap["adoptions"],
+                                      same))
+
+        # 5. SIGINT stops the fleet
+        t0 = time.monotonic()
+        sup.send_signal(signal.SIGINT)
+        code = sup.wait(timeout=FLEET_DRAIN_S + 120)
+        stop_s = time.monotonic() - t0
+        left = [p for p in children if alive(p)]
+        replica_log = tail(logs[0], 400)
+        stopped = replica_log.count("stopped")
+        with open(logs[1]) as fh:
+            reaped = [line.rstrip() for line in fh if "reaped" in line]
+        log("fleet (e) 5: SIGINT: the supervisor exited {} after {:.1f} s "
+            "(drain timeout {} s); the replicas printed 'stopped' {} "
+            "times; {}; children left {}".format(
+                code, stop_s, FLEET_DRAIN_S, stopped, reaped, left))
+        if code != 0 or left or stopped != 2 or \
+                any("SIGKILL" in line for line in reaped):
+            fail("fleet (e) 5: exit {}, children left {}, replicas stopped "
+                 "{}, reaped {}".format(code, left, stopped, reaped))
+        log("fleet (e): {:.1f} s".format(time.monotonic() - t_phase))
+    finally:
+        for sup in sups:
+            if sup.poll() is None:
+                sup.send_signal(signal.SIGINT)
+                try:
+                    sup.wait(timeout=FLEET_DRAIN_S + 60)
+                except subprocess.TimeoutExpired:
+                    sup.kill()
+                    sup.wait(timeout=60)
+        for pid in children:
+            if alive(pid):
+                try:
+                    os.kill(pid, signal.SIGKILL)
+                except OSError:
+                    pass
+        for path in logs:
+            log("fleet (e): {} (last lines): {}".format(
+                os.path.basename(path), json.dumps(tail(path, 12))))
+        shutil.rmtree(work, ignore_errors=True)
 
 
 # -- phase 7: int8 weights ---------------------------------------------------
@@ -5505,6 +5795,27 @@ def main():
         log("tp-only: done")
         log(smi)
         return 1
+    if sys.argv[1:] == ["--fleet-only"]:
+        # phases 1-4b (4b's tokens are what the fleet must stream) and 4g
+        # alone, for work on the fleet tier; prints no result line
+        name, smi = phase_device(torch)
+        log("nvidia-smi:", smi)
+        phase_build()
+        model, core, prompt, _, tokens, rates, single = phase_serve(torch, np)
+        b_prompts, b_budgets, b_tokens = phase_serve_batched(
+            torch, np, model, prompt, tokens, rates)[3:]
+        cfg = model._cfg
+        core.close()
+        del model, core
+        gc.collect()
+        torch.cuda.empty_cache()
+        started = time.monotonic()
+        phase_fleet(torch, np, cfg, b_prompts, b_budgets, b_tokens)
+        log("fleet: (a)-(d) {:.1f} s".format(time.monotonic() - started))
+        phase_fleet_supervised(np, b_prompts, b_budgets, b_tokens)
+        log("fleet-only: done")
+        log(smi)
+        return 1
     if sys.argv[1:] == ["--vision-only"]:
         # phases 1, 2 and 8 alone, for work on the vision path; prints no
         # result line
@@ -5549,6 +5860,7 @@ def main():
         "models".format(torch.cuda.memory_allocated() / 2 ** 30))
     fleet_launches, handoff_lengths = phase_fleet(
         torch, np, cfg, b_prompts, b_budgets, b_tokens)
+    phase_fleet_supervised(np, b_prompts, b_budgets, b_tokens)
     phase_flash_lengths(torch, rows, handoff_lengths,
                         timed_as="flash_attention_handoff")
     int8_cases, int8_steps, int8_launches, int8_profile = phase_int8(

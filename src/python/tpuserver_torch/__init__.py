@@ -10,8 +10,6 @@ Every entry point takes ``device=`` and runs on the card unless the
 caller asks for the CPU: see :func:`resolve_device`.
 """
 
-import torch
-
 
 def resolve_device(device=None):
     """The ``torch.device`` an entry point runs on.
@@ -20,6 +18,8 @@ def resolve_device(device=None):
     CUDA device exists: the port never falls back to the CPU on its own.
     ``"cpu"`` (or any explicit device) is taken as given; an explicit
     CUDA device without a card raises too."""
+    import torch  # here, so the fleet tier's processes never load it
+
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

@@ -41,6 +41,7 @@ import torch
 
 from tpuserver_torch import cuda_shared_memory as csm
 from tpuserver_torch import fault_points, resolve_device, shm_ring
+from tpuserver_torch._clock import wall_clock_ms
 from tpuserver_torch.errors import (
     BadRequest,
     KvExportClaimed,
@@ -321,13 +322,6 @@ class TorchModel(Model):
             # kernel that writes it has run
             torch.cuda.current_stream(self.device).synchronize()
         return out
-
-
-def wall_clock_ms():
-    """Epoch milliseconds, for the statistics protocol's
-    ``last_inference`` field only: every deadline, timeout and liveness
-    stamp in the port is ``time.monotonic()`` math."""
-    return int(time.time() * 1000)  # tpulint: disable=R3
 
 
 class _ModelStats:
