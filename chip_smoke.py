@@ -194,6 +194,28 @@ Phases, in order; any failure exits non-zero and prints no result line:
    answering as this phase's server.  The three kernels' launches over
    (a)-(d) must be 0; (e)'s llama launches make the ``cudashm_client``
    rows.
+12. perf_inprocess, after 9: the port's perf analyzer (``python -m
+   tpuserver_torch.perf_analyzer``'s ``main``, handed a server of the
+   script's) with no transport.  (a) ``llama3_8b`` at full width and
+   depth on phase 9 (e)'s weights, bf16, ``max_seq`` 4096,
+   ``max_slots=8``: ``--generation --prompt-len 512 --max-tokens 32
+   --concurrency-range 1:8:7 --measurement-interval 5000 --max-trials
+   6``; per level TTFT and ITL p50/p99, tokens/s, streams and errors,
+   the stability verdict, the launches of the three kernels around the
+   run and the peak memory; no error, every stream 32 tokens, flash and
+   decode launched, none of the W8A16 kernel, the rows' keys the pinned
+   ones (``tpuserver_torch.perfanalyzer.report``); an unstable level is
+   reported, not failed.  (b) ResNet-50 (phase 8's model, batch-1
+   requests through the dynamic batcher) at concurrency 1 and 16 in
+   band, then over system and over CUDA regions (input and output):
+   infer/s, p50/p99, the server's queue and compute a request, the mean
+   batch (in band once more at the end, the order's control); no error,
+   one zero-copy read a request over CUDA regions, one request on each
+   plane within ``VISION_TOL`` of the in-band answer, and no region
+   left.  (c) every row printed; (a)'s launches make the
+   ``perf_inprocess_generation`` rows.  ``python3 chip_smoke.py
+   --perf-only`` runs phases 1-4b and 12 alone (12 on phase 4's
+   weights) and prints no result line.
 
 10. tp, last: tensor-parallel serving of ``llama3_8b`` (full width and
    depth, ``max_seq`` 4096, the seed's weights, each rank drawing every
@@ -4658,7 +4680,8 @@ def _bert_clients(core, url):
     fixtures, then ``llama_streaming_cudashm_client.py`` in ring and in
     KV-park mode on a ``llama3_8b`` registered with the same core (drawn
     again from the script's seed: phase 4's weights were released for
-    phase 4g).  Returns the kernel launches of the llama runs."""
+    phase 4g).  Returns the kernel launches of the llama runs and the
+    model, whose weights phase 12 serves again."""
     from tpuserver_torch.models import llama
     from tpuserver_torch.models.llama_serving import LlamaGenerateModel
     from tpuserver_torch.ops import flash as fl
@@ -4683,7 +4706,7 @@ def _bert_clients(core, url):
             ring_tokens, [ln for ln in park.splitlines()
                           if ln.startswith(("first:", "resumed:"))],
             json.dumps(launches), time.monotonic() - t0))
-    return launches
+    return launches, model
 
 
 def phase_bert(torch, np, smi):
@@ -4693,7 +4716,7 @@ def phase_bert(torch, np, smi):
     (c) the numbers, (d) out-of-range ids, (e) ``serve.py --models
     bert`` and the CUDA-region example clients.  No kernel of the port may run on (a)-(d): the encoder is
     cuBLAS and elementwise torch; (e)'s llama runs are counted apart.
-    Returns (e)'s launch counts."""
+    Returns (e)'s launch counts and its ``llama3_8b`` model."""
     from tpuserver_torch.core import InferenceServer
     from tpuserver_torch.grpc_server import GrpcServer
     from tpuserver_torch.http_server import HttpServer
@@ -4761,11 +4784,11 @@ def phase_bert(torch, np, smi):
             fail("bert: a kernel of the llama path ran on the BERT path: "
                  "{}".format(launches))
         _bert_serve_py(np, http.port)
-        client_launches = _bert_clients(core, grpc_srv.url)
+        client_launches, llama_model = _bert_clients(core, grpc_srv.url)
         log("bert: phase {:.1f} s; torch peak {:.3f} GiB".format(
             time.monotonic() - t_start,
             torch.cuda.max_memory_allocated() / 2 ** 30))
-        return client_launches
+        return client_launches, llama_model
     finally:
         channel.close()
         grpc_srv.stop()
@@ -5738,6 +5761,244 @@ def phase_train(torch, np):
             "step_launches": steps}
 
 
+# -- phase 12: the perf analyzer in-process ----------------------------------
+
+# (a): the generation load, through the code of ``python -m
+# tpuserver_torch.perf_analyzer`` (``main(argv, core=...)``): 512-token
+# prompts (a flash length), 32 tokens a stream, 1 and 8 streams, 5 s
+# windows.  256 distinct prompts, so no prompt comes round again within
+# the run and every admission prefills its whole prompt (the prefix cache
+# shares nothing between random ids)
+PERF_GEN_ARGS = ("-m", "llama_generate", "--generation", "--prompt-len", "512",
+                 "--max-tokens", "32", "--concurrency-range", "1:8:7",
+                 "--measurement-interval", "5000", "--max-trials", "6",
+                 "--input-pool", "256")
+PERF_GEN_TOKENS = 32
+# (b): batch-1 ResNet-50 requests at concurrency 1 and 16 on each data
+# plane, 1 s windows; a shm plane's output goes into a region of its kind,
+# as phase 8 (e)'s clients put it.  In band runs first and again last: the
+# second run tells a plane's own cost from a drift over the phase
+PERF_UNARY_ARGS = ("-m", "resnet50", "--concurrency-range", "1:16:15",
+                   "--measurement-interval", "1000", "--max-trials", "5")
+PERF_PLANES = ("none", "system", "cuda", "none")
+# the phase's share of the script's 1200 s: reported, not enforced
+PERF_BUDGET_S = 150.0
+
+
+def _perf_run(argv, core):
+    """The port's perf analyzer CLI (``main``) on ``core``, its standard
+    output captured: (the JSON rows, tokens per stream by level, the
+    text).  A non-zero exit fails the phase."""
+    import contextlib
+    import io
+
+    from tpuserver_torch import perf_analyzer
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = perf_analyzer.main(list(argv), core=core)
+    text = buf.getvalue()
+    if rc != 0:
+        fail("perf: python -m tpuserver_torch.perf_analyzer {} exited {}: "
+             "{}".format(" ".join(argv), rc, text[-2000:]))
+    rows = [json.loads(ln) for ln in text.splitlines() if ln.startswith('{"')]
+    streams = {}
+    for ln in text.splitlines():
+        if ln.startswith("tokens per stream at level "):
+            head, _, counts = ln.partition(": ")
+            streams[int(head.rsplit(" ", 1)[1])] = {
+                int(k): v for k, v in json.loads(counts).items()}
+    return rows, streams, text
+
+
+def _perf_generation(torch, cfg, params, smi):
+    """(a): ``llama3_8b`` behind ``max_slots=8`` at ``max_seq`` 4096 on the
+    given weights; returns the kernels' launches and the rows."""
+    from tpuserver_torch.core import InferenceServer
+    from tpuserver_torch.models.llama_serving import LlamaGenerateModel
+    from tpuserver_torch.ops import flash as fl
+    from tpuserver_torch.ops import quant
+    from tpuserver_torch.perfanalyzer.report import GENERATION_ROW_KEYS
+
+    model = LlamaGenerateModel(cfg=cfg, max_seq=4096, max_slots=8,
+                               params=params, device="cuda")
+    core = InferenceServer([model])
+    try:
+        model.warmup()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fl.reset_launch_counts()
+        quant.int8_matmul.launches = 0
+        t0 = time.monotonic()
+        rows, streams, text = _perf_run(PERF_GEN_ARGS, core)
+        torch.cuda.synchronize()
+        launches = {"flash_attention": fl.flash_attention.launches,
+                    "decode_attention": fl.decode_attention.launches,
+                    "int8_matmul": quant.int8_matmul.launches}
+        seconds = time.monotonic() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    finally:
+        core.close()
+    log(text.rstrip())
+    for row in rows:
+        log("perf (a) llama3_8b, {} stream(s), in-process: TTFT p50 {:.3f} "
+            "ms, p99 {:.3f} ms; ITL p50 {:.3f} ms, p99 {:.3f} ms; {:.2f} "
+            "tokens/s; {} streams completed in the merged windows, {} "
+            "errors; stable {} after {} windows; tokens per stream at this "
+            "level {}; {}".format(
+                row["level"], row["ttft_p50_ms"], row["ttft_p99_ms"],
+                row["itl_p50_ms"], row["itl_p99_ms"], row["value"],
+                row["generations"], row["errors"], row["stable"],
+                row["trials"], streams.get(row["level"]), smi))
+    log("perf (a) launches around the run {} (int8_matmul: bf16 weights, "
+        "none expected); peak device memory {:.3f} GiB (torch's allocator); "
+        "{:.1f} s".format(json.dumps(launches), peak, seconds))
+    if [r["level"] for r in rows] != [1, 8]:
+        fail("perf (a): levels {}, want [1, 8]".format(
+            [r["level"] for r in rows]))
+    for row in rows:
+        if row["errors"] or not row["generations"]:
+            fail("perf (a): level {}: {} errors, {} streams".format(
+                row["level"], row["errors"], row["generations"]))
+        if set(row) != GENERATION_ROW_KEYS:
+            fail("perf (a): row keys differ from the pinned ones: {}".format(
+                sorted(set(row) ^ GENERATION_ROW_KEYS)))
+        counts = streams.get(row["level"], {})
+        if list(counts) != [PERF_GEN_TOKENS]:
+            fail("perf (a): level {}: tokens per stream {}, want {} every "
+                 "stream".format(row["level"], counts, PERF_GEN_TOKENS))
+    if not launches["flash_attention"] or not launches["decode_attention"]:
+        fail("perf (a): a kernel never launched: {}".format(launches))
+    if launches["int8_matmul"]:
+        fail("perf (a): the W8A16 kernel ran on bf16 weights")
+    return launches, rows
+
+
+def _perf_one_request(np, core, plane, image, inband):
+    """(b): one request through the perf analyzer's own staging on
+    ``plane`` (input, and for a shm plane the output, in regions of its
+    kind); its output against the in-band one."""
+    from tpuserver_torch.perfanalyzer.client_backend import (
+        InProcessBackend,
+        ShmInferDataManager,
+    )
+
+    backend = InProcessBackend(core)
+    shm = None
+    try:
+        if plane == "none":
+            resp = backend.infer(backend.prepare(
+                "resnet50", [{"INPUT": image}])[0])
+            got = resp.outputs[0][1]
+        else:
+            shm = ShmInferDataManager(backend, plane, tag="check",
+                                      device="cuda")
+            refs = shm.stage_input_sets([{"INPUT": image}],
+                                        {"INPUT": "FP32"})
+            name, handle = shm.create_region("out", OUTPUT_BYTES)
+            backend.infer(backend.prepare_shm(
+                "resnet50", refs, [("OUTPUT", name, OUTPUT_BYTES, 0)])[0])
+            got = shm.read(handle, np.float32, [1, 1000])
+    finally:
+        if shm is not None:
+            shm.close()
+        backend.close()
+    return _np_row_rel_err(np, got, inband)
+
+
+def _perf_unary(torch, np, smi):
+    """(b): ResNet-50 (phase 8's model, bf16, the dynamic batcher) at
+    concurrency 1 and 16 on each data plane; returns (label, row)
+    pairs."""
+    from tpuserver_torch import cuda_shared_memory as csm
+    from tpuserver_torch.core import InferenceServer, InferRequest
+    from tpuserver_torch.models import vision as tv
+    from tpuserver_torch.perfanalyzer.report import CONCURRENCY_ROW_KEYS
+
+    resnet = tv.ResNet50Model(device="cuda", seed=SEED)
+    core = InferenceServer([resnet])
+    all_rows = []
+    try:
+        t0 = time.monotonic()
+        core.warmup()
+        log("perf (b): ResNet-50 warm-up of every bucket on each executor "
+            "{:.1f} s".format(time.monotonic() - t0))
+        image = np.random.RandomState(SEED + 12).rand(1, *IMAGE).astype(
+            np.float32)
+        inband = core.infer(InferRequest(
+            "resnet50", inputs={"INPUT": image})).outputs[0][1]
+        for i, plane in enumerate(PERF_PLANES):
+            label = plane + (" (again)" if plane in PERF_PLANES[:i] else "")
+            stats0 = core.model_statistics("resnet50")["model_stats"][0]
+            reads0 = core.shm_stats()["shm_zero_copy_reads"]
+            argv = list(PERF_UNARY_ARGS) + ["--shared-memory", plane]
+            if plane != "none":
+                argv += ["--output-shared-memory-size", str(OUTPUT_BYTES)]
+            rows, _, text = _perf_run(argv, core)
+            stats1 = core.model_statistics("resnet50")["model_stats"][0]
+            reads = core.shm_stats()["shm_zero_copy_reads"] - reads0
+            done = (stats1["inference_stats"]["success"]["count"]
+                    - stats0["inference_stats"]["success"]["count"])
+            err = _perf_one_request(np, core, plane, image, inband)
+            log(text.rstrip())
+            for row in rows:
+                log("perf (b) ResNet-50 in-process, {} plane, concurrency "
+                    "{}: {:.1f} infer/s, p50 {:.3f} ms, p99 {:.3f} ms; "
+                    "server queue {:.1f} us, compute infer {:.1f} us a "
+                    "request; mean batch {:.2f}; {} errors; stable {}; "
+                    "{}".format(
+                        label, row["level"], row["value"],
+                        row["p50_usec"] / 1e3, row["p99_usec"] / 1e3,
+                        row["queue_usec"], row["compute_infer_usec"],
+                        row["server_inference_count"]
+                        / max(1, row["server_execution_count"]),
+                        row["errors"], row["stable"], smi))
+            log("perf (b) {} plane: {} requests served, {} zero-copy reads; "
+                "one request's output vs in band {:.3g} (limit {})".format(
+                    label, done, reads, err, VISION_TOL))
+            if [r["level"] for r in rows] != [1, 16]:
+                fail("perf (b) {}: levels {}".format(
+                    plane, [r["level"] for r in rows]))
+            for row in rows:
+                if row["errors"] or set(row) != CONCURRENCY_ROW_KEYS:
+                    fail("perf (b) {}: {} errors; keys {}".format(
+                        plane, row["errors"], sorted(row)))
+            if reads != (done if plane == "cuda" else 0):
+                fail("perf (b) {}: {} zero-copy reads for {} requests".format(
+                    plane, reads, done))
+            if err > VISION_TOL:
+                fail("perf (b) {}: output vs in band {}".format(plane, err))
+            all_rows += [(label, row) for row in rows]
+    finally:
+        core.close()
+    left = [h.name for h in csm.allocated_shared_memory_regions()
+            if h.name.startswith("pa_")]
+    files = [f for f in os.listdir("/dev/shm") if f.startswith("pa_")]
+    if left or files or core.cuda_shm_status() or core.system_shm_status():
+        fail("perf (b): regions left behind: {} {}".format(left, files))
+    return all_rows
+
+
+def phase_perf(torch, np, cfg, params, smi):
+    """Phase 12: the port's perf analyzer (``python -m
+    tpuserver_torch.perf_analyzer``'s ``main``, handed a full-size core)
+    in-process: (a) ``llama3_8b`` generation at 1 and 8 streams on the
+    given weights, (b) ResNet-50 at concurrency 1 and 16 in band, over
+    system and over CUDA regions, (c) the report.  Returns (a)'s kernel
+    launches."""
+    t_start = time.monotonic()
+    launches, gen_rows = _perf_generation(torch, cfg, params, smi)
+    unary_rows = _perf_unary(torch, np, smi)
+    for label, row in ([("generation", r) for r in gen_rows]
+                       + [(p + " plane", r) for p, r in unary_rows]):
+        log("perf (c) row, {}: {}".format(label, json.dumps(row)))
+    seconds = time.monotonic() - t_start
+    log("perf: phase 12 {:.1f} s ({} its {:.0f} s budget)".format(
+        seconds, "within" if seconds <= PERF_BUDGET_S else "OVER",
+        PERF_BUDGET_S))
+    return launches
+
+
 # -- main --------------------------------------------------------------------
 
 
@@ -5816,6 +6077,24 @@ def main():
         log("fleet-only: done")
         log(smi)
         return 1
+    if sys.argv[1:] == ["--perf-only"]:
+        # phases 1-4b and 12 alone, for work on the perf analyzer; phase
+        # 12 serves phase 4's weights; prints no result line
+        name, smi = phase_device(torch)
+        log("nvidia-smi:", smi)
+        phase_build()
+        phase_kernels(torch)
+        model, core, prompt, _, tokens, rates, single = phase_serve(torch, np)
+        phase_serve_batched(torch, np, model, prompt, tokens, rates)
+        core.close()
+        cfg, params = model._cfg, model._ensure_params()
+        del model, core
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_perf(torch, np, cfg, params, smi)
+        log("perf-only: done")
+        log(smi)
+        return 1
     if sys.argv[1:] == ["--vision-only"]:
         # phases 1, 2 and 8 alone, for work on the vision path; prints no
         # result line
@@ -5870,7 +6149,14 @@ def main():
                "int8": int8_profile[name]["device_ms_by_class"]}
         for name in int8_profile})))
     phase_vision(torch, np, smi)
-    client_launches = phase_bert(torch, np, smi)
+    client_launches, llama_model = phase_bert(torch, np, smi)
+    # phase 12 serves phase 9 (e)'s weights again, then releases them: the
+    # TP phase's ranks need the card
+    perf_launches = phase_perf(torch, np, llama_model._cfg,
+                               llama_model._ensure_params(), smi)
+    del llama_model
+    gc.collect()
+    torch.cuda.empty_cache()
     tp_launches = phase_tp(torch, np, single, b_prompts, b_budgets, b_tokens)
     train = phase_train(torch, np)
 
@@ -5930,6 +6216,14 @@ def main():
         paths.append(
             ("flash_attention", flash_src, flash_tpu, "fleet_handoff",
              "flash_attention_handoff", fleet_launches["fleet_handoff"]))
+    # phase 12 (a): the perf analyzer's generation load, in-process,
+    # batched (decode timed at the batched shape, flash at the 512-token
+    # prefill)
+    paths += [("flash_attention", flash_src, flash_tpu,
+               "perf_inprocess_generation", "flash_attention", perf_launches),
+              ("decode_attention", decode_src, decode_tpu,
+               "perf_inprocess_generation", "decode_attention_batched",
+               perf_launches)]
     # phase 9 (e): the llama client's single-stream generations over CUDA
     # regions (4-token prompts: their prefills run dense, no flash)
     paths.append(("decode_attention", decode_src, decode_tpu,

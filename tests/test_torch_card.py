@@ -8,6 +8,8 @@ JAX, so they run where the port runs:
 machine need not have.)
 """
 
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -737,3 +739,72 @@ def test_a_model_output_reads_back_complete_on_card(cuda):
         got = InferenceServer._host_array(out["Y"], "FP32")
         np.testing.assert_array_equal(got, x * 2 + 1)
 
+
+
+def test_perf_analyzer_cuda_shm_is_zero_copy_on_card(cuda, capsys):
+    """The perf analyzer's in-process backend with ``--shared-memory
+    cuda`` on ``simple``: every input of every request is a view of a
+    CUDA region (``shm_zero_copy_reads`` rises by one per input read:
+    two a request, ``simple`` having two inputs), the outputs land in a
+    CUDA region equal to the in-band ones, and no region is left."""
+    from tpuserver_torch import cuda_shared_memory as csm
+    from tpuserver_torch import perf_analyzer
+    from tpuserver_torch.core import InferenceServer
+    from tpuserver_torch.models import default_models
+    from tpuserver_torch.perfanalyzer.client_backend import (
+        InProcessBackend,
+        ShmInferDataManager,
+        build_input_pool,
+    )
+
+    core = InferenceServer(default_models())
+    backend = InProcessBackend(core)
+    try:
+        def counts():
+            stats = backend.stats_snapshot("simple")
+            return (core.shm_stats()["shm_zero_copy_reads"],
+                    stats["success_count"])
+
+        reads0, done0 = counts()
+        rc = perf_analyzer.main(
+            ["-m", "simple", "--shared-memory", "cuda",
+             "--output-shared-memory-size", "64", "--concurrency-range",
+             "1:2", "--measurement-interval", "200", "--max-trials", "3",
+             "--warmup", "0"], core=core)
+        out = capsys.readouterr().out
+        assert rc == 0, out
+        rows = [json.loads(ln) for ln in out.splitlines()
+                if ln.startswith('{"')]
+        assert [r["errors"] for r in rows] == [0, 0]
+        reads1, done1 = counts()
+        assert done1 > done0
+        assert reads1 - reads0 == 2 * (done1 - done0)
+
+        shm = ShmInferDataManager(backend, "cuda", tag="card", device=cuda)
+        try:
+            metadata = backend.model_metadata("simple")
+            pool = build_input_pool(
+                metadata, backend.model_config("simple"), pool_size=3,
+                batch_size=2, seed=1)
+            refs = shm.stage_input_sets(pool, {
+                t["name"]: t["datatype"] for t in metadata["inputs"]})
+            name, handle = shm.create_region("out", 256)
+            prepared = backend.prepare_shm(
+                "simple", refs, [("OUTPUT0", name, 128, 0),
+                                 ("OUTPUT1", name, 128, 128)])
+            for inputs, req in zip(pool, prepared):
+                inband = backend.infer(backend.prepare("simple", [inputs])[0])
+                backend.infer(req)
+                for j, (spec, array) in enumerate(inband.outputs):
+                    np.testing.assert_array_equal(
+                        shm.read(handle, np.int32, [2, 16], offset=128 * j),
+                        array)
+        finally:
+            shm.close()
+    finally:
+        backend.close()
+        core.close()
+    assert not core.cuda_shm_status()
+    # the perf analyzer's regions are named pa_<tag>_<label>
+    assert not [h.name for h in csm.allocated_shared_memory_regions()
+                if h.name.startswith("pa_")]
