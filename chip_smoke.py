@@ -216,6 +216,29 @@ Phases, in order; any failure exits non-zero and prints no result line:
    ``perf_inprocess_generation`` rows.  ``python3 chip_smoke.py
    --perf-only`` runs phases 1-4b and 12 alone (12 on phase 4's
    weights) and prints no result line.
+13. bench, after 12: the BASELINE benchmark over the port's sockets
+   (``python -m tpuserver_torch.bench_full``'s ``main``, handed a server of
+   the script's and phase 12's weights): the fixture models, ResNet-50 and
+   DenseNet-121 uncut in bf16, the BERT ensemble and ``llama3_8b`` (bf16,
+   ``max_seq`` 512, ``max_slots=8``) on one core.  First the in-process
+   floor under the socket rows on that core (the port's perf analyzer, no
+   transport: ``simple`` and ResNet-50 at 1, the BERT ensemble at 8, the
+   llama streams' work at 1 and 8 streams), then the benchmark, its HTTP
+   and gRPC front ends in this process; ``--window-s 1 --windows 3
+   --llama-slots 8``: config 1 over HTTP (its answers a+b before any
+   timing), 2 and 3 over gRPC (in band, a system region, CUDA regions in
+   and out at batch 1 and 4, each window value-fenced and sampled against
+   its in-band answers, the async sweeps), 4 over one pipelined bidi
+   stream, 5's direct rows at JAX's shapes (prefill 2048, chunks of 32 from
+   context 512, ``max_seq`` 3072) and its streams (one at a time with the
+   KV cache parked in a 64 MiB CUDA region, then 1, 4 and 8 at once).
+   Every row printed; no error line, every row the JAX bench's keys
+   (``bench_full.ROW_KEYS``) and every kind of row there, flash and decode
+   launched, one zero-copy read a CUDA-region request, no region left
+   registered or allocated.  Its launches make the ``bench`` rows
+   (config 5's direct rows) and the ``bench_served`` rows (its streams).
+   ``python3 chip_smoke.py --bench-only`` runs phases 1-3 and 13 alone (13
+   on weights drawn from the seed) and prints no result line.
 
 10. tp, last: tensor-parallel serving of ``llama3_8b`` (full width and
    depth, ``max_seq`` 4096, the seed's weights, each rank drawing every
@@ -312,6 +335,11 @@ SEED = 0
 # the batched decode shape timed in phase 3 and profiled in phase 6: 8
 # live slots near length 600
 BATCHED_LENGTHS = tuple(600 - 7 * i for i in range(8))
+# phase 13's served decode (the benchmark's streams behind
+# ``max_slots=8``): eight 8-token prompts halfway through their 64 tokens,
+# in the 512-key cache of ``bench_full.LLAMA_MAX_SEQ``
+BENCH_SERVED_LENGTHS = (40,) * 8
+BENCH_SERVED_SEQ = 512
 # prompt lengths of phase 4b's requests, four of each; phase 3 checks the
 # flash kernel at every one whose admission prefill it runs
 BATCHED_PROMPT_LENGTHS = (512, 256, 77)
@@ -678,6 +706,8 @@ def phase_kernels(torch):
             timed["flash_attention_readmission"] = row
         if tp4:
             timed["flash_attention_tp4"] = row
+        if t == 2048 and causal and hh == h:
+            timed["flash_attention_T2048"] = row
     n_sms = fl._sm_count(dev)
     for lengths, ss, dtype, hh, kk, dd in (
             ((576,), s, bf16, h, hkv, d),    # the main path's longest decode
@@ -694,15 +724,17 @@ def phase_kernels(torch):
             # the batched step's shape: 8 slots, ragged, inert rows at 1
             ((1, 77, 1, 600, 4096, 1, 3000, 1), s, bf16, h, hkv, d),
             (BATCHED_LENGTHS, s, bf16, h, hkv, d),
+            (BENCH_SERVED_LENGTHS, BENCH_SERVED_SEQ, bf16, h, hkv, d),
             ((40, 17), 64, f32, 6, 2, 16),
             # phase 10's tp=4 decode: one rank's heads
             ((576,), s, bf16, h4, hkv4, d),
             (BATCHED_LENGTHS, s, bf16, h4, hkv4, d)):
         main = lengths == (576,) and hh == h
         batched = lengths == BATCHED_LENGTHS and hh == h
+        served = lengths == BENCH_SERVED_LENGTHS
         tp4 = hh == h4 and kk == hkv4 and dd == d
         row = _decode_case(torch, F, fl, dev, gen, lengths, ss, hh, kk, dd,
-                           dtype, main or batched or tp4
+                           dtype, main or batched or served or tp4
                            or lengths == (4096,), flush)
         row["kernel"] = "decode_attention"
         rows.append(row)
@@ -710,6 +742,8 @@ def phase_kernels(torch):
             timed["decode_attention"] = row
         if batched:
             timed["decode_attention_batched"] = row
+        if served:
+            timed["decode_attention_bench_served"] = row
         if tp4:
             timed["decode_attention_tp4" + (
                 "_batched" if len(lengths) > 1 else "")] = row
@@ -5999,6 +6033,174 @@ def phase_perf(torch, np, cfg, params, smi):
     return launches
 
 
+# -- phase 13: the BASELINE benchmark over the port's sockets ----------------
+
+# ``python -m tpuserver_torch.bench_full``'s flags: 1 s windows, three of
+# them (config 1 to three stable windows), the continuous-batching rows
+# at 1, 4 and 8 streams
+BENCH_ARGV = ("--window-s", "1", "--windows", "3", "--llama-config",
+              "llama3_8b", "--llama-slots", "8")
+# every kind of row the five configs print at these flags
+BENCH_KINDS = {"simple_http", "vision", "vision_cuda_shm",
+               "vision_concurrent", "vision_concurrent_best", "bert_stream",
+               "bert_bound", "llama_prefill", "llama_decode", "llama_stream",
+               "llama_multistream", "llama_scaling"}
+# the in-process floor under the socket rows, on the same core before
+# the benchmark: the port's perf analyzer with no transport on config 1's
+# model, config 2's at one request, config 4's ensemble at its 8 in
+# flight, and config 5's streams (8-token prompts, 64 tokens, 1 and 8
+# streams); three windows each, an unstable level reported
+BENCH_FLOOR = (
+    ("-m", "simple", "--concurrency-range", "1"),
+    ("-m", "resnet50", "--concurrency-range", "1"),
+    ("-m", "bert_ensemble", "--concurrency-range", "8"),
+    ("-m", "llama_generate", "--generation", "--prompt-len", "8",
+     "--max-tokens", "64", "--concurrency-range", "1:8:7",
+     "--input-pool", "64", "--measurement-interval", "3000"))
+BENCH_FLOOR_WINDOWS = ("--measurement-interval", "1000", "--max-trials",
+                       "3")
+# the phase's share of the script's 1200 s: reported, not enforced
+BENCH_BUDGET_S = 150.0
+
+
+def phase_bench(torch, np, cfg, params, smi, device="cuda"):
+    """Phase 13: the BASELINE benchmark (``tpuserver_torch.bench_full``'s
+    ``main``) on a core of the fixture models and the serving zoo on
+    ``device``, with ``params`` (``llama3_8b``) behind ``max_slots=8``,
+    after the in-process floor of its socket rows (``BENCH_FLOOR``);
+    returns the kernels' launches over the benchmark by path: config 5's
+    direct rows (``bench``) and the served streams (``bench_served``)."""
+    import io
+
+    from tpuserver_torch import bench_full
+    from tpuserver_torch import cuda_shared_memory as csm
+    from tpuserver_torch.core import InferenceServer
+    from tpuserver_torch.models import default_models, serving_models
+    from tpuserver_torch.models.llama_serving import LlamaGenerateModel
+    from tpuserver_torch.ops import flash as fl
+
+    t_start = time.monotonic()
+    llama_model = LlamaGenerateModel(
+        cfg=cfg, max_seq=bench_full.LLAMA_MAX_SEQ, decode_chunk=32,
+        params=params, device=device, max_slots=8)
+    core = InferenceServer(
+        default_models()
+        + serving_models(include_llama=False, device=device, seed=SEED)
+        + [llama_model])
+    out, err = io.StringIO(), io.StringIO()
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    try:
+        core.warmup()
+        sync()
+        log("bench: the zoo built and warm in {:.1f} s".format(
+            time.monotonic() - t_start))
+        for argv in BENCH_FLOOR:
+            # the trailing flags win: the llama floor keeps its 3 s
+            # windows
+            floor, streams, _ = _perf_run(
+                BENCH_FLOOR_WINDOWS + argv
+                + (("--device", "cpu") if device == "cpu" else ()), core)
+            for row in floor:
+                log("bench floor, in-process, {}: {}{}".format(
+                    smi, json.dumps(row),
+                    "; tokens per stream {}".format(streams[row["level"]])
+                    if row["level"] in streams else ""))
+                if row["errors"]:
+                    fail("bench floor: {} errors in {}".format(
+                        row["errors"], row["metric"]))
+        reads0 = core.shm_stats()["shm_zero_copy_reads"]
+        dispatches0 = bench_full.bench_vision_cuda_shm.dispatches
+        keys0 = len(bench_full._vision_call_system_shm.keys)
+        # config 5's direct rows run alone (no stream is live), so the
+        # launches inside ``bench_llama_direct`` are its own; the rest
+        # are the served streams'
+        direct = {"flash_attention": 0, "decode_attention": 0}
+        llama_direct = bench_full.bench_llama_direct
+
+        def counted_direct(*args, **kwargs):
+            before = {k: getattr(fl, k).launches for k in direct}
+            try:
+                return llama_direct(*args, **kwargs)
+            finally:
+                for k in direct:
+                    direct[k] += getattr(fl, k).launches - before[k]
+
+        fl.reset_launch_counts()
+        t0 = time.monotonic()
+        bench_full.bench_llama_direct = counted_direct
+        try:
+            with contextlib.redirect_stdout(out), \
+                    contextlib.redirect_stderr(err):
+                rc = bench_full.main(list(BENCH_ARGV), core=core,
+                                     llama_params=params)
+        finally:
+            bench_full.bench_llama_direct = llama_direct
+        sync()
+        launches = {
+            "bench": direct,
+            "bench_served": {k: getattr(fl, k).launches - direct[k]
+                             for k in direct}}
+        seconds = time.monotonic() - t0
+        reads = core.shm_stats()["shm_zero_copy_reads"] - reads0
+        dispatches = bench_full.bench_vision_cuda_shm.dispatches - \
+            dispatches0
+    finally:
+        core.close()
+    log(out.getvalue().rstrip())
+    if err.getvalue().strip():
+        log("bench stderr: " + err.getvalue().strip()[-4000:])
+    rows = [json.loads(ln) for ln in out.getvalue().splitlines()
+            if ln.startswith('{"config"')]
+    for row in rows:
+        log("bench row (config {}), {}: {}".format(
+            row["config"], smi, json.dumps(row)))
+    log("bench: main ran {:.1f} s, exit {}; launches {}; {} CUDA-region "
+        "requests, {} zero-copy reads".format(
+            seconds, rc, json.dumps(launches), dispatches, reads))
+    errors = [ln for ln in err.getvalue().splitlines()
+              if ln.startswith('{"config"')]
+    if rc != 0 or errors:
+        fail("bench: exit {}, errors {}".format(rc, errors))
+    kinds = set()
+    for row in rows:
+        kind = bench_full.row_kind(row["metric"])
+        if kind is None or set(row) != bench_full.ROW_KEYS[kind]:
+            fail("bench: row {} has keys {}, not the JAX bench's".format(
+                row["metric"], sorted(row)))
+        if row.get("suspect"):
+            fail("bench: {} is above the card's peak: {}".format(
+                row["metric"], row))
+        kinds.add(kind)
+    if kinds != BENCH_KINDS:
+        fail("bench: kinds of row {} missing".format(
+            sorted(BENCH_KINDS - kinds)))
+    if not (launches["bench"]["flash_attention"]
+            and launches["bench"]["decode_attention"]
+            and launches["bench_served"]["decode_attention"]):
+        fail("bench: a kernel never launched on its path: {}".format(
+            launches))
+    if not dispatches or reads != dispatches:
+        fail("bench: {} zero-copy reads for {} CUDA-region requests".format(
+            reads, dispatches))
+    # this run's regions only: its CUDA regions in this process's
+    # registry, and the system regions' files by the keys it made
+    mine = ("resnet50_", "densenet121_", "bench_kv")
+    left = [h.name for h in csm.allocated_shared_memory_regions()
+            if h.name.startswith(mine)]
+    keys = bench_full._vision_call_system_shm.keys[keys0:]
+    files = [k for k in keys if os.path.exists("/dev/shm" + k)]
+    if len(keys) != 1:
+        fail("bench: system regions {} made, want config 2's one".format(
+            keys))
+    if left or files or core.cuda_shm_status() or core.system_shm_status():
+        fail("bench: regions left behind: {} {}".format(left, files))
+    total = time.monotonic() - t_start
+    log("bench: phase 13 {:.1f} s ({} its {:.0f} s budget)".format(
+        total, "within" if total <= BENCH_BUDGET_S else "OVER",
+        BENCH_BUDGET_S))
+    return launches
+
+
 # -- main --------------------------------------------------------------------
 
 
@@ -6095,6 +6297,22 @@ def main():
         log("perf-only: done")
         log(smi)
         return 1
+    if sys.argv[1:] == ["--bench-only"]:
+        # phases 1-3 and 13 alone, for work on the benchmark; phase 13 on
+        # weights drawn from the seed; prints no result line
+        from tpuserver_torch.models import llama
+        from tpuserver_torch.models.llama_serving import LlamaGenerateModel
+
+        name, smi = phase_device(torch)
+        log("nvidia-smi:", smi)
+        phase_build()
+        phase_kernels(torch)
+        drawn = LlamaGenerateModel(cfg=llama.llama3_8b(), seed=SEED,
+                                   device="cuda")
+        phase_bench(torch, np, drawn._cfg, drawn._ensure_params(), smi)
+        log("bench-only: done")
+        log(smi)
+        return 1
     if sys.argv[1:] == ["--vision-only"]:
         # phases 1, 2 and 8 alone, for work on the vision path; prints no
         # result line
@@ -6154,6 +6372,9 @@ def main():
     # TP phase's ranks need the card
     perf_launches = phase_perf(torch, np, llama_model._cfg,
                                llama_model._ensure_params(), smi)
+    # phase 13 serves the same weights again behind the benchmark's zoo
+    bench_launches = phase_bench(torch, np, llama_model._cfg,
+                                 llama_model._ensure_params(), smi)
     del llama_model
     gc.collect()
     torch.cuda.empty_cache()
@@ -6224,6 +6445,22 @@ def main():
               ("decode_attention", decode_src, decode_tpu,
                "perf_inprocess_generation", "decode_attention_batched",
                perf_launches)]
+    # phase 13: config 5's direct rows (flash timed at their 2048-token
+    # prefill; decode at one row of 576 keys, the direct decode's
+    # contexts being 512-704), and the served streams (decode timed at
+    # the batched step's eight rows in the 512-key cache; their 8-token
+    # prompts run dense, so a flash row stands only if one tiled)
+    paths += [("flash_attention", flash_src, flash_tpu, "bench",
+               "flash_attention_T2048", bench_launches["bench"]),
+              ("decode_attention", decode_src, decode_tpu, "bench",
+               "decode_attention", bench_launches["bench"]),
+              ("decode_attention", decode_src, decode_tpu, "bench_served",
+               "decode_attention_bench_served",
+               bench_launches["bench_served"])]
+    if bench_launches["bench_served"]["flash_attention"]:
+        paths.append(("flash_attention", flash_src, flash_tpu,
+                      "bench_served", "flash_attention",
+                      bench_launches["bench_served"]))
     # phase 9 (e): the llama client's single-stream generations over CUDA
     # regions (4-token prompts: their prefills run dense, no flash)
     paths.append(("decode_attention", decode_src, decode_tpu,

@@ -28,10 +28,10 @@ that composition deterministically:
   REPRO: one command replaying the same seed truncated to the first
   violating cycle with only the fault kinds that had fired by then.
 
-The streams are read by this module's own resumable SSE reader
-(:func:`generate_stream`, stdlib only), which reconnects with
-``Last-Event-ID`` and rotates through the router urls as the client
-library's does.  ``--quick`` shrinks everything to a <=10s single-cycle
+The streams are read by the port's stdlib resumable SSE reader
+(:func:`generate_stream` over ``resumable_stream.sse_generation``),
+which reconnects with ``Last-Event-ID`` and rotates through the router
+urls as the client library's does.  ``--quick`` shrinks everything to a <=10s single-cycle
 smoke.
 """
 
@@ -47,6 +47,7 @@ import threading
 import time
 
 from tpuserver_torch import chaoslib, fleetmanifest
+from tpuserver_torch.resumable_stream import sse_generation
 
 #: the directory that holds the package (what a child's PYTHONPATH needs)
 SRC_PYTHON = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -378,22 +379,10 @@ class FleetInjectors:
 # -- campaign traffic --------------------------------------------------------
 
 
-class StreamError(Exception):
-    """A generation stream failed in a way its client sees."""
-
-
 def generate_stream(urls, model, prompt, max_tokens, parameters=None,
                     max_reconnects=10, backoff_s=0.05, read_timeout=600.0):
-    """Yield each event of one ``generate_stream`` generation, resuming
-    a dropped stream: the same body is re-POSTed with ``Last-Event-ID``
-    (the last ``id:`` line seen), rotating through ``urls`` (attempt N
-    dials ``urls[N % len]``), up to ``max_reconnects`` times with
-    exponential backoff.  A 404 on a resume and a 429/503 before the
-    terminal event are transitions and ride the reconnect path; an
-    in-band error event and any other status raise
-    :class:`StreamError`.  Replayed duplicates (a seq already seen) are
-    skipped.  The contract of the client library's ``generate_stream``
-    with ``fallback_urls``."""
+    """Yield each event of one ``generate_stream`` generation of
+    ``prompt``, resuming a dropped stream (see :func:`sse_generation`)."""
     body = json.dumps({
         "inputs": [
             {"name": "PROMPT_IDS", "datatype": "INT32",
@@ -401,71 +390,8 @@ def generate_stream(urls, model, prompt, max_tokens, parameters=None,
             {"name": "MAX_TOKENS", "datatype": "INT32", "shape": [1],
              "data": [int(max_tokens)]}],
         "parameters": dict(parameters or {})})
-    path = "/v2/models/{}/generate_stream".format(model)
-    last_event_id, last_seq, yielded_any, attempt = None, -1, False, 0
-    while True:
-        host, _, port = urls[attempt % len(urls)].rpartition(":")
-        conn = http.client.HTTPConnection(host, int(port),
-                                          timeout=read_timeout)
-        dropped = None
-        try:
-            headers = {"Content-Type": "application/json"}
-            if last_event_id is not None:
-                headers["Last-Event-ID"] = last_event_id
-            try:
-                conn.request("POST", path, body, headers)
-                resp = conn.getresponse()
-            except (OSError, http.client.HTTPException) as e:
-                dropped, resp = e, None
-            if resp is not None and (
-                    (resp.status == 404 and last_event_id is not None)
-                    or (resp.status in (429, 503) and (
-                        last_event_id is not None or not yielded_any))):
-                dropped = StreamError("status {}: {}".format(
-                    resp.status, resp.read()[:200]))
-                resp = None
-            elif resp is not None and resp.status != 200:
-                raise StreamError("generate_stream failed: {} {}".format(
-                    resp.status, resp.read()[:200]))
-            if resp is not None:
-                event_id = None
-                try:
-                    for line in resp:
-                        line = line.strip()
-                        if line.startswith(b"id: "):
-                            event_id = line[4:].decode("utf-8", "replace")
-                            continue
-                        if not line.startswith(b"data: "):
-                            continue
-                        event = json.loads(line[len(b"data: "):])
-                        if "error" in event:
-                            raise StreamError(event["error"])
-                        if event.get("final"):
-                            return
-                        seq = (event.get("parameters") or {}).get("seq")
-                        if seq is not None and seq <= last_seq:
-                            event_id = None
-                            continue  # a replayed duplicate
-                        if seq is not None:
-                            last_seq = seq
-                        if event_id is not None:
-                            last_event_id, event_id = event_id, None
-                        yielded_any = True
-                        yield event
-                    dropped = ConnectionError(
-                        "stream ended without its terminal event")
-                except (OSError, http.client.HTTPException) as e:
-                    dropped = e
-        finally:
-            conn.close()
-        attempt += 1
-        if attempt > max_reconnects or (yielded_any
-                                        and last_event_id is None):
-            if isinstance(dropped, StreamError):
-                raise dropped
-            raise StreamError("generate_stream connection lost: {}".format(
-                dropped))
-        time.sleep(min(backoff_s * 2 ** (attempt - 1), 2.0))
+    return sse_generation(urls, model, body, max_reconnects=max_reconnects,
+                          backoff_s=backoff_s, read_timeout=read_timeout)
 
 
 def run_stream(urls, recorder, context, budget):

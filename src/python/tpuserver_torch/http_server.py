@@ -130,6 +130,10 @@ def _response_json(resp):
 class _Handler(BaseHTTPRequestHandler):
     protocol_version = "HTTP/1.1"
     server_version = "tpuserver-torch"
+    # a response's header and body go out as two writes: without NODELAY
+    # the second waits for the client's delayed ACK (about 40 ms a
+    # request), as the JAX package's handler says too
+    disable_nagle_algorithm = True
 
     def handle(self):
         try:

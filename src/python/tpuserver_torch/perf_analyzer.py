@@ -1,25 +1,29 @@
-"""The port's perf analyzer: measure a model of the port's in-process
-``InferenceServer`` to stability and report a table + BENCH-schema JSON
-rows.
+"""The port's perf analyzer: measure a model of the port's server to
+stability and report a table + BENCH-schema JSON rows.
 
     python -m tpuserver_torch.perf_analyzer -m <model> [options]
 
-The in-process path of ``tools/perf_analyzer.py`` on
-``tpuserver_torch.perfanalyzer``: a load mode (concurrency sweep,
-request-rate sweep, or token-streaming generation) and a measurement
-config; the harness drives load, waits for 3 consecutive stable windows
-per level, and reports client percentiles plus the server-side
-queue/compute breakdown.  No transport: the floor a socket client's
-numbers are measured against.  The core runs on the card unless
-``--device cpu`` is given; without a card and without it the run fails
-(RuntimeError).  Over sockets the port is measured by the client-side
-``tools/perf_analyzer.py -u``.
+``tools/perf_analyzer.py`` on ``tpuserver_torch.perfanalyzer``: a load
+mode (concurrency sweep, request-rate sweep, or token-streaming
+generation) and a measurement config; the harness drives load, waits
+for 3 consecutive stable windows per level, and reports client
+percentiles plus the server-side queue/compute breakdown.  The backend
+is the port's core in-process (``--backend inprocess``, the default: no
+transport, the floor a socket client's numbers are measured against) or
+a live server over a socket (``--backend http|grpc -u host:port``).  The
+in-process core, and CUDA regions, live on the card unless ``--device
+cpu`` is given; without a card and without it the run fails
+(RuntimeError).
 
 Examples:
 
     # the fixture models, on the CPU
     python -m tpuserver_torch.perf_analyzer -m simple --device cpu \\
         --concurrency-range 1:4
+
+    # a live server over gRPC (python -m tpuserver_torch.serve ...)
+    python -m tpuserver_torch.perf_analyzer -m simple --backend grpc \\
+        -u 127.0.0.1:8001 --concurrency-range 1:8:7
 
     # open-loop Poisson arrivals, inputs staged in CUDA regions
     python -m tpuserver_torch.perf_analyzer -m simple \\
@@ -78,8 +82,12 @@ def build_parser():
         formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("-m", "--model", required=True,
                     help="model to profile")
-    ap.add_argument("--backend", default="inprocess", choices=["inprocess"],
-                    help="client backend: the port's core in-process")
+    ap.add_argument("--backend", default="inprocess",
+                    choices=["inprocess", "http", "grpc"],
+                    help="client backend: the port's core in-process "
+                         "(default), or a live server over HTTP or gRPC")
+    ap.add_argument("-u", "--url", default="127.0.0.1:8000",
+                    help="server host:port (http/grpc backends)")
     ap.add_argument("--device", default=None,
                     help="device of the in-process server and of CUDA "
                          "regions (default: the card; 'cpu' for a CPU run)")
@@ -277,7 +285,10 @@ def main(argv=None, core=None):
     ``InferenceServer``) it measures that server and leaves it open;
     otherwise it builds one on the resolved device and closes it."""
     args = build_parser().parse_args(argv)
-    device = resolve_device(args.device)
+    # a socket run touches a device only through CUDA regions
+    device = None
+    if args.backend == "inprocess" or args.shared_memory == "cuda":
+        device = resolve_device(args.device)
     interrupt = _Interrupt()
     previous = None
     if threading.current_thread() is threading.main_thread():
@@ -318,11 +329,11 @@ def _run(args, core, device, early_exit):
     levels = parse_range(
         args.request_rate_range or args.concurrency_range or "1")
 
-    own_core = core is None
+    own_core = core is None and args.backend == "inprocess"
     if own_core:
         core = build_inprocess_core(args, levels, device)
     backend = create_backend(
-        args.backend, core=core,
+        args.backend, url=args.url, core=core,
         # size the backend for the load it must carry: swept
         # concurrency (closed loop) or the open-loop outstanding depth
         max_inflight=(args.max_outstanding if rate_mode
@@ -335,7 +346,9 @@ def _run(args, core, device, early_exit):
           "  model: {}  backend: {}  mode: {}  device: {}\n"
           "  levels: {}  window: {} ms ({})  stability: {}% over 3 "
           "windows, max {} trials".format(
-              args.model, args.backend, mode, device, levels,
+              args.model, args.backend if args.backend == "inprocess"
+              else "{} {}".format(args.backend, args.url), mode, device,
+              levels,
               args.measurement_interval, args.measurement_mode,
               args.stability_percentage, args.max_trials), flush=True)
 

@@ -2,19 +2,21 @@
 
 The port's copy of ``perfanalyzer`` (the Python port of the reference
 ``perf_analyzer``, SURVEY.md §2.2, §3.4), bound to
-``tpuserver_torch.core`` and CUDA regions: the in-process client backend,
-concurrency and request-rate load managers, a measurement-window
-profiler with 3-consecutive-window stability detection and client/server
-stat merging, a generation mode reporting token-level metrics (TTFT,
-ITL, tokens/sec), and a report writer (stdout table / CSV / JSON rows,
-key for key the JAX tool's).  It imports nothing of JAX, ``tpuserver``,
-``perfanalyzer`` or ``tritonclient``; torch only where a CUDA region is
-touched (and through the core it drives).
+``tpuserver_torch.core`` and CUDA regions: the in-process client backend
+and the HTTP and gRPC ones (the standard library and the port's gRPC
+messages, no ``tritonclient``), concurrency and request-rate load
+managers, a measurement-window profiler with 3-consecutive-window
+stability detection and client/server stat merging, a generation mode
+reporting token-level metrics (TTFT, ITL, tokens/sec), and a report
+writer (stdout table / CSV / JSON rows, key for key the JAX tool's).  It
+imports nothing of JAX, ``tpuserver``, ``perfanalyzer`` or
+``tritonclient``; torch only where a CUDA region is touched (and through
+the core it drives).
 
 Entry points:
 
 - :func:`tpuserver_torch.perfanalyzer.client_backend.create_backend` —
-  backend factory (``inprocess``)
+  backend factory (``inprocess``, ``http``, ``grpc``)
 - :class:`~tpuserver_torch.perfanalyzer.load_manager.ConcurrencyManager` /
   :class:`~tpuserver_torch.perfanalyzer.load_manager.RequestRateManager`
 - :class:`~tpuserver_torch.perfanalyzer.profiler.InferenceProfiler`

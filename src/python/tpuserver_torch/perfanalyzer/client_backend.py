@@ -2,10 +2,19 @@
 
 Role of the reference's ``client_backend/`` layer
 (client_backend.h:250-620): the load managers and profiler speak one
-small interface, which :class:`InProcessBackend` maps onto
-``tpuserver_torch.core.InferenceServer`` directly (the analogue of the
-reference's Triton C-API backend: no sockets, so the client/transport
-overhead is isolated from the model cost).
+small interface; three concrete backends map it onto the stack's entry
+points:
+
+- ``http``      — the KServe-v2 HTTP protocol over ``http.client``
+                  against a live front end (``tpuserver_torch.
+                  http_server`` or any KServe-v2 server)
+- ``grpc``      — ``GRPCInferenceService`` over a raw ``grpc`` channel
+                  and the port's own message classes
+                  (``tpuserver_torch.grpc_proto``)
+- ``inprocess`` — wraps ``tpuserver_torch.core.InferenceServer``
+                  directly (the analogue of the reference's Triton C-API
+                  backend: no sockets, so the client/transport overhead
+                  is isolated from the model cost)
 
 A backend hands out *prepared* requests (inputs built once, outside the
 timed path), executes them synchronously (``infer``) or asynchronously
@@ -13,23 +22,37 @@ timed path), executes them synchronously (``infer``) or asynchronously
 context free-list rides on), snapshots server statistics, and streams
 generations token-by-token for the generation profiler.
 
-The port's copy of the in-process half of ``perfanalyzer/
-client_backend.py``: the socket backends (HTTP, gRPC, the replica pool)
-are built on ``tritonclient``, which the port does not import, and stay
-with the client-side ``tools/perf_analyzer.py``.  CUDA regions
-(``tpuserver_torch.cuda_shared_memory``) take the place of XLA ones; on
-a CUDA region the in-process resolve path hands the model a view of the
-region's device memory, with no host copy.
+The port's copy of ``perfanalyzer/client_backend.py``.  Its socket
+backends speak the wire protocols with the standard library and the
+port's own gRPC messages instead of ``tritonclient``, which the port does
+not import; the replica pool backend stays with the client-side
+``tools/perf_analyzer.py`` (it is built on ``tritonclient``'s endpoint
+pool).  CUDA regions (``tpuserver_torch.cuda_shared_memory``) take the
+place of XLA ones; on a CUDA region the server's resolve path hands the
+model a view of the region's device memory, with no host copy.
 """
 
+import base64
+import http.client
+import json
+import socket
 import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
+from urllib.parse import quote
 
 import numpy as np
 
+from tpuserver_torch.resumable_stream import (
+    Resumer,
+    StreamError,
+    sse_generation,
+)
+
 
 class BackendError(Exception):
-    """A request failed inside a backend (wraps the core's error)."""
+    """A request failed inside a backend (wraps the core's or the
+    transport's error, with the server's message)."""
 
 
 def _coerce_int(value, default=0):
@@ -43,9 +66,10 @@ class ClientBackend:
     """The interface the load managers and profiler consume.
 
     ``capacity`` is the backend's true in-flight ceiling (executor
-    threads).  Size it via ``max_inflight`` at construction: a load level
-    above the capacity would silently measure the backend's own queueing,
-    not the server.
+    threads / pooled connections), or None when the transport
+    multiplexes without a fixed bound (gRPC async).  Size it via
+    ``max_inflight`` at construction: a load level above the capacity
+    would silently measure the backend's own queueing, not the server.
     """
 
     kind = "?"
@@ -114,7 +138,8 @@ class ClientBackend:
 
     def submit(self, prepared, on_done):
         """Non-blocking dispatch; ``on_done(error_or_None)`` fires on a
-        completion thread.  Runs :meth:`infer` on a shared executor."""
+        completion thread.  Default implementation runs :meth:`infer` on
+        a shared executor; backends with native async (gRPC) override."""
         executor = self._ensure_executor()
 
         def run():
@@ -368,6 +393,659 @@ class InProcessBackend(ClientBackend):
                  "accepted": accepted} if seen else None)
 
 
+# -- socket-backend shared shm support --------------------------------------
+
+
+def _split_url(url):
+    """``(host, port)`` of a ``host:port`` url."""
+    host, sep, port = url.rpartition(":")
+    if not sep or not port.isdigit():
+        raise ValueError("url must be host:port (got {!r})".format(url))
+    return host, int(port)
+
+
+def _declared_datatypes(metadata):
+    return {t["name"]: t["datatype"] for t in metadata.get("inputs", [])}
+
+
+def _wire_type(arr, declared):
+    """An input's wire datatype: the model's declared one (which tells
+    BF16, ``np.uint16`` bits on the host, from UINT16), else the
+    array's."""
+    from tpuserver_torch.tensor_io import wire_datatype
+
+    return declared or wire_datatype(arr)
+
+
+class _TritonClientShmMixin:
+    """Shared-memory support for the socket backends, under the JAX
+    tool's name: both transports carry Triton's register/unregister verbs
+    and the same ``shared_memory_*`` tensor parameters, so the
+    register/unregister/prepare/infer plumbing lives once here.  A
+    backend supplies ``_register_region``, ``_unregister_region``,
+    ``_build(model, inputs, output_refs)`` (one prepared request) and
+    ``_send(prepared)`` (one synchronous request, returning its in-band
+    outputs)."""
+
+    def _input_datatypes(self, model):
+        """The model's declared input datatypes, fetched once (at
+        prepare time, outside the timed path)."""
+        with self._declared_lock:
+            got = self._declared.get(model)
+        if got is None:
+            got = _declared_datatypes(self.model_metadata(model))
+            with self._declared_lock:
+                self._declared[model] = got
+        return got
+
+    def shm_register(self, name, kind, key=None, raw_handle=None,
+                     byte_size=0, device_id=0):
+        if kind not in ("system", "cuda"):
+            raise ValueError("shared-memory kind must be 'system' or "
+                             "'cuda' (got {!r})".format(kind))
+        self._register_region(name, kind, key, raw_handle, int(byte_size),
+                              int(device_id))
+
+    def shm_unregister(self, name, kind):
+        if kind not in ("system", "cuda"):
+            raise ValueError("shared-memory kind must be 'system' or "
+                             "'cuda' (got {!r})".format(kind))
+        self._unregister_region(name, kind)
+
+    def _prepare_one(self, model, inputs):
+        return self._build(model, inputs, None)
+
+    def prepare_shm(self, model, input_refs, output_refs=None):
+        return [self._build(model, refs, list(output_refs or []) or None)
+                for refs in input_refs]
+
+    def infer(self, prepared):
+        """Run one prepared request; returns its in-band outputs as
+        ``{name: np.ndarray}`` (BF16 as ``np.uint16`` bits, BYTES as
+        ``np.object_``; an output delivered into a region is left out)."""
+        return self._send(prepared)
+
+
+# -- HTTP backend ----------------------------------------------------------
+
+#: under-chaos reconnect budget for generation streams: the client
+#: library's default 5-attempt budget backs off for ~1.5 s total,
+#: which a supervised fleet's process-heal window outlasts when kill
+#: faults COMPOSE (prefill + decode replica SIGKILLed in one campaign
+#: cycle: two serial respawns + router re-admission).  Perf streams
+#: must ride the heal out — the degradation is already reported as
+#: resumed_streams/resume_events, never as a user-visible error.
+GENERATION_MAX_RECONNECTS = 10
+
+
+def _http_error(status, body):
+    """The server's message of a failed HTTP call (its typed ``error``
+    body when it sent one)."""
+    try:
+        message = json.loads(body).get("error")
+    except (ValueError, AttributeError):
+        message = None
+    return BackendError(message or "HTTP {}: {}".format(
+        status, body[:200].decode("utf-8", "replace")))
+
+
+def _http_shm_params(ref):
+    params = {"shared_memory_region": ref["shared_memory_region"],
+              "shared_memory_byte_size": int(ref["shared_memory_byte_size"])}
+    if ref.get("shared_memory_offset"):
+        params["shared_memory_offset"] = int(ref["shared_memory_offset"])
+    return params
+
+
+def _http_outputs(header, binary):
+    """``{name: array}`` of an ``/infer`` response's in-band outputs."""
+    from tpuserver_torch.tensor_io import (
+        array_from_binary,
+        array_from_json_data,
+    )
+
+    out = {}
+    offset = 0
+    for entry in header.get("outputs", []):
+        params = entry.get("parameters") or {}
+        if "binary_data_size" in params:
+            size = int(params["binary_data_size"])
+            out[entry["name"]] = array_from_binary(
+                binary[offset:offset + size], entry["datatype"],
+                entry["shape"])
+            offset += size
+        elif "data" in entry:
+            out[entry["name"]] = array_from_json_data(
+                entry["data"], entry["datatype"], entry["shape"])
+    return out
+
+
+class HttpBackend(_TritonClientShmMixin, ClientBackend):
+    """The KServe-v2 HTTP protocol over ``http.client``: ``/infer`` with
+    the binary tensor extension (a JSON header, its length in
+    ``Inference-Header-Content-Length``, then each tensor's raw
+    little-endian bytes; BF16 as its bits, BYTES with 4-byte length
+    prefixes), metadata, config and statistics as JSON; generation rides
+    the ``/v2/models/{m}/generate_stream`` SSE endpoint.
+
+    Every thread that sends (each executor worker) keeps one persistent
+    connection of its own: fewer connections than workers and requests
+    would queue inside the client, polluting the measured latency."""
+
+    kind = "http"
+    supports_generation = True
+
+    def __init__(self, url, max_inflight=None, timeout=600.0):
+        super().__init__(max_inflight)
+        self.url = url
+        self._host, self._port = _split_url(url)
+        self._timeout = timeout
+        self._local = threading.local()
+        self._conns = []  # guarded-by: _conns_lock
+        self._conns_lock = threading.Lock()
+        self._declared = {}  # guarded-by: _declared_lock
+        self._declared_lock = threading.Lock()
+
+    # -- transport --------------------------------------------------------
+
+    def _connection(self):
+        conn = getattr(self._local, "conn", None)
+        if conn is None:
+            conn = http.client.HTTPConnection(self._host, self._port,
+                                              timeout=self._timeout)
+            self._local.conn = conn
+            with self._conns_lock:
+                self._conns.append(conn)
+        if conn.sock is None:
+            conn.connect()
+            # one segment per request: the header and body writes must
+            # not wait on delayed ACKs
+            conn.sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+        return conn
+
+    def _call(self, method, path, body=None, headers=None):
+        """One request on this thread's kept-alive connection: ``(status,
+        response, body)``.  A transport failure closes the connection (the
+        next request opens a new one) and is a :class:`BackendError`."""
+        conn = self._connection()
+        try:
+            conn.request(method, path, body=body, headers=dict(headers or {}))
+            resp = conn.getresponse()
+            return resp.status, resp, resp.read()
+        except (OSError, http.client.HTTPException) as e:
+            conn.close()
+            raise BackendError("HTTP {} {}: {}".format(method, path, e)) \
+                from e
+
+    def _get_json(self, path):
+        status, _, data = self._call("GET", path)
+        if status != 200:
+            raise _http_error(status, data)
+        return json.loads(data)
+
+    def _post_json(self, path, obj):
+        status, _, data = self._call(
+            "POST", path, json.dumps(obj).encode("utf-8"),
+            {"Content-Type": "application/json"})
+        if status != 200:
+            raise _http_error(status, data)
+        return json.loads(data) if data else {}
+
+    # -- metadata / statistics --------------------------------------------
+
+    def _model_path(self, model):
+        return "/v2/models/{}".format(quote(model, safe=""))
+
+    def model_metadata(self, model):
+        return self._get_json(self._model_path(model))
+
+    def model_config(self, model):
+        return self._get_json(self._model_path(model) + "/config")
+
+    def server_statistics(self, model):
+        return self._get_json(self._model_path(model) + "/stats")
+
+    def _metrics_counters(self, names):
+        """The target's ``/metrics`` counters ``{key: family}`` summed
+        across label sets, or None when the target has no such family."""
+        from tpuserver_torch.metrics import parse_prometheus_text
+
+        try:
+            status, _, data = self._call("GET", "/metrics")
+        except BackendError:
+            return None
+        if status != 200:
+            return None
+        families = parse_prometheus_text(data.decode("utf-8",
+                                                     errors="replace"))
+        out = {}
+        for key, fam_name in names:
+            fam = families.get(fam_name)
+            if fam is None:
+                return None
+            out[key] = int(sum(v for _, _, v in fam["samples"]))
+        return out
+
+    def prefix_cache_snapshot(self):
+        """The target's ``/metrics`` prefix-cache counters."""
+        return self._metrics_counters(
+            (("hits", "tpu_prefix_cache_hits_total"),
+             ("misses", "tpu_prefix_cache_misses_total")))
+
+    def spec_snapshot(self):
+        """The target's ``/metrics`` speculative-decoding counters."""
+        return self._metrics_counters(
+            (("steps", "tpu_spec_steps_total"),
+             ("proposed", "tpu_spec_tokens_proposed_total"),
+             ("accepted", "tpu_spec_tokens_accepted_total")))
+
+    # -- shared memory ----------------------------------------------------
+
+    @staticmethod
+    def _shm_path(kind, name, verb):
+        return "/v2/{}sharedmemory/region/{}/{}".format(
+            kind, quote(name, safe=""), verb)
+
+    def _register_region(self, name, kind, key, raw_handle, byte_size,
+                         device_id):
+        if kind == "system":
+            body = {"key": key, "offset": 0, "byte_size": byte_size}
+        else:
+            if isinstance(raw_handle, bytes):
+                raw_handle = raw_handle.decode("ascii")
+            body = {"raw_handle": {"b64": raw_handle},
+                    "device_id": device_id, "byte_size": byte_size}
+        self._post_json(self._shm_path(kind, name, "register"), body)
+
+    def _unregister_region(self, name, kind):
+        # no body: Triton's unregister carries none
+        status, _, data = self._call(
+            "POST", self._shm_path(kind, name, "unregister"), b"")
+        if status != 200:
+            raise _http_error(status, data)
+
+    # -- inference --------------------------------------------------------
+
+    def _build(self, model, inputs, output_refs):
+        """``(path, body, headers)`` of one ``/infer`` request, serialized
+        once."""
+        from tpuserver_torch.tensor_io import binary_from_array
+
+        declared = self._input_datatypes(model)
+        header = {"inputs": []}
+        parts = []
+        for name, arr in inputs.items():
+            if _is_shm_ref(arr):
+                header["inputs"].append({
+                    "name": name, "shape": list(arr["shape"]),
+                    "datatype": arr["datatype"],
+                    "parameters": _http_shm_params(arr)})
+                continue
+            datatype = _wire_type(arr, declared.get(name))
+            raw = binary_from_array(arr, datatype)
+            header["inputs"].append({
+                "name": name, "shape": [int(d) for d in np.shape(arr)],
+                "datatype": datatype,
+                "parameters": {"binary_data_size": len(raw)}})
+            parts.append(raw)
+        if output_refs:
+            header["outputs"] = [
+                {"name": n, "parameters": _http_shm_params({
+                    "shared_memory_region": region,
+                    "shared_memory_byte_size": size,
+                    "shared_memory_offset": offset})}
+                for n, region, size, offset in output_refs]
+        else:
+            header["parameters"] = {"binary_data_output": True}
+        head = json.dumps(header).encode("utf-8")
+        return (self._model_path(model) + "/infer", head + b"".join(parts),
+                {"Content-Type": "application/octet-stream",
+                 "Inference-Header-Content-Length": str(len(head))})
+
+    def _send(self, prepared):
+        path, body, headers = prepared
+        status, resp, data = self._call("POST", path, body, headers)
+        if status != 200:
+            raise _http_error(status, data)
+        length = resp.getheader("Inference-Header-Content-Length")
+        if length is None:
+            return _http_outputs(json.loads(data), b"")
+        n = int(length)
+        return _http_outputs(json.loads(data[:n]), data[n:])
+
+    # -- generation -------------------------------------------------------
+
+    def generate_stream(self, model, inputs, parameters=None, stats=None):
+        """Stream over ``/generate_stream`` SSE: a connection dropped
+        mid-generation reconnects with ``Last-Event-ID`` and splices
+        (same-endpoint resume), up to ``GENERATION_MAX_RECONNECTS``
+        times; every reconnect is counted into ``stats["resumes"]``."""
+        from tpuserver_torch.tensor_io import json_from_array
+
+        declared = self._input_datatypes(model)
+        body = {"inputs": [], "parameters": dict(parameters or {})}
+        for name, arr in inputs.items():
+            if _is_shm_ref(arr):
+                body["inputs"].append({
+                    "name": name, "shape": list(arr["shape"]),
+                    "datatype": arr["datatype"],
+                    "parameters": _http_shm_params(arr)})
+                continue
+            datatype = _wire_type(arr, declared.get(name))
+            body["inputs"].append({
+                "name": name, "datatype": datatype,
+                "shape": [int(d) for d in np.shape(arr)],
+                "data": json_from_array(arr, datatype)})
+
+        def on_reconnect(attempt, exc):
+            if stats is not None:
+                stats["resumes"] = stats.get("resumes", 0) + 1
+
+        try:
+            for event in sse_generation(
+                    ["{}:{}".format(self._host, self._port)], model,
+                    json.dumps(body), max_reconnects=GENERATION_MAX_RECONNECTS,
+                    read_timeout=self._timeout, on_reconnect=on_reconnect):
+                yield _response_token_count(event.get("outputs"))
+        except StreamError as e:
+            raise BackendError(str(e)) from e
+
+    def close(self):
+        super().close()
+        with self._conns_lock:
+            conns, self._conns = self._conns, []
+        for conn in conns:
+            conn.close()
+
+
+# -- gRPC backend ----------------------------------------------------------
+
+#: channel options of every gRPC channel this backend opens: no message
+#: size limit, as the server has none (a batch-8 ResNet-50 request is
+#: 4.8 MB, over gRPC's default 4 MB)
+GRPC_CHANNEL_OPTIONS = (("grpc.max_send_message_length", -1),
+                        ("grpc.max_receive_message_length", -1))
+
+
+def _grpc_channel(url):
+    """(channel, {method name: callable}) over the port's own message
+    classes: a raw channel, no client library."""
+    import grpc
+
+    from tpuserver_torch.grpc_proto import service
+
+    channel = grpc.insecure_channel(url, options=list(GRPC_CHANNEL_OPTIONS))
+    calls = {}
+    for name, (req_cls, resp_cls, kind) in service.METHODS.items():
+        make = (channel.unary_unary if kind == "unary"
+                else channel.stream_stream)
+        calls[name] = make(service.method_path(name),
+                           request_serializer=req_cls.SerializeToString,
+                           response_deserializer=resp_cls.FromString)
+    return channel, calls
+
+
+def _grpc_error(e):
+    """A :class:`BackendError` with a gRPC status's details."""
+    details = e.details() if hasattr(e, "details") else None
+    code = e.code() if hasattr(e, "code") else None
+    return BackendError(details or "gRPC {}".format(
+        code.name if code is not None else e))
+
+
+def _set_grpc_params(param_map, params):
+    for key, value in (params or {}).items():
+        if isinstance(value, bool):
+            param_map[key].bool_param = value
+        elif isinstance(value, int):
+            param_map[key].int64_param = value
+        else:
+            param_map[key].string_param = str(value)
+
+
+def _grpc_shm_params(param_map, region, size, offset):
+    _set_grpc_params(param_map, {"shared_memory_region": region,
+                                 "shared_memory_byte_size": int(size)})
+    if offset:
+        param_map["shared_memory_offset"].int64_param = int(offset)
+
+
+def _grpc_outputs(resp):
+    """``{name: array}`` of a ``ModelInferResponse``'s in-band outputs."""
+    from tpuserver_torch.tensor_io import array_from_binary
+
+    out = {}
+    for i, tensor in enumerate(resp.outputs):
+        if "shared_memory_region" in tensor.parameters:
+            continue
+        out[tensor.name] = array_from_binary(
+            resp.raw_output_contents[i], tensor.datatype, list(tensor.shape))
+    return out
+
+
+def _as_dict(message):
+    from google.protobuf import json_format
+
+    return json_format.MessageToDict(message,
+                                      preserving_proto_field_name=True)
+
+
+class GrpcBackend(_TritonClientShmMixin, ClientBackend):
+    """``GRPCInferenceService`` over a raw channel and the port's message
+    classes; ``submit`` uses the channel's own futures with a done
+    callback (no extra thread per in-flight request), and generation
+    rides a decoupled ``ModelStreamInfer`` stream on a channel of the
+    calling thread's own."""
+
+    kind = "grpc"
+    supports_generation = True
+
+    def __init__(self, url, max_inflight=None):
+        super().__init__(max_inflight)
+        # native async callbacks: the channel multiplexes without a
+        # fixed in-flight ceiling
+        self.capacity = None
+        self.url = url
+        self._channel, self._calls = _grpc_channel(url)
+        # generation streams are per-thread: generation workers run
+        # concurrently, each on a channel of its own
+        self._stream_local = threading.local()
+        self._stream_channels = []  # guarded-by: _stream_channels_lock
+        self._stream_channels_lock = threading.Lock()
+        self._declared = {}  # guarded-by: _declared_lock
+        self._declared_lock = threading.Lock()
+
+    def _unary(self, name, request):
+        import grpc
+
+        try:
+            return self._calls[name](request)
+        except grpc.RpcError as e:
+            raise _grpc_error(e) from e
+
+    def model_metadata(self, model):
+        from tpuserver_torch.grpc_proto import grpc_service_pb2 as pb
+
+        return _as_dict(self._unary("ModelMetadata",
+                                    pb.ModelMetadataRequest(name=model)))
+
+    def model_config(self, model):
+        from tpuserver_torch.grpc_proto import grpc_service_pb2 as pb
+
+        cfg = _as_dict(self._unary("ModelConfig",
+                                   pb.ModelConfigRequest(name=model)))
+        return cfg.get("config", cfg)
+
+    def server_statistics(self, model):
+        from tpuserver_torch.grpc_proto import grpc_service_pb2 as pb
+
+        return _as_dict(self._unary("ModelStatistics",
+                                    pb.ModelStatisticsRequest(name=model)))
+
+    def _register_region(self, name, kind, key, raw_handle, byte_size,
+                         device_id):
+        from tpuserver_torch.grpc_proto import grpc_service_pb2 as pb
+
+        if kind == "system":
+            self._unary("SystemSharedMemoryRegister",
+                        pb.SystemSharedMemoryRegisterRequest(
+                            name=name, key=key, offset=0,
+                            byte_size=byte_size))
+        else:
+            # the proto carries the bare 64-byte handle
+            self._unary("CudaSharedMemoryRegister",
+                        pb.CudaSharedMemoryRegisterRequest(
+                            name=name, raw_handle=base64.b64decode(raw_handle),
+                            device_id=device_id, byte_size=byte_size))
+
+    def _unregister_region(self, name, kind):
+        from tpuserver_torch.grpc_proto import grpc_service_pb2 as pb
+
+        if kind == "system":
+            self._unary("SystemSharedMemoryUnregister",
+                        pb.SystemSharedMemoryUnregisterRequest(name=name))
+        else:
+            self._unary("CudaSharedMemoryUnregister",
+                        pb.CudaSharedMemoryUnregisterRequest(name=name))
+
+    def _build(self, model, inputs, output_refs, parameters=None):
+        """One ``ModelInferRequest``, serialized once: every tensor's raw
+        bytes in ``raw_input_contents`` (a region reference instead, for
+        a :func:`shm_input_ref`)."""
+        from tpuserver_torch.grpc_proto import grpc_service_pb2 as pb
+        from tpuserver_torch.tensor_io import binary_from_array
+
+        declared = self._input_datatypes(model)
+        req = pb.ModelInferRequest(model_name=model)
+        for name, arr in inputs.items():
+            if _is_shm_ref(arr):
+                tensor = req.inputs.add(name=name, datatype=arr["datatype"])
+                tensor.shape.extend(int(d) for d in arr["shape"])
+                _grpc_shm_params(tensor.parameters,
+                                 arr["shared_memory_region"],
+                                 arr["shared_memory_byte_size"],
+                                 arr.get("shared_memory_offset", 0))
+                continue
+            datatype = _wire_type(arr, declared.get(name))
+            tensor = req.inputs.add(name=name, datatype=datatype)
+            tensor.shape.extend(int(d) for d in np.shape(arr))
+            req.raw_input_contents.append(binary_from_array(arr, datatype))
+        for name, region, size, offset in output_refs or ():
+            out = req.outputs.add(name=name)
+            _grpc_shm_params(out.parameters, region, size, offset)
+        _set_grpc_params(req.parameters, parameters)
+        return req
+
+    def _send(self, prepared):
+        return _grpc_outputs(self._unary("ModelInfer", prepared))
+
+    def submit(self, prepared, on_done):
+        future = self._calls["ModelInfer"].future(prepared)
+
+        def callback(fut):
+            error = fut.exception()
+            on_done(None if error is None else _grpc_error(error))
+
+        future.add_done_callback(callback)
+
+    def _thread_calls(self):
+        calls = getattr(self._stream_local, "calls", None)
+        if calls is None:
+            channel, calls = _grpc_channel(self.url)
+            self._stream_local.channel = channel
+            self._stream_local.calls = calls
+            with self._stream_channels_lock:
+                self._stream_channels.append(channel)
+        return calls
+
+    def release_thread_resources(self):
+        # a generation worker's thread-local channel dies with the
+        # worker: a swept run would otherwise hold every past level's
+        # channels open until close()
+        channel = getattr(self._stream_local, "channel", None)
+        if channel is None:
+            return
+        self._stream_local.channel = self._stream_local.calls = None
+        with self._stream_channels_lock:
+            try:
+                self._stream_channels.remove(channel)
+            except ValueError:
+                pass
+        channel.close()
+
+    def generate_stream(self, model, inputs, parameters=None, stats=None):
+        """One generation on a decoupled ``ModelStreamInfer`` stream of
+        this thread's channel, ended by the response that carries
+        ``triton_final_response`` (asked for with
+        ``triton_enable_empty_final_response``; the empty final response
+        counts no token).  A stream dropped mid-generation re-opens with
+        ``resume_generation_id``/``resume_from_seq`` and splices, up to
+        ``GENERATION_MAX_RECONNECTS`` times, counted into
+        ``stats["resumes"]``; replayed duplicates (a seq already seen) are
+        dropped.  An in-band ``error_message`` raises at once."""
+        import grpc
+
+        calls = self._thread_calls()
+        base = dict(parameters or {})
+        base["triton_enable_empty_final_response"] = True
+        gen_id = base.get("generation_id")
+
+        def on_reconnect(attempt, exc):
+            if stats is not None:
+                stats["resumes"] = stats.get("resumes", 0) + 1
+
+        resumer = Resumer(GENERATION_MAX_RECONNECTS,
+                          on_reconnect=on_reconnect)
+        while True:
+            params = dict(base)
+            resuming = gen_id is not None and resumer.last_seq >= 0
+            if resuming:
+                params.pop("generation_id", None)
+                params["resume_generation_id"] = gen_id
+                params["resume_from_seq"] = resumer.last_seq + 1
+            request = self._build(model, inputs, None, params)
+            dropped = None
+            try:
+                for resp in calls["ModelStreamInfer"](iter([request])):
+                    if resp.error_message:
+                        if resuming and ("unknown or expired generation id"
+                                         in resp.error_message):
+                            dropped = BackendError(resp.error_message)
+                            break
+                        raise BackendError(resp.error_message)
+                    out = resp.infer_response
+                    final = out.parameters.get("triton_final_response")
+                    if final is not None and final.bool_param \
+                            and not out.outputs:
+                        return
+                    if "generation_id" in out.parameters:
+                        gen_id = out.parameters["generation_id"].string_param
+                    if "seq" in out.parameters and not resumer.fresh(
+                            out.parameters["seq"].int64_param):
+                        continue  # a replayed duplicate
+                    resumer.yielded_any = True
+                    yield _response_token_count([
+                        {"name": t.name, "shape": list(t.shape)}
+                        for t in out.outputs])
+                    if final is not None and final.bool_param:
+                        return
+                else:
+                    dropped = BackendError(
+                        "stream ended without its final response")
+            except grpc.RpcError as e:
+                dropped = _grpc_error(e)
+            resumer.reconnect(dropped, gen_id is not None
+                              and resumer.last_seq >= 0)
+
+    def close(self):
+        super().close()
+        with self._stream_channels_lock:
+            channels, self._stream_channels = self._stream_channels, []
+        for channel in channels:
+            channel.close()
+        self._channel.close()
+
+
 # -- shared-memory infer-data manager ---------------------------------------
 
 
@@ -548,19 +1226,28 @@ class ShmInferDataManager:
 # -- factory ---------------------------------------------------------------
 
 
-def create_backend(kind, core=None, max_inflight=None):
-    """Build a backend by name (the CLI's ``--backend`` flag): only
-    ``inprocess``, which needs ``core`` (an ``InferenceServer``).
-    ``max_inflight`` sizes the backend's executor so the requested load
-    level actually reaches the server."""
+def create_backend(kind, url=None, core=None, max_inflight=None):
+    """Build a backend by name (the CLI's ``--backend`` flag).
+
+    ``http``/``grpc`` need ``url`` (``host:port``); ``inprocess`` needs
+    ``core`` (an ``InferenceServer``).  ``max_inflight`` sizes the
+    backend's executor/connection pool so the requested load level
+    actually reaches the server.
+    """
     if kind == "inprocess":
         if core is None:
             raise ValueError("inprocess backend needs core=")
         return InProcessBackend(core, max_inflight=max_inflight)
+    if kind == "http":
+        if not url:
+            raise ValueError("http backend needs url=")
+        return HttpBackend(url, max_inflight=max_inflight)
+    if kind == "grpc":
+        if not url:
+            raise ValueError("grpc backend needs url=")
+        return GrpcBackend(url, max_inflight=max_inflight)
     raise ValueError(
-        "unknown backend '{}': the port's perf analyzer drives its core "
-        "in-process only (want inprocess; measure over sockets with "
-        "tools/perf_analyzer.py)".format(kind))
+        "unknown backend '{}' (want http, grpc or inprocess)".format(kind))
 
 
 # -- input synthesis -------------------------------------------------------

@@ -808,3 +808,55 @@ def test_perf_analyzer_cuda_shm_is_zero_copy_on_card(cuda, capsys):
     # the perf analyzer's regions are named pa_<tag>_<label>
     assert not [h.name for h in csm.allocated_shared_memory_regions()
                 if h.name.startswith("pa_")]
+
+
+def test_grpc_backend_cuda_region_round_trip_on_card(cuda):
+    """The perf analyzer's ``GrpcBackend`` over the port's gRPC server:
+    ``simple``'s inputs staged in a CUDA region and its outputs delivered
+    into one.  The server reads every input as a view of the region (two
+    zero-copy reads a request), the outputs read back (the value fence)
+    equal the in-band answer over the same socket, and no region is left
+    registered or allocated."""
+    from tpuserver_torch import cuda_shared_memory as csm
+    from tpuserver_torch.core import InferenceServer
+    from tpuserver_torch.grpc_server import GrpcServer
+    from tpuserver_torch.models import default_models
+    from tpuserver_torch.perfanalyzer.client_backend import (
+        GrpcBackend,
+        ShmInferDataManager,
+        build_input_pool,
+    )
+
+    core = InferenceServer(default_models())
+    server = GrpcServer(core, port=0).start()
+    backend = GrpcBackend("127.0.0.1:{}".format(server.port))
+    shm = ShmInferDataManager(backend, "cuda", tag="card_grpc", device=cuda)
+    try:
+        metadata = backend.model_metadata("simple")
+        pool = build_input_pool(metadata, backend.model_config("simple"),
+                                pool_size=3, batch_size=2, seed=2)
+        refs = shm.stage_input_sets(pool, {
+            t["name"]: t["datatype"] for t in metadata["inputs"]})
+        name, handle = shm.create_region("out", 256)
+        prepared = backend.prepare_shm(
+            "simple", refs, [("OUTPUT0", name, 128, 0),
+                             ("OUTPUT1", name, 128, 128)])
+        for inputs, req in zip(pool, prepared):
+            inband = backend.infer(backend.prepare("simple", [inputs])[0])
+            reads0 = core.shm_stats()["shm_zero_copy_reads"]
+            assert backend.infer(req) == {}
+            assert core.shm_stats()["shm_zero_copy_reads"] - reads0 == 2
+            for j, out in enumerate(("OUTPUT0", "OUTPUT1")):
+                np.testing.assert_array_equal(
+                    shm.read(handle, np.int32, [2, 16], offset=128 * j),
+                    inband[out])
+            np.testing.assert_array_equal(
+                inband["OUTPUT0"], inputs["INPUT0"] + inputs["INPUT1"])
+    finally:
+        shm.close()
+        backend.close()
+        server.stop()
+        core.close()
+    assert not core.cuda_shm_status()
+    assert not [h.name for h in csm.allocated_shared_memory_regions()
+                if h.name.startswith("pa_card_grpc")]

@@ -48,6 +48,8 @@ from tpuserver_torch.grpc_server import GrpcServer
 from tpuserver_torch.http_server import HttpServer
 from tpuserver_torch.models import llama as tl
 from tpuserver_torch.models.llama_serving import LlamaGenerateModel
+from torch_port_helpers import StepHold as _StepHold
+from torch_port_helpers import parked_since as _parked_since
 
 pytestmark = pytest.mark.torch_port
 
@@ -179,54 +181,6 @@ def _http_tokens(port, prompt, max_tokens):
               if line.startswith("data: ")]
     assert events[-1] == {"final": True}
     return [ev["outputs"][0]["data"][0] for ev in events[:-1]]
-
-
-class _StepHold:
-    """Holds a scheduler's decode loop inside its ``at``-th step call
-    from now until ``first()`` is true (``timed_out`` if it never is),
-    then slows every later step call, up to ``PACE_S`` each, until
-    ``then()`` is true.  A dropped stream's consumer notices the drop
-    only when its next token arrives, so the loop must go on stepping,
-    slowly enough that the generation is still live (and its KV exported
-    when it is reaped) when its consumer goes, however loaded the
-    machine."""
-
-    PACE_S = 0.5
-
-    def __init__(self, model, at, first, then):
-        fns = model._ensure_scheduler()._fns
-        self._step = fns["step"]
-        self._calls = 0
-        self._at = at
-        self._first = first
-        self._then = then
-        self.timed_out = False
-        fns["step"] = self._held  # the loop looks it up per call
-
-    def _wait(self, cond, limit):
-        deadline = time.monotonic() + limit
-        while not cond():
-            if time.monotonic() > deadline:
-                return False
-            time.sleep(0.005)
-        return True
-
-    def _held(self, *args):
-        self._calls += 1
-        if self._calls == self._at:
-            self.timed_out = not self._wait(self._first, WAIT_S)
-        elif self._calls > self._at and self._then is not None:
-            if self._wait(self._then, self.PACE_S):
-                self._then = None
-        return self._step(*args)
-
-
-def _parked_since(model, gen_id, hits0):
-    """True once generation ``gen_id`` parked (its consumer gone): it is
-    in the replay buffer, or a resume took it from there already."""
-    sched = model._scheduler
-    with sched._cond:
-        return gen_id in sched._replay or sched._replay_hits > hits0
 
 
 # -- tokens against the JAX GrpcFrontend and the port's HTTP ------------------

@@ -136,9 +136,9 @@ def test_parse_range_rejects_what_jax_rejects(text):
     lambda core: ShmInferDataManager(InProcessBackend(core), "xla"),
 ], ids=["http", "grpc", "no_core", "xla_region"])
 def test_only_the_in_process_backend_and_its_regions_exist(make):
-    """The port drives its core in-process only (the socket backends stay
-    with ``tools/perf_analyzer.py``), and its regions are system or
-    CUDA ones."""
+    """A socket backend needs a url and the in-process one a core (the
+    replica pool backend stays with ``tools/perf_analyzer.py``), and the
+    port's regions are system or CUDA ones."""
     core = InferenceServer(default_models())
     try:
         with pytest.raises(ValueError):

@@ -271,7 +271,9 @@ def test_default_device_is_the_card_and_raises_without_one(monkeypatch):
 def test_port_imports_neither_jax_nor_tpuserver():
     """Import every module of the port in a fresh interpreter: no jax, no
     tpuserver.* (``tpuserver_torch`` itself is not ``tpuserver``), no
-    tritonclient, no ml_dtypes (the port's BF16 is bits)."""
+    tritonclient, no ml_dtypes (the port's BF16 is bits), and none of the
+    JAX side's perfanalyzer package or root ``bench``/``bench_full``
+    modules (the port's bench and socket backends keep their own)."""
     script = (
         "import pkgutil, sys\n"
         "import tpuserver_torch\n"
@@ -280,7 +282,8 @@ def test_port_imports_neither_jax_nor_tpuserver():
         "for n in names:\n"
         "    __import__(n)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
-        "             ('jax', 'tpuserver', 'tritonclient', 'ml_dtypes'))\n"
+        "             ('jax', 'tpuserver', 'tritonclient', 'ml_dtypes',\n"
+        "              'perfanalyzer', 'bench', 'bench_full'))\n"
         "print(len(names), bad)\n"
         "sys.exit(1 if bad else 0)\n")
     env = dict(os.environ, PYTHONPATH=SRC_PY)

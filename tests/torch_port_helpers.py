@@ -1,8 +1,10 @@
 """What the port's fleet-tier tests share (``test_torch_fleet.py`` and
 ``test_torch_disagg.py``): the float32 ``tiny`` config of both packages,
 the JAX weights bridged to the port, one torch thread per test process,
-a deadline poll and an SSE reader.  A test module imports the fixtures
-by name, so pytest finds them there."""
+a deadline poll and an SSE reader; and a hold on a scheduler's decode
+loop for the tests that drop a stream (``test_torch_grpc.py``,
+``test_torch_perfanalyzer_sockets.py``).  A test module imports the
+fixtures by name, so pytest finds them there."""
 
 import dataclasses
 import json
@@ -71,3 +73,51 @@ def sse_events(resp):
             if event.get("final"):
                 return
             seq = None
+
+
+class StepHold:
+    """Holds a scheduler's decode loop inside its ``at``-th step call
+    from now until ``first()`` is true (``timed_out`` if it never is),
+    then slows every later step call, up to ``PACE_S`` each, until
+    ``then()`` is true.  A dropped stream's consumer notices the drop
+    only when its next token arrives, so the loop must go on stepping,
+    slowly enough that the generation is still live (and its KV exported
+    when it is reaped) when its consumer goes, however loaded the
+    machine."""
+
+    PACE_S = 0.5
+
+    def __init__(self, model, at, first, then):
+        fns = model._ensure_scheduler()._fns
+        self._step = fns["step"]
+        self._calls = 0
+        self._at = at
+        self._first = first
+        self._then = then
+        self.timed_out = False
+        fns["step"] = self._held  # the loop looks it up per call
+
+    def _wait(self, cond, limit):
+        deadline = time.monotonic() + limit
+        while not cond():
+            if time.monotonic() > deadline:
+                return False
+            time.sleep(0.005)
+        return True
+
+    def _held(self, *args):
+        self._calls += 1
+        if self._calls == self._at:
+            self.timed_out = not self._wait(self._first, WAIT_S)
+        elif self._calls > self._at and self._then is not None:
+            if self._wait(self._then, self.PACE_S):
+                self._then = None
+        return self._step(*args)
+
+
+def parked_since(model, gen_id, hits0):
+    """True once generation ``gen_id`` parked (its consumer gone): it is
+    in the replay buffer, or a resume took it from there already."""
+    sched = model._scheduler
+    with sched._cond:
+        return gen_id in sched._replay or sched._replay_hits > hits0
