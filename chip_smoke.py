@@ -239,6 +239,27 @@ Phases, in order; any failure exits non-zero and prints no result line:
    (config 5's direct rows) and the ``bench_served`` rows (its streams).
    ``python3 chip_smoke.py --bench-only`` runs phases 1-3 and 13 alone (13
    on weights drawn from the seed) and prints no result line.
+14. chaos, after 13: the chaos soak's in-process modes
+   (``tpuserver_torch.chaos_smoke``'s ``main``) on phase 13's weights
+   upcast to float32 in place (``llama3_8b`` at full width and depth, TF32
+   off for the phase and restored after; a restart re-prefills ``prompt +
+   history`` in one pass, and only float32 keeps its tokens identical to
+   the uninterrupted decode): the default rounds with the overload
+   phase, ``--kill-loop`` and ``--shm`` over a CUDA region, ``max_seq``
+   128 (at the soak's default 64 the decode kernel's blocks do not tile
+   and the model attends densely, as JAX's does), two slots, 6 tokens, 8
+   rounds each.  Every mode exits 0 (every
+   stream token-identical to the fault-free reference after every
+   restart); each one's OK line, seconds, restarts, ring lanes read and
+   launches are printed; ``decode_attention`` launches and
+   ``flash_attention`` launches 0 times (prompts of 3-24 tokens and
+   re-prefills of at most 30 run dense).  The one-pass prefill of each
+   prompt and its reference tokens is held against the decode's tokens,
+   with the smallest top-2 logit gap on the way.  Phase 3 holds the decode
+   kernel at this path's shape (B 2, lengths 30 and 24, ``max_seq`` 128,
+   float32).  Its launches make the ``chaos`` rows.  ``python3
+   chip_smoke.py --chaos-only`` runs phases 1-3 and 14 alone (on weights
+   drawn from the seed) and prints no result line.
 
 10. tp, last: tensor-parallel serving of ``llama3_8b`` (full width and
    depth, ``max_seq`` 4096, the seed's weights, each rank drawing every
@@ -340,6 +361,12 @@ BATCHED_LENGTHS = tuple(600 - 7 * i for i in range(8))
 # in the 512-key cache of ``bench_full.LLAMA_MAX_SEQ``
 BENCH_SERVED_LENGTHS = (40,) * 8
 BENCH_SERVED_SEQ = 512
+# phase 14's batched decode: two slots of a 128-token cache (the least
+# the decode kernel's blocks tile: at the soak's default 64 the model
+# attends densely), the longest row a 24-token prompt re-prefilled with
+# 6 tokens of history
+CHAOS_LENGTHS = (30, 24)
+CHAOS_SEQ = 128
 # prompt lengths of phase 4b's requests, four of each; phase 3 checks the
 # flash kernel at every one whose admission prefill it runs
 BATCHED_PROMPT_LENGTHS = (512, 256, 77)
@@ -725,6 +752,7 @@ def phase_kernels(torch):
             ((1, 77, 1, 600, 4096, 1, 3000, 1), s, bf16, h, hkv, d),
             (BATCHED_LENGTHS, s, bf16, h, hkv, d),
             (BENCH_SERVED_LENGTHS, BENCH_SERVED_SEQ, bf16, h, hkv, d),
+            (CHAOS_LENGTHS, CHAOS_SEQ, f32, h, hkv, d),
             ((40, 17), 64, f32, 6, 2, 16),
             # phase 10's tp=4 decode: one rank's heads
             ((576,), s, bf16, h4, hkv4, d),
@@ -732,9 +760,10 @@ def phase_kernels(torch):
         main = lengths == (576,) and hh == h
         batched = lengths == BATCHED_LENGTHS and hh == h
         served = lengths == BENCH_SERVED_LENGTHS
+        chaos = lengths == CHAOS_LENGTHS
         tp4 = hh == h4 and kk == hkv4 and dd == d
         row = _decode_case(torch, F, fl, dev, gen, lengths, ss, hh, kk, dd,
-                           dtype, main or batched or served or tp4
+                           dtype, main or batched or served or chaos or tp4
                            or lengths == (4096,), flush)
         row["kernel"] = "decode_attention"
         rows.append(row)
@@ -744,6 +773,8 @@ def phase_kernels(torch):
             timed["decode_attention_batched"] = row
         if served:
             timed["decode_attention_bench_served"] = row
+        if chaos:
+            timed["decode_attention_chaos"] = row
         if tp4:
             timed["decode_attention_tp4" + (
                 "_batched" if len(lengths) > 1 else "")] = row
@@ -6201,6 +6232,155 @@ def phase_bench(torch, np, cfg, params, smi, device="cuda"):
     return launches
 
 
+# -- phase 14: the chaos soak's in-process modes -----------------------------
+
+
+# the soak's serving settings (the JAX tool's two slots, six tokens and
+# eight rounds; max_seq CHAOS_SEQ, where JAX's is 64) on llama3_8b in
+# float32 on the card
+CHAOS_ARGV = ("--config", "llama3_8b", "--dtype", "float32", "--slots", "2",
+              "--budget", "6", "--rounds", "8", "--max-seq", str(CHAOS_SEQ))
+CHAOS_MODES = ((), ("--kill-loop",), ("--shm",))
+# the phase's share of the script's 1200 s: reported, not enforced
+CHAOS_BUDGET_S = 150.0
+
+
+def _upcast(tree):
+    """Every tensor leaf of ``tree`` to float32, in place, one leaf at a
+    time: each bfloat16 leaf is freed as soon as its copy replaces it
+    (when nothing else holds it), so the peak stays near the float32
+    tree."""
+    for key in list(tree.keys() if isinstance(tree, dict)
+                    else range(len(tree))):
+        if isinstance(tree[key], (dict, list)):
+            _upcast(tree[key])
+        else:
+            tree[key] = tree[key].float()
+
+
+def _chaos_margins(torch, llama, cfg, params, reference, prompts, device):
+    """Each prompt's reference tokens against the one-pass prefill of
+    ``prompt + reference`` (what a restart's re-prefill computes): the
+    first position where the prefill's argmax differs from the decode's
+    token (None when none does) and the smallest top-2 logit gap over
+    the generated positions."""
+    out = []
+    for prompt, ref in zip(prompts, reference):
+        ids = [int(t) for t in prompt] + list(ref)
+        tokens = torch.tensor([ids[:-1]], device=device)
+        with torch.inference_mode():
+            logits = llama.forward(params, tokens, cfg)[0, len(prompt) - 1:]
+        top2 = logits.topk(2, dim=-1)
+        picks = top2.indices[:, 0].tolist()
+        gaps = (top2.values[:, 0] - top2.values[:, 1]).tolist()
+        first = next((j for j, (a, b) in enumerate(zip(picks, ref))
+                      if a != b), None)
+        out.append({"prompt": len(prompt), "diverges_at": first,
+                    "gap_there": None if first is None else gaps[first],
+                    "min_top2_gap": min(gaps)})
+    return out
+
+
+def phase_chaos(torch, cfg, params, smi, device="cuda"):
+    """Phase 14: the chaos soak's default rounds (with the overload
+    phase), ``--kill-loop`` and ``--shm`` over a CUDA region, through
+    ``tpuserver_torch.chaos_smoke.main`` on ``params`` upcast to float32
+    in place (``cfg`` their config); returns the kernels' launches over
+    the three runs.  ``device="cpu"`` runs it on the CPU (a smaller
+    ``CHAOS_ARGV`` config then), without the card's memory counts."""
+    import io
+
+    from tpuserver_torch import chaos_smoke
+    from tpuserver_torch import cuda_shared_memory as csm
+    from tpuserver_torch.models import llama
+    from tpuserver_torch.ops import flash as fl
+
+    card = device == "cuda"
+    sync = torch.cuda.synchronize if card else (lambda: None)
+    t_start = time.monotonic()
+    gc.collect()
+    if card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    _upcast(params)
+    gc.collect()
+    if card:
+        torch.cuda.empty_cache()
+    sync()
+    log("chaos: weights upcast to float32 in {:.1f} s, {:.3f} GiB "
+        "allocated".format(time.monotonic() - t_start,
+                           torch.cuda.memory_allocated() / 2 ** 30
+                           if card else 0.0))
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    regions0 = len(csm.allocated_shared_memory_regions())
+    launches = {"flash_attention": 0, "decode_attention": 0}
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    reference = None
+    try:
+        for mode in CHAOS_MODES:
+            name = mode[0][2:] if mode else "default"
+            out, err = io.StringIO(), io.StringIO()
+            fl.reset_launch_counts()
+            t0 = time.monotonic()
+            with contextlib.redirect_stdout(out), \
+                    contextlib.redirect_stderr(err):
+                rc = chaos_smoke.main(
+                    list(CHAOS_ARGV + mode + ("--device", device)),
+                    params=params)
+            sync()
+            seconds = time.monotonic() - t0
+            counts = {k: getattr(fl, k).launches for k in launches}
+            for k in launches:
+                launches[k] += counts[k]
+            stats = chaos_smoke.STATS
+            ok = [ln for ln in out.getvalue().splitlines()
+                  if "chaos smoke OK" in ln]
+            log("chaos {}, {}: exit {}, {:.1f} s, rounds {}, restarts {}, "
+                "ring lanes read {}, data plane {}, launches {}".format(
+                    name, smi, rc, seconds, stats.get("rounds"),
+                    stats.get("restarts"), stats.get("ring_reads"),
+                    json.dumps(stats.get("shm")), json.dumps(counts)))
+            log("chaos {}: {}".format(name, ok[0] if ok else "no OK line"))
+            if rc != 0 or not ok:
+                log("chaos {} output: {}".format(name, out.getvalue()[-4000:]))
+                log("chaos {} errors: {}".format(name, err.getvalue()[-8000:]))
+                fail("chaos: {} exited {}".format(name, rc))
+            if not counts["decode_attention"]:
+                fail("chaos: {} never launched decode_attention".format(name))
+            if mode and stats.get("restarts") != stats.get("rounds"):
+                fail("chaos: {} restarted {} times in {} rounds".format(
+                    name, stats.get("restarts"), stats.get("rounds")))
+            reference = reference or stats.get("reference")
+            if stats.get("reference") != reference:
+                fail("chaos: {}'s reference tokens {} differ from the "
+                     "default rounds' {}".format(
+                         name, stats.get("reference"), reference))
+        margins = _chaos_margins(torch, llama, cfg32, params, reference,
+                                 chaos_smoke.PROMPTS, device)
+        log("chaos: one-pass prefill of prompt + reference against the "
+            "decode's tokens, {}: {}".format(smi, json.dumps(margins)))
+        if any(m["diverges_at"] is not None for m in margins):
+            fail("chaos: a one-pass prefill disagrees with the decode: "
+                 "{}".format(margins))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    if launches["flash_attention"]:
+        fail("chaos: flash_attention launched {} times (every prefill "
+             "should run dense)".format(launches["flash_attention"]))
+    left = len(csm.allocated_shared_memory_regions()) - regions0
+    if left:
+        fail("chaos: {} regions left allocated".format(left))
+    total = time.monotonic() - t_start
+    log("chaos: phase 14 {:.1f} s ({} its {:.0f} s budget), peak {:.3f} "
+        "GiB allocated, launches {}".format(
+            total, "within" if total <= CHAOS_BUDGET_S else "OVER",
+            CHAOS_BUDGET_S,
+            torch.cuda.max_memory_allocated() / 2 ** 30 if card else 0.0,
+            json.dumps(launches)))
+    return launches
+
+
 # -- main --------------------------------------------------------------------
 
 
@@ -6313,6 +6493,24 @@ def main():
         log("bench-only: done")
         log(smi)
         return 1
+    if sys.argv[1:] == ["--chaos-only"]:
+        # phases 1-3 and 14 alone, for work on the chaos soak; phase 14 on
+        # weights drawn from the seed; prints no result line
+        from tpuserver_torch.models import llama
+        from tpuserver_torch.models.llama_serving import LlamaGenerateModel
+
+        name, smi = phase_device(torch)
+        log("nvidia-smi:", smi)
+        phase_build()
+        phase_kernels(torch)
+        drawn = LlamaGenerateModel(cfg=llama.llama3_8b(), seed=SEED,
+                                   device="cuda")
+        params = drawn._ensure_params()
+        del drawn
+        phase_chaos(torch, llama.llama3_8b(), params, smi)
+        log("chaos-only: done")
+        log(smi)
+        return 1
     if sys.argv[1:] == ["--vision-only"]:
         # phases 1, 2 and 8 alone, for work on the vision path; prints no
         # result line
@@ -6375,7 +6573,11 @@ def main():
     # phase 13 serves the same weights again behind the benchmark's zoo
     bench_launches = phase_bench(torch, np, llama_model._cfg,
                                  llama_model._ensure_params(), smi)
+    # phase 14 upcasts them to float32 in place and soaks them
+    cfg8b, params8b = llama_model._cfg, llama_model._ensure_params()
     del llama_model
+    chaos_launches = phase_chaos(torch, cfg8b, params8b, smi)
+    del params8b
     gc.collect()
     torch.cuda.empty_cache()
     tp_launches = phase_tp(torch, np, single, b_prompts, b_budgets, b_tokens)
@@ -6461,6 +6663,11 @@ def main():
         paths.append(("flash_attention", flash_src, flash_tpu,
                       "bench_served", "flash_attention",
                       bench_launches["bench_served"]))
+    # phase 14: the chaos soak's batched decode in float32 (timed at its
+    # two slots of a 128-token cache); its prefills run dense, and the
+    # flash row stands with its 0 launches, which the phase asserts
+    paths.append(("decode_attention", decode_src, decode_tpu, "chaos",
+                  "decode_attention_chaos", chaos_launches))
     # phase 9 (e): the llama client's single-stream generations over CUDA
     # regions (4-token prompts: their prefills run dense, no flash)
     paths.append(("decode_attention", decode_src, decode_tpu,
@@ -6561,8 +6768,20 @@ def main():
         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
         "library_ms": row["library_ms"],
         "train_step_launches": train["step_launches"]})
-    idle = [(k["name"], k["path"]) for k in kernels if not k["launches"] or
-            not all(k.get("launches_by_rank", [1]))]
+    row = rows["timed"]["flash_attention"]
+    kernels.append({
+        "name": "flash_attention", "route": "cuda", "source": flash_src,
+        "replaces": flash_tpu, "path": "chaos",
+        "launches": chaos_launches["flash_attention"],
+        "expected_launches": 0,
+        "max_abs_err": rows["max_err"]["flash_attention"],
+        "ms": row["ms"], "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+        "library_ms": row["library_ms"]})
+    idle = [(k["name"], k["path"]) for k in kernels
+            if "expected_launches" not in k and (
+                not k["launches"]
+                or not all(k.get("launches_by_rank", [1])))]
     if idle:
         fail("kernels of a path never launched on it: {}".format(idle))
     log("chip_smoke: {:.1f} s".format(time.monotonic() - started))

@@ -126,6 +126,24 @@ def start_fleet(cycles, manifest_dir=None, spec_tokens=0,
     automatically when ``active_router_sigkill`` is in the mix) runs
     the PARTITIONED front tier — two actives with per-partition
     journal subdirectories plus the standby."""
+    return stub_fleet(
+        2 * cycles + 6, "campaign-stub-", manifest_dir=manifest_dir,
+        spec_tokens=spec_tokens, active_routers=active_routers)
+
+
+def stub_fleet(max_restarts, scope_prefix, roles=True,
+               router_processes=True, active_routers=1, manifest_dir=None,
+               spec_tokens=0, router_kwargs=None):
+    """A started :class:`~tpuserver_torch.fleet.FleetSupervisor` over
+    ``tests/fleet_stub.py`` replicas, each pool pinned at its target
+    (min == max: the soaks are about healing back to it, not about
+    scaling): one prefill and one decode replica with ``roles``, else
+    two fused ones.  ``router_processes`` fronts them with an active and
+    a warm-standby ``python -m tpuserver_torch.router_cli`` process on
+    one crash journal (``active_routers`` actives, each owning a
+    partition, when above 1); without it the supervisor's in-process
+    router (``router_kwargs``) fronts them.  The campaign's fleet and
+    the chaos soak's stub modes (``tpuserver_torch.chaos_smoke``)."""
     from tpuserver_torch.fleet import FleetSupervisor
 
     stub = os.path.join(REPO, "tests", "fleet_stub.py")
@@ -133,23 +151,23 @@ def start_fleet(cycles, manifest_dir=None, spec_tokens=0,
                "--scope", "{scope}"]
     if spec_tokens > 0:
         command += ["--spec-tokens", str(spec_tokens)]
-    router_command = [
-        sys.executable, "-m", "tpuserver_torch.router_cli",
-        "--backends", "{backends}", "--port", "{port}",
-        "--journal", "{journal}", "--probe-interval", "0.1",
-    ]
+    pools = (dict(prefill_replicas=1, decode_replicas=1, min_replicas=1,
+                  max_replicas=1) if roles
+             else dict(replicas=2, min_replicas=2, max_replicas=2))
+    front = {"router_kwargs": router_kwargs}
+    if router_processes:
+        front = dict(router_command=[
+            sys.executable, "-m", "tpuserver_torch.router_cli",
+            "--backends", "{backends}", "--port", "{port}",
+            "--journal", "{journal}", "--probe-interval", "0.1",
+        ], router_standby=True, active_routers=active_routers)
     return FleetSupervisor(
-        command, prefill_replicas=1, decode_replicas=1,
-        min_replicas=1, max_replicas=1,
-        probe_interval_s=0.1, probe_timeout_s=2.0,
+        command, probe_interval_s=0.1, probe_timeout_s=2.0,
         start_timeout_s=60.0, drain_grace_s=5.0,
-        max_restarts=2 * cycles + 6, restart_window_s=3600.0,
-        restart_backoff_s=0.05, scope_prefix="campaign-stub-",
-        router_command=router_command, router_standby=True,
-        active_routers=active_routers,
-        env={"PYTHONPATH": SRC_PYTHON},
-        manifest_dir=manifest_dir,
-    ).start()
+        max_restarts=max_restarts, restart_window_s=3600.0,
+        restart_backoff_s=0.05, scope_prefix=scope_prefix,
+        env={"PYTHONPATH": SRC_PYTHON}, manifest_dir=manifest_dir,
+        **pools, **front).start()
 
 
 def post_stub_state(url, update):
@@ -380,7 +398,8 @@ class FleetInjectors:
 
 
 def generate_stream(urls, model, prompt, max_tokens, parameters=None,
-                    max_reconnects=10, backoff_s=0.05, read_timeout=600.0):
+                    max_reconnects=10, backoff_s=0.05, read_timeout=600.0,
+                    on_reconnect=None):
     """Yield each event of one ``generate_stream`` generation of
     ``prompt``, resuming a dropped stream (see :func:`sse_generation`)."""
     body = json.dumps({
@@ -391,7 +410,8 @@ def generate_stream(urls, model, prompt, max_tokens, parameters=None,
              "data": [int(max_tokens)]}],
         "parameters": dict(parameters or {})})
     return sse_generation(urls, model, body, max_reconnects=max_reconnects,
-                          backoff_s=backoff_s, read_timeout=read_timeout)
+                          backoff_s=backoff_s, read_timeout=read_timeout,
+                          on_reconnect=on_reconnect)
 
 
 def run_stream(urls, recorder, context, budget):

@@ -920,6 +920,12 @@ class _FleetMetricsAggregator:
       ``nv_inference_count``) whose new value is LOWER than its last
       seen one is a process restart: the pre-reset total folds into
       the base and counting restarts from the new value.
+    - A replica whose process identity changed since its last scrape
+      (``identities``: the pid and spawn nonce its health snapshot
+      reported around the scrape) is a process restart too, whatever
+      its values: a respawn that has caught up to its predecessor's
+      count (the same ``16`` prefix hits again) lowers nothing, so
+      the drop alone would miss it and the fleet view would stall.
     - A replica that leaves the membership folds its whole last
       contribution into the base — the fleet view keeps everything it
       ever served.
@@ -937,6 +943,9 @@ class _FleetMetricsAggregator:
         self._last = {}
         # sample_key -> folded pre-reset/pre-removal total  # guarded-by: _lock
         self._base = {}
+        # url -> the process identity of its last folded scrape
+        # guarded-by: _lock
+        self._identity = {}
         # family -> (kind, help)  # guarded-by: _lock
         self._meta = {}
         # monotonic stamp of the last APPLIED fold: concurrent
@@ -946,7 +955,8 @@ class _FleetMetricsAggregator:
         # the fleet totals  # guarded-by: _lock
         self._last_stamp = float("-inf")
 
-    def render(self, live_urls, scrapes, stamp=None, exclude=()):
+    def render(self, live_urls, scrapes, stamp=None, exclude=(),
+               identities=None):
         """Fold this round of ``scrapes`` (url -> parsed families of
         the replica's exposition) and render the aggregate lines.
         ``stamp`` is the monotonic instant the scrape round STARTED:
@@ -956,19 +966,31 @@ class _FleetMetricsAggregator:
         registry already rendered — when replicas are themselves
         routers (routers stack), re-emitting their ``tpu_router_*``
         families would declare the same family twice and invalidate
-        the exposition."""
+        the exposition.  ``identities`` maps a scraped url to its
+        process identity (None: unknown); a changed one folds the url's
+        last values into the base first."""
         live = set(live_urls)
         exclude = set(exclude)
+        identities = identities or {}
         with self._lock:
             fold = stamp is None or stamp >= self._last_stamp
             if fold and stamp is not None:
                 self._last_stamp = stamp
             gauges = {}
             if fold:
+                respawned = set()
+                for url in scrapes:
+                    ident = identities.get(url)
+                    if ident is None:
+                        continue
+                    if self._identity.get(url, ident) != ident:
+                        respawned.add(url)
+                    self._identity[url] = ident
                 for url, key in list(self._last):
-                    if url not in live:
-                        # membership churn: the departed replica's
-                        # totals are history the fleet view must keep
+                    if url not in live or url in respawned:
+                        # membership churn or a new process: the
+                        # departed one's totals are history the fleet
+                        # view must keep
                         self._base[key] = (self._base.get(key, 0.0)
                                            + self._last.pop((url, key)))
             for url, families in scrapes.items():
@@ -1689,6 +1711,13 @@ class FleetRouter:
             if self._stop.wait(interval * rng.uniform(0.9, 1.1)):
                 return
 
+    def refresh_snapshot(self, rep):
+        """Probe ``rep`` now, outside the prober's cadence (a failed
+        probe changes nothing: the prober owns unreachability)."""
+        snap = self._fetch_snapshot(rep)
+        if snap is not None:
+            rep.update_snapshot(snap)
+
     def _fetch_snapshot(self, rep):
         conn = http.client.HTTPConnection(
             rep.host, rep.port, timeout=self._probe_timeout_s)
@@ -2341,13 +2370,25 @@ class FleetRouter:
         # costs its own probe_timeout_s, never N of them in sequence
         # (a post-SIGKILL scrape must still answer within one timeout)
         results = {}
+        identities = {}
         results_lock = threading.Lock()
 
+        def identity(rep):
+            snap = self._fetch_snapshot(rep)
+            return None if snap is None else (snap.get("pid"),
+                                              snap.get("spawn_nonce"))
+
         def fetch_one(rep):
+            # the process that answered: its identity read before and
+            # after the scrape; a scrape that straddled a respawn is
+            # left out of this round
+            before = identity(rep)
             text = self._fetch_metrics(rep)
-            if text is not None:
+            after = identity(rep)
+            if text is not None and before == after:
                 with results_lock:
                     results[rep.url] = parse_prometheus_text(text)
+                    identities[rep.url] = after
 
         threads = [
             threading.Thread(target=fetch_one, args=(rep,),
@@ -2360,6 +2401,7 @@ class FleetRouter:
             t.join(timeout=self._probe_timeout_s + 1.0)
         with results_lock:
             scrapes = dict(results)
+            idents = dict(identities)
         own = self.metrics.render()
         # families this tier already declared must not re-emit from
         # the aggregate: when replicas are themselves routers (routers
@@ -2370,7 +2412,8 @@ class FleetRouter:
             if line.startswith("# TYPE ")
         }
         return own + self._aggregator.render(
-            live_urls, scrapes, stamp=stamp, exclude=own_names)
+            live_urls, scrapes, stamp=stamp, exclude=own_names,
+            identities=idents)
 
     def health_snapshot(self):
         """The router's own replica-shaped ``/v2/health/stats`` answer,
@@ -3360,6 +3403,13 @@ class _RouterHandler(BaseHttpHandler):
                 return
             if outcome == "final":
                 gen.complete()
+                # the replica's last probe may have read its load while
+                # this stream was live, and that stale load outweighs
+                # the affinity bonus: the prefix's next sibling would
+                # land on a cold replica.  The replica released the
+                # stream before its final marker, so one probe now, before
+                # the client reads the marker, reads it idle
+                router.refresh_snapshot(serving_rep)
                 self._ensure_started()
                 self._send_chunk(b'data: {"final": true}\n\n')
                 self._end_chunks()

@@ -110,7 +110,7 @@ class LlamaGenerateModel(Model):
                  page_size=16, kv_pages=None, spec_tokens=0,
                  step_timeout_s=None, kv_export=False, target_queue_ms=None,
                  shed_interval_ms=100.0, fault_scope=None, quantize=False,
-                 mesh=None):
+                 mesh=None, max_restarts=5, restart_backoff_s=0.05):
         """``params``: weights to serve (a params dict of tensors, e.g.
         from ``llama.params_from_jax``, or another model's, which is then
         shared, not copied), moved to ``device``; None draws random ones
@@ -126,7 +126,9 @@ class LlamaGenerateModel(Model):
         ``max_slots>1`` serves through a ``DecodeScheduler``;
         ``page_size`` and ``kv_pages`` set its KV pool (default: room for
         ``max_slots`` full-length sequences), ``spec_tokens`` its drafted
-        tokens per step and ``step_timeout_s`` its watchdog (see
+        tokens per step, ``step_timeout_s`` its watchdog, and
+        ``max_restarts`` and ``restart_backoff_s`` its restart budget per
+        ``scheduler.RESTART_WINDOW_S`` and the backoff's base (see
         ``DecodeScheduler``).  ``kv_export`` is the default of the
         ``kv_park`` request parameter.  ``target_queue_ms`` (None: off)
         and ``shed_interval_ms`` set the scheduler's adaptive shedding,
@@ -194,6 +196,8 @@ class LlamaGenerateModel(Model):
                         "step": llama.make_tp_step(mesh, self._cfg)}
         self._spec_tokens = spec_tokens
         self._step_timeout_s = step_timeout_s
+        self._max_restarts = max_restarts
+        self._restart_backoff_s = restart_backoff_s
         self._kv_export = bool(kv_export)
         self._target_queue_ms = target_queue_ms
         self._shed_interval_ms = shed_interval_ms
@@ -233,6 +237,8 @@ class LlamaGenerateModel(Model):
                     self._fns, self._ensure_params(), self._max_slots,
                     self._max_seq, spec_tokens=self._spec_tokens,
                     step_timeout_s=self._step_timeout_s,
+                    max_restarts=self._max_restarts,
+                    restart_backoff_s=self._restart_backoff_s,
                     kv_export=self._export_kv, kv_import=self._import_kv,
                     kv_discard=self._discard_kv,
                     target_queue_ms=self._target_queue_ms,

@@ -2,6 +2,7 @@
 
     python -m tpuserver_torch.serve --config llama3_8b --max-seq 4096 \\
         --port 8000 [--grpc-port 8001] [--device cuda] [--seed 0] \\
+        [--dtype float32] \\
         [--models llama,fixtures,vision,bert] \\
         [--quantize] [--max-slots 8 [--page-size 16] [--kv-pages N]
         [--spec-tokens K] [--step-timeout-s S] [--kv-export]
@@ -20,7 +21,10 @@ host, ``bert_encoder``, bf16, warmed at batch 1 and 8, and
 ``bert_ensemble``), all through the KServe-v2 ``/infer`` and
 ``ModelInfer`` verbs and the ``ModelStreamInfer`` stream.
 
-Weights are random, drawn from ``--seed`` on the device; ``--quantize``
+Weights are random, drawn from ``--seed`` on the device, in the config's
+type unless ``--dtype`` names another (``float32``: a restart's
+re-prefill of ``prompt + history`` is then token-identical to the
+uninterrupted decode, the chaos soak's bar); ``--quantize``
 serves them as int8 with per-output-channel scales
 (``LlamaGenerateModel(quantize=True)``: about half the bytes, the few-row
 products through the W8A16 kernel).  With
@@ -61,9 +65,12 @@ once.
 """
 
 import argparse
+import dataclasses
 import os
 import signal
 import threading
+
+import torch
 
 from tpuserver_torch import resolve_device
 from tpuserver_torch.core import InferenceServer, install_sigterm_drain
@@ -87,6 +94,10 @@ def main(argv=None):
     parser.add_argument("--device", default=None,
                         help="torch device (default: the card)")
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--dtype", choices=("bfloat16", "float32"),
+                        default=None,
+                        help="the llama weights' type (default: the "
+                             "config's)")
     parser.add_argument("--models", default="llama",
                         help="comma-separated model groups to serve: "
                              "{} (default: llama)".format(
@@ -140,6 +151,8 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     cfg = llama.PRESETS[args.config]()
+    if args.dtype is not None:
+        cfg = dataclasses.replace(cfg, dtype=getattr(torch, args.dtype))
     models = []
     if "llama" in groups:
         models.append(LlamaGenerateModel(

@@ -11,7 +11,6 @@ steps must agree bit for bit, and chunked and one-shot prefill must
 stream the same tokens."""
 
 import dataclasses
-import functools
 import http.client
 import json
 import threading
@@ -36,7 +35,6 @@ from tpuserver_torch.errors import (
 )
 from tpuserver_torch.http_server import HttpServer
 from tpuserver_torch.models import llama as tl
-from tpuserver_torch.models import llama_serving
 from tpuserver_torch.models.llama_serving import LlamaGenerateModel
 from tpuserver_torch.scheduler import DecodeScheduler
 
@@ -518,17 +516,16 @@ def test_deadlines_fail_typed_504(fns, weights):
         core.close()
 
 
-def test_close_is_503_and_a_failed_loop_is_unhealthy(weights, monkeypatch):
+def test_close_is_503_and_a_failed_loop_is_unhealthy(weights):
     """A closed scheduler refuses with a 503; so does a closed core.  A
     step that always raises spends the supervisor's restart budget: the
     live stream fails with a 503, the scheduler trips and the model
     reports unhealthy until it is closed."""
     _, tcfg = _configs()
-    # a short restart budget, which the model itself does not expose
-    monkeypatch.setattr(llama_serving, "DecodeScheduler", functools.partial(
-        DecodeScheduler, max_restarts=2, restart_backoff_s=0.01))
+    # a short restart budget
     model = LlamaGenerateModel(cfg=tcfg, max_seq=MAX_SEQ, max_slots=2,
-                               params=weights, device="cpu")
+                               params=weights, device="cpu", max_restarts=2,
+                               restart_backoff_s=0.01)
     core = InferenceServer([model])
     assert len(_generate(core, PROMPTS[1], 3)) == 3
     model._scheduler.close()

@@ -218,21 +218,21 @@ def _generate(core, prompt, n, parameters=None):
 
 
 def _scheduler_settings(monkeypatch, **kwargs):
-    """Build the model's scheduler with ``kwargs`` (a short budget,
-    backoff or TTL), which the model itself does not expose."""
+    """Build the model's scheduler with ``kwargs`` (a short TTL), which
+    the model itself does not expose."""
     monkeypatch.setattr(llama_serving, "DecodeScheduler",
                         functools.partial(DecodeScheduler, **kwargs))
 
 
 def test_a_spent_restart_budget_trips_to_503_and_drain_still_works(
-        bridged, monkeypatch):
+        bridged):
     """Repeated failures spend the budget: the stream fails with a 503,
     the model reports unhealthy, submits are refused, and drain ends in
     a closed scheduler."""
     _, tparams = bridged
-    _scheduler_settings(monkeypatch, max_restarts=2, restart_backoff_s=0.01)
     model = LlamaGenerateModel(cfg=_cfgs()[1], max_seq=MAX_SEQ, max_slots=2,
-                               params=tparams, device="cpu")
+                               params=tparams, device="cpu", max_restarts=2,
+                               restart_backoff_s=0.01)
     core = InferenceServer([model])
     try:
         sched = model._ensure_scheduler()

@@ -3,11 +3,15 @@
 the JAX weights bridged to the port, one torch thread per test process,
 a deadline poll and an SSE reader; and a hold on a scheduler's decode
 loop for the tests that drop a stream (``test_torch_grpc.py``,
-``test_torch_perfanalyzer_sockets.py``).  A test module imports the
+``test_torch_perfanalyzer_sockets.py``); and the chaos soak's CLI as a
+process (``test_torch_chaos_smoke*.py``).  A test module imports the
 fixtures by name, so pytest finds them there."""
 
 import dataclasses
 import json
+import os
+import subprocess
+import sys
 import time
 
 import jax
@@ -21,6 +25,8 @@ from tpuserver_torch.models import llama as tl
 
 VOCAB = 512
 WAIT_S = 60.0
+SRC_PY = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "src", "python")
 
 
 def tiny_cfgs():
@@ -121,3 +127,13 @@ def parked_since(model, gen_id, hits0):
     sched = model._scheduler
     with sched._cond:
         return gen_id in sched._replay or sched._replay_hits > hits0
+
+
+def chaos_cli(args, timeout=240):
+    """``python -m tpuserver_torch.chaos_smoke`` as a process (the chaos
+    soak's tests): ``(exit code, output)``."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "tpuserver_torch.chaos_smoke"] + list(args),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, timeout=timeout,
+        env=dict(os.environ, PYTHONPATH=SRC_PY, OMP_NUM_THREADS="1"))
+    return proc.returncode, proc.stdout.decode(errors="replace")
