@@ -309,6 +309,49 @@ Phases, in order; any failure exits non-zero and prints no result line:
    kernels (their count is printed); the reference forward's flash
    launches make the ``train_reference_forward`` row.
 
+15. tools, in ``python3 chip_smoke.py --tools-only`` alone, which runs
+   phases 1-3 and 15 on ``llama3_8b`` weights drawn from the seed (bf16,
+   full width and depth) and prints the tools' ``{"kernels": [...]}``
+   line and no result line.  The full script does not run it: the phase
+   takes about 310-340 s on the card, and the script's other phases
+   leave less than that of its 1200 s.  The three model-path tuning
+   tools run through their ``main``s: (1) ``python -m
+   tpuserver_torch.bench_kernels``' whole sweep (flash at T 2048, 8192
+   and 32768 with H = Hkv = 16, decode over caches of 2048 to 32768 keys
+   at a quarter and full, H 16, Hkv 8; each time a CUDA graph of a chain
+   of calls at two lengths, differenced, warm in L2): every
+   ``cuda_flash`` and ``cuda_decode`` row present, finite and positive,
+   MFU and MBU at most 1, a ``torch_dense`` row missing only at T 32768
+   and only with an out-of-memory error line; each graph captured
+   exactly its chain's launches through the wrapper.  (2)
+   ``bench_prefill_sweep``, ``--prefill-only --rounds 4`` and
+   ``--decode-only --rounds 1``: 6 prefill rows (dense, the four flash
+   tiles, the attention-identity arm) and 16 decode rows (dense and
+   ``auto`` attention, chunks 32 and 64, contexts 512 and 2048, bf16 and
+   int8 weights), no error row; flash launched once a layer a prefill in
+   each flash arm and never in the dense and identity arms, the identity
+   arm faster than the dense arm and no slower than the fastest flash
+   arm by more than the flash arms' spread (the four run one kernel, so
+   their spread is the sweep's noise, and the identity arm saves about
+   1 ms of 64); decode launched in every ``auto`` arm and in no dense
+   one, the W8A16 kernel in every int8 arm and no bf16 one.  (3)
+   ``bench_speculative --config llama3_8b``: exit 0 (every speculative
+   stream token-identical to its plain twin), its five rows, decode
+   launched in the repetitive and regenerate parts and never in the perf
+   analyzer's column (``max_seq`` 96: it attends densely).  Phase 3, in
+   every run, holds the kernels at the tools' shapes: flash at T 2048 and
+   8192 (H 16, Hkv 16) and at T 32768 on its last 512 query rows against
+   the plain attention of those rows over all their keys, decode at one
+   row of a 32768-key cache at lengths 8192 and 32768 (H 16, Hkv 8), at
+   the sweep's longest context (2112 keys of 3072) and at the
+   speculative tool's batched step (8 rows of 38 keys of 128).  The
+   tools' launches make the ``bench_kernels``, ``prefill_sweep`` (with
+   the W8A16 kernel's, timed at one decode step at M 1 in this mode) and
+   ``bench_speculative`` rows of that line, each with its ``timed_as``;
+   ``bench_kernels``' ``launches`` are what the wrappers counted (eager
+   calls and captures), its ``graph_replayed_launches`` the captured
+   launches times the replays (derived: a replay bypasses the wrappers).
+
 The peaks of every bound come from ``tpuserver_torch.ops.perf`` by the
 card's name (phase 1 fails on a card the table does not know).  The line
 before the last is ``{"kernels": [...]}``; the last line is
@@ -367,6 +410,21 @@ BENCH_SERVED_SEQ = 512
 # 6 tokens of history
 CHAOS_LENGTHS = (30, 24)
 CHAOS_SEQ = 128
+# phase 15's shapes: bench_kernels' flash at T 2048, 8192 and 32768 (H =
+# Hkv = 16, D 128; the last held on its last rows) and its decode over
+# caches of 32768 keys (H 16, Hkv 8); the prefill sweep's longest decode
+# context (2048 + 64 keys of its 3072-key cache); bench_speculative's
+# batched decode (8 rows halfway through their 12 + 52 tokens, in its
+# 128-key cache)
+TOOLS_FLASH_TS = (2048, 8192, 32768)
+TOOLS_HEADS, TOOLS_KV_HEADS = 16, 8
+TOOLS_DECODE_SEQ = 32768
+TOOLS_DECODE_LENGTHS = (8192, 32768)
+SWEEP_DECODE_LENGTHS, SWEEP_SEQ = (2112,), 3072
+SPEC_TOOL_LENGTHS, SPEC_TOOL_SEQ = (38,) * 8, 128
+# flash at T 32768 is held on its last LONG_CHECK_ROWS query rows: the
+# plain attention of all its rows would need 64 GiB of float32 scores
+LONG_CHECK_ROWS = 512
 # prompt lengths of phase 4b's requests, four of each; phase 3 checks the
 # flash kernel at every one whose admission prefill it runs
 BATCHED_PROMPT_LENGTHS = (512, 256, 77)
@@ -612,6 +670,81 @@ def _flash_case(torch, F, fl, dev, gen, b, t, h, hkv, d, causal, dtype,
     return row
 
 
+def _flash_rows_reference(torch, fl, q, k, v, start, stop, keys=None):
+    """The plain version's attention (float32, causal) of query rows
+    [start, stop) over keys [0, ``keys``) (default ``stop``), the rows at
+    their own positions: a slice of ``flash_attention_reference``'s
+    output that never forms the other rows' scores."""
+    keys = stop if keys is None else keys
+    n_rep = q.shape[2] // k.shape[2]
+    kf = k[:, :keys].float().repeat_interleave(n_rep, dim=2)
+    vf = v[:, :keys].float().repeat_interleave(n_rep, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q[:, start:stop].float(),
+                     kf) * q.shape[-1] ** -0.5
+    q_pos = torch.arange(start, stop, device=q.device)[:, None]
+    k_pos = torch.arange(keys, device=q.device)[None, :]
+    s = s.masked_fill(k_pos > q_pos, float("-inf"))
+    return fl._fold(s, vf, "bhqk,bkhd->bqhd").to(q.dtype)
+
+
+def _flash_long_case(torch, F, fl, dev, gen, t, h, hkv, d, flush):
+    """The flash kernel at a length whose plain attention does not fit
+    (causal, bf16): held on its last ``LONG_CHECK_ROWS`` rows against the
+    plain attention of those rows over all their keys; timed beside the
+    plain version computed in 512-row slices, masked SDPA and the bound."""
+    bf16 = torch.bfloat16
+    q = torch.randn(1, t, h, d, device=dev, generator=gen).to(bf16)
+    k = torch.randn(1, t, hkv, d, device=dev, generator=gen).to(bf16)
+    v = torch.randn(1, t, hkv, d, device=dev, generator=gen).to(bf16)
+    before = fl.flash_attention.launches
+    out = fl.flash_attention(q, k, v, causal=True)
+    again = fl.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    if fl.flash_attention.launches != before + 2:
+        fail("flash_attention did not launch its kernel")
+    if not torch.equal(out, again):
+        fail("flash_attention: two calls on the same inputs differ")
+    del again
+    start = t - LONG_CHECK_ROWS
+    ref = _flash_rows_reference(torch, fl, q, k, v, start, t)
+    got = out[:, start:]
+    row = {"b": 1, "t": t, "h": h, "hkv": hkv, "d": d, "causal": True,
+           "dtype": "bfloat16", "checked_rows": [start, t],
+           "max_abs_err": (got.float() - ref.float()).abs().max().item(),
+           "row_rel_err": row_rel_err(got, ref)}
+    # planted faults, on the plain version: the last 64 keys dropped, and
+    # every query head on the next kv head
+    row["planted_fault_err"] = {
+        "skipped_tile": row_rel_err(_flash_rows_reference(
+            torch, fl, q, k, v, start, t, keys=t - 64), ref),
+        "wrong_kv_head": row_rel_err(_flash_rows_reference(
+            torch, fl, q, k.roll(1, dims=2), v.roll(1, dims=2), start, t),
+            ref)}
+    del out, got, ref
+
+    def plain():
+        return torch.cat([
+            _flash_rows_reference(torch, fl, q, k, v, lo,
+                                  lo + LONG_CHECK_ROWS)
+            for lo in range(0, t, LONG_CHECK_ROWS)], dim=1)
+
+    n_rep = h // hkv
+    qt = q.transpose(1, 2)
+    ke = k.repeat_interleave(n_rep, dim=2).transpose(1, 2)
+    ve = v.repeat_interleave(n_rep, dim=2).transpose(1, 2)
+    row["ms"] = _time_ms(torch, lambda: fl.flash_attention(
+        q, k, v, causal=True), 10, flush)
+    row["plain_ms"] = _time_ms(torch, plain, 2, flush)
+    row["plain"] = "in {}-row slices".format(LONG_CHECK_ROWS)
+    row["library_ms"] = _time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qt, ke, ve, is_causal=True), 10, flush)
+    pairs = h * t * (t + 1) // 2
+    nbytes = (2 * t * h * d + 2 * t * hkv * d) * q.element_size()
+    row["bound_ms"], row["bound_by"] = _bound_ms(
+        nbytes, 4 * pairs * d, SPEC.peak_bf16_flops)
+    return row
+
+
 def _decode_case(torch, F, fl, dev, gen, lengths, s, h, hkv, d, dtype, timed,
                  flush):
     b = len(lengths)
@@ -718,12 +851,16 @@ def phase_kernels(torch):
             (2, 256, True, bf16, 16, 8, 64),  # Llama-3.2-1B head dim
             # phase 10's tp=4 prefills: 4b's tileable prompt lengths
             (1, 512, True, bf16, h4, hkv4, d),
-            (1, 256, True, bf16, h4, hkv4, d)):
+            (1, 256, True, bf16, h4, hkv4, d),
+            # phase 15's bench_kernels at T 2048 and 8192 (T 32768 below)
+            *((1, t, True, bf16, TOOLS_HEADS, TOOLS_HEADS, d)
+              for t in TOOLS_FLASH_TS[:-1])):
         main = (t == 512 and causal and dtype == bf16 and hh == h)
         readmit = (t == READMIT_LENGTH and b == 1)
         tp4 = (t == 512 and hh == h4)
+        tools = hh == TOOLS_HEADS and kk == TOOLS_HEADS
         row = _flash_case(torch, F, fl, dev, gen, b, t, hh, kk, dd, causal,
-                          dtype, main or readmit or tp4 or (
+                          dtype, main or readmit or tp4 or tools or (
                               t == 2048 and causal), flush)
         row["kernel"] = "flash_attention"
         rows.append(row)
@@ -735,6 +872,13 @@ def phase_kernels(torch):
             timed["flash_attention_tp4"] = row
         if t == 2048 and causal and hh == h:
             timed["flash_attention_T2048"] = row
+        if tools:
+            timed["flash_attention_tools_T{}".format(t)] = row
+    row = _flash_long_case(torch, F, fl, dev, gen, TOOLS_FLASH_TS[-1],
+                           TOOLS_HEADS, TOOLS_HEADS, d, flush)
+    row["kernel"] = "flash_attention"
+    rows.append(row)
+    timed["flash_attention_tools_T{}".format(TOOLS_FLASH_TS[-1])] = row
     n_sms = fl._sm_count(dev)
     for lengths, ss, dtype, hh, kk, dd in (
             ((576,), s, bf16, h, hkv, d),    # the main path's longest decode
@@ -756,14 +900,24 @@ def phase_kernels(torch):
             ((40, 17), 64, f32, 6, 2, 16),
             # phase 10's tp=4 decode: one rank's heads
             ((576,), s, bf16, h4, hkv4, d),
-            (BATCHED_LENGTHS, s, bf16, h4, hkv4, d)):
-        main = lengths == (576,) and hh == h
+            (BATCHED_LENGTHS, s, bf16, h4, hkv4, d),
+            # phase 15: bench_kernels' one row over 32768 keys, the
+            # prefill sweep's longest context, bench_speculative's step
+            *(((n,), TOOLS_DECODE_SEQ, bf16, TOOLS_HEADS, TOOLS_KV_HEADS,
+               d) for n in TOOLS_DECODE_LENGTHS),
+            (SWEEP_DECODE_LENGTHS, SWEEP_SEQ, bf16, h, hkv, d),
+            (SPEC_TOOL_LENGTHS, SPEC_TOOL_SEQ, bf16, h, hkv, d)):
+        main = lengths == (576,) and hh == h and ss == s
         batched = lengths == BATCHED_LENGTHS and hh == h
         served = lengths == BENCH_SERVED_LENGTHS
         chaos = lengths == CHAOS_LENGTHS
         tp4 = hh == h4 and kk == hkv4 and dd == d
+        tools = hh == TOOLS_HEADS and kk == TOOLS_KV_HEADS
+        sweep = lengths == SWEEP_DECODE_LENGTHS and ss == SWEEP_SEQ
+        spec_tool = lengths == SPEC_TOOL_LENGTHS and ss == SPEC_TOOL_SEQ
         row = _decode_case(torch, F, fl, dev, gen, lengths, ss, hh, kk, dd,
                            dtype, main or batched or served or chaos or tp4
+                           or tools or sweep or spec_tool
                            or lengths == (4096,), flush)
         row["kernel"] = "decode_attention"
         rows.append(row)
@@ -778,6 +932,13 @@ def phase_kernels(torch):
         if tp4:
             timed["decode_attention_tp4" + (
                 "_batched" if len(lengths) > 1 else "")] = row
+        if tools:
+            timed["decode_attention_tools_S{}_L{}".format(
+                ss, lengths[0])] = row
+        if sweep:
+            timed["decode_attention_sweep"] = row
+        if spec_tool:
+            timed["decode_attention_spec_tool"] = row
         if len(lengths) == 34 and row["n_split"] != 1:
             fail("decode_splits chose {} splits for B 34 (want 1)".format(
                 row["n_split"]))
@@ -6381,7 +6542,355 @@ def phase_chaos(torch, cfg, params, smi, device="cuda"):
     return launches
 
 
+# -- phase 15: the model-path tuning tools ----------------------------------
+
+
+# the prefill sweep in two calls: the prefill arms at the JAX tool's
+# default 4 rounds (the identity arm saves about 1 ms of a 64 ms prefill
+# at T 2048, under the one-round spread of the four flash arms, which run
+# one kernel), the decode arms at one round (each chains two chunks)
+SWEEP_PREFILL_ARGV = ("--prefill-only", "--rounds", "4")
+SWEEP_DECODE_ARGV = ("--decode-only", "--rounds", "1")
+# the CPU rehearsal (``phase_tools(..., device="cpu")``): the sweep on
+# ``tiny`` at T 128 (its decode arms at their contexts, 512 and 2048), on
+# weights it draws
+TOOLS_CPU_SWEEP = ("--config", "tiny", "--t", "128", "--device", "cpu")
+SPEC_PARTS = ("bench_repetitive", "bench_agentic_regenerate",
+              "bench_perfanalyzer_column")
+
+
+def _json_lines(text):
+    return [json.loads(line) for line in text.splitlines()
+            if line.startswith("{")]
+
+
+def _tool_main(name, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` with its stdout and stderr captured and
+    logged, failing unless it returns 0; returns (stdout, stderr,
+    seconds)."""
+    import io
+
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = fn(*args, **kwargs)
+    seconds = time.monotonic() - t0
+    for line in out.getvalue().splitlines():
+        log("tools {}: {}".format(name, line))
+    for line in err.getvalue().splitlines():
+        log("tools {} (stderr): {}".format(name, line))
+    log("tools {}: exit {}, {:.1f} s".format(name, rc, seconds))
+    if rc != 0:
+        fail("tools: {} exited {}".format(name, rc))
+    return out.getvalue(), err.getvalue(), seconds
+
+
+@contextlib.contextmanager
+def _swapped(module, values):
+    """``module``'s attributes set to ``values`` for the block."""
+    saved = {k: getattr(module, k) for k in values}
+    for k, v in values.items():
+        setattr(module, k, v)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            setattr(module, k, v)
+
+
+def _tools_kernels(card):
+    """Phase 15 (1): bench_kernels' sweep (its module's shapes); the
+    launches its wrappers counted, the launches its graphs replayed, and
+    its seconds."""
+    from tpuserver_torch import bench_kernels
+    from tpuserver_torch.ops import flash as fl
+
+    fl.reset_launch_counts()
+    out, err, seconds = _tool_main("bench_kernels", bench_kernels.main,
+                                   [] if card else ["--device", "cpu"])
+    rows = [r for r in _json_lines(out) if "impl" in r]
+    errors = _json_lines(err)
+    for row in rows:
+        value = row.get("ms", row.get("us"))
+        share = row.get("mfu", row.get("mbu"))
+        if not (value is not None and math.isfinite(value) and value > 0):
+            fail("tools: bench_kernels row without a time: {}".format(row))
+        if card and not (share is not None and 0 < share <= 1):
+            fail("tools: bench_kernels row's share of the peak: {}".format(
+                row))
+    have = {(r["op"], r.get("T", r.get("S")), r.get("valid"), r["impl"])
+            for r in rows}
+    flash_sizes = [(t, None) for t in bench_kernels.FLASH_LENS]
+    decode_sizes = [(n, int(n * f)) for n, f in bench_kernels.DECODE_CASES]
+    for op, impl, sizes in (
+            ("flash_attention", "cuda_flash", flash_sizes),
+            ("flash_attention", "torch_dense", flash_sizes),
+            ("decode_attention", "cuda_decode", decode_sizes),
+            ("decode_attention", "torch_dense", decode_sizes)):
+        for size, valid in sizes:
+            if (op, size, valid, impl) in have:
+                continue
+            oom = [e for e in errors if e.get("op") == op
+                   and e.get("T", e.get("S")) == size
+                   and "out of memory" in e.get("error", "").lower()]
+            if impl == "torch_dense" and size == TOOLS_FLASH_TS[-1] and oom:
+                log("tools bench_kernels: no {} row at {} {} (out of "
+                    "memory, {} attempts)".format(impl, op, size, len(oom)))
+                continue
+            fail("tools: bench_kernels has no {} row for {} at {}".format(
+                impl, op, size))
+    counted = {k: v["counted"] for k, v in bench_kernels.LAUNCHES.items()}
+    replayed = {k: v["replayed"] for k, v in bench_kernels.LAUNCHES.items()}
+    wrapped = {k: getattr(fl, k).launches for k in counted}
+    log("tools bench_kernels: launches counted by the wrappers {} (eager "
+        "calls and captures; the tool's own tally {}), replayed by the "
+        "graphs {} (each graph's captured launches times its replays)"
+        .format(json.dumps(wrapped), json.dumps(counted),
+                json.dumps(replayed)))
+    if card and not (wrapped == counted and all(counted.values())
+                     and all(replayed.values())):
+        fail("tools: bench_kernels' launches: wrappers {}, tool {}, "
+             "replayed {}".format(wrapped, counted, replayed))
+    return wrapped, replayed, seconds
+
+
+def _tools_sweep(params, card):
+    """Phase 15 (2): the prefill/decode sweep on ``params``; its launches
+    summed over the arms, and its seconds."""
+    from tpuserver_torch import bench_prefill_sweep as sweep
+
+    cpu = () if card else TOOLS_CPU_SWEEP
+    out, _, seconds = _tool_main(
+        "prefill_sweep", sweep.main, list(SWEEP_PREFILL_ARGV + cpu),
+        params=params)
+    stats = {"prefill": sweep.STATS["prefill"]}
+    decode_out, _, decode_seconds = _tool_main(
+        "prefill_sweep", sweep.main, list(SWEEP_DECODE_ARGV + cpu),
+        params=params)
+    stats["decode"] = sweep.STATS["decode"]
+    seconds += decode_seconds
+    rows = _json_lines(out + decode_out)
+    prefill = {r["arm"]: r for r in rows if r.get("phase") == "prefill"}
+    decode = [r for r in rows if r.get("phase") == "decode"]
+    bad = [r for r in rows if "error" in r]
+    if bad or len(prefill) != 6 or len(decode) != 16:
+        fail("tools: the sweep printed {} prefill and {} decode rows, "
+             "errors {}".format(len(prefill), len(decode), bad))
+    for row in rows:
+        value = row.get("ms", row.get("tokens_per_sec"))
+        share = row.get("mfu", row.get("mbu"))
+        if not (math.isfinite(value) and value > 0) or (
+                card and not (share is not None and 0 < share <= 1)):
+            fail("tools: sweep row {}".format(row))
+    log("tools prefill_sweep: launches by arm {}".format(json.dumps(stats)))
+    # the four flash arms run one kernel: their spread is the sweep's own
+    # noise, the margin the identity arm is held to
+    flash_ms = sorted(r["ms"] for arm, r in prefill.items()
+                      if arm.startswith("flash_"))
+    spread = flash_ms[-1] - flash_ms[0]
+    identity = prefill["attention_identity"]["ms"]
+    dense = prefill["dense"]["ms"]
+    log("tools prefill_sweep: identity arm {} ms, {:.3f} of the fastest "
+        "flash arm's {} ms, faster than every flash arm: {}; flash arms' "
+        "spread {:.3f} ms (one kernel, the sweep's own noise); dense arm "
+        "{} ms".format(identity, identity / flash_ms[0], flash_ms[0],
+                       identity < flash_ms[0], spread, dense))
+    if card:
+        if not (identity < dense - spread
+                and identity <= flash_ms[0] + spread):
+            fail("tools: the identity arm ({} ms) is not faster than the "
+                 "dense arm ({} ms) or is slower than the flash arms ({}) "
+                 "by more than their spread".format(identity, dense,
+                                                    flash_ms))
+        for arm, counts in stats["prefill"].items():
+            want = (len(params["layers"]) * counts["prefills"]
+                    if arm.startswith("flash_") else 0)
+            if counts["flash_attention"] != want:
+                fail("tools: prefill arm {} launched flash {} times "
+                     "(want {})".format(arm, counts["flash_attention"], want))
+        for key, counts in stats["decode"].items():
+            weights, impl = key.split("/")[:2]
+            if (counts["decode_attention"] > 0) != (impl == "auto"):
+                fail("tools: decode arm {} launched decode {} times".format(
+                    key, counts["decode_attention"]))
+            if (counts["int8_matmul"] > 0) != (weights == "int8"):
+                fail("tools: decode arm {} launched W8A16 {} times".format(
+                    key, counts["int8_matmul"]))
+    launches = {k: sum(c[k] for part in ("prefill", "decode")
+                       for c in stats[part].values())
+                for k in ("flash_attention", "decode_attention",
+                          "int8_matmul")}
+    return launches, seconds
+
+
+def _tools_speculative(params, card, out_path):
+    """Phase 15 (3): bench_speculative on ``params`` (token identity is
+    checked inside it); its launches summed over its parts, and its
+    seconds."""
+    from tpuserver_torch import bench_speculative as spec_tool
+    from tpuserver_torch.ops import flash as fl
+
+    by_part = {}
+
+    def counted(name, fn):
+        def run(*args, **kwargs):
+            fl.reset_launch_counts()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                by_part[name] = {k: getattr(fl, k).launches for k in (
+                    "flash_attention", "decode_attention")}
+        return run
+
+    config = "llama3_8b" if card else "tiny"
+    with _swapped(spec_tool, {name: counted(name, getattr(spec_tool, name))
+                              for name in SPEC_PARTS}):
+        out, _, seconds = _tool_main(
+            "bench_speculative", spec_tool.main,
+            ["--config", config, "--out", out_path]
+            + ([] if card else ["--device", "cpu"]), params=params)
+    with open(out_path) as fh:
+        payload = json.load(fh)
+    log("tools bench_speculative: rows {}".format(json.dumps(
+        {r["metric"]: r["value"] for r in payload["rows"]})))
+    log("tools bench_speculative: note: {}".format(payload["note"]))
+    log("tools bench_speculative: launches by part {}".format(
+        json.dumps(by_part)))
+    if len(payload["rows"]) != 5 or "identical" not in out:
+        fail("tools: bench_speculative wrote {} rows".format(
+            len(payload["rows"])))
+    if card and not (by_part["bench_repetitive"]["decode_attention"]
+                     and by_part["bench_agentic_regenerate"][
+                         "decode_attention"]
+                     and not by_part["bench_perfanalyzer_column"][
+                         "decode_attention"]):
+        fail("tools: bench_speculative's decode launches by part: "
+             "{}".format(by_part))
+    return {k: sum(part[k] for part in by_part.values())
+            for k in ("flash_attention", "decode_attention")}, seconds
+
+
+def phase_tools(torch, params, smi, device="cuda"):
+    """Phase 15: the three model-path tuning tools (``python -m
+    tpuserver_torch.bench_kernels``, ``bench_prefill_sweep`` and
+    ``bench_speculative``) through their ``main``s, the last two on
+    ``params`` (``llama3_8b``'s, bf16); returns each tool's kernel
+    launches (bench_kernels' with its ``graph_replayed`` ones).
+    ``device="cpu"`` rehearses it on the CPU, without the card's launch,
+    share and timing checks: bench_kernels at its module's shapes (the
+    caller makes them small), the sweep on ``tiny`` at T 128 on weights
+    it draws, bench_speculative on ``params`` (``tiny``'s at vocab
+    512)."""
+    import tempfile
+
+    card = device == "cuda"
+    t_start = time.monotonic()
+    gc.collect()
+    if card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        log("tools: {:.3f} GiB allocated at the start".format(
+            torch.cuda.memory_allocated() / 2 ** 30))
+    launches, seconds = {}, {}
+    counted, replayed, seconds["bench_kernels"] = _tools_kernels(card)
+    launches["bench_kernels"] = dict(counted, graph_replayed=replayed)
+    launches["prefill_sweep"], seconds["prefill_sweep"] = _tools_sweep(
+        params if card else None, card)
+    gc.collect()
+    if card:
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        launches["bench_speculative"], seconds["bench_speculative"] = \
+            _tools_speculative(params, card,
+                               os.path.join(tmp, "bench_speculative.json"))
+    gc.collect()
+    if card:
+        torch.cuda.empty_cache()
+    log("tools: phase 15 {:.1f} s ({}), {}, peak {:.3f} GiB allocated, "
+        "launches {}".format(
+            time.monotonic() - t_start, ", ".join(
+                "{} {:.1f} s".format(k, v) for k, v in seconds.items()),
+            smi, torch.cuda.max_memory_allocated() / 2 ** 30 if card
+            else 0.0, json.dumps(launches)))
+    return launches
+
+
+def _tools_kernel_rows(torch, rows, launches):
+    """The kernels line's rows for phase 15's launches: flash and decode
+    timed as phase 3 timed them at each tool's shape (bench_kernels'
+    flash at T 8192 and decode over 32768 keys, the sweep's flash at its
+    2048-token prefill and decode at its longest context,
+    bench_speculative's decode at its batched step), and the W8A16
+    kernel over one ``llama3_8b`` decode step at M 1, held against its
+    plain version and timed here."""
+    from tpuserver_torch.models import llama
+    from tpuserver_torch.ops import perf, quant
+
+    src = "src/python/tpuserver_torch/csrc/{}.cu"
+    tpu = {"flash_attention": "src/python/tpuserver/ops/flash.py:139",
+           "decode_attention": "src/python/tpuserver/ops/flash.py:263"}
+    kernels = []
+    for kname, path, timed_as in (
+            ("flash_attention", "bench_kernels",
+             "flash_attention_tools_T{}".format(TOOLS_FLASH_TS[1])),
+            ("decode_attention", "bench_kernels",
+             "decode_attention_tools_S{}_L{}".format(
+                 TOOLS_DECODE_SEQ, TOOLS_DECODE_LENGTHS[-1])),
+            ("flash_attention", "prefill_sweep", "flash_attention_T2048"),
+            ("decode_attention", "prefill_sweep", "decode_attention_sweep"),
+            ("decode_attention", "bench_speculative",
+             "decode_attention_spec_tool")):
+        row = rows["timed"][timed_as]
+        counts = launches[path]
+        kernels.append({
+            "name": kname, "route": "cuda", "source": src.format(kname),
+            "replaces": tpu[kname], "path": path,
+            "launches": counts[kname],
+            "max_abs_err": rows["max_err"][kname],
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
+            "library_live_ms": row.get("library_live_ms"),
+            "timed_as": timed_as})
+        if "graph_replayed" in counts:
+            kernels[-1]["graph_replayed_launches"] = counts[
+                "graph_replayed"][kname]
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 20)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    cases = {}
+    for k, n in sorted({(k, n) for _, k, n in INT8_WEIGHTS}):
+        for row in _int8_cases(torch, quant, perf, dev, gen, k, n, flush,
+                               m_rows=(1,)):
+            log("kernel_case:", json.dumps(row))
+            cases[(1, k, n)] = row
+            if not row["row_rel_err"] <= INT8_TOL or not row[
+                    "planted_fault_err"]["skipped_rows"] > INT8_TOL:
+                fail("int8_matmul at M 1: {}".format(row))
+    del flush
+    step = _int8_step_sum(cases, 1, llama.llama3_8b().n_layers)
+    kernels.append({
+        "name": "int8_matmul", "route": "cuda",
+        "source": src.format("int8_matmul"),
+        "replaces": "src/python/tpuserver/ops/quant.py:68",
+        "path": "prefill_sweep",
+        "launches": launches["prefill_sweep"]["int8_matmul"],
+        "max_abs_err": max(r["max_abs_err"] for r in cases.values()),
+        "ms": step["ms"], "plain_ms": step["plain_ms"],
+        "bound_ms": step["bound_ms"], "bound_by": step["bound_by"],
+        "library_ms": step["library_ms"],
+        "bf16_matmul_ms": step["bf16_matmul_ms"],
+        "timed_as": "one decode step at M 1: {}".format(step["shape"])})
+    return kernels
+
+
 # -- main --------------------------------------------------------------------
+
+
+def _phase_done(started, name):
+    """Log the script's seconds when phase ``name`` ended."""
+    log("chip_smoke: {} done at {:.1f} s".format(
+        name, time.monotonic() - started))
 
 
 def main():
@@ -6511,6 +7020,29 @@ def main():
         log("chaos-only: done")
         log(smi)
         return 1
+    if sys.argv[1:] == ["--tools-only"]:
+        # phases 1-3 and 15 alone, phase 15 on weights drawn from the
+        # seed; prints the tools' kernels line and no result line
+        from tpuserver_torch.models import llama
+        from tpuserver_torch.models.llama_serving import LlamaGenerateModel
+
+        name, smi = phase_device(torch)
+        log("nvidia-smi:", smi)
+        phase_build()
+        rows = phase_kernels(torch)
+        drawn = LlamaGenerateModel(cfg=llama.llama3_8b(), seed=SEED,
+                                   device="cuda")
+        params = drawn._ensure_params()
+        del drawn
+        launches = phase_tools(torch, params, smi)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(json.dumps({"kernels": _tools_kernel_rows(torch, rows,
+                                                        launches)}))
+        log("tools-only: done")
+        log(smi)
+        return 1
     if sys.argv[1:] == ["--vision-only"]:
         # phases 1, 2 and 8 alone, for work on the vision path; prints no
         # result line
@@ -6527,24 +7059,32 @@ def main():
     log("nvidia-smi:", smi)
     phase_build()
     rows = phase_kernels(torch)
+    _phase_done(started, "kernels (3)")
     model, core, prompt, launches, tokens, rates, single = phase_serve(
         torch, np)
+    _phase_done(started, "serve (4)")
     batched_launches, batched_steps, batched, b_prompts, b_budgets, \
         b_tokens = phase_serve_batched(torch, np, model, prompt, tokens,
                                        rates)
+    _phase_done(started, "serve_batched (4b)")
     cfg, params = model._cfg, model._ensure_params()
     batched_steps.update(phase_spec_step(torch, np, cfg, params, batched))
     spec_launches = phase_serve_spec(torch, np, cfg, params, b_prompts,
                                      b_budgets)
+    _phase_done(started, "spec (4c a, b)")
     readmits = []
     heal_launches = phase_heal(torch, np, cfg, params, readmits)
+    _phase_done(started, "heal (4c c, d)")
     shm_launches = phase_shm(torch, np, cfg, params, b_prompts, b_budgets,
                              b_tokens)
+    _phase_done(started, "shm (4e)")
     grpc_launches = phase_grpc(torch, np, cfg, params, b_prompts, b_budgets,
                                b_tokens, readmits)
+    _phase_done(started, "grpc (4f)")
     phase_flash_lengths(torch, rows, readmits)
     phase_model_check(torch, model, prompt)
     profile = phase_profile(torch, model, prompt, batched_steps)
+    _phase_done(started, "model check and profile (5, 6)")
     core.close()
     # phase 4g's two replica processes need the card: release this
     # process's models first
@@ -6555,7 +7095,9 @@ def main():
         "models".format(torch.cuda.memory_allocated() / 2 ** 30))
     fleet_launches, handoff_lengths = phase_fleet(
         torch, np, cfg, b_prompts, b_budgets, b_tokens)
+    _phase_done(started, "fleet (4g a-d)")
     phase_fleet_supervised(np, b_prompts, b_budgets, b_tokens)
+    _phase_done(started, "fleet (4g e)")
     phase_flash_lengths(torch, rows, handoff_lengths,
                         timed_as="flash_attention_handoff")
     int8_cases, int8_steps, int8_launches, int8_profile = phase_int8(
@@ -6564,24 +7106,32 @@ def main():
         name: {"bf16": profile[name]["device_ms_by_class"],
                "int8": int8_profile[name]["device_ms_by_class"]}
         for name in int8_profile})))
+    _phase_done(started, "int8 (7)")
     phase_vision(torch, np, smi)
+    _phase_done(started, "vision (8)")
     client_launches, llama_model = phase_bert(torch, np, smi)
+    _phase_done(started, "bert (9)")
     # phase 12 serves phase 9 (e)'s weights again, then releases them: the
     # TP phase's ranks need the card
     perf_launches = phase_perf(torch, np, llama_model._cfg,
                                llama_model._ensure_params(), smi)
+    _phase_done(started, "perf (12)")
     # phase 13 serves the same weights again behind the benchmark's zoo
     bench_launches = phase_bench(torch, np, llama_model._cfg,
                                  llama_model._ensure_params(), smi)
+    _phase_done(started, "bench (13)")
     # phase 14 upcasts them to float32 in place and soaks them
     cfg8b, params8b = llama_model._cfg, llama_model._ensure_params()
     del llama_model
     chaos_launches = phase_chaos(torch, cfg8b, params8b, smi)
+    _phase_done(started, "chaos (14)")
     del params8b
     gc.collect()
     torch.cuda.empty_cache()
     tp_launches = phase_tp(torch, np, single, b_prompts, b_budgets, b_tokens)
+    _phase_done(started, "tp (10)")
     train = phase_train(torch, np)
+    _phase_done(started, "train (11)")
 
     kernels = []
     # each kernel once per path: the single-stream serve (phase 4, timed
