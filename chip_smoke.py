@@ -352,6 +352,36 @@ Phases, in order; any failure exits non-zero and prints no result line:
    calls and captures), its ``graph_replayed_launches`` the captured
    launches times the replays (derived: a replay bypasses the wrappers).
 
+16. serving tools, in ``python3 chip_smoke.py --serving-tools-only``
+   alone, which runs phases 1-3 and 16 on ``llama3_8b`` weights drawn
+   once from the seed (bf16, full width and depth) and prints the tools'
+   ``{"kernels": [...]}`` line and no result line; the full script does
+   not run it.  Two serving-plane tools run through their ``main``s, each
+   held to its own checks (exit 0).  (a) ``python -m
+   tpuserver_torch.bench_shm_data_plane --config llama3_8b``: unary p50
+   in-band, system and CUDA shm over HTTP; generation TTFT/ITL in bf16,
+   in-band against CUDA-region prompts and the token ring; resume attach
+   against re-prefill on a float32 copy of the weights with TF32 off
+   (the tool's own choice: bf16 re-prefill is not token-identical at
+   8B), every cycle token-identical to the uninterrupted reference and
+   every attach-mode resume (no re-prefill one) an attached admission.
+   (b)
+   ``python -m tpuserver_torch.bench_disagg --config llama3_8b --dtype
+   bfloat16``, twice: ``--attn kernel`` (the serving default, where the
+   scheduler's ``span_safe`` turns chunked prefill off) and ``--attn
+   dense`` (where the 32-token chunks interleave with decode, as the tool
+   was written for): fused and split fleets' identity tokens equal, every
+   probe split, no fused split, prefill chunks counted by the schedulers
+   (none at ``kernel``, some in both fleets at ``dense``).  Decode must
+   launch in every stage; flash launches are reported (the tools' only
+   flash length is the generation part's 256-token prompt).  The phase
+   holds both kernels against their plain versions at the tools' shapes
+   and times them there: flash at T 256, decode at the generation step
+   (4 slots of a 512-key cache), the resume step (float32, 2 slots of
+   512) and the disagg step (4 slots of 256); those make the
+   ``bench_shm_data_plane/generation``, ``bench_shm_data_plane/resume``,
+   ``bench_disagg_kernel`` and ``bench_disagg_dense`` rows.
+
 The peaks of every bound come from ``tpuserver_torch.ops.perf`` by the
 card's name (phase 1 fails on a card the table does not know).  The line
 before the last is ``{"kernels": [...]}``; the last line is
@@ -6598,6 +6628,24 @@ def _swapped(module, values):
             setattr(module, k, v)
 
 
+def _counted_parts(module, names, by_part):
+    """``module``'s functions ``names`` wrapped, each recording the flash
+    and decode launches of its call into ``by_part[name]``."""
+    from tpuserver_torch.ops import flash as fl
+
+    def counted(name, fn):
+        def run(*args, **kwargs):
+            fl.reset_launch_counts()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                by_part[name] = {k: getattr(fl, k).launches for k in (
+                    "flash_attention", "decode_attention")}
+        return run
+
+    return {name: counted(name, getattr(module, name)) for name in names}
+
+
 def _tools_kernels(card):
     """Phase 15 (1): bench_kernels' sweep (its module's shapes); the
     launches its wrappers counted, the launches its graphs replayed, and
@@ -6728,23 +6776,10 @@ def _tools_speculative(params, card, out_path):
     checked inside it); its launches summed over its parts, and its
     seconds."""
     from tpuserver_torch import bench_speculative as spec_tool
-    from tpuserver_torch.ops import flash as fl
 
     by_part = {}
-
-    def counted(name, fn):
-        def run(*args, **kwargs):
-            fl.reset_launch_counts()
-            try:
-                return fn(*args, **kwargs)
-            finally:
-                by_part[name] = {k: getattr(fl, k).launches for k in (
-                    "flash_attention", "decode_attention")}
-        return run
-
     config = "llama3_8b" if card else "tiny"
-    with _swapped(spec_tool, {name: counted(name, getattr(spec_tool, name))
-                              for name in SPEC_PARTS}):
+    with _swapped(spec_tool, _counted_parts(spec_tool, SPEC_PARTS, by_part)):
         out, _, seconds = _tool_main(
             "bench_speculative", spec_tool.main,
             ["--config", config, "--out", out_path]
@@ -6784,35 +6819,70 @@ def phase_tools(torch, params, smi, device="cuda"):
     import tempfile
 
     card = device == "cuda"
-    t_start = time.monotonic()
-    gc.collect()
-    if card:
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        log("tools: {:.3f} GiB allocated at the start".format(
-            torch.cuda.memory_allocated() / 2 ** 30))
+    t_start = _tools_phase_start(torch, card, "tools")
     launches, seconds = {}, {}
     counted, replayed, seconds["bench_kernels"] = _tools_kernels(card)
     launches["bench_kernels"] = dict(counted, graph_replayed=replayed)
     launches["prefill_sweep"], seconds["prefill_sweep"] = _tools_sweep(
         params if card else None, card)
-    gc.collect()
-    if card:
-        torch.cuda.empty_cache()
+    _release(torch, card)
     with tempfile.TemporaryDirectory() as tmp:
         launches["bench_speculative"], seconds["bench_speculative"] = \
             _tools_speculative(params, card,
                                os.path.join(tmp, "bench_speculative.json"))
+    _tools_phase_end(torch, card, "tools: phase 15", t_start, seconds, smi,
+                     launches)
+    return launches
+
+
+def _release(torch, card):
+    """Collect the dropped models and, on the card, return their memory."""
     gc.collect()
     if card:
         torch.cuda.empty_cache()
-    log("tools: phase 15 {:.1f} s ({}), {}, peak {:.3f} GiB allocated, "
+
+
+def _tools_phase_start(torch, card, label):
+    """A tools phase's start: memory released, the card's peak reset and
+    its allocation logged; returns the start time."""
+    _release(torch, card)
+    if card:
+        torch.cuda.reset_peak_memory_stats()
+        log("{}: {:.3f} GiB allocated at the start".format(
+            label, torch.cuda.memory_allocated() / 2 ** 30))
+    return time.monotonic()
+
+
+def _tools_phase_end(torch, card, label, t_start, seconds, smi, launches):
+    """A tools phase's end: memory released, and its seconds (each tool's
+    too), the card, its peak allocation and the launches logged."""
+    _release(torch, card)
+    log("{} {:.1f} s ({}), {}, peak {:.3f} GiB allocated, "
         "launches {}".format(
-            time.monotonic() - t_start, ", ".join(
+            label, time.monotonic() - t_start, ", ".join(
                 "{} {:.1f} s".format(k, v) for k, v in seconds.items()),
             smi, torch.cuda.max_memory_allocated() / 2 ** 30 if card
             else 0.0, json.dumps(launches)))
-    return launches
+
+
+#: the source of each kernel of the tools' rows, and the TPU kernel it
+#: replaces
+KERNEL_SRC = "src/python/tpuserver_torch/csrc/{}.cu"
+KERNEL_TPU = {"flash_attention": "src/python/tpuserver/ops/flash.py:139",
+              "decode_attention": "src/python/tpuserver/ops/flash.py:263"}
+
+
+def _kernel_row(kname, path, launches, max_err, row, timed_as):
+    """A tools phase's kernels-line row: ``kname``'s ``launches`` on
+    ``path`` beside its time ``row`` at the ``timed_as`` shape."""
+    return {
+        "name": kname, "route": "cuda", "source": KERNEL_SRC.format(kname),
+        "replaces": KERNEL_TPU[kname], "path": path, "launches": launches,
+        "max_abs_err": max_err, "ms": row["ms"], "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+        "library_ms": row["library_ms"],
+        "library_live_ms": row.get("library_live_ms"),
+        "timed_as": timed_as}
 
 
 def _tools_kernel_rows(torch, rows, launches):
@@ -6826,9 +6896,6 @@ def _tools_kernel_rows(torch, rows, launches):
     from tpuserver_torch.models import llama
     from tpuserver_torch.ops import perf, quant
 
-    src = "src/python/tpuserver_torch/csrc/{}.cu"
-    tpu = {"flash_attention": "src/python/tpuserver/ops/flash.py:139",
-           "decode_attention": "src/python/tpuserver/ops/flash.py:263"}
     kernels = []
     for kname, path, timed_as in (
             ("flash_attention", "bench_kernels",
@@ -6840,18 +6907,10 @@ def _tools_kernel_rows(torch, rows, launches):
             ("decode_attention", "prefill_sweep", "decode_attention_sweep"),
             ("decode_attention", "bench_speculative",
              "decode_attention_spec_tool")):
-        row = rows["timed"][timed_as]
         counts = launches[path]
-        kernels.append({
-            "name": kname, "route": "cuda", "source": src.format(kname),
-            "replaces": tpu[kname], "path": path,
-            "launches": counts[kname],
-            "max_abs_err": rows["max_err"][kname],
-            "ms": row["ms"], "plain_ms": row["plain_ms"],
-            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-            "library_ms": row["library_ms"],
-            "library_live_ms": row.get("library_live_ms"),
-            "timed_as": timed_as})
+        kernels.append(_kernel_row(kname, path, counts[kname],
+                                   rows["max_err"][kname],
+                                   rows["timed"][timed_as], timed_as))
         if "graph_replayed" in counts:
             kernels[-1]["graph_replayed_launches"] = counts[
                 "graph_replayed"][kname]
@@ -6871,7 +6930,7 @@ def _tools_kernel_rows(torch, rows, launches):
     step = _int8_step_sum(cases, 1, llama.llama3_8b().n_layers)
     kernels.append({
         "name": "int8_matmul", "route": "cuda",
-        "source": src.format("int8_matmul"),
+        "source": KERNEL_SRC.format("int8_matmul"),
         "replaces": "src/python/tpuserver/ops/quant.py:68",
         "path": "prefill_sweep",
         "launches": launches["prefill_sweep"]["int8_matmul"],
@@ -6883,6 +6942,189 @@ def _tools_kernel_rows(torch, rows, launches):
         "timed_as": "one decode step at M 1: {}".format(step["shape"])})
     return kernels
 
+
+# -- phase 16: the serving-plane tools ---------------------------------------
+
+
+# the shapes phase 16 holds and times the kernels at: the generation
+# part's 256-token prompts (flash) and its step (4 slots of a 512-key
+# cache, one stream at a time halfway through its 16 tokens, the rest
+# inert), the resume part's float32 step (2 slots of 512, the resumed
+# stream halfway through its 24 tokens), and the disagg step (3
+# background streams halfway through their 8 + 48 tokens beside a probe's
+# decode token)
+SERVING_TOOLS_FLASH_T = 256
+SERVING_TOOLS_DECODE = {
+    "generation": ((264, 1, 1, 1), 512, "bfloat16"),
+    "resume": ((460, 1), 512, "float32"),
+    "disagg": ((32, 32, 32, 161), 256, "bfloat16"),
+}
+SHM_PARTS = ("bench_unary", "bench_generation", "bench_resume_attach")
+DISAGG_ATTNS = ("kernel", "dense")
+
+
+def _serving_shm(params, card, out_path):
+    """Phase 16 (a): bench_shm_data_plane; its launches by part and its
+    seconds."""
+    from tpuserver_torch import bench_shm_data_plane as shm_tool
+
+    by_part = {}
+    argv = ["--out", out_path]
+    argv += (["--config", "llama3_8b"] if card
+             else ["--dtype", "float32", "--device", "cpu"])
+    with _swapped(shm_tool, _counted_parts(shm_tool, SHM_PARTS, by_part)):
+        _, _, seconds = _tool_main("bench_shm_data_plane", shm_tool.main,
+                                   argv, params=params)
+    with open(out_path) as fh:
+        payload = json.load(fh)
+    rows = {r["metric"]: r for r in payload["rows"]}
+    log("tools bench_shm_data_plane: rows {}".format(json.dumps(
+        {k: r["value"] for k, r in rows.items()})))
+    log("tools bench_shm_data_plane: note: {}".format(payload["note"]))
+    log("tools bench_shm_data_plane: launches by part {}".format(
+        json.dumps(by_part)))
+    resume = [r for k, r in rows.items() if k.startswith("resume_")]
+    if len(rows) != 9 or len(resume) != 2 or not all(
+            r["token_identical"] and r["dtype"] == "float32" for r in resume):
+        fail("tools: bench_shm_data_plane's rows: {}".format(rows))
+    for row in rows.values():
+        if not (math.isfinite(row["value"]) and row["value"] > 0):
+            fail("tools: bench_shm_data_plane row {}".format(row))
+    if card and not (by_part["bench_generation"]["decode_attention"]
+                     and by_part["bench_generation"]["flash_attention"]
+                     and by_part["bench_resume_attach"]["decode_attention"]):
+        fail("tools: bench_shm_data_plane's launches by part: {}".format(
+            by_part))
+    return by_part, seconds
+
+
+def _serving_disagg(params, card, attn, out_path):
+    """Phase 16 (b): bench_disagg at ``--attn attn``; its launches and
+    its seconds."""
+    from tpuserver_torch import bench_disagg
+    from tpuserver_torch.ops import flash as fl
+
+    argv = ["--attn", attn, "--out", out_path]
+    argv += (["--config", "llama3_8b", "--dtype", "bfloat16"] if card
+             else ["--dtype", "float32", "--device", "cpu"])
+    fl.reset_launch_counts()
+    _, _, seconds = _tool_main("bench_disagg_" + attn, bench_disagg.main,
+                               argv, params=params)
+    launches = {k: getattr(fl, k).launches
+                for k in ("flash_attention", "decode_attention")}
+    with open(out_path) as fh:
+        payload = json.load(fh)
+    rows = {r["metric"]: r for r in payload["rows"]}
+    split = [r for k, r in rows.items() if k.endswith("_split")]
+    log("tools bench_disagg_{}: rows {}".format(attn, json.dumps(
+        {k: [r["value"], r["prefill_chunks"]] for k, r in rows.items()})))
+    log("tools bench_disagg_{}: split rows {}".format(attn,
+                                                      json.dumps(split)))
+    log("tools bench_disagg_{}: note: {}".format(attn, payload["note"]))
+    log("tools bench_disagg_{}: launches {}".format(attn,
+                                                    json.dumps(launches)))
+    chunks = {r["prefill_chunks"] for r in rows.values()}
+    if len(rows) != 4 or not all(
+            r["attn_impl"] == attn and r["token_identical"]
+            and r["splits"] >= bench_disagg.N_PROBES for r in split):
+        fail("tools: bench_disagg_{}'s rows: {}".format(attn, rows))
+    # the schedulers' own count: no chunk where span prefill is unsafe
+    # (the flash presets), some in both fleets where it is safe
+    if not (chunks == {0} if attn == "kernel" else 0 not in chunks):
+        fail("tools: bench_disagg_{} ran prefill chunks {}".format(
+            attn, chunks))
+    if card and not launches["decode_attention"]:
+        fail("tools: bench_disagg_{} launched no decode kernel".format(attn))
+    return launches, seconds
+
+
+def phase_serving_tools(torch, params, smi, device="cuda"):
+    """Phase 16: the serving-plane tools (``python -m
+    tpuserver_torch.bench_shm_data_plane`` and ``bench_disagg``) through
+    their ``main``s on ``params`` (``llama3_8b``'s, bf16); returns each
+    stage's kernel launches: ``bench_shm_data_plane/<part>`` and
+    ``bench_disagg_<attn>``.  ``device="cpu"`` rehearses it on the CPU,
+    without the card's launch checks: each tool on ``tiny`` at float32
+    on weights it draws (the two tools' ``tiny`` differ in vocabulary)."""
+    import tempfile
+
+    card = device == "cuda"
+    t_start = _tools_phase_start(torch, card, "serving tools")
+    launches, seconds = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        by_part, seconds["bench_shm_data_plane"] = _serving_shm(
+            params if card else None, card,
+            os.path.join(tmp, "bench_shm_data_plane.json"))
+        launches["bench_shm_data_plane/generation"] = by_part[
+            "bench_generation"]
+        launches["bench_shm_data_plane/resume"] = by_part[
+            "bench_resume_attach"]
+        for attn in DISAGG_ATTNS:
+            _release(torch, card)
+            name = "bench_disagg_" + attn
+            launches[name], seconds[name] = _serving_disagg(
+                params if card else None, card, attn,
+                os.path.join(tmp, name + ".json"))
+    _tools_phase_end(torch, card, "serving tools: phase 16", t_start,
+                     seconds, smi, launches)
+    return launches
+
+
+def _serving_tools_timed(torch):
+    """Both kernels held against their plain versions and timed at phase
+    16's shapes (Llama-3-8B's heads); the rows by ``timed_as`` key, and
+    the largest error of each kernel."""
+    import torch.nn.functional as F
+
+    from tpuserver_torch.ops import flash as fl
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 16)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    h, hkv, d = 32, 8, 128
+    timed = {"flash_attention_serving_T{}".format(SERVING_TOOLS_FLASH_T):
+             _flash_case(torch, F, fl, dev, gen, 1, SERVING_TOOLS_FLASH_T,
+                         h, hkv, d, True, torch.bfloat16, True, flush)}
+    for part, (lengths, s, dtype) in SERVING_TOOLS_DECODE.items():
+        timed["decode_attention_serving_" + part] = _decode_case(
+            torch, F, fl, dev, gen, lengths, s, h, hkv, d,
+            getattr(torch, dtype), True, flush)
+    del flush
+    torch.cuda.empty_cache()
+    for key, row in timed.items():
+        log("kernel_case: {} {}".format(key, json.dumps(row)))
+        if not row["row_rel_err"] <= TOL[row["dtype"]] or any(
+                not e > TOL[row["dtype"]]
+                for e in row.get("planted_fault_err", {}).values()):
+            fail("serving tools: {} against its plain version: {}".format(
+                key, row))
+    max_err = {}
+    for key, row in timed.items():
+        kname = key.split("_serving_")[0]
+        max_err[kname] = max(max_err.get(kname, 0.0), row["max_abs_err"])
+    return timed, max_err
+
+
+def _serving_tools_kernel_rows(launches, timed, max_err):
+    """The kernels line's rows for phase 16's launches: each stage's flash
+    and decode launches beside the kernel's time at that stage's shape
+    (flash at T 256 for every stage: the only flash length the tools
+    run)."""
+    flash_key = "flash_attention_serving_T{}".format(SERVING_TOOLS_FLASH_T)
+    decode_key = {"bench_shm_data_plane/generation": "generation",
+                  "bench_shm_data_plane/resume": "resume",
+                  "bench_disagg_kernel": "disagg",
+                  "bench_disagg_dense": "disagg"}
+    kernels = []
+    for path, counts in launches.items():
+        for kname, timed_as in (
+                ("flash_attention", flash_key),
+                ("decode_attention",
+                 "decode_attention_serving_" + decode_key[path])):
+            kernels.append(_kernel_row(kname, path, counts[kname],
+                                       max_err[kname], timed[timed_as],
+                                       timed_as))
+    return kernels
 
 # -- main --------------------------------------------------------------------
 
@@ -7041,6 +7283,30 @@ def main():
         print(json.dumps({"kernels": _tools_kernel_rows(torch, rows,
                                                         launches)}))
         log("tools-only: done")
+        log(smi)
+        return 1
+    if sys.argv[1:] == ["--serving-tools-only"]:
+        # phases 1-3 and 16 alone, phase 16 on weights drawn from the
+        # seed; prints the tools' kernels line and no result line
+        from tpuserver_torch.models import llama
+        from tpuserver_torch.models.llama_serving import LlamaGenerateModel
+
+        name, smi = phase_device(torch)
+        log("nvidia-smi:", smi)
+        phase_build()
+        phase_kernels(torch)
+        timed, max_err = _serving_tools_timed(torch)
+        drawn = LlamaGenerateModel(cfg=llama.llama3_8b(), seed=SEED,
+                                   device="cuda")
+        params = drawn._ensure_params()
+        del drawn
+        launches = phase_serving_tools(torch, params, smi)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(json.dumps({"kernels": _serving_tools_kernel_rows(
+            launches, timed, max_err)}))
+        log("serving-tools-only: done")
         log(smi)
         return 1
     if sys.argv[1:] == ["--vision-only"]:

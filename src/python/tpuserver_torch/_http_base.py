@@ -96,7 +96,12 @@ class BaseHttpHandler(socketserver.StreamRequestHandler):
     def handle(self):
         rfile = self.rfile
         while True:
-            line = rfile.readline(65537)
+            try:
+                line = rfile.readline(65537)
+            except ConnectionResetError:
+                # a client that closed with the last response's tail
+                # unread resets the connection: it wants no more
+                return
             if not line:
                 return
             if line in (b"\r\n", b"\n"):

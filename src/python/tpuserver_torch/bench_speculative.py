@@ -36,7 +36,6 @@ whose dtype and depth are then the run's.
 """
 
 import argparse
-import dataclasses
 import json
 import os
 import statistics
@@ -45,9 +44,8 @@ import threading
 import time
 
 import numpy as np
-import torch
 
-from tpuserver_torch import resolve_device
+from tpuserver_torch._bench_common import default_out, device_name, serving
 from tpuserver_torch.core import InferenceServer
 from tpuserver_torch.models import llama
 from tpuserver_torch.models.llama_serving import LlamaGenerateModel
@@ -55,39 +53,13 @@ from tpuserver_torch.perfanalyzer.client_backend import create_backend
 from tpuserver_torch.perfanalyzer.generation import GenerationProfiler
 from tpuserver_torch.scheduler import DecodeScheduler
 
-REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__)))))
 #: where the rows go without ``--out``: the ignored build directory
-DEFAULT_OUT = os.path.join(REPO, "build", "bench_speculative.json")
+DEFAULT_OUT = default_out("bench_speculative")
 
 REPETITIVE = [7, 9] * 6
 AGENTIC = [12, 34, 56, 78, 11, 22, 33, 44, 55, 66, 77, 88, 99, 111,
            222, 333]
 MAX_SEQ = 128
-
-
-@dataclasses.dataclass
-class Serving:
-    """The one config, weight tree and device every scheduler and model
-    of a run serves."""
-    cfg: object
-    params: dict
-    device: torch.device
-
-
-def serving(config="tiny", device=None, params=None):
-    """The run's :class:`Serving`: ``config`` (``tiny`` at vocab 512) at
-    the dtype and depth of ``params``, or drawn from seed 0 in bf16."""
-    dev = resolve_device(device)
-    cfg = (llama.tiny(vocab=512) if config == "tiny"
-           else llama.PRESETS[config]())
-    if params is None:
-        gen = torch.Generator(device=dev).manual_seed(0)
-        params = llama.init_params(cfg, gen, dev)
-    else:
-        cfg = dataclasses.replace(cfg, dtype=params["norm"].dtype,
-                                  n_layers=len(params["layers"]))
-    return Serving(cfg, params, dev)
 
 
 def _build(spec_tokens, slots=2, serve=None):
@@ -278,12 +250,6 @@ def build_parser():
     return ap
 
 
-def _device_name(device):
-    if device.type == "cuda":
-        return torch.cuda.get_device_name(device)
-    return "cpu"
-
-
 def main(argv=None, params=None):
     """Run the three parts and write their rows to ``--out``; returns 0.
     ``params``: the weights every scheduler serves (else drawn)."""
@@ -305,7 +271,7 @@ def main(argv=None, params=None):
                 "tokens/s its device's".format(
                     args.config, serve.cfg.n_layers,
                     str(serve.cfg.dtype).split(".")[-1],
-                    _device_name(serve.device)),
+                    device_name(serve.device)),
         "rows": rows,
     }
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -110,7 +110,8 @@ class LlamaGenerateModel(Model):
                  page_size=16, kv_pages=None, spec_tokens=0,
                  step_timeout_s=None, kv_export=False, target_queue_ms=None,
                  shed_interval_ms=100.0, fault_scope=None, quantize=False,
-                 mesh=None, max_restarts=5, restart_backoff_s=0.05):
+                 mesh=None, max_restarts=5, restart_backoff_s=0.05,
+                 prefill_chunk_tokens=256, prefix_cache=True):
         """``params``: weights to serve (a params dict of tensors, e.g.
         from ``llama.params_from_jax``, or another model's, which is then
         shared, not copied), moved to ``device``; None draws random ones
@@ -129,7 +130,11 @@ class LlamaGenerateModel(Model):
         tokens per step, ``step_timeout_s`` its watchdog, and
         ``max_restarts`` and ``restart_backoff_s`` its restart budget per
         ``scheduler.RESTART_WINDOW_S`` and the backoff's base (see
-        ``DecodeScheduler``).  ``kv_export`` is the default of the
+        ``DecodeScheduler``).  ``prefill_chunk_tokens`` (None: off) and
+        ``prefix_cache`` set its chunked prefill and its radix prefix
+        cache, both only where ``make_scheduler_fns`` says span prefill
+        keeps the kernel choice (``span_safe``); ``max_slots=1`` ignores
+        them.  ``kv_export`` is the default of the
         ``kv_park`` request parameter.  ``target_queue_ms`` (None: off)
         and ``shed_interval_ms`` set the scheduler's adaptive shedding,
         ``fault_scope`` its scope at the fault points.
@@ -198,6 +203,8 @@ class LlamaGenerateModel(Model):
         self._step_timeout_s = step_timeout_s
         self._max_restarts = max_restarts
         self._restart_backoff_s = restart_backoff_s
+        self._prefill_chunk_tokens = prefill_chunk_tokens
+        self._prefix_cache = prefix_cache
         self._kv_export = bool(kv_export)
         self._target_queue_ms = target_queue_ms
         self._shed_interval_ms = shed_interval_ms
@@ -239,6 +246,8 @@ class LlamaGenerateModel(Model):
                     step_timeout_s=self._step_timeout_s,
                     max_restarts=self._max_restarts,
                     restart_backoff_s=self._restart_backoff_s,
+                    prefill_chunk_tokens=self._prefill_chunk_tokens,
+                    prefix_cache=self._prefix_cache,
                     kv_export=self._export_kv, kv_import=self._import_kv,
                     kv_discard=self._discard_kv,
                     target_queue_ms=self._target_queue_ms,

@@ -463,6 +463,9 @@ class DecodeScheduler:
         # admissions over an attached KV export (no prefill), written by
         # the loop like the counters above
         self._attach_admissions = 0
+        # chunks of chunked admission prefills run (one prefill_span call
+        # each), written by the loop like the counters above
+        self._prefill_chunks = 0
         self._kv_export = kv_export
         self._kv_import = kv_import
         self._kv_discard = kv_discard
@@ -799,6 +802,7 @@ class DecodeScheduler:
                 "prefix_hits": self._prefix_hits,
                 "prefix_misses": self._prefix_misses,
                 "attach_admissions": self._attach_admissions,
+                "prefill_chunks": self._prefill_chunks,
                 "prefix_evictions": self._prefix_evictions,
                 "spec_tokens": self._spec_tokens,
                 "spec_steps": self._spec_steps,
@@ -1440,6 +1444,7 @@ class DecodeScheduler:
                 if superseded():
                     return
                 done("admit")
+                self._prefill_chunks += 1
                 task.done += n
                 if task.done < task.total:
                     return
