@@ -133,8 +133,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
    and summed to one decode step's products at each of the three row
    counts; (b) ``llama3_8b`` with int8 weights
    (``LlamaGenerateModel(quantize=True)``, drawn and quantized on the
-   card): phase 4's three requests, then 4b's 12 prompts and 4 repetitive
-   ones over ``max_slots=8`` forward and reversed and with
+   card): phase 4's three requests, then 4b's 12 prompts (budgets capped
+   at 32 tokens) and 4 repetitive ones (24 tokens) over ``max_slots=8``
+   forward and reversed and with
    ``spec_tokens=4`` (identical tokens per prompt), the flash, decode and
    W8A16 launches of each path, TTFT, rates, the decode bandwidth share
    (``perf.mbu`` with 1-byte weights), peak memory and the tree's bytes,
@@ -179,7 +180,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
    batch of 8 (the skipped MLP beyond it on the lone row); (b)
    ``bert_ensemble`` over one ``ModelStreamInfer`` stream against
    ``bert_encoder`` on ``bert_tokenizer``'s output, then pipelined
-   streams of 200 distinct texts from a client process of its own
+   streams of 100 distinct texts from a client process of its own
    (``python3 chip_smoke.py --child-bert <url>``), each answer against
    the same text's unary answer (whether bitwise printed); (c) config
    #4's infer/s and p50/p99 on the stream at 1 and 16 in flight, and the
@@ -199,8 +200,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
    script's) with no transport.  (a) ``llama3_8b`` at full width and
    depth on phase 9 (e)'s weights, bf16, ``max_seq`` 4096,
    ``max_slots=8``: ``--generation --prompt-len 512 --max-tokens 32
-   --concurrency-range 1:8:7 --measurement-interval 5000 --max-trials
-   6``; per level TTFT and ITL p50/p99, tokens/s, streams and errors,
+   --concurrency-range 1:8:7 --measurement-interval 3000 --max-trials
+   4``; per level TTFT and ITL p50/p99, tokens/s, streams and errors,
    the stability verdict, the launches of the three kernels around the
    run and the peak memory; no error, every stream 32 tokens, flash and
    decode launched, none of the W8A16 kernel, the rows' keys the pinned
@@ -223,8 +224,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
    ``max_seq`` 512, ``max_slots=8``) on one core.  First the in-process
    floor under the socket rows on that core (the port's perf analyzer, no
    transport: ``simple`` and ResNet-50 at 1, the BERT ensemble at 8, the
-   llama streams' work at 1 and 8 streams), then the benchmark, its HTTP
-   and gRPC front ends in this process; ``--window-s 1 --windows 3
+   llama streams' work at 8 streams), then the benchmark, its HTTP
+   and gRPC front ends in this process; ``--window-s 0.5 --windows 2
    --llama-slots 8``: config 1 over HTTP (its answers a+b before any
    timing), 2 and 3 over gRPC (in band, a system region, CUDA regions in
    and out at batch 1 and 4, each window value-fenced and sampled against
@@ -247,8 +248,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
    the uninterrupted decode): the default rounds with the overload
    phase, ``--kill-loop`` and ``--shm`` over a CUDA region, ``max_seq``
    128 (at the soak's default 64 the decode kernel's blocks do not tile
-   and the model attends densely, as JAX's does), two slots, 6 tokens, 8
-   rounds each.  Every mode exits 0 (every
+   and the model attends densely, as JAX's does), two slots, 6 tokens, 4
+   rounds each (one whole fault cycle).  Every mode exits 0 (every
    stream token-identical to the fault-free reference after every
    restart); each one's OK line, seconds, restarts, ring lanes read and
    launches are printed; ``decode_attention`` launches and
@@ -261,21 +262,23 @@ Phases, in order; any failure exits non-zero and prints no result line:
    chip_smoke.py --chaos-only`` runs phases 1-3 and 14 alone (on weights
    drawn from the seed) and prints no result line.
 
-10. tp, last: tensor-parallel serving of ``llama3_8b`` (full width and
-   depth, ``max_seq`` 4096, the seed's weights, each rank drawing every
-   leaf and keeping its slice; ``python3 chip_smoke.py --tp-only`` runs
-   phases 1-4b and 10 alone and prints no result line).  The card is one:
-   (a) tp=1 over NCCL, ``LlamaGenerateModel(mesh=)`` single-stream and
-   ``max_slots=8``: phase 4's and 4b's tokens bitwise, and the reference
-   logits (the 512-token prompt's prefill and 16 teacher-forced steps);
-   (b) tp=4, four ranks sharing the card over gloo (collectives through
-   host memory; this process the driver, three spawned followers): those
-   logits within ``TP_LOGITS_TOL`` row-relative, a planted fault (layer
-   0's wo all-reduce dropped) ten times beyond it, the prompt served for
-   64 tokens and again for 16 (the same; greedy agreement reported), a
+10. tp, last: tensor-parallel serving of ``llama3_8b`` (full width,
+   ``max_seq`` 4096, the seed's weights, each rank drawing every leaf and
+   keeping its slice; ``python3 chip_smoke.py --tp-only`` runs phases
+   1-4b and 10 alone and prints no result line).  The card is one: (a)
+   tp=1 over NCCL at full depth, ``LlamaGenerateModel(mesh=)``
+   single-stream and ``max_slots=8``: phase 4's and 4b's tokens bitwise;
+   then the reference logits at depth 4 (the 512-token prompt's prefill
+   and 16 teacher-forced steps); (b)-(d) run at depth 4, every tp=4
+   collective passing through gloo on the host; (b) tp=4, four ranks
+   sharing the card over gloo (collectives through host memory; this
+   process the driver, three spawned followers): those logits within
+   ``TP_LOGITS_TOL`` row-relative, a planted fault (layer 0's wo
+   all-reduce dropped) ten times beyond it, the prompt served for 32
+   tokens and again for 16 (the same), a
    prefill's and an 8-token chunk's wall time and rank 0's device time by
    class (the collectives' host copies apart), 4b's 12 requests (8 tokens
-   each: every tp=4 collective passes through gloo on the host) at
+   each) at
    ``max_slots=8`` both ways (same tokens per prompt), each rank's
    memory; (c) int8 at tp=4 (each full leaf quantized, then sharded): 16
    tokens twice, the same, the W8A16 kernel on every rank; (d) a tp=4 generation parked in a CUDA
@@ -284,7 +287,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
    logits.  Each rank's launches of the three kernels make the
    ``tp1_*`` and ``tp4_*`` rows (summed, and by rank); phase 3 holds the
    kernels at one rank's shapes (flash and decode at H 8, Hkv 2; W8A16 at
-   the shard shapes, one row).
+   the shard shapes, one row, summed over 4 layers' step).
 11. train, last: SPMD training (``llama.make_train_step``), each run in
    processes of its own (``--child-train``; ``python3 chip_smoke.py
    --train-only`` runs phases 1, 2 and 11 alone and prints no result
@@ -299,7 +302,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
    time).  (b) the (dp 1, sp 2, tp 2) mesh as four processes sharing the
    card over gloo, full width at depth 4, B 2, T 1024: a world-1 run of
    the same model, batch and seed first (its step 0 gradients saved),
-   then the mesh with ring attention and with Ulysses, three steps each:
+   then the mesh with ring attention and with Ulysses, two steps each:
    the losses within ``TRAIN_MESH_LOSS_TOL`` of world 1's and rank 0's
    gradient of every leaf within ``TRAIN_GRAD_TOL`` (relative norm) of
    the matching slice, ring within ``TRAIN_SP_TOL`` of Ulysses, and the
@@ -381,6 +384,34 @@ Phases, in order; any failure exits non-zero and prints no result line:
    512) and the disagg step (4 slots of 256); those make the
    ``bench_shm_data_plane/generation``, ``bench_shm_data_plane/resume``,
    ``bench_disagg_kernel`` and ``bench_disagg_dense`` rows.
+17. distributed, in ``python3 chip_smoke.py --distributed-only`` alone,
+   which runs phases 1-3 and 17 on ``llama3_8b`` weights drawn from the
+   seed and prints the phase's ``{"kernels": [...]}`` line and no result
+   line; the full script does not run it.  (a) The port's HTTP server in
+   this process (so the wrappers count its launches) holds the llama
+   (bf16, full width and depth, ``max_slots`` 8, ``max_seq`` 1024, prefix
+   caching off), ResNet-50 and the fixtures; every client is a process of
+   its own.  Four arms, each one ``python -m
+   tpuserver_torch.perf_analyzer`` process beside the distributed mode
+   (``--workers 4``: the coordinator here, it only merges, and four
+   worker processes), three windows a side: generation (512-token
+   prompts, 32 tokens) at 8 streams against 4 x 2; ResNet-50 batch 1 at
+   16 against 4 x 4 in band, over system regions and over CUDA regions.
+   Checked: no error; tokens and generations; the merged completions
+   equal the workers' sum, window by window (the coordinator's merge is
+   wrapped to read them); ``--report-csv`` with the JAX tool's header, a
+   row a window; flash launched once a layer an admitted prefill and
+   decode launched; no region left in the server's registries or under
+   ``/dev/shm``.  Both sides' infer/s or tokens/s, latency, TTFT and ITL
+   are printed with the card's name and power limit.  (b) ``python -m
+   tpuserver_torch.bench_router_tier`` at the JAX tool's defaults (10200
+   streams; fewer, printed, only where the host's descriptor limit
+   cannot hold them): every stream held, no dial error, none
+   peer-forwarded, a takeover, victims token-identical, survivors never
+   reconnecting.  Phase 3 holds flash at T 512; this mode adds decode at
+   the served step (8 rows of a 1024-key cache).  The generation arm's
+   launches make the ``distributed_single`` and ``distributed_workers``
+   rows.
 
 The peaks of every bound come from ``tpuserver_torch.ops.perf`` by the
 card's name (phase 1 fails on a card the table does not know).  The line
@@ -481,25 +512,31 @@ TP_RANKS = 4
 # phase 10 (b): tp=4 logits against the unsharded model's, row-relative
 # as TOL.  Every row-parallel product sums four bf16 partials that the
 # unsharded product sums in float32 inside one GEMM, each partial rounded
-# to bf16 first (2^-9 of its size), and the 32 layers carry that on; the
-# kernel-vs-plain model check moves the same logits by about 0.09 of a
-# largest |logit| near 5 (phase 5).  A planted fault (layer 0's wo
-# all-reduce dropped: three quarters of its heads missing) must move
-# them ten times as far
+# to bf16 first (2^-9 of its size), and the layers carry that on (32 gave
+# 0.015-0.023); the kernel-vs-plain model check moves the same logits by
+# about 0.09 of a largest |logit| near 5 (phase 5).  A planted fault
+# (layer 0's wo all-reduce dropped: three quarters of its heads missing)
+# must move them ten times as far
 TP_LOGITS_TOL = 0.05
 TP_FAULT_LAYER = 0
 # seconds a tp collective may wait (the followers' first kernel loads)
 TP_TIMEOUT_S = 300.0
-# phase 10's depth at tp=4, where every collective passes through gloo on
+# phase 10 (b)-(d) at tp=4, where every collective passes through gloo on
 # the host (about 5.5 ms each among four processes on one H100's host,
-# tools/torch_tp_collectives.py) and a decode step makes 66 of them: the
-# teacher-forced steps, the repeat's and int8's tokens, 4b's budgets
-# (capped), the tokens before a park, and the profile's wall samples
+# tools/torch_tp_collectives.py), two a layer and a step: the full width
+# at depth TP4_LAYERS (the 32 layers took about 165 s of the script's
+# 1200 s there; tp=1 keeps them, and phase 4's tokens, and gives tp=4
+# its reference logits at this depth from the same seed), and the
+# teacher-forced steps, the served stream's tokens (twice the tokens
+# before a park), the repeat's and int8's tokens, 4b's budgets (capped),
+# the tokens before a park, and the profile's wall samples
+TP4_LAYERS = 4
 TP_FORCED_STEPS = 16
 TP_REPEAT_TOKENS = 16
 TP_BATCHED_BUDGET = 8
 TP_INT8_TOKENS = 16
 TP_PARK_TOKENS = 16
+TP_SINGLE_TOKENS = 2 * TP_PARK_TOKENS
 TP_WALL_REPS = 3
 # phase 11 (a): llama3_8b at full width and depth trains at tp=1 (world 1
 # over NCCL) for TRAIN_STEPS steps on one repeated batch of TRAIN_BATCH x
@@ -525,6 +562,10 @@ TRAIN_MESH = (1, 2, 2)
 TRAIN_MESH_LAYERS = 4
 TRAIN_MESH_BATCH = 2
 TRAIN_MESH_LEN = 1024
+# (b)'s steps a run (the world-1 reference, ring, Ulysses): two, so the
+# script keeps within its 1200 s; each mesh step sums its gradients over
+# gloo through host memory, several seconds a step
+TRAIN_MESH_STEPS = 2
 # (b) against a world-1 run of the same model, batch and seed, both bf16:
 # rank 0's gradient of each leaf against the matching slice, relative
 # norm.  The mesh rounds each rank's bf16 partial (tp partial products,
@@ -537,8 +578,8 @@ TRAIN_MESH_LEN = 1024
 # 512, vocab 4096, bf16, depth 4) gave a worst leaf of 0.025 and the
 # fault 0.85
 TRAIN_GRAD_TOL = 0.06
-# (b): the three steps' losses against world 1's (the same roundings, a
-# loss near 12)
+# (b): the steps' losses against world 1's (the same roundings, a loss
+# near 12)
 TRAIN_MESH_LOSS_TOL = 0.02
 # (b): ring against Ulysses, step 0's loss: JAX's own limit
 # (tests/test_llama.py)
@@ -976,7 +1017,7 @@ def phase_kernels(torch):
             fail("decode_splits chose 1 split for one 8B stream on {} "
                  "SMs".format(n_sms))
     # the W8A16 kernel at one tp=4 rank's shard shapes (phase 10's int8
-    # decode steps), one row
+    # decode steps, at its depth), one row
     from tpuserver_torch.ops import perf, quant
 
     int8_tp4 = {}
@@ -989,7 +1030,7 @@ def phase_kernels(torch):
                     "planted_fault_err"]["skipped_rows"] > INT8_TOL:
                 fail("int8_matmul at a tp=4 shard shape: {}".format(row))
     timed["int8_matmul_tp4_step"] = _int8_step_sum(
-        int8_tp4, 1, llama.llama3_8b().n_layers, INT8_TP4_WEIGHTS)
+        int8_tp4, 1, TP4_LAYERS, INT8_TP4_WEIGHTS)
     timed["int8_matmul_tp4_step"]["max_abs_err"] = max(
         r["max_abs_err"] for r in int8_tp4.values())
     log("timed: int8_matmul, one tp=4 rank's decode step at M 1: {}".format(
@@ -3382,7 +3423,11 @@ def phase_fleet_supervised(np, prompts, budgets, tokens_4b):
         stop_s = time.monotonic() - t0
         left = [p for p in children if alive(p)]
         replica_log = tail(logs[0], 400)
-        stopped = replica_log.count("stopped")
+        # a replica's "stopped" and the router's "router stopped" are each
+        # one write, their newlines another, into the one inherited file:
+        # the two can share a line ("stoppedrouter stopped")
+        stopped = sum(1 for line in replica_log
+                      if line.replace("router stopped", "") == "stopped")
         with open(logs[1]) as fh:
             reaped = [line.rstrip() for line in fh if "reaped" in line]
         log("fleet (e) 5: SIGINT: the supervisor exited {} after {:.1f} s "
@@ -3446,7 +3491,11 @@ INT8_TOL = 2e-2
 # rounded twice to bf16).  A planted fault (the last 32 of each product's
 # input rows dropped) must break it
 INT8_LOGITS_TOL = 2 * LOGITS_TOL
-INT8_BUDGET_REPETITIVE = 32
+INT8_BUDGET_REPETITIVE = 24
+# the batched and speculative rounds hold 4b's budgets to at most this
+# many tokens (24 to 32 a request, still unequal), so the script keeps
+# within its 1200 s
+INT8_BUDGET_CAP = 32
 
 
 def _int8_cases(torch, quant, perf, dev, gen, k, n, flush,
@@ -3590,7 +3639,8 @@ def phase_int8(torch, np, bf16_tokens, prompts, budgets):
     shapes and ``INT8_ROWS`` rows; (b) ``llama3_8b`` served with int8
     weights (``LlamaGenerateModel(quantize=True)``, ``max_seq`` 4096):
     phase 4's three requests single-stream, then phase 4b's 12 prompts
-    and 4 repetitive ones over ``max_slots=8`` forward and in reverse, and
+    (budgets capped at ``INT8_BUDGET_CAP``) and 4 repetitive ones over
+    ``max_slots=8`` forward and in reverse, and
     the same 16 with ``spec_tokens=4``: tokens identical per prompt across
     the three, launches of all three kernels, TTFT, decode and aggregate
     rates, the decode-token bandwidth share, peak memory and the tree's
@@ -3746,7 +3796,8 @@ def phase_int8(torch, np, bf16_tokens, prompts, budgets):
 
     # batched, in both arrival orders, then speculative
     prompts = list(prompts) + _repetitive_prompts(np, cfg.vocab, 4)
-    budgets = list(budgets) + [INT8_BUDGET_REPETITIVE] * 4
+    budgets = [min(b, INT8_BUDGET_CAP) for b in budgets] + [
+        INT8_BUDGET_REPETITIVE] * 4
     tileable = len(_flash_admissions(llama, cfg, 4096,
                                      [len(p) for p in prompts]))
     rounds = {}
@@ -4541,7 +4592,7 @@ BERT_BATCHES = (1, 8)
 BERT_SEQ = 128
 BERT_D = 768
 # (b), (c): distinct texts a pipelined stream carries at each in-flight depth
-BERT_TEXTS = 200
+BERT_TEXTS = 100
 BERT_INFLIGHT = (1, 16)
 # (e): the park region of llama3_8b's whole KV cache at max_seq 4096 (bf16)
 LLAMA_KV_BYTES = 512 << 20
@@ -5164,31 +5215,32 @@ def _profile_fns(torch, steps, classify=_kernel_class, reps=WALL_REPS,
                 torch.cuda.synchronize()
                 walls.append((time.monotonic() - t0) * 1e3)
             wall_ms = sorted(walls)[reps // 2]
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA],
-                         acc_events=True) as prof:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 fn()
                 torch.cuda.synchronize()
-            by_class, kernels, host = {}, [], []
-            for ev in prof.key_averages():
-                if ev.key.startswith("aten::") and ev.self_cpu_time_total > 0:
-                    host.append((ev.self_cpu_time_total / 1e3, ev.count,
-                                 ev.key))
-                dev_us = getattr(ev, "self_device_time_total",
-                                 getattr(ev, "self_cuda_time_total", 0))
-                if dev_us <= 0 or not str(ev.device_type).endswith("CUDA"):
+            # the raw events, summed by name here: the profiler's own
+            # averages build a Python object an event, seconds for the
+            # thousands of launches of a decode chunk
+            by_name = {}
+            for ev in prof.profiler.kineto_results.events():
+                if not str(ev.device_type()).endswith("CUDA") or \
+                        ev.duration_ns() <= 0:
                     continue
-                cls = classify(ev.key)
-                by_class[cls] = by_class.get(cls, 0.0) + dev_us / 1e3
-                kernels.append((dev_us / 1e3, ev.count, ev.key[:80]))
+                ms, count = by_name.get(ev.name(), (0.0, 0))
+                by_name[ev.name()] = (ms + ev.duration_ns() / 1e6, count + 1)
+            by_class = {}
+            for key, (ms, _) in by_name.items():
+                cls = classify(key)
+                by_class[cls] = by_class.get(cls, 0.0) + ms
+            kernels = sorted((ms, count, key[:80])
+                             for key, (ms, count) in by_name.items())
             device_ms = sum(by_class.values())
             out[name] = {
                 "wall_ms": wall_ms, "wall_ms_samples": walls,
                 "device_ms": device_ms,
                 "busy_share": device_ms / wall_ms if wall_ms else None,
                 "device_ms_by_class": by_class,
-                "top_kernels": sorted(kernels, reverse=True)[:6],
-                "top_host_ops_ms": sorted(host, reverse=True)[:6]}
+                "top_kernels": kernels[::-1][:6]}
     return out
 
 
@@ -5288,20 +5340,22 @@ def _tp_class(name):
 
 
 def phase_tp(torch, np, single, prompts, budgets, tokens_4b):
-    """Tensor-parallel serving of ``llama3_8b`` (full width and depth,
-    ``max_seq`` 4096, the seed's weights, each rank drawing every leaf and
-    keeping its slice).  (a) tp=1 over NCCL: ``LlamaGenerateModel(mesh=)``
-    single-stream on phase 4's two prompts and ``max_slots=8`` on 4b's
-    12, bitwise phase 4's and 4b's tokens; the logits of the 512-token
-    prompt and of ``TP_FORCED_STEPS`` steps teacher-forced with phase 4's
-    tokens kept as the reference.  (b) tp=4, four ranks sharing the card
-    over gloo: those logits within ``TP_LOGITS_TOL`` of the reference,
-    layer 0's wo all-reduce dropped ten times beyond it; the prompt
-    served for 64 tokens (greedy agreement with phase 4 reported) and
-    again for ``TP_REPEAT_TOKENS`` (the same tokens); a prefill's and an
-    8-token chunk's wall time and rank 0's device time by class; 4b's 12
-    requests, budgets capped at ``TP_BATCHED_BUDGET``, at ``max_slots=8``
-    both ways (same tokens per prompt); each rank's memory.  (c) int8 at
+    """Tensor-parallel serving of ``llama3_8b`` (full width, ``max_seq``
+    4096, the seed's weights, each rank drawing every leaf and keeping its
+    slice).  (a) tp=1 over NCCL at full depth:
+    ``LlamaGenerateModel(mesh=)`` single-stream on phase 4's two prompts
+    and ``max_slots=8`` on 4b's 12, bitwise phase 4's and 4b's tokens;
+    then, at depth ``TP4_LAYERS``, the logits of the 512-token prompt and
+    of ``TP_FORCED_STEPS`` steps teacher-forced with phase 4's tokens kept
+    as the reference.  (b)-(d) run at depth ``TP4_LAYERS``.  (b) tp=4,
+    four ranks sharing the card over gloo: those logits within
+    ``TP_LOGITS_TOL`` of the reference, layer 0's wo all-reduce dropped
+    ten times beyond it; the prompt served for ``TP_SINGLE_TOKENS``
+    tokens and again for ``TP_REPEAT_TOKENS`` (the same tokens); a
+    prefill's and an 8-token chunk's wall time and rank 0's device time
+    by class; 4b's 12 requests, budgets capped at ``TP_BATCHED_BUDGET``,
+    at ``max_slots=8`` both ways (same tokens per prompt); each rank's
+    memory.  (c) int8 at
     tp=4: ``TP_INT8_TOKENS`` tokens twice, the same, the W8A16 kernel
     launched on every rank.  (d) a tp=4 generation parked in a
     CUDA region (full layout) resumed at tp=4, bitwise the unparked
@@ -5346,12 +5400,16 @@ def phase_tp(torch, np, single, prompts, budgets, tokens_4b):
             json.dumps(paths)))
     if got_long != long_tokens or got_short != short_tokens or same != 12:
         fail("tp=1 tokens differ from the unsharded model's")
+    del model, batched, params
+    # tp=4's depth, drawn from the same seed as tp=4 draws it
+    cfg = dataclasses.replace(cfg, n_layers=TP4_LAYERS)
+    params = llama.tp_params(mesh, cfg, seed=SEED)
     reference = _tp_forced_logits(torch, np, llama, mesh, cfg, params,
                                   long_prompt, long_tokens[:TP_FORCED_STEPS])
     if not (torch.isfinite(reference).all()
             and reference.shape == (TP_FORCED_STEPS + 1, cfg.vocab)):
         fail("tp=1 logits not finite or of the wrong shape")
-    del model, batched, params
+    del params
     _tp_close(torch, mesh, followers)
 
     # (b) tp=4: four ranks sharing the card, gloo through host memory
@@ -5364,9 +5422,10 @@ def phase_tp(torch, np, single, prompts, budgets, tokens_4b):
     load_s = time.monotonic() - t0
     load = _tp_reports(mesh, reset_peak=True)
     params = model._ensure_params()
-    log("tp4: weights drawn in {:.1f} s; GiB by rank: held {}, draw peak "
-        "{}".format(load_s, _gib(load, "allocated_bytes"),
-                    _gib(load, "peak_bytes")))
+    log("tp4 (depth {}): weights drawn in {:.1f} s; GiB by rank: held {}, "
+        "draw peak {}".format(cfg.n_layers, load_s,
+                              _gib(load, "allocated_bytes"),
+                              _gib(load, "peak_bytes")))
     forced = _tp_forced_logits(torch, np, llama, mesh, cfg, params,
                                long_prompt, long_tokens[:TP_FORCED_STEPS])
     err_prefill = row_rel_err(forced[:1], reference[:1])
@@ -5394,19 +5453,16 @@ def phase_tp(torch, np, single, prompts, budgets, tokens_4b):
     with _served(model) as port:
         _tp_reports(mesh, reset_launches=True)
         served = [_stream(port, long_prompt, n)
-                  for n in (len(long_tokens), TP_REPEAT_TOKENS)]
+                  for n in (TP_SINGLE_TOKENS, TP_REPEAT_TOKENS)]
         paths["tp4_single"] = _tp_launches(mesh)
     tp4_tokens = served[0][0]
-    agree = sum(a == b for a, b in zip(tp4_tokens, long_tokens))
     repeat_same = served[1][0] == tp4_tokens[:TP_REPEAT_TOKENS]
-    log("tp4 single: ttft {} ms, decode {} tokens/s; a repeat's {} tokens "
-        "identical {}; greedy agreement with the unsharded tokens {}/{}; "
-        "launches {}".format([round(r[1] * 1e3, 1) for r in served],
-                             [round(r[2], 2) for r in served],
-                             TP_REPEAT_TOKENS, repeat_same, agree,
-                             len(long_tokens),
-                             json.dumps(paths["tp4_single"])))
-    if not repeat_same or len(tp4_tokens) != len(long_tokens):
+    log("tp4 single: {} tokens, ttft {} ms, decode {} tokens/s; a "
+        "repeat's {} tokens identical {}; launches {}".format(
+            len(tp4_tokens), [round(r[1] * 1e3, 1) for r in served],
+            [round(r[2], 2) for r in served], TP_REPEAT_TOKENS, repeat_same,
+            json.dumps(paths["tp4_single"])))
+    if not repeat_same or len(tp4_tokens) != TP_SINGLE_TOKENS:
         fail("tp=4 repeat gave other tokens")
     with torch.inference_mode():
         cache = init_cache(1, 4096)
@@ -5431,13 +5487,10 @@ def phase_tp(torch, np, single, prompts, budgets, tokens_4b):
         paths["tp4_batched"] = _tp_launches(mesh)
     serving = _tp_reports(mesh)
     same = [fwd[i][0] == rev[i][0] for i in range(12)]
-    agree = sum(fwd[i][0] == tokens_4b[i][:TP_BATCHED_BUDGET]
-                for i in range(12))
     log("tp4 batched ({} tokens a request): rounds {:.1f} s and {:.1f} s; "
-        "rows identical across arrival orders {}/12; prompts equal to phase "
-        "4b's first tokens {}/12 (reported); launches {}; GiB by rank: held "
-        "{}, serving peak {}".format(
-            TP_BATCHED_BUDGET, fwd_s, rev_s, sum(same), agree,
+        "rows identical across arrival orders {}/12; launches {}; GiB by "
+        "rank: held {}, serving peak {}".format(
+            TP_BATCHED_BUDGET, fwd_s, rev_s, sum(same),
             json.dumps(paths["tp4_batched"]),
             _gib(serving, "allocated_bytes"), _gib(serving, "peak_bytes")))
     if not all(same):
@@ -5747,7 +5800,7 @@ def train_reference(torch, np, cfg, ref_path, device="cuda",
                     backend="nccl", store=None, batch=TRAIN_MESH_BATCH,
                     length=TRAIN_MESH_LEN):
     """Phase 11 (b)'s reference, in a process of its own: ``cfg`` (the
-    depth-cut model) at world 1 on the mesh's batch, ``TRAIN_STEPS``
+    depth-cut model) at world 1 on the mesh's batch, ``TRAIN_MESH_STEPS``
     steps; step 0's gradient of every leaf, cut to the mesh's rank 0
     slice (tp coordinate 0), saved to ``ref_path``."""
     from tpuserver_torch.models import llama
@@ -5768,8 +5821,8 @@ def train_reference(torch, np, cfg, ref_path, device="cuda",
 
     _peak_gib(torch, device, reset=True)
     params, opt, losses, walls = _timed_steps(
-        torch, device, step_fn, params, opt, tokens, targets, TRAIN_STEPS,
-        after_first=save)
+        torch, device, step_fn, params, opt, tokens, targets,
+        TRAIN_MESH_STEPS, after_first=save)
     return {"losses": losses, "step_ms": walls,
             "peak_gib": _peak_gib(torch, device)}
 
@@ -5789,8 +5842,8 @@ def train_mesh_rank(torch, np, cfg, rank, store, ref_path, device="cuda",
                     backend="gloo", batch=TRAIN_MESH_BATCH,
                     length=TRAIN_MESH_LEN):
     """One rank of phase 11 (b), in a process of its own: the
-    ``TRAIN_MESH`` mesh over ``backend``; ``TRAIN_STEPS`` steps with ring
-    attention, the same with Ulysses, then one step with ring attention
+    ``TRAIN_MESH`` mesh over ``backend``; ``TRAIN_MESH_STEPS`` steps with
+    ring attention, the same with Ulysses, then one step with ring attention
     and the planted fault (layer ``TRAIN_FAULT_LAYER``'s ``copy_to_tp``
     without its backward sum), each from the seed's params.  Every run:
     the losses, each step's wall ms and the part of it the gradient sum
@@ -5820,8 +5873,8 @@ def train_mesh_rank(torch, np, cfg, rank, store, ref_path, device="cuda",
         sums.append((time.monotonic() - t0) * 1e3)
 
     for run, strategy, fault, steps in (
-            ("ring", "ring", None, TRAIN_STEPS),
-            ("ulysses", "ulysses", None, TRAIN_STEPS),
+            ("ring", "ring", None, TRAIN_MESH_STEPS),
+            ("ulysses", "ulysses", None, TRAIN_MESH_STEPS),
             ("fault", "ring", TRAIN_FAULT_LAYER, 1)):
         c = dataclasses.replace(cfg, sp_strategy=strategy)
         step_fn, init_fn = llama.make_train_step(mesh, c,
@@ -6021,21 +6074,22 @@ def phase_train(torch, np):
 
 # (a): the generation load, through the code of ``python -m
 # tpuserver_torch.perf_analyzer`` (``main(argv, core=...)``): 512-token
-# prompts (a flash length), 32 tokens a stream, 1 and 8 streams, 5 s
-# windows.  256 distinct prompts, so no prompt comes round again within
+# prompts (a flash length), 32 tokens a stream, 1 and 8 streams, 3 s
+# windows, at most four.  256 distinct prompts, so no prompt comes round again within
 # the run and every admission prefills its whole prompt (the prefix cache
 # shares nothing between random ids)
 PERF_GEN_ARGS = ("-m", "llama_generate", "--generation", "--prompt-len", "512",
                  "--max-tokens", "32", "--concurrency-range", "1:8:7",
-                 "--measurement-interval", "5000", "--max-trials", "6",
+                 "--measurement-interval", "3000", "--max-trials", "4",
                  "--input-pool", "256")
 PERF_GEN_TOKENS = 32
 # (b): batch-1 ResNet-50 requests at concurrency 1 and 16 on each data
-# plane, 1 s windows; a shm plane's output goes into a region of its kind,
-# as phase 8 (e)'s clients put it.  In band runs first and again last: the
-# second run tells a plane's own cost from a drift over the phase
+# plane, 1 s windows, at most three; a shm plane's output goes into a
+# region of its kind, as phase 8 (e)'s clients put it.  In band runs first
+# and again last: the second run tells a plane's own cost from a drift
+# over the phase
 PERF_UNARY_ARGS = ("-m", "resnet50", "--concurrency-range", "1:16:15",
-                   "--measurement-interval", "1000", "--max-trials", "5")
+                   "--measurement-interval", "1000", "--max-trials", "3")
 PERF_PLANES = ("none", "system", "cuda", "none")
 # the phase's share of the script's 1200 s: reported, not enforced
 PERF_BUDGET_S = 150.0
@@ -6257,10 +6311,10 @@ def phase_perf(torch, np, cfg, params, smi):
 
 # -- phase 13: the BASELINE benchmark over the port's sockets ----------------
 
-# ``python -m tpuserver_torch.bench_full``'s flags: 1 s windows, three of
-# them (config 1 to three stable windows), the continuous-batching rows
-# at 1, 4 and 8 streams
-BENCH_ARGV = ("--window-s", "1", "--windows", "3", "--llama-config",
+# ``python -m tpuserver_torch.bench_full``'s flags: 0.5 s windows, two of
+# them (config 1 to two stable windows), the continuous-batching rows at
+# 1, 4 and 8 streams
+BENCH_ARGV = ("--window-s", "0.5", "--windows", "2", "--llama-config",
               "llama3_8b", "--llama-slots", "8")
 # every kind of row the five configs print at these flags
 BENCH_KINDS = {"simple_http", "vision", "vision_cuda_shm",
@@ -6270,16 +6324,17 @@ BENCH_KINDS = {"simple_http", "vision", "vision_cuda_shm",
 # the in-process floor under the socket rows, on the same core before
 # the benchmark: the port's perf analyzer with no transport on config 1's
 # model, config 2's at one request, config 4's ensemble at its 8 in
-# flight, and config 5's streams (8-token prompts, 64 tokens, 1 and 8
-# streams); three windows each, an unstable level reported
+# flight, and config 5's streams (8-token prompts, 64 tokens, at its
+# largest row's 8 streams); at most three windows each (0.5 s; the
+# streams' 3 s), an unstable level reported
 BENCH_FLOOR = (
     ("-m", "simple", "--concurrency-range", "1"),
     ("-m", "resnet50", "--concurrency-range", "1"),
     ("-m", "bert_ensemble", "--concurrency-range", "8"),
     ("-m", "llama_generate", "--generation", "--prompt-len", "8",
-     "--max-tokens", "64", "--concurrency-range", "1:8:7",
+     "--max-tokens", "64", "--concurrency-range", "8",
      "--input-pool", "64", "--measurement-interval", "3000"))
-BENCH_FLOOR_WINDOWS = ("--measurement-interval", "1000", "--max-trials",
+BENCH_FLOOR_WINDOWS = ("--measurement-interval", "500", "--max-trials",
                        "3")
 # the phase's share of the script's 1200 s: reported, not enforced
 BENCH_BUDGET_S = 150.0
@@ -6426,11 +6481,12 @@ def phase_bench(torch, np, cfg, params, smi, device="cuda"):
 # -- phase 14: the chaos soak's in-process modes -----------------------------
 
 
-# the soak's serving settings (the JAX tool's two slots, six tokens and
-# eight rounds; max_seq CHAOS_SEQ, where JAX's is 64) on llama3_8b in
-# float32 on the card
+# the soak's serving settings (the JAX tool's two slots and six tokens;
+# four rounds, one whole FAULT_CYCLE where JAX's eight run it twice, so
+# the script keeps within its 1200 s; max_seq CHAOS_SEQ, where JAX's is
+# 64) on llama3_8b in float32 on the card
 CHAOS_ARGV = ("--config", "llama3_8b", "--dtype", "float32", "--slots", "2",
-              "--budget", "6", "--rounds", "8", "--max-seq", str(CHAOS_SEQ))
+              "--budget", "6", "--rounds", "4", "--max-seq", str(CHAOS_SEQ))
 CHAOS_MODES = ((), ("--kill-loop",), ("--shm",))
 # the phase's share of the script's 1200 s: reported, not enforced
 CHAOS_BUDGET_S = 150.0
@@ -7126,6 +7182,403 @@ def _serving_tools_kernel_rows(launches, timed, max_err):
                                        timed_as))
     return kernels
 
+# -- phase 17: the distributed perf analyzer and the router-tier bench -------
+
+
+# the server's llama: max_seq a multiple of the decode kernel's 256 blocks
+# and room for a 512-token prompt and its 32 tokens; prefix caching off,
+# so every admission prefills its whole prompt (a flash launch a layer)
+DIST_SEQ = 1024
+# the decode kernel at the served step: 8 slots of a 1024-key cache, each
+# row between its 512-token prompt and its last token
+DIST_DECODE_LENGTHS = tuple(512 + 4 * i for i in range(8))
+# the arms: generation of 32 tokens from 512-token prompts, 3 s windows;
+# ResNet-50 batch 1 in band, then over system and CUDA regions (the
+# output in a region of the input's kind), 1 s windows.  Each arm runs
+# its single process at ``single`` streams, then ``workers`` processes at
+# ``per_worker`` each, three windows a side
+DIST_GEN_ARGS = ("-m", "llama_generate", "--generation", "--prompt-len",
+                 "512", "--max-tokens", "32", "--input-pool", "64",
+                 "--measurement-interval", "3000")
+DIST_UNARY_ARGS = ("-m", "resnet50", "--measurement-interval", "1000")
+DIST_SHM_ARGS = ("--output-shared-memory-size", str(OUTPUT_BYTES))
+DIST_ARMS = (
+    ("generation", DIST_GEN_ARGS, "none", 8, 4, 2),
+    ("resnet50", DIST_UNARY_ARGS, "none", 16, 4, 4),
+    ("resnet50", DIST_UNARY_ARGS, "system", 16, 4, 4),
+    ("resnet50", DIST_UNARY_ARGS, "cuda", 16, 4, 4))
+DIST_WINDOWS = 3
+# python -m tpuserver_torch.bench_router_tier's flags (none: the JAX
+# tool's defaults, 10200 streams)
+ROUTER_TIER_ARGV = ()
+ROUTER_TIER_STREAMS = 10200
+# the phase's share of a run: reported, not enforced
+DIST_BUDGET_S = 300.0
+
+
+def _distributed_timed(torch):
+    """The decode kernel held against its plain version and timed at
+    phase 17's batched step (the flash kernel's T 512 prefill is phase 3's
+    ``flash_attention`` row)."""
+    import torch.nn.functional as F
+
+    from tpuserver_torch.ops import flash as fl
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    row = _decode_case(torch, F, fl, dev, gen, DIST_DECODE_LENGTHS,
+                       DIST_SEQ, 32, 8, 128, torch.bfloat16, True, flush)
+    del flush
+    torch.cuda.empty_cache()
+    log("kernel_case: decode_attention_distributed {}".format(
+        json.dumps(row)))
+    if not row["row_rel_err"] <= TOL[row["dtype"]] or any(
+            not e > TOL[row["dtype"]]
+            for e in row.get("planted_fault_err", {}).values()):
+        fail("distributed: decode_attention against its plain version: "
+             "{}".format(row))
+    return row
+
+
+def _dist_quiet(model, timeout=120.0):
+    """Wait until the served llama holds no stream (the clients' last
+    generations finish or are cancelled); its scheduler's stats."""
+    deadline = time.monotonic() + timeout
+    while True:
+        stats = model.scheduler_stats() or {}
+        if not stats.get("live_streams") and not stats.get("pending"):
+            return stats
+        if time.monotonic() > deadline:
+            fail("distributed: streams still live after the run: {}".format(
+                stats))
+        time.sleep(0.05)
+
+
+def _dist_single(url, args, plane, level, device):
+    """The single-process arm: ``python -m tpuserver_torch.perf_analyzer``
+    as a process of its own at ``level``; (its rows, its output)."""
+    argv = [sys.executable, "-m", "tpuserver_torch.perf_analyzer",
+            "--backend", "http", "-u", url, "--shared-memory", plane,
+            "--concurrency-range", str(level),
+            "--max-trials", str(DIST_WINDOWS)] + list(args)
+    if device == "cpu":
+        argv += ["--device", "cpu"]
+    proc = subprocess.run(argv, capture_output=True, text=True,
+                          env=_port_env(), cwd=HERE, timeout=600)
+    if proc.returncode != 0:
+        fail("distributed: the single process exited {}: {} {}".format(
+            proc.returncode, proc.stdout[-2000:], proc.stderr[-2000:]))
+    rows = [json.loads(ln) for ln in proc.stdout.splitlines()
+            if ln.startswith('{"')]
+    return rows, proc.stdout
+
+
+def _dist_workers(url, args, plane, workers, level, csv_path, device):
+    """The distributed arm: the coordinator (``perf_analyzer.main`` with
+    ``--workers``, here; it only merges) and its worker processes; (its
+    rows, its output, each window's completions by worker)."""
+    import io
+
+    from tpuserver_torch import perf_analyzer
+    from tpuserver_torch.perfanalyzer import coordinator
+
+    argv = ["--backend", "http", "-u", url, "--shared-memory", plane,
+            "--workers", str(workers), "--concurrency-range", str(level),
+            "--windows", str(DIST_WINDOWS), "--report-csv", csv_path
+            ] + list(args)
+    if device == "cpu":
+        argv += ["--device", "cpu"]
+    by_window = []
+    merge = coordinator.merge_worker_windows
+
+    def recording(results):
+        by_window.append([int(r.get("completed", 0)) for r in results])
+        return merge(results)
+
+    buf = io.StringIO()
+    coordinator.merge_worker_windows = recording
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = perf_analyzer.main(argv)
+    finally:
+        coordinator.merge_worker_windows = merge
+    if rc != 0:
+        fail("distributed: the coordinator exited {}: {}".format(
+            rc, buf.getvalue()[-2000:]))
+    rows = [json.loads(ln) for ln in buf.getvalue().splitlines()
+            if ln.startswith('{"')]
+    return rows, buf.getvalue(), by_window
+
+
+def _dist_summary(label, side, row, smi):
+    """One side's numbers in a line: infer/s and latency for a unary row,
+    tokens/s, TTFT and ITL for a generation row."""
+    if row.get("unit") == "tokens/sec":
+        return ("distributed {} {}: {:.2f} tokens/s, {} generations, "
+                "TTFT p50 {} ms p99 {} ms, ITL p50 {} ms p99 {} ms, {} "
+                "errors; {}".format(
+                    label, side, row["value"], row["generations"],
+                    row["ttft_p50_ms"], row["ttft_p99_ms"],
+                    row["itl_p50_ms"], row["itl_p99_ms"], row["errors"],
+                    smi))
+    return ("distributed {} {}: {:.2f} infer/s, {} completed, p50 {} us "
+            "p99 {} us, {} errors; {}".format(
+                label, side, row["value"], row["completed"],
+                row["p50_usec"], row["p99_usec"], row["errors"], smi))
+
+
+def _dist_regions_left(core, keys):
+    """The regions the phase left: the server's registries, and the files
+    under ``/dev/shm`` of the system regions its clients registered
+    (``keys``: a scan would see other processes' files)."""
+    files = [k for k in keys if os.path.exists("/dev/shm" + k)]
+    return core.cuda_shm_status(), core.system_shm_status(), files
+
+
+def _dist_arm(core, model, url, arm, smi, device, tmp, keys):
+    """One arm, single process then workers: the two rows, the launches
+    of each side and its admissions."""
+    import csv
+
+    from tpuserver_torch.ops import flash as fl
+    from tpuserver_torch.perfanalyzer.report import WINDOW_CSV_COLUMNS
+
+    kind, args, plane, single, workers, per_worker = arm
+    label = kind if plane == "none" else "{} {}".format(kind, plane)
+    out = {}
+    for side in ("single", "workers"):
+        before = _dist_quiet(model)
+        keys0 = len(keys)
+        reads0 = core.shm_stats()["shm_zero_copy_reads"]
+        fl.reset_launch_counts()
+        t0 = time.monotonic()
+        if side == "single":
+            rows, text = _dist_single(url, args, plane, single, device)
+            by_window = None
+        else:
+            csv_path = os.path.join(tmp, "windows.csv")
+            rows, text, by_window = _dist_workers(
+                url, args, plane, workers, per_worker, csv_path, device)
+        after = _dist_quiet(model)
+        seconds = time.monotonic() - t0
+        launches = {"flash_attention": fl.flash_attention.launches,
+                    "decode_attention": fl.decode_attention.launches}
+        admitted = after.get("admitted", 0) - before.get("admitted", 0)
+        reads = core.shm_stats()["shm_zero_copy_reads"] - reads0
+        log(text.rstrip())
+        if len(rows) != 1:
+            fail("distributed {} {}: {} rows, want 1".format(
+                label, side, len(rows)))
+        row = rows[0]
+        log(_dist_summary(label, side, row, smi))
+        log("distributed {} {}: {:.1f} s; launches {}; {} admissions; "
+            "{} zero-copy reads".format(label, side, seconds,
+                                        json.dumps(launches), admitted,
+                                        reads))
+        if row["errors"]:
+            fail("distributed {} {}: {} errors".format(
+                label, side, row["errors"]))
+        if kind == "generation":
+            if not row["tokens"] or not row["generations"]:
+                fail("distributed {} {}: tokens {}, generations {}".format(
+                    label, side, row["tokens"], row["generations"]))
+            if device == "cuda" and (
+                    launches["flash_attention"]
+                    != model._cfg.n_layers * admitted
+                    or not admitted or not launches["decode_attention"]):
+                fail("distributed {} {}: launches {} for {} admitted "
+                     "prefills (flash wants {} a prefill)".format(
+                         label, side, launches, admitted,
+                         model._cfg.n_layers))
+        elif not row["completed"]:
+            fail("distributed {} {}: nothing completed".format(label, side))
+        if side == "workers":
+            if row["workers"] != workers or row["level"] != (
+                    workers * per_worker) or len(by_window) != DIST_WINDOWS:
+                fail("distributed {}: workers {}, level {}, windows {}"
+                     .format(label, row["workers"], row["level"],
+                             by_window))
+            summed = sum(sum(w) for w in by_window)
+            if row["completed"] != summed or any(
+                    len(w) != workers for w in by_window):
+                fail("distributed {}: merged completions {} != the "
+                     "workers' sum {} ({})".format(
+                         label, row["completed"], summed, by_window))
+            log("distributed {}: completions by window and worker {} "
+                "(sum {} = merged)".format(label, by_window, summed))
+            with open(csv_path, newline="") as fh:
+                lines = list(csv.reader(fh))
+            if lines[0] != [h for h, _ in WINDOW_CSV_COLUMNS] or \
+                    len(lines) != 1 + DIST_WINDOWS:
+                fail("distributed {}: --report-csv {}".format(label, lines))
+        if plane == "system" and len(keys) == keys0:
+            fail("distributed {} {}: no system region registered".format(
+                label, side))
+        left = _dist_regions_left(core, keys)
+        if any(left):
+            fail("distributed {} {}: regions left behind: {}".format(
+                label, side, left))
+        out[side] = {"row": row, "launches": launches,
+                     "admitted": admitted, "seconds": seconds}
+    ratio = out["workers"]["row"]["value"] / max(
+        out["single"]["row"]["value"], 1e-9)
+    log("distributed {}: {} workers x {} = {:.2f} {} against one process "
+        "at {} = {:.2f}: ratio {:.3f}; {}".format(
+            label, workers, per_worker, out["workers"]["row"]["value"],
+            out["workers"]["row"]["unit"], single,
+            out["single"]["row"]["value"], ratio, smi))
+    return out
+
+
+def _router_tier(smi, tmp):
+    """(b): ``python -m tpuserver_torch.bench_router_tier`` as a process,
+    at the JAX tool's defaults unless the host's descriptor limit cannot
+    hold its streams (then at the most it can, the cut printed); its rows
+    and the streams asked for."""
+    import resource
+
+    from tpuserver_torch import bench_router_tier
+
+    streams = ROUTER_TIER_STREAMS
+    argv = list(ROUTER_TIER_ARGV)
+    hard = resource.getrlimit(resource.RLIMIT_NOFILE)[1]
+    if hard != resource.RLIM_INFINITY and hard < \
+            bench_router_tier.descriptors_needed(streams, 1000, 4):
+        streams = (hard - bench_router_tier.FD_SLACK) // 12 * 12
+        argv += ["--streams", str(streams)]
+        log("distributed: router tier CUT to {} streams: RLIMIT_NOFILE's "
+            "hard limit {} cannot hold {}".format(
+                streams, hard, ROUTER_TIER_STREAMS))
+    out_path = os.path.join(tmp, "bench_router_tier.json")
+    t0 = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, "-m", "tpuserver_torch.bench_router_tier",
+         "--out", out_path] + argv, capture_output=True, text=True,
+        env=_port_env(), cwd=tmp, timeout=900)
+    seconds = time.monotonic() - t0
+    lines = [ln for ln in proc.stdout.splitlines()
+             if not ln.startswith(("stub replica", "fleet router",
+                                   "router "))]
+    log("\n".join(lines))
+    if proc.returncode != 0:
+        fail("distributed: bench_router_tier exited {}: {}".format(
+            proc.returncode, proc.stderr[-3000:]))
+    with open(out_path) as fh:
+        rows = json.load(fh)["rows"]
+    for row in rows:
+        log("router tier row: {}".format(json.dumps(row)))
+    log("distributed: bench_router_tier {:.1f} s on the card's host "
+        "({}; no device work)".format(seconds, smi))
+    by = {(r["config"], r["metric"]): r for r in rows}
+    held = by[("3-active selector tier", "concurrent_streams_held")]
+    takeover = by[("takeover (SIGKILL 1 of 3 actives)",
+                   "takeover_window_p99_s")]
+    want = int(dict(zip(argv[::2], argv[1::2])).get("--streams", streams))
+    if held["value"] != want or held["dial_errors"] or \
+            held["peer_forwarded"]:
+        fail("distributed: router tier held {} of {} (dial errors {}, "
+             "peer-forwarded {})".format(held["value"], want,
+                                         held["dial_errors"],
+                                         held["peer_forwarded"]))
+    if takeover["survivor_reconnects"] or not takeover["token_identical"] \
+            or not takeover["victim_reconnects"]:
+        fail("distributed: takeover row {}".format(takeover))
+    return rows, seconds
+
+
+def phase_distributed(torch, cfg, params, smi, device="cuda", vision=None):
+    """Phase 17: the distributed perf analyzer (``python -m
+    tpuserver_torch.perf_analyzer --workers``) beside one client process,
+    every client a process of its own, against the port's HTTP server in
+    this process (``params``' llama behind ``max_slots=8`` at ``max_seq``
+    :data:`DIST_SEQ`, ResNet-50 and the fixtures; the wrappers count its
+    launches here), then (b) ``python -m tpuserver_torch.bench_router_tier``;
+    returns the generation arm's launches by side.  ``device="cpu"`` (with
+    a narrow ``vision`` model) rehearses it on the CPU, without the
+    card's launch checks."""
+    import tempfile
+
+    from tpuserver_torch.core import InferenceServer
+    from tpuserver_torch.http_server import HttpServer
+    from tpuserver_torch.models import default_models
+    from tpuserver_torch.models import vision as tv
+    from tpuserver_torch.models.llama_serving import LlamaGenerateModel
+
+    card = device == "cuda"
+    t_start = _tools_phase_start(torch, card, "distributed")
+    model = LlamaGenerateModel(cfg=cfg, max_seq=DIST_SEQ, max_slots=8,
+                               params=params, device=device,
+                               prefix_cache=False)
+    if vision is None:
+        vision = tv.ResNet50Model(device=device, seed=SEED)
+    core = InferenceServer(default_models() + [vision, model])
+    # the keys of the system regions the clients register, for the leak
+    # check
+    keys = []
+    register = core.register_system_shm
+
+    def recording(name, key, offset, byte_size):
+        keys.append(key)
+        return register(name, key, offset, byte_size)
+
+    core.register_system_shm = recording
+    http = None
+    arms = []
+    try:
+        core.warmup()
+        http = HttpServer(core, port=0).start()
+        url = "127.0.0.1:{}".format(http.port)
+        log("distributed: the server built and warm in {:.1f} s at {}"
+            .format(time.monotonic() - t_start, url))
+        with tempfile.TemporaryDirectory() as tmp:
+            for arm in DIST_ARMS:
+                if arm[2] == "cuda" and not card:
+                    continue  # a CPU region attaches only in-process
+                arms.append(_dist_arm(core, model, url, arm, smi, device,
+                                      tmp, keys))
+            perf_seconds = time.monotonic() - t_start
+            http.stop()
+            http = None
+            core.close()
+            core = None
+            _release(torch, card)
+            _, tier_seconds = _router_tier(smi, tmp)
+    finally:
+        if http is not None:
+            http.stop()
+        if core is not None:
+            core.close()
+    launches = {"distributed_single": arms[0]["single"]["launches"],
+                "distributed_workers": arms[0]["workers"]["launches"]}
+    _tools_phase_end(torch, card, "distributed: phase 17", t_start,
+                     {"perf arms": perf_seconds,
+                      "bench_router_tier": tier_seconds}, smi, launches)
+    log("distributed: phase 17 {} its {:.0f} s budget".format(
+        "within" if time.monotonic() - t_start <= DIST_BUDGET_S else "OVER",
+        DIST_BUDGET_S))
+    return launches
+
+
+def _distributed_kernel_rows(rows, decode_row, launches):
+    """The kernels line's rows for phase 17's generation arm: each side's
+    flash and decode launches beside flash at its 512-token prefill
+    (phase 3) and decode at the served step."""
+    kernels = []
+    for path, counts in launches.items():
+        kernels.append(_kernel_row(
+            "flash_attention", path, counts["flash_attention"],
+            rows["max_err"]["flash_attention"], rows["timed"][
+                "flash_attention"], "flash_attention"))
+        kernels.append(_kernel_row(
+            "decode_attention", path, counts["decode_attention"],
+            max(rows["max_err"]["decode_attention"],
+                decode_row["max_abs_err"]), decode_row,
+            "decode_attention_distributed: 8 rows of {} keys, lengths {}"
+            .format(DIST_SEQ, list(DIST_DECODE_LENGTHS))))
+    return kernels
+
+
 # -- main --------------------------------------------------------------------
 
 
@@ -7309,6 +7762,30 @@ def main():
         log("serving-tools-only: done")
         log(smi)
         return 1
+    if sys.argv[1:] == ["--distributed-only"]:
+        # phases 1-3 and 17 alone, phase 17 on weights drawn from the
+        # seed; prints the phase's kernels line and no result line
+        from tpuserver_torch.models import llama
+        from tpuserver_torch.models.llama_serving import LlamaGenerateModel
+
+        name, smi = phase_device(torch)
+        log("nvidia-smi:", smi)
+        phase_build()
+        rows = phase_kernels(torch)
+        decode_row = _distributed_timed(torch)
+        drawn = LlamaGenerateModel(cfg=llama.llama3_8b(), seed=SEED,
+                                   device="cuda")
+        cfg, params = drawn._cfg, drawn._ensure_params()
+        del drawn
+        launches = phase_distributed(torch, cfg, params, smi)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(json.dumps({"kernels": _distributed_kernel_rows(
+            rows, decode_row, launches)}))
+        log("distributed-only: done")
+        log(smi)
+        return 1
     if sys.argv[1:] == ["--vision-only"]:
         # phases 1, 2 and 8 alone, for work on the vision path; prints no
         # result line
@@ -7349,8 +7826,9 @@ def main():
     _phase_done(started, "grpc (4f)")
     phase_flash_lengths(torch, rows, readmits)
     phase_model_check(torch, model, prompt)
+    _phase_done(started, "model check (5)")
     profile = phase_profile(torch, model, prompt, batched_steps)
-    _phase_done(started, "model check and profile (5, 6)")
+    _phase_done(started, "profile (6)")
     core.close()
     # phase 4g's two replica processes need the card: release this
     # process's models first

@@ -170,6 +170,31 @@ def stub_fleet(max_restarts, scope_prefix, roles=True,
         **pools, **front).start()
 
 
+def free_port():
+    """An OS-assigned free localhost port."""
+    from tpuserver_torch.fleet import _free_port
+
+    return _free_port("127.0.0.1")
+
+
+def wait_ready(port, timeout_s=20.0):
+    """Poll a just-spawned server's ``/v2/health/ready`` on localhost
+    until it answers 200; False once ``timeout_s`` passed."""
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=2)
+        try:
+            conn.request("GET", "/v2/health/ready")
+            if conn.getresponse().status == 200:
+                return True
+        except OSError:
+            pass
+        finally:
+            conn.close()
+        time.sleep(0.05)
+    return False
+
+
 def post_stub_state(url, update):
     """POST /stub/state to one replica (gray/sever/partition knobs)."""
     host, _, port = url.rpartition(":")

@@ -905,24 +905,6 @@ def fleet_phase(serving_args, cycles, soak, budget):
         supervisor.stop()
 
 
-def _stub_ready(port, timeout_s=20.0):
-    """Poll a just-spawned stub's ``/v2/health/ready`` until it answers
-    200 (or the timeout passes)."""
-    deadline = time.monotonic() + timeout_s
-    while time.monotonic() < deadline:
-        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=2)
-        try:
-            conn.request("GET", "/v2/health/ready")
-            if conn.getresponse().status == 200:
-                return True
-        except OSError:
-            pass
-        finally:
-            conn.close()
-        time.sleep(0.05)
-    return False
-
-
 def _metric(url, family):
     """The value of ``family``'s first sample on ``url``'s ``/metrics``,
     or None."""
@@ -1007,11 +989,10 @@ def gray_phase(cycles, soak):
     2x of the healthy baseline while the fault is still active; zero
     user-visible errors; after the fault clears, probe traffic
     re-admits the replica."""
-    from tpuserver_torch.fleet import _free_port
     from tpuserver_torch.fleet_router import FleetRouter
     from tpuserver_torch.perfanalyzer.metrics import percentile
 
-    ports = [_free_port("127.0.0.1") for _ in range(3)]
+    ports = [chaos_campaign.free_port() for _ in range(3)]
     procs = [
         subprocess.Popen([sys.executable, STUB, "--port", str(p),
                           "--infer-jitter-ms", "2"])
@@ -1074,7 +1055,7 @@ def gray_phase(cycles, soak):
 
     try:
         for p in ports:
-            if not _stub_ready(p):
+            if not chaos_campaign.wait_ready(p):
                 fail("gray: stub replica never became ready")
                 return
         # fast knobs so each cycle's eject->recover->re-admit arc fits
@@ -1581,14 +1562,13 @@ def supervisor_phase(cycles, soak, budget):
     while headless each replica's port still serves
     ``/v2/health/stats`` from the pid the last heartbeat reported; the
     successor takes the manifest's lock without ``--takeover``."""
-    from tpuserver_torch.fleet import _free_port
 
     workdir = tempfile.mkdtemp(prefix="chaos-supervisor-")
     manifest_dir = os.path.join(workdir, "manifest")
     heartbeat = os.path.join(workdir, "heartbeat.json")
     # the router PROCESS outlives every supervisor death, so clients
     # keep one stable address all soak
-    router_url = "127.0.0.1:{}".format(_free_port("127.0.0.1"))
+    router_url = "127.0.0.1:{}".format(chaos_campaign.free_port())
     # --stop-fleet pins the FINAL SIGTERM to full teardown (this soak
     # proves adoption via SIGKILL, which never reaches a handler)
     argv = [

@@ -1547,6 +1547,9 @@ class FleetSupervisor:
             handle.started_at = now
             handle.probe_failures = 0
             handle.nonce = row["nonce"]
+            # already a member when it reads up (see the monitor's boot
+            # path): the router's membership was built from every
+            # handle, adopted ones included
             handle.in_router = True
         with self._lock:
             self._adoptions += 1
@@ -1697,9 +1700,12 @@ class FleetSupervisor:
                 continue
             if snap.get("ready"):
                 if state == "starting":
+                    # join first: ``up`` is what wait_ready() and the
+                    # stats report, so a caller that sends traffic the
+                    # moment it reads ``up`` finds the replica routed
+                    self._join_router(handle)
                     with handle._lock:
                         handle.state = "up"
-                    self._join_router(handle)
                     self._log("replica {} is up".format(handle.url))
                     # boot is not a utilization signal; let the
                     # cooldown absorb the membership change

@@ -36,8 +36,25 @@ Examples:
         --generation --concurrency-range 1:4 --max-tokens 16 \\
         --shared-memory system
 
+    # distributed: 4 worker processes on barrier-synchronized windows,
+    # one merged report (python -m tpuserver_torch.serve ... --port 8000)
+    python -m tpuserver_torch.perf_analyzer -m resnet50 --backend http \\
+        -u 127.0.0.1:8000 --workers 4 --concurrency-range 4 --windows 3 \\
+        --report-csv windows.csv
+
 A caller that holds a server of its own (a full-size model) passes it:
 ``main(argv, core=server)`` measures that core and leaves it open.
+
+``--workers N`` is the distributed mode (the reference's MPI driver; see
+``tpuserver_torch.perfanalyzer.coordinator``): the parent spawns N
+``python -m tpuserver_torch.perf_analyzer --worker-connect ...``
+processes, each an http client pinned round-robin to one of ``--urls``
+(or all driving ``-u``), runs ``--windows`` barrier-synchronized windows
+and prints ONE merged row (throughput the sum of the workers'
+completions, percentiles over their pooled raw samples).  It measures
+one concurrency level per worker, closed loop, and generation only in
+band.  ``--urls`` without ``--workers`` is the JAX tool's pool backend,
+which the port leaves to the client side (exit 2).
 
 SIGINT is two-stage (reference perf_analyzer.cc:39-53): the first ^C
 finishes the current window and reports the partial results (exit 0);
@@ -49,10 +66,15 @@ import itertools
 import json
 import os
 import signal
+import subprocess
 import sys
 import threading
+import time
 
 from tpuserver_torch import resolve_device
+
+#: the directory that holds the package: the spawned workers' PYTHONPATH
+SRC_PYTHON = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 class _Interrupt:
@@ -159,6 +181,30 @@ def build_parser():
                     help="generation: continuous-batching slots of the "
                          "tiny llama server (default: the max swept "
                          "concurrency)")
+    # distributed multi-process mode (perfanalyzer.coordinator — the
+    # reference's MPI-barrier coordination, SURVEY §2.2, over a
+    # localhost socket control channel)
+    ap.add_argument("--urls", default=None,
+                    help="distributed mode: comma-separated replica URLs "
+                         "the workers are pinned to round-robin")
+    ap.add_argument("--workers", type=int, default=0,
+                    help="spawn N perf_analyzer worker processes, each "
+                         "pinned round-robin to one of --urls (or all "
+                         "driving -u, e.g. a fleet router); "
+                         "barrier-synchronized windows, ONE merged "
+                         "report (throughput = sum of worker "
+                         "inferences, percentiles from merged raw "
+                         "samples)")
+    ap.add_argument("--windows", type=int, default=3,
+                    help="distributed mode: synchronized measurement "
+                         "windows per run (default 3)")
+    ap.add_argument("--report-csv", default=None,
+                    help="distributed mode: per-window CSV in the "
+                         "reference report_writer schema")
+    ap.add_argument("--worker-connect", default=None,
+                    help=argparse.SUPPRESS)  # the spawned child mode
+    ap.add_argument("--worker-id", type=int, default=0,
+                    help=argparse.SUPPRESS)
     # output
     ap.add_argument("--csv", default=None, help="write CSV here")
     ap.add_argument("--json", default=None,
@@ -222,23 +268,31 @@ def build_inprocess_core(args, levels, device):
     return InferenceServer(default_models())
 
 
-def build_generation_pool(metadata, args):
+def build_generation_pool(metadata, args, seed=None, shared_seed=None):
     """Prompt pool for generation mode: DISTINCT random prompts per
     stream; MAX_TOKENS pinned from the CLI.  With
     ``--shared-prefix-tokens N`` every prompt carries the SAME leading
-    N tokens (seeded apart from the pool index) ahead of its unique
-    suffix — the shared-system-prompt shape the radix prefix cache
-    exists for.  The prompts are the JAX tool's, bit for bit, for a
-    seed."""
+    N tokens (drawn from ``shared_seed``, default ``--seed`` + 7777)
+    ahead of its unique suffix — the shared-system-prompt shape the
+    radix prefix cache exists for.  The prompts are the JAX tool's, bit
+    for bit, for a seed.
+
+    Distributed workers pass ``seed`` offset per worker (no two workers
+    replay the same suffix stream) and leave ``shared_seed`` at the
+    run's base, so the shared prefix is the same across the workers."""
     import numpy as np
 
+    if seed is None:
+        seed = args.seed
+    if shared_seed is None:
+        shared_seed = args.seed + 7777
     shared = None
     if args.shared_prefix_tokens > 0:
-        shared = np.random.RandomState(args.seed + 7777).randint(
+        shared = np.random.RandomState(shared_seed).randint(
             1, 200, size=(args.shared_prefix_tokens,)).astype(np.int32)
     pool = []
     for i in range(args.input_pool):
-        rng = np.random.RandomState(args.seed + i)
+        rng = np.random.RandomState(seed + i)
         inputs = {}
         for spec in metadata.get("inputs", []):
             name = spec["name"]
@@ -280,20 +334,357 @@ def _token_ring(shm, lanes, max_tokens):
     return gen_params
 
 
+def _wait_window(duration_s, early_exit):
+    """Sleep out one measurement window (or until ``early_exit``);
+    returns the seconds it lasted."""
+    t0 = time.monotonic()
+    early_exit.wait(duration_s)
+    return time.monotonic() - t0
+
+
+def run_worker(args, early_exit):
+    """Hidden child mode (``--worker-connect``): one worker process of
+    a distributed run.  Drives closed-loop concurrency against its
+    pinned replica (``--urls`` round-robined by ``--worker-id``, else
+    ``-u``) continuously, and measures exactly the windows the
+    coordinator's barrier releases — raw latency records ship back so
+    the parent merges samples, never percentiles."""
+    from tpuserver_torch.perfanalyzer.client_backend import (
+        ShmInferDataManager,
+        build_input_pool,
+        create_backend,
+    )
+    from tpuserver_torch.perfanalyzer.coordinator import WorkerChannel
+    from tpuserver_torch.perfanalyzer.load_manager import ConcurrencyManager
+    from tpuserver_torch.perfanalyzer.profiler import parse_range
+
+    level = parse_range(args.concurrency_range or "1")[0]
+    urls = ([u.strip() for u in args.urls.split(",") if u.strip()]
+            if args.urls else [args.url])
+    url = urls[args.worker_id % len(urls)]
+    backend = create_backend("http", url=url, max_inflight=level)
+    manager = None
+    channel = None
+    shm = None
+    gen_profiler = None
+    try:
+        metadata = backend.model_metadata(args.model)
+        if args.generation:
+            from tpuserver_torch.perfanalyzer.generation import (
+                GenerationProfiler,
+            )
+
+            # per-worker suffix stream, run-wide shared prefix (see
+            # build_generation_pool)
+            pool = build_generation_pool(
+                metadata, args, seed=args.seed + 1000 * args.worker_id,
+                shared_seed=args.seed + 7777)
+            gen_profiler = GenerationProfiler(
+                backend, args.model, pool,
+                measurement_interval_s=args.measurement_interval / 1000.0,
+                early_exit=early_exit)
+            gen_profiler.change_level(level)
+            collector = gen_profiler.collector
+            # warmup gate before saying hello: the first barrier window
+            # must not eat this worker's cold start
+            gate = time.monotonic() + 120.0
+            while (collector.lifetime_generations() == 0
+                   and time.monotonic() < gate
+                   and not early_exit.is_set()):
+                time.sleep(0.02)
+            channel = WorkerChannel(args.worker_connect, args.worker_id)
+
+            def run_gen_window(duration_s, index):
+                collector.start_window()
+                duration = _wait_window(duration_s, early_exit)
+                window = collector.end_window()
+                # raw TTFT/ITL samples ship to the parent — the merge
+                # pools samples, never percentiles
+                return {"completed": window["generations"],
+                        "errors": window["errors"],
+                        "duration_s": duration,
+                        "latencies_s": [],
+                        "tokens": window["tokens"],
+                        "ttfts_s": window["ttfts_s"],
+                        "itls_s": window["itls_s"],
+                        "generations": window["generations"],
+                        "resumed_streams": window["resumed_streams"],
+                        "resume_events": window["resume_events"]}
+
+            channel.serve(run_gen_window)
+            return 0
+        config = backend.model_config(args.model)
+        pool = build_input_pool(
+            metadata, config,
+            pool_size=args.input_pool,
+            batch_size=args.batch_size,
+            shape_overrides=parse_shapes(args.shape),
+            const_overrides=parse_consts(args.input_const),
+            # distinct per-worker streams of inputs: no two workers
+            # replay the same request sequence in lockstep
+            seed=args.seed + 1000 * args.worker_id)
+        if args.shared_memory != "none":
+            # every worker process creates and registers its OWN
+            # regions (names carry its tag) and tears exactly those
+            # down on exit: N workers against one server never collide
+            # or leak
+            device = (resolve_device(args.device)
+                      if args.shared_memory == "cuda" else None)
+            shm = ShmInferDataManager(
+                backend, args.shared_memory,
+                tag="w{}".format(args.worker_id), device=device)
+            refs = shm.stage_input_sets(
+                pool, {t["name"]: t["datatype"]
+                       for t in metadata.get("inputs", [])})
+            out_refs = None
+            if args.output_shared_memory_size > 0:
+                out_refs = shm.stage_outputs(
+                    [o["name"] for o in metadata.get("outputs", [])],
+                    args.output_shared_memory_size)
+            prepared = backend.prepare_shm(args.model, refs, out_refs)
+        else:
+            prepared = backend.prepare(args.model, pool)
+        manager = ConcurrencyManager(backend, args.model, prepared)
+        manager.change_level(level)
+        collector = manager.collector
+        channel = WorkerChannel(args.worker_connect, args.worker_id)
+
+        def run_window(duration_s, index):
+            collector.start_window()
+            duration = _wait_window(duration_s, early_exit)
+            latencies, errors = collector.end_window()
+            # tokens is part of the window-result contract; scalar
+            # workers always send 0
+            return {"completed": len(latencies), "errors": errors,
+                    "duration_s": duration, "latencies_s": latencies,
+                    "tokens": 0}
+
+        channel.serve(run_window)
+    finally:
+        if channel is not None:
+            channel.close()
+        if manager is not None:
+            manager.stop()
+        if gen_profiler is not None:
+            gen_profiler.stop()
+        if shm is not None:
+            shm.close()
+        backend.close()
+    return 0
+
+
+def _prefix_snapshot_with_grace(probe, early_exit, grace_s=3.0):
+    """One ``/metrics`` prefix-counter snapshot, re-polled briefly when
+    the families are absent (a router's fleet fold that found no live
+    replica carries none: one single-shot miss would drop the
+    prefix-hit%% column from the whole run)."""
+    deadline = time.monotonic() + grace_s
+    snap = probe.prefix_cache_snapshot()
+    while snap is None and time.monotonic() < deadline:
+        if early_exit.wait(0.1):
+            break
+        snap = probe.prefix_cache_snapshot()
+    return snap
+
+
+def worker_argv(args, level, address, worker_id):
+    """The argv of distributed worker ``worker_id``: this CLI's flags
+    that shape a worker's load at ``level``, and the hidden child
+    mode's."""
+    argv = [sys.executable, "-m", "tpuserver_torch.perf_analyzer",
+            "-m", args.model, "--backend", "http", "-u", args.url,
+            "--concurrency-range", str(level),
+            "--input-pool", str(args.input_pool),
+            "-b", str(args.batch_size), "--seed", str(args.seed),
+            "--shared-memory", args.shared_memory,
+            "--output-shared-memory-size",
+            str(args.output_shared_memory_size)]
+    if args.device:
+        argv += ["--device", args.device]
+    if args.urls:
+        argv += ["--urls", args.urls]
+    if args.generation:
+        argv += ["--generation",
+                 "--max-tokens", str(args.max_tokens),
+                 "--prompt-len", str(args.prompt_len),
+                 "--shared-prefix-tokens", str(args.shared_prefix_tokens)]
+    for entry in args.shape:
+        argv += ["--shape", entry]
+    for entry in args.input_const:
+        argv += ["--input-const", entry]
+    return argv + ["--worker-connect", address,
+                   "--worker-id", str(worker_id)]
+
+
+def run_coordinator(args, early_exit):
+    """Parent mode (``--workers N``): spawn N worker processes, run
+    barrier-synchronized windows, merge, and emit ONE report."""
+    from tpuserver_torch.perfanalyzer import metrics
+    from tpuserver_torch.perfanalyzer.client_backend import create_backend
+    from tpuserver_torch.perfanalyzer.coordinator import (
+        Coordinator,
+        merge_windows,
+        reap_workers,
+    )
+    from tpuserver_torch.perfanalyzer.profiler import (
+        ProfileResult,
+        parse_range,
+    )
+    from tpuserver_torch.perfanalyzer.report import ReportWriter
+
+    if args.request_rate_range:
+        raise SystemExit(
+            "--workers drives the closed-loop modes; the request-rate "
+            "mode is single-process")
+    if args.generation and args.shared_memory != "none":
+        raise SystemExit(
+            "--workers --generation is in-band only; drop "
+            "--shared-memory (token rings are a direct-replica mode)")
+    if args.backend not in ("http",):
+        raise SystemExit(
+            "--workers spawns http worker processes; --backend {} is "
+            "single-process".format(args.backend))
+    levels = parse_range(args.concurrency_range or "1")
+    if len(levels) != 1:
+        raise SystemExit(
+            "--workers measures ONE concurrency level per run "
+            "(got sweep {})".format(levels))
+    level = levels[0]
+    window_s = args.measurement_interval / 1000.0
+    dist_mode = ("distributed_generation" if args.generation
+                 else "distributed_concurrency")
+    coord = Coordinator(args.workers).listen()
+    print("*** Measurement Settings ***\n"
+          "  model: {}  backend: http  mode: {}\n"
+          "  workers: {}  concurrency/worker: {}  windows: {} x {} ms "
+          "(barrier-synchronized)".format(
+              args.model, dist_mode, args.workers, level, args.windows,
+              args.measurement_interval), flush=True)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (SRC_PYTHON, env.get("PYTHONPATH")) if p)
+    procs = []
+    window_rows = []
+    # the fleet prefix-hit%% is the parent's: one probe backend reads
+    # the target's /metrics prefix counters before/after the windows
+    prefix_before = prefix_after = None
+    probe = None
+    if args.generation:
+        probe = create_backend("http", url=args.url, max_inflight=1)
+    try:
+        for i in range(args.workers):
+            procs.append(subprocess.Popen(
+                worker_argv(args, level, coord.address, i), env=env))
+        coord.wait_for_workers(timeout_s=120.0)
+        if args.warmup > 0:
+            # load is already flowing (workers start their managers
+            # before dialing in); the parent just waits it out
+            early_exit.wait(args.warmup)
+        if probe is not None:
+            prefix_before = _prefix_snapshot_with_grace(probe, early_exit)
+        for index in range(args.windows):
+            if early_exit.is_set():
+                break
+            row = coord.run_window(index, window_s)
+            row["concurrency"] = level * args.workers
+            if row.get("tokens") and row["duration_s"] > 0:
+                row["tokens_per_sec"] = row["tokens"] / row["duration_s"]
+            window_rows.append(row)
+            if args.verbose:
+                print("  window {:2d}: {:8.1f} infer/sec over {} "
+                      "workers".format(index + 1, row["throughput"],
+                                       row["workers"]), flush=True)
+        if probe is not None:
+            prefix_after = _prefix_snapshot_with_grace(probe, early_exit)
+    finally:
+        coord.shutdown()
+        reap_workers(procs)
+        if probe is not None:
+            probe.close()
+    if not window_rows:
+        print(json.dumps({"error": "no synchronized windows completed"}),
+              flush=True)
+        return 1
+    merged = merge_windows(window_rows)
+    result = ProfileResult(
+        mode=dist_mode,
+        level=level * args.workers,
+        stable=True,
+        interrupted=early_exit.is_set(),
+        trials=len(window_rows),
+        workers=args.workers,
+    )
+    result.update(merged)
+    if args.generation:
+        # token-rate throughput + TTFT/ITL percentiles over the POOLED
+        # raw samples of every worker and window (raw sample lists
+        # dropped from the report)
+        duration = merged.get("duration_s", 0.0)
+        result["throughput"] = (
+            merged.get("tokens", 0) / duration if duration > 0 else 0.0)
+        result["generations"] = merged.get("generations", 0)
+        result["gen_per_sec"] = (
+            merged.get("generations", 0) / duration
+            if duration > 0 else 0.0)
+        ttfts = result.pop("ttfts_s", None) or []
+        itls = result.pop("itls_s", None) or []
+        for prefix_key, sample in (("ttft", ttfts), ("itl", itls)):
+            if sample:
+                ms = sorted(v * 1e3 for v in sample)
+                result[prefix_key + "_avg_ms"] = sum(ms) / len(ms)
+                for p in (50, 90, 95, 99):
+                    result["{}_p{}_ms".format(prefix_key, p)] = (
+                        metrics.percentile(ms, p, presorted=True))
+            else:
+                result[prefix_key + "_avg_ms"] = None
+                for p in (50, 90, 95, 99):
+                    result["{}_p{}_ms".format(prefix_key, p)] = None
+        if prefix_before is not None and prefix_after is not None:
+            dh = max(0, prefix_after["hits"] - prefix_before["hits"])
+            dm = max(0, prefix_after["misses"] - prefix_before["misses"])
+            result["prefix_cache_hits"] = dh
+            result["prefix_cache_misses"] = dm
+            result["prefix_hit_pct"] = (
+                100.0 * dh / (dh + dm) if dh + dm else None)
+    writer = ReportWriter(
+        args.model, "http-x{}".format(args.workers),
+        extra_tags={"early_exit": True} if early_exit.is_set() else None)
+    writer.print_table([result])
+    print()
+    writer.print_json([result])
+    if args.csv:
+        writer.write_csv(args.csv, [result])
+    if args.json:
+        writer.write_json(args.json, [result])
+    if args.report_csv:
+        writer.write_window_csv(args.report_csv, window_rows)
+    return 0
+
+
 def main(argv=None, core=None):
     """Run the CLI on ``argv``; returns the exit code.  With ``core`` (an
     ``InferenceServer``) it measures that server and leaves it open;
     otherwise it builds one on the resolved device and closes it."""
     args = build_parser().parse_args(argv)
-    # a socket run touches a device only through CUDA regions
-    device = None
-    if args.backend == "inprocess" or args.shared_memory == "cuda":
-        device = resolve_device(args.device)
+    if args.urls and not (args.workers or args.worker_connect):
+        print("--urls without --workers is the pool backend, which the "
+              "port leaves to the client side: run tools/perf_analyzer.py "
+              "--backend pool --urls {}".format(args.urls),
+              file=sys.stderr, flush=True)
+        return 2
     interrupt = _Interrupt()
     previous = None
     if threading.current_thread() is threading.main_thread():
         previous = signal.signal(signal.SIGINT, interrupt.handler)
     try:
+        if args.worker_connect:
+            return run_worker(args, interrupt.event)
+        if args.workers:
+            return run_coordinator(args, interrupt.event)
+        # a socket run touches a device only through CUDA regions
+        device = None
+        if args.backend == "inprocess" or args.shared_memory == "cuda":
+            device = resolve_device(args.device)
         return _run(args, core, device, interrupt.event)
     finally:
         if previous is not None:

@@ -22,6 +22,9 @@ Entry points:
 - :class:`~tpuserver_torch.perfanalyzer.profiler.InferenceProfiler`
 - :class:`~tpuserver_torch.perfanalyzer.generation.GenerationProfiler`
 - :class:`~tpuserver_torch.perfanalyzer.report.ReportWriter`
+- :class:`~tpuserver_torch.perfanalyzer.coordinator.Coordinator` /
+  :class:`~tpuserver_torch.perfanalyzer.coordinator.WorkerChannel` —
+  the distributed mode's barrier-synchronized windows (``--workers``)
 - ``python -m tpuserver_torch.perf_analyzer`` — the CLI that wires them
   together
 """
@@ -29,6 +32,13 @@ Entry points:
 from tpuserver_torch.perfanalyzer.client_backend import (
     ClientBackend,
     create_backend,
+)
+from tpuserver_torch.perfanalyzer.coordinator import (
+    Coordinator,
+    WorkerChannel,
+    merge_windows,
+    merge_worker_windows,
+    reap_workers,
 )
 from tpuserver_torch.perfanalyzer.generation import GenerationProfiler
 from tpuserver_torch.perfanalyzer.load_manager import (
@@ -51,16 +61,21 @@ from tpuserver_torch.perfanalyzer.stability import StabilityDetector
 __all__ = [
     "ClientBackend",
     "ConcurrencyManager",
+    "Coordinator",
     "GenerationProfiler",
     "InferenceProfiler",
     "LoadCollector",
     "RequestRateManager",
     "ReportWriter",
     "StabilityDetector",
+    "WorkerChannel",
     "create_backend",
     "latency_summary",
     "merge_window_records",
+    "merge_windows",
+    "merge_worker_windows",
     "percentile",
+    "reap_workers",
     "schedule_distribution",
     "server_stats_delta",
     "server_stats_snapshot",

@@ -9,9 +9,9 @@ the existing bench history unmodified.
 
 The port's copy of ``perfanalyzer/report.py``: the same table columns,
 CSV header and JSON row keys, so a benchmark reads the port's rows as it
-reads the JAX tool's.  Left out: the fleet-router footer of the table and
-the per-window CSV, which only a router target and the distributed
-coordinator produce.
+reads the JAX tool's, and the distributed mode's per-window CSV.  Left
+out: the fleet-router footer of the table, which only a router target's
+counters fill.
 """
 
 import csv
@@ -72,6 +72,30 @@ _GEN_HEADERS = [
     "prefill-q(ms)", "kv-xfer(ms)", "errors", "stable",
 ]
 
+#: Per-window CSV schema: the reference ReportWriter's columns
+#: (report_writer.cc:73-260, SURVEY §6) plus the generation columns
+#: (TTFT/ITL/tokens-per-sec), the JAX tool's header.  One row per
+#: measurement window; absent fields render empty, never zero (a 0 is a
+#: measurement, an empty cell is "not measured").
+WINDOW_CSV_COLUMNS = [
+    ("Concurrency", "concurrency"),
+    ("Inferences/Second", "throughput"),
+    ("Client Send", "client_send_usec"),
+    ("Network+Server Send/Recv", "network_usec"),
+    ("Server Queue", "queue_usec"),
+    ("Server Compute Input", "compute_input_usec"),
+    ("Server Compute Infer", "compute_infer_usec"),
+    ("Server Compute Output", "compute_output_usec"),
+    ("Client Recv", "client_recv_usec"),
+    ("p50 latency", "p50_usec"),
+    ("p90 latency", "p90_usec"),
+    ("p95 latency", "p95_usec"),
+    ("p99 latency", "p99_usec"),
+    ("p99.9 latency", "p99.9_usec"),
+    ("TTFT avg ms", "ttft_avg_ms"),
+    ("ITL p50 ms", "itl_p50_ms"),
+    ("Tokens/Second", "tokens_per_sec"),
+]
 
 #: The keys of a JSON row of a closed-loop (concurrency) level, and of a
 #: generation level against a continuous-batching model (whose scheduler
@@ -115,6 +139,7 @@ class ReportWriter:
 
     @staticmethod
     def _is_generation(results):
+        # covers generation_concurrency AND distributed_generation
         return bool(results) and "generation" in results[0].get("mode", "")
 
     def table(self, results):
@@ -199,3 +224,16 @@ class ReportWriter:
         with open(path, "w") as fh:
             for row in self.json_rows(results):
                 fh.write(json.dumps(row) + "\n")
+
+    def write_window_csv(self, path, windows):
+        """Per-window CSV (``--report-csv``): one row per synchronized
+        measurement window in the reference schema
+        (:data:`WINDOW_CSV_COLUMNS`).  ``windows`` is the list of merged
+        window rows the distributed coordinator produces."""
+        with open(path, "w", newline="") as fh:
+            writer = csv.writer(fh)
+            writer.writerow([header for header, _ in WINDOW_CSV_COLUMNS])
+            for w in windows:
+                writer.writerow([
+                    "" if w.get(key) is None else w.get(key)
+                    for _, key in WINDOW_CSV_COLUMNS])

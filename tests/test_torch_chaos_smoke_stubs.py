@@ -18,7 +18,7 @@ import pytest
 
 from torch_port_helpers import chaos_cli as run_cli
 from tpuserver.router import FleetRouter as JaxRouter
-from tpuserver_torch import chaos_smoke
+from tpuserver_torch import chaos_campaign, chaos_smoke
 from tpuserver_torch.chaos_smoke import STUB
 from tpuserver_torch.fleet import _free_port
 from tpuserver_torch.fleet_router import FleetRouter
@@ -97,7 +97,7 @@ def test_peer_relay_bytes_equal_across_packages():
     bodies = {}
     try:
         for p in ports:
-            assert chaos_smoke._stub_ready(p)
+            assert chaos_campaign.wait_ready(p)
         for name, cls in (("jax", JaxRouter), ("port", FleetRouter)):
             rports = [_free_port("127.0.0.1") for _ in range(2)]
             peers = ["127.0.0.1:{}".format(p) for p in rports]

@@ -25,6 +25,7 @@ import shutil
 import signal
 import subprocess
 import sys
+import threading
 
 import numpy as np
 import pytest
@@ -137,6 +138,43 @@ def test_supervisor_heals_a_sigkilled_replica():
             _stub_stream(sup.router.url, "again")
         assert sup.stats()["retired_replicas"] == 0
     finally:
+        sup.stop()
+
+
+def test_wait_ready_returns_only_after_the_replica_joined_the_router():
+    """A healed replica joins the router before it reads ``up``: with
+    ``_join_router`` held on an event, ``wait_ready()`` does not return
+    and the router does not list the replica; once the join runs, both
+    hold.  (The JAX package's supervisor sets ``up`` first and joins
+    after, a window in which a caller that trusts ``wait_ready()`` meets
+    a router without the replica.)"""
+    sup = _supervisor(FleetSupervisor).start()
+    release = threading.Event()
+    entered = threading.Event()
+    joined = []
+    try:
+        assert sup.wait_ready(timeout_s=30)
+        join = sup._join_router
+
+        def held_join(handle):
+            entered.set()
+            release.wait(60)
+            join(handle)
+            joined.append(handle.url)
+
+        sup._join_router = held_join
+        victim = sup.stats()["replicas"][0]
+        os.kill(victim["pid"], signal.SIGKILL)
+        wait_for(lambda: sup.stats()["replica_restarts"] >= 1, "a restart")
+        wait_for(entered.is_set, "the respawned replica's join")
+        assert victim["url"] not in _members(sup)
+        assert not sup.wait_ready(timeout_s=1.0)
+        release.set()
+        assert sup.wait_ready(timeout_s=30)
+        assert joined == [victim["url"]]
+        assert victim["url"] in _members(sup)
+    finally:
+        release.set()
         sup.stop()
 
 
