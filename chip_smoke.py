@@ -413,6 +413,32 @@ Phases, in order; any failure exits non-zero and prints no result line:
    launches make the ``distributed_single`` and ``distributed_workers``
    rows.
 
+18. prefix cache, in ``python3 chip_smoke.py --prefix-cache-only`` alone,
+   which runs phases 1-3 and 18 and prints the phase's ``{"kernels":
+   [...]}`` line and no result line; the full script does not run it.
+   (a) ``python -m tpuserver_torch.bench_prefix_cache --config llama3_8b
+   --dtype bfloat16 --attn dense`` through its ``main`` (the tool draws
+   one tree from seed 0; the preset's flash prefill would keep the radix
+   cache off): exit 0, the warm rows' hit rate 93.8 (240 of 256 tokens),
+   16 live streams at four slots' memory, both fleet rows with a measured
+   hit rate (the tool holds the router's fleet counters to the replicas'
+   sum), the headline row, decode launched in each llama part and flash in
+   none.  Cold and warm TTFT, their ratio, both fleet hit rates and
+   tokens/s and the headline p50/p99 are printed with the card's name and
+   power limit; which fleet arm wins is printed, not checked.  (b) The
+   server-side demos: ``simple_http_router_torch.py --config llama3_8b
+   --dtype float32`` in this process (its tree drawn after (a)'s is
+   freed; PASS with a handoff, decode launched), ``simple_fleet_torch.py
+   --device cuda`` as a process (PASS: a SIGKILLed ``serve.py`` replica
+   respawned, no client error) and ``simple_http_cudashm_client.py`` as a
+   process against a port HTTP server here (OUTPUT0/OUTPUT1 right over
+   CUDA IPC, no region left in the server's registries or under
+   ``/dev/shm``).  The mode holds the decode kernel against its plain
+   version and times it at the parts' steps (the warm/cold step, 2 rows
+   of 512 keys; the capacity step, 16 rows of 128; the fleet step, 4 rows
+   of 128; the router demo's float32 step, 2 rows of 128): the
+   ``bench_prefix_cache/*`` and ``router_demo`` rows.
+
 The peaks of every bound come from ``tpuserver_torch.ops.perf`` by the
 card's name (phase 1 fails on a card the table does not know).  The line
 before the last is ``{"kernels": [...]}``; the last line is
@@ -4963,22 +4989,30 @@ def _bert_serve_py(np, port):
             proc.wait()
 
 
-def _example(script, argv):
-    """Run an example client of ``src/python/examples`` as a process;
-    returns its output after checking its PASS line."""
+def _example(script, argv, label="bert (e)"):
+    """Run an example of ``src/python/examples`` as a process; returns
+    its output after checking its PASS line.  The output goes through
+    files: a pipe would stay open while any process the example started
+    lives."""
+    import tempfile
+
     env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src", "python"))
-    proc = subprocess.run(
-        [sys.executable, os.path.join(HERE, "src", "python", "examples",
-                                      script)] + argv,
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-        timeout=600, env=env)
-    passed = [ln for ln in proc.stdout.splitlines() if ln.startswith("PASS")]
-    log("bert (e): {} {} -> exit {}: {}".format(
-        script, " ".join(argv), proc.returncode, passed))
+    with tempfile.TemporaryFile("w+") as out, \
+            tempfile.TemporaryFile("w+") as err:
+        proc = subprocess.run(
+            [sys.executable, os.path.join(HERE, "src", "python", "examples",
+                                          script)] + argv,
+            stdout=out, stderr=err, text=True, timeout=600, env=env)
+        out.seek(0)
+        err.seek(0)
+        stdout, stderr = out.read(), err.read()
+    passed = [ln for ln in stdout.splitlines() if ln.startswith("PASS")]
+    log("{}: {} {} -> exit {}: {}".format(
+        label, script, " ".join(argv), proc.returncode, passed))
     if proc.returncode != 0 or not passed:
-        fail("bert (e): {} {} failed: {} {}".format(
-            script, argv, proc.stdout[-2000:], proc.stderr[-2000:]))
-    return proc.stdout
+        fail("{}: {} {} failed: {} {}".format(
+            label, script, argv, stdout[-2000:], stderr[-2000:]))
+    return stdout
 
 
 def _bert_clients(core, url):
@@ -7579,6 +7613,274 @@ def _distributed_kernel_rows(rows, decode_row, launches):
     return kernels
 
 
+# -- phase 18: the prefix-cache bench and the server-side demos --------------
+
+
+# python -m tpuserver_torch.bench_prefix_cache on the card: the 8B preset
+# prefills with the flash kernel, where the scheduler keeps the radix cache
+# off (span_safe), so the bench runs dense prefill on one bf16 tree the tool
+# draws from seed 0
+PREFIX_ARGV = ("--config", "llama3_8b", "--dtype", "bfloat16", "--attn",
+               "dense")
+# the CPU rehearsal: float32 ``tiny`` at vocab 512, drawn by the tool
+PREFIX_CPU_ARGV = ("--dtype", "float32", "--device", "cpu")
+# the bench's parts that run the llama, and their paths in the kernels line
+# (the headline part serves the ``simple`` model alone)
+PREFIX_PARTS = {
+    "bench_warm_vs_cold_prefill": "bench_prefix_cache/warm_vs_cold",
+    "bench_capacity_beyond_slots": "bench_prefix_cache/capacity",
+    "bench_affinity_vs_blind": "bench_prefix_cache/affinity_vs_blind"}
+# the warm admissions' hit rate: 240 of the prompt's 256 tokens (15 of its
+# 16 pages) from the cache; and the live streams at four slots' memory
+PREFIX_HIT_PCT = 93.8
+PREFIX_STREAMS = 16
+# the router demo on the card: the 8B preset in float32 (TF32 off), drawn
+# by the demo after the bench's tree is freed
+ROUTER_DEMO_ARGV = ("--config", "llama3_8b", "--dtype", "float32")
+# the shapes phase 18 holds and times the decode kernel at (Llama-3-8B's
+# heads): the warm/cold step (2 slots of a 512-key cache, one stream at a
+# time just past its 256-token prompt, the other slot inert), the capacity
+# step (16 streams of 128 keys, between their 3-token prompts and their
+# 16th token), the fleet step (4 streams of 128, between their 72-token
+# prompts and their 8th token) and the router demo's float32 step (2 slots
+# of 128, one stream between its 5-token prompt and its 8th token)
+PREFIX_DECODE = {
+    "bench_prefix_cache/warm_vs_cold": ((258, 1), 512, "bfloat16"),
+    "bench_prefix_cache/capacity": (tuple(range(3, 19)), 128, "bfloat16"),
+    "bench_prefix_cache/affinity_vs_blind": ((72, 74, 77, 80), 128,
+                                             "bfloat16"),
+    "router_demo": ((9, 1), 128, "float32"),
+}
+
+
+def _prefix_cache_timed(torch):
+    """The decode kernel held against its plain version and timed at phase
+    18's shapes; the rows by path, and the largest error."""
+    import torch.nn.functional as F
+
+    from tpuserver_torch.ops import flash as fl
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 18)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    timed = {path: _decode_case(torch, F, fl, dev, gen, lengths, s, 32, 8,
+                                128, getattr(torch, dtype), True, flush)
+             for path, (lengths, s, dtype) in PREFIX_DECODE.items()}
+    del flush
+    torch.cuda.empty_cache()
+    for path, row in timed.items():
+        log("kernel_case: decode_attention {} {}".format(path,
+                                                         json.dumps(row)))
+        if not row["row_rel_err"] <= TOL[row["dtype"]] or any(
+                not e > TOL[row["dtype"]]
+                for e in row.get("planted_fault_err", {}).values()):
+            fail("prefix cache: decode_attention at {} against its plain "
+                 "version: {}".format(path, row))
+    return timed, max(row["max_abs_err"] for row in timed.values())
+
+
+def _prefix_bench_checks(rows, by_part, card):
+    """Phase 18 (a)'s checks of bench_prefix_cache's rows and, on the
+    card, of its launches by part: decode in every llama part, flash in
+    none (dense prefill)."""
+    by = {r["metric"]: r for r in rows}
+    warm = by.get("prefill_ttft_warm_256tok")
+    if warm is None or warm["radix_hit_rate_pct"] != PREFIX_HIT_PCT:
+        fail("prefix cache: the warm row's hit rate is not {}: {}".format(
+            PREFIX_HIT_PCT, warm))
+    live = by.get("concurrent_streams_equal_memory")
+    if live is None or live["value"] != PREFIX_STREAMS:
+        fail("prefix cache: live streams at four slots' memory: {}".format(
+            live))
+    for arm in ("affinity", "hash_blind"):
+        row = by.get("hit_rate_" + arm)
+        if row is None or not (
+                isinstance(row["value"], (int, float))
+                and 0 <= row["value"] <= 100
+                and row["prefix_cache_hits"] + row["prefix_cache_misses"]):
+            fail("prefix cache: the {} fleet row: {}".format(arm, row))
+    if "simple_inprocess_headline" not in by:
+        fail("prefix cache: no headline row")
+    if card:
+        for part in PREFIX_PARTS:
+            counts = by_part.get(part, {})
+            if not counts.get("decode_attention") or counts.get(
+                    "flash_attention"):
+                fail("prefix cache: {} launched {} (decode wanted, flash "
+                     "not)".format(part, counts))
+
+
+def _prefix_bench(card, out_path, smi):
+    """Phase 18 (a): bench_prefix_cache through its ``main``; its
+    launches by part and its seconds."""
+    from tpuserver_torch import bench_prefix_cache as tool
+
+    by_part = {}
+    argv = list(PREFIX_ARGV if card else PREFIX_CPU_ARGV) + ["--out",
+                                                             out_path]
+    with _swapped(tool, _counted_parts(tool, PREFIX_PARTS, by_part)):
+        _, _, seconds = _tool_main("bench_prefix_cache", tool.main, argv)
+    with open(out_path) as fh:
+        payload = json.load(fh)
+    rows = payload["rows"]
+    for row in rows:
+        log("prefix cache row: {}".format(json.dumps(row)))
+    log("prefix cache: note: {}".format(payload["note"]))
+    log("prefix cache: launches by part {}".format(json.dumps(by_part)))
+    _prefix_bench_checks(rows, by_part, card)
+    by = {r["metric"]: r for r in rows}
+    cold = by["prefill_ttft_cold_256tok"]["value"]
+    warm = by["prefill_ttft_warm_256tok"]
+    log("prefix cache: 256-token TTFT cold {} ms, warm {} ms (cold/warm "
+        "{:.3f}) at {}% radix hits; {}".format(
+            cold, warm["value"], cold / warm["value"],
+            warm["radix_hit_rate_pct"], smi))
+    aff, blind = by["hit_rate_affinity"], by["hit_rate_hash_blind"]
+    log("prefix cache: fleet hit rate affinity {}% ({} tokens/s, TTFT p50 "
+        "{} ms) vs hash-blind {}% ({} tokens/s, TTFT p50 {} ms): affinity "
+        "{} hash-blind; {}".format(
+            aff["value"], aff["tokens_per_sec"], aff["ttft_p50_ms"],
+            blind["value"], blind["tokens_per_sec"], blind["ttft_p50_ms"],
+            "above" if aff["value"] > blind["value"] else "not above", smi))
+    head = by["simple_inprocess_headline"]
+    log("prefix cache: simple in-process {} infer/s, p50 {} us, p99 {} us; "
+        "{}".format(head["value"], head["p50_usec"], head["p99_usec"], smi))
+    return by_part, seconds
+
+
+def _load_example(script):
+    """An example of ``src/python/examples`` as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        script[:-3], os.path.join(HERE, "src", "python", "examples", script))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _router_demo(card):
+    """Phase 18 (b) 1: the router demo in this process (so the wrappers
+    count its replicas' launches); its launches and its seconds."""
+    from tpuserver_torch.ops import flash as fl
+
+    demo = _load_example("simple_http_router_torch.py")
+    fl.reset_launch_counts()
+    out, _, seconds = _tool_main(
+        "router_demo", demo.main,
+        list(ROUTER_DEMO_ARGV) if card else ["--device", "cpu"])
+    launches = {k: getattr(fl, k).launches
+                for k in ("flash_attention", "decode_attention")}
+    absorbed = [ln for ln in out.splitlines()
+                if ln.startswith("router absorbed it: handoffs=")]
+    handoffs = int(absorbed[0].split("=")[1].split()[0]) if absorbed else 0
+    log("prefix cache (b): router demo: {} handoffs, launches {}".format(
+        handoffs, json.dumps(launches)))
+    if "PASS:" not in out or handoffs < 1:
+        fail("prefix cache (b): the router demo: {}".format(out[-2000:]))
+    if card and not launches["decode_attention"]:
+        fail("prefix cache (b): the router demo launched no decode kernel")
+    return launches, seconds
+
+
+def _fleet_demo(card):
+    """Phase 18 (b) 2: the fleet demo as a process over ``python -m
+    tpuserver_torch.serve`` replicas; its seconds."""
+    t0 = time.monotonic()
+    out = _example("simple_fleet_torch.py",
+                   ["--device", "cuda" if card else "cpu"],
+                   label="prefix cache (b)")
+    healed = [ln for ln in out.splitlines()
+              if ln.startswith(("healed:", "healthy fleet:",
+                                "one replica dead:", "healed fleet:"))]
+    log("prefix cache (b): fleet demo: {}".format(healed))
+    return time.monotonic() - t0
+
+
+def _http_cudashm_client(card):
+    """Phase 18 (b) 3: the HTTP CUDA-region client against a port server in
+    this process (on the card as a process of its own, its regions mapped
+    over CUDA IPC; on the CPU in this process over CPU regions, which
+    attach nowhere else); its seconds."""
+    from tpuserver_torch import cuda_shared_memory as csm
+    from tpuserver_torch.core import InferenceServer
+    from tpuserver_torch.http_server import HttpServer
+    from tpuserver_torch.models import default_models
+
+    script = "simple_http_cudashm_client.py"
+    t0 = time.monotonic()
+    shm_before = set(os.listdir("/dev/shm"))
+    core = InferenceServer(default_models())
+    http = HttpServer(core, port=0).start()
+    url = "127.0.0.1:{}".format(http.port)
+    try:
+        if card:
+            out = _example(script, ["-u", url], label="prefix cache (b)")
+        else:
+            make = csm.create_shared_memory_region
+            with _swapped(csm, {"create_shared_memory_region": (
+                    lambda name, size, device_id=0: make(name, size,
+                                                         device="cpu"))}):
+                out, _, _ = _tool_main("http_cudashm_client",
+                                       _load_example(script).main,
+                                       ["-u", url])
+        left = (core.cuda_shm_status(), core.system_shm_status(),
+                sorted(set(os.listdir("/dev/shm")) - shm_before))
+    finally:
+        http.stop()
+        core.close()
+    sums = [ln for ln in out.splitlines() if " + " in ln or " - " in ln]
+    log("prefix cache (b): HTTP CUDA-region client: {} output lines, "
+        "regions left {}".format(len(sums), left))
+    if "PASS: cuda shared memory" not in out or len(sums) != 32:
+        fail("prefix cache (b): the HTTP CUDA-region client: {}".format(
+            out[-2000:]))
+    if any(left):
+        fail("prefix cache (b): regions left behind: {}".format(left))
+    return time.monotonic() - t0
+
+
+def phase_prefix_cache(torch, smi, device="cuda"):
+    """Phase 18: (a) ``python -m tpuserver_torch.bench_prefix_cache``
+    through its ``main`` at :data:`PREFIX_ARGV` (the tool draws its tree),
+    then (b) the three server-side demos: the router demo in this process
+    at :data:`ROUTER_DEMO_ARGV`, the fleet demo and the HTTP CUDA-region
+    client; returns the launches by path.  ``device="cpu"`` rehearses it
+    on the CPU, without the card's launch checks."""
+    import tempfile
+
+    card = device == "cuda"
+    t_start = _tools_phase_start(torch, card, "prefix cache")
+    seconds = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        by_part, seconds["bench_prefix_cache"] = _prefix_bench(
+            card, os.path.join(tmp, "bench_prefix_cache.json"), smi)
+    launches = {path: by_part[part] for part, path in PREFIX_PARTS.items()}
+    _release(torch, card)
+    launches["router_demo"], seconds["router_demo"] = _router_demo(card)
+    _release(torch, card)
+    seconds["fleet_demo"] = _fleet_demo(card)
+    seconds["http_cudashm_client"] = _http_cudashm_client(card)
+    _tools_phase_end(torch, card, "prefix cache: phase 18", t_start,
+                     seconds, smi, launches)
+    return launches
+
+
+def _prefix_cache_kernel_rows(launches, timed, max_err):
+    """The kernels line's rows for phase 18: each path's decode launches
+    beside the kernel's time at that path's step (no path runs flash: the
+    bench prefills dense, the demo in float32)."""
+    return [_kernel_row("decode_attention", path, counts["decode_attention"],
+                        max_err, timed[path],
+                        "decode_attention_prefix_cache: {} rows of {} keys, "
+                        "lengths {}, {}".format(
+                            len(PREFIX_DECODE[path][0]),
+                            PREFIX_DECODE[path][1],
+                            list(PREFIX_DECODE[path][0]),
+                            PREFIX_DECODE[path][2]))
+            for path, counts in launches.items()]
+
+
 # -- main --------------------------------------------------------------------
 
 
@@ -7784,6 +8086,20 @@ def main():
         print(json.dumps({"kernels": _distributed_kernel_rows(
             rows, decode_row, launches)}))
         log("distributed-only: done")
+        log(smi)
+        return 1
+    if sys.argv[1:] == ["--prefix-cache-only"]:
+        # phases 1-3 and 18 alone; phase 18's tools draw their weights from
+        # the seed; prints the phase's kernels line and no result line
+        name, smi = phase_device(torch)
+        log("nvidia-smi:", smi)
+        phase_build()
+        phase_kernels(torch)
+        timed, max_err = _prefix_cache_timed(torch)
+        launches = phase_prefix_cache(torch, smi)
+        print(json.dumps({"kernels": _prefix_cache_kernel_rows(
+            launches, timed, max_err)}))
+        log("prefix-cache-only: done")
         log(smi)
         return 1
     if sys.argv[1:] == ["--vision-only"]:

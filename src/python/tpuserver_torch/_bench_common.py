@@ -37,17 +37,23 @@ class Serving:
                        tree_cast(self.params, dtype), self.device)
 
 
-def serving(config="tiny", device=None, params=None, vocab=512, dtype=None,
-            attn=None):
-    """The run's :class:`Serving`: ``config`` (``tiny`` at ``vocab``)
-    with ``attn_impl`` ``attn`` (None: the config's), at the dtype and
-    depth of ``params``, or drawn from seed 0 in ``dtype`` (None: the
-    config's)."""
-    dev = resolve_device(device)
+def run_config(config="tiny", vocab=512, attn=None):
+    """``config`` (``tiny`` at ``vocab``) with ``attn_impl`` ``attn``
+    (None: the config's), before any weight is drawn."""
     cfg = (llama.tiny(vocab=vocab) if config == "tiny"
            else llama.PRESETS[config]())
     if attn is not None:
         cfg = dataclasses.replace(cfg, attn_impl=attn)
+    return cfg
+
+
+def serving(config="tiny", device=None, params=None, vocab=512, dtype=None,
+            attn=None):
+    """The run's :class:`Serving`: :func:`run_config`, at the dtype and
+    depth of ``params``, or drawn from seed 0 in ``dtype`` (None: the
+    config's)."""
+    dev = resolve_device(device)
+    cfg = run_config(config, vocab, attn)
     if params is None:
         if dtype is not None:
             cfg = dataclasses.replace(cfg, dtype=dtype)

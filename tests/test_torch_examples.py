@@ -21,6 +21,7 @@ import pytest
 import torch
 
 import tritonclient.grpc as grpcclient
+import tritonclient.http as httpclient
 from tpuserver.core import InferenceServer as JaxServer
 from tpuserver.grpc_frontend import GrpcFrontend
 from tpuserver.http_frontend import HttpFrontend
@@ -153,7 +154,8 @@ def test_perf_analyzer_system_shm_equals_jax(servers):
 # card alone (``chip_smoke.py`` phase 9 (e)).
 
 CUDASHM_CLIENTS = ("simple_grpc_cudashm_client.py",
-                   "llama_streaming_cudashm_client.py")
+                   "llama_streaming_cudashm_client.py",
+                   "simple_http_cudashm_client.py")
 
 
 def _example(script):
@@ -180,13 +182,20 @@ ARGV_CASES = [
     ("llama_streaming_cudashm_client.py", ["--mode", "xla"], None),
     ("llama_streaming_cudashm_client.py", ["--kv-bytes", "0"], None),
     ("llama_streaming_cudashm_client.py", ["-n", "-1"], None),
+    ("simple_http_cudashm_client.py", [],
+     {"url": "localhost:8000", "device_id": 0, "verbose": False}),
+    ("simple_http_cudashm_client.py", ["-u", "h:9", "--device-id", "1", "-v"],
+     {"url": "h:9", "device_id": 1, "verbose": True}),
+    ("simple_http_cudashm_client.py", ["--device-id", "x"], None),
 ]
 
 
 @pytest.mark.parametrize("script,argv,want", ARGV_CASES,
                          ids=["simple_default", "simple_set", "llama_default",
                               "llama_set", "llama_bad_mode",
-                              "llama_zero_kv_bytes", "llama_negative_n"])
+                              "llama_zero_kv_bytes", "llama_negative_n",
+                              "simple_http_default", "simple_http_set",
+                              "simple_http_bad_device_id"])
 def test_cudashm_client_arguments(script, argv, want):
     module = _example(script)
     if want is None:
@@ -204,14 +213,22 @@ def test_cudashm_client_without_a_card_exits_typed(servers, script):
     card and exits ``NO_CARD`` (2), leaving no region registered."""
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src", "python"),
                CUDA_VISIBLE_DEVICES="")
+    http = "_http_" in script
     result = subprocess.run(
         [sys.executable, os.path.join(EXAMPLES, script), "-u",
-         servers["port"][1]], capture_output=True, text=True, timeout=300,
-        env=env)
+         servers["port"][0 if http else 1]], capture_output=True, text=True,
+        timeout=300, env=env)
     assert result.returncode == _example(script).NO_CARD == 2, \
         result.stdout + result.stderr
     assert "FAILED: CUDA shared memory needs a CUDA card" in result.stdout
     assert "Traceback" not in result.stderr
+    if http:
+        client = httpclient.InferenceServerClient(servers["port"][0])
+        try:
+            assert len(client.get_cuda_shared_memory_status()) == 0
+        finally:
+            client.close()
+        return
     client = grpcclient.InferenceServerClient(servers["port"][1])
     try:
         assert len(client.get_cuda_shared_memory_status().regions) == 0
@@ -238,6 +255,23 @@ def test_simple_cudashm_client_in_process(servers, cpu_regions, capsys):
     out = capsys.readouterr().out
     assert "PASS: cuda shared memory" in out and "0 + 1 = 1" in out
     assert cpu_regions.allocated_shared_memory_regions() == []
+
+
+def test_simple_http_cudashm_client_in_process(servers, cpu_regions, capsys):
+    """The HTTP client's regions registered over HTTP: OUTPUT0 and
+    OUTPUT1 right in the output region, no region left registered or
+    allocated."""
+    module = _example("simple_http_cudashm_client.py")
+    assert module.main(["-u", servers["port"][0]]) == 0
+    out = capsys.readouterr().out
+    assert "PASS: cuda shared memory" in out
+    assert "0 + 1 = 1" in out and "15 - 1 = 14" in out
+    assert cpu_regions.allocated_shared_memory_regions() == []
+    client = httpclient.InferenceServerClient(servers["port"][0])
+    try:
+        assert len(client.get_cuda_shared_memory_status()) == 0
+    finally:
+        client.close()
 
 
 @pytest.fixture(scope="module")
