@@ -439,6 +439,43 @@ Phases, in order; any failure exits non-zero and prints no result line:
    of 128; the router demo's float32 step, 2 rows of 128): the
    ``bench_prefix_cache/*`` and ``router_demo`` rows.
 
+19. router view, in ``python3 chip_smoke.py --router-view-only`` alone,
+   which runs phases 1-3 and 19 on ``llama3_8b`` weights drawn from the
+   seed and prints the phase's ``{"kernels": [...]}`` line, the card's
+   name and power limit and the result line; the full script does not
+   run it.  (a) Two port servers in this process (so the wrappers count
+   their launches), scopes ``replica-a`` and ``replica-b``, each serving
+   the one bf16 tree (full width and depth) behind
+   ``LlamaGenerateModel(max_slots=4, max_seq=1024)`` with prefix caching
+   off, each behind the port's HTTP server and both behind the port's
+   ``FleetRouter``; two arms, each one ``python -m
+   tpuserver_torch.perf_analyzer --backend http -u <router> --generation
+   -m llama_generate --concurrency-range 4 --prompt-len 512 --max-tokens
+   32`` process (three 3 s windows, the same ``--seed``): plain, then with
+   ``http.generate_stream`` severs armed on each scope (``raise``, 3
+   times, after 8 events).  Checked: exit 0 and no error in both; the
+   router's ``handoffs + failovers`` above 0 in the sever arm; the rows'
+   ``router_failovers``, ``router_handoffs``, ``router_resumed_streams``
+   and ``router_shed`` at 0 or more and the ``router failovers=`` footer;
+   flash launched once a layer for each prefill whose length tiles (the
+   512-token admissions; a handoff's re-prefill of prompt and history
+   runs dense), decode launched; each handed-off stream's tokens before
+   its first handoff equal the plain arm's for its prompt (after it the
+   agreement is printed: a bf16 re-prefill can flip near-ties).  Both
+   arms' tokens/s, TTFT and ITL p50/p99 and the router's deltas are
+   printed with the card's name and power limit; no number is compared
+   across arms.  (b) A ``FleetSupervisor`` over two ``python -m
+   tpuserver_torch.serve --device cuda --models fixtures`` replica
+   processes; one is SIGKILLed inside the windows of a ``perf_analyzer
+   --backend http -u <its router> -m simple --concurrency-range 2``
+   process.  Checked: exit 0, the row's ``supervisor_replica_restarts``,
+   ``supervisor_scale_up_events``, ``supervisor_scale_down_events`` and
+   ``supervisor_retired_replicas``, ``supervisor restarts=`` in its
+   output, the kill healed, no child left.  The mode holds the decode
+   kernel against its plain version and times it at (a)'s served step (4
+   rows of 520-544 keys in a 1024-key cache; phase 3 holds flash at T
+   512); both arms' launches make the ``router_view`` rows.
+
 The peaks of every bound come from ``tpuserver_torch.ops.perf`` by the
 card's name (phase 1 fails on a card the table does not know).  The line
 before the last is ``{"kernels": [...]}``; the last line is
@@ -7250,29 +7287,36 @@ ROUTER_TIER_STREAMS = 10200
 DIST_BUDGET_S = 300.0
 
 
-def _distributed_timed(torch):
-    """The decode kernel held against its plain version and timed at
-    phase 17's batched step (the flash kernel's T 512 prefill is phase 3's
-    ``flash_attention`` row)."""
+def _served_decode_timed(torch, label, lengths, s, seed):
+    """The decode kernel held against its plain version (the planted
+    faults beyond the tolerance) and timed at a served ``llama3_8b`` step
+    of bf16 rows of ``lengths`` in an ``s``-key cache; its row."""
     import torch.nn.functional as F
 
     from tpuserver_torch.ops import flash as fl
 
     dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
-    row = _decode_case(torch, F, fl, dev, gen, DIST_DECODE_LENGTHS,
-                       DIST_SEQ, 32, 8, 128, torch.bfloat16, True, flush)
+    row = _decode_case(torch, F, fl, dev, gen, lengths, s, 32, 8, 128,
+                       torch.bfloat16, True, flush)
     del flush
     torch.cuda.empty_cache()
-    log("kernel_case: decode_attention_distributed {}".format(
-        json.dumps(row)))
+    log("kernel_case: decode_attention_{} {}".format(
+        label.replace(" ", "_"), json.dumps(row)))
     if not row["row_rel_err"] <= TOL[row["dtype"]] or any(
             not e > TOL[row["dtype"]]
             for e in row.get("planted_fault_err", {}).values()):
-        fail("distributed: decode_attention against its plain version: "
-             "{}".format(row))
+        fail("{}: decode_attention against its plain version: {}".format(
+            label, row))
     return row
+
+
+def _distributed_timed(torch):
+    """The decode kernel held and timed at phase 17's batched step (the
+    flash kernel's T 512 prefill is phase 3's ``flash_attention`` row)."""
+    return _served_decode_timed(torch, "distributed", DIST_DECODE_LENGTHS,
+                                DIST_SEQ, SEED + 17)
 
 
 def _dist_quiet(model, timeout=120.0):
@@ -7881,6 +7925,462 @@ def _prefix_cache_kernel_rows(launches, timed, max_err):
             for path, counts in launches.items()]
 
 
+# -- phase 19: the perf analyzer's fleet-router view -------------------------
+
+
+# (a)'s replicas: two port servers in this process behind the port's
+# FleetRouter, each serving the shared llama3_8b tree behind 4 slots of a
+# 1024-key cache, prefix caching off (so each admission prefills its whole
+# prompt; on the card the flash prefill keeps the radix cache off anyway)
+ROUTER_VIEW_SEQ = 1024
+ROUTER_VIEW_SLOTS = 4
+ROUTER_VIEW_SCOPES = ("replica-a", "replica-b")
+# each arm: one perf_analyzer process through the router, 4 streams of 32
+# tokens from 512-token prompts, three 3 s windows; a pool of 16 prompts,
+# which the plain arm covers, so each handed-off stream of the sever arm
+# has the plain arm's tokens for its prompt
+ROUTER_VIEW_ARGS = ("-m", "llama_generate", "--generation",
+                    "--concurrency-range", "4", "--prompt-len", "512",
+                    "--max-tokens", "32", "--input-pool", "16",
+                    "--measurement-interval", "3000", "--max-trials", "3",
+                    "--seed", str(SEED))
+# the CPU rehearsal: float32 tiny at vocab 512, short prompts and windows
+ROUTER_VIEW_CPU_ARGS = ("-m", "llama_generate", "--generation",
+                        "--concurrency-range", "2", "--prompt-len", "8",
+                        "--max-tokens", "16", "--input-pool", "4",
+                        "--measurement-interval", "400", "--max-trials", "3",
+                        "--seed", str(SEED), "--warmup", "0.1")
+# the sever arm's faults, armed on each replica's scope: JAX's
+# test_perf_analyzer_e2e.py:150-152
+ROUTER_VIEW_SEVER = {"mode": "raise", "times": 3, "skip": 8}
+# the decode kernel at (a)'s served step: 4 slots of a 1024-key cache,
+# each row between its 512-token prompt and its 32nd token
+ROUTER_VIEW_DECODE_LENGTHS = (520, 528, 536, 544)
+# (b)'s load through the supervised replicas (the fleet supervisor test's
+# command serving the fixture models): 0.6 s windows, each printed (-v),
+# so the SIGKILL lands after the first and the level's last snapshot
+# follows the restart
+ROUTER_VIEW_FLEET_ARGS = ("-m", "simple", "--concurrency-range", "2",
+                          "--measurement-interval", "600", "--max-trials",
+                          "8", "--warmup", "0.5", "-v")
+# the phase's share of a run: reported, not enforced
+ROUTER_VIEW_BUDGET_S = 300.0
+
+
+def _router_view_timed(torch):
+    """The decode kernel held and timed at phase 19's served step (the
+    flash kernel's T 512 prefill is phase 3's ``flash_attention`` row)."""
+    return _served_decode_timed(torch, "router view",
+                                ROUTER_VIEW_DECODE_LENGTHS, ROUTER_VIEW_SEQ,
+                                SEED + 19)
+
+
+def _router_view_perf(url, args):
+    """``python -m tpuserver_torch.perf_analyzer --backend http -u url``
+    as a process: its one row and its stdout."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "tpuserver_torch.perf_analyzer",
+         "--backend", "http", "-u", url] + list(args),
+        capture_output=True, text=True, env=_port_env(), cwd=HERE,
+        timeout=600)
+    log(proc.stdout.rstrip())
+    if proc.returncode != 0:
+        fail("router view: perf_analyzer exited {}: {} {}".format(
+            proc.returncode, proc.stdout[-2000:], proc.stderr[-2000:]))
+    rows = [json.loads(ln) for ln in proc.stdout.splitlines()
+            if ln.startswith('{"')]
+    if len(rows) != 1:
+        fail("router view: {} rows, want 1".format(len(rows)))
+    return rows[0], proc.stdout
+
+
+def _router_view_streams(router, seen, first_handoff):
+    """The router's generations not in ``seen`` (added to it): by id,
+    (prompt, tokens, the tokens emitted before its first handoff or None
+    where none happened; ``first_handoff`` by id)."""
+    out = {}
+    with router._lock:
+        gens = [entry[0] for entry in router._gens.values()]
+    for gen in gens:
+        if gen.gen_id in seen or gen.prompt is None:
+            continue
+        seen.add(gen.gen_id)
+        with gen._lock:
+            out[gen.gen_id] = (tuple(gen.prompt), list(gen._tokens or []),
+                               first_handoff.get(gen.gen_id))
+    return out
+
+
+def _first_handoffs(fleet_router, first_handoff):
+    """The router's ``handoff_request`` (a handoff's re-admission body)
+    wrapped to record, by generation id, the tokens emitted before its
+    first handoff."""
+    real = fleet_router._Generation.handoff_request
+
+    def handoff_request(gen):
+        with gen._lock:
+            emitted = len(gen._tokens or [])
+        first_handoff.setdefault(gen.gen_id, emitted)
+        return real(gen)
+
+    return {"handoff_request": handoff_request}
+
+
+def _router_view_line(label, row, smi):
+    """One arm's numbers and the router's deltas in a line."""
+    deltas = {k: v for k, v in row.items()
+              if k.startswith(("router_", "disagg_", "supervisor_"))}
+    return ("router view {}: {} tokens/s, {} generations, TTFT p50 {} ms "
+            "p99 {} ms, ITL p50 {} ms p99 {} ms, {} errors, resumed "
+            "streams {}; router deltas {}; {}".format(
+                label, row.get("value"), row.get("generations"),
+                row.get("ttft_p50_ms"), row.get("ttft_p99_ms"),
+                row.get("itl_p50_ms"), row.get("itl_p99_ms"),
+                row.get("errors"), row.get("resumed_streams"),
+                json.dumps(deltas, sort_keys=True), smi))
+
+
+def _router_view_checks(arm, row, text, absorbed, cfg, launches, lengths,
+                        admitted):
+    """Phase 19 (a)'s checks of one arm: its row (no error, tokens, the
+    router keys at 0 or more), the footer in its output, the router's
+    handoffs and failovers over the sever arm, and on the card
+    (``launches`` not None) flash once a layer for each prefill whose
+    length tiles, a 512-token one among them, and decode launched."""
+    from tpuserver_torch.models import llama
+
+    if row.get("errors") or not row.get("tokens"):
+        fail("router view {}: {} errors, {} tokens".format(
+            arm, row.get("errors"), row.get("tokens")))
+    missing = [k for k in ("router_failovers", "router_handoffs",
+                           "router_resumed_streams", "router_shed")
+               if not isinstance(row.get(k), int) or row[k] < 0]
+    if missing or "router failovers=" not in text:
+        fail("router view {}: router keys {} missing or negative, footer "
+             "{}".format(arm, missing, "router failovers=" in text))
+    if arm == "sever" and not absorbed["handoffs"] + absorbed["failovers"]:
+        fail("router view sever: no handoff or failover: {}".format(
+            absorbed))
+    if launches is None:
+        return
+    tileable = [t for t in lengths if None not in llama._flash_blocks(t, cfg)]
+    if (launches["flash_attention"] != cfg.n_layers * len(tileable)
+            or len(lengths) != admitted or 512 not in lengths
+            or not launches["decode_attention"]):
+        fail("router view {}: launches {} for {} admissions at lengths {} "
+             "(flash wants {} a tileable prefill)".format(
+                 arm, launches, admitted, lengths, cfg.n_layers))
+
+
+def _router_view_agreement(handed, plain):
+    """Each handed-off stream ``(prompt, tokens, tokens before its first
+    handoff)`` against ``plain``'s tokens for its prompt: equal before
+    the handoff (the same path produced them), the agreement after it
+    printed (a re-prefill of prompt and history produced those, and a
+    bf16 one can flip near-ties)."""
+    before = after = total = 0
+    for prompt, tokens, offset in handed:
+        ref = plain[prompt]
+        if tokens[:offset] != ref[:offset]:
+            fail("router view: a handed-off stream's tokens before its "
+                 "first handoff at {} differ from the plain arm's: {} vs "
+                 "{}".format(offset, tokens, ref))
+        before += offset
+        tail = list(zip(tokens[offset:], ref[offset:]))
+        after += sum(a == b for a, b in tail)
+        total += len(tail)
+    log("router view: {} handed-off streams (first handoffs at {}); their "
+        "tokens before it equal the plain arm's ({} tokens); after it {}/{} "
+        "agree (reported, not required: a bf16 re-prefill can flip "
+        "near-ties)".format(len(handed), sorted(s[2] for s in handed),
+                            before, after, total))
+    return after, total
+
+
+def _router_view_generation(torch, cfg, params, smi, device, first_handoff):
+    """Phase 19 (a): two port servers here, behind the port's FleetRouter,
+    and a plain arm and a sever arm of perf_analyzer processes through
+    it; the launches of each arm.  ``first_handoff`` is filled by the
+    router's wrapped ``handoff_request`` (:func:`_first_handoffs`)."""
+    from tpuserver_torch import chaos_campaign, fault_points
+    from tpuserver_torch.core import InferenceServer
+    from tpuserver_torch.fleet_router import FleetRouter
+    from tpuserver_torch.http_server import HttpServer
+    from tpuserver_torch.models.llama_serving import LlamaGenerateModel
+    from tpuserver_torch.ops import flash as fl
+
+    card = device == "cuda"
+    prefills = []
+    models, cores, https = [], [], []
+    router = None
+    arms = {}
+    try:
+        for scope in ROUTER_VIEW_SCOPES:
+            model = LlamaGenerateModel(
+                cfg=cfg, max_seq=ROUTER_VIEW_SEQ,
+                max_slots=ROUTER_VIEW_SLOTS, params=params, device=device,
+                fault_scope=scope, prefix_cache=False)
+            real_prefill = model._fns["prefill"]
+
+            def prefill(params_, slot_cache, tokens, true_len,
+                        real_prefill=real_prefill):
+                prefills.append(int(tokens.shape[1]))
+                return real_prefill(params_, slot_cache, tokens, true_len)
+
+            model._fns = dict(model._fns, prefill=prefill)
+            # registered before the warm-up builds the scheduler
+            core = InferenceServer([model], fault_scope=scope)
+            model.warmup()
+            models.append(model)
+            cores.append(core)
+            https.append(HttpServer(core, port=0).start())
+        router = FleetRouter(
+            ["127.0.0.1:{}".format(h.port) for h in https],
+            probe_interval_s=0.1, gen_ttl_s=3600.0,
+            gen_capacity=1 << 20).start()
+        deadline = time.monotonic() + 60
+        while sum(r["eligible"] for r in router.stats()["replicas"]) < 2:
+            if time.monotonic() > deadline:
+                fail("router view: the replicas never turned eligible")
+            time.sleep(0.05)
+        seen = set()
+        args = ROUTER_VIEW_ARGS if card else ROUTER_VIEW_CPU_ARGS
+        for arm in ("plain", "sever"):
+            for model in models:
+                _dist_quiet(model)
+            if arm == "sever":
+                for scope in ROUTER_VIEW_SCOPES:
+                    fault_points.install("http.generate_stream",
+                                         scope=scope, **ROUTER_VIEW_SEVER)
+            s0 = router.stats()
+            admitted0 = sum(m.scheduler_stats()["admitted"] for m in models)
+            del prefills[:]
+            if card:
+                torch.cuda.synchronize()
+            fl.reset_launch_counts()
+            t0 = time.monotonic()
+            try:
+                row, text = _router_view_perf(router.url, args)
+            finally:
+                fault_points.clear("http.generate_stream")
+            for model in models:
+                _dist_quiet(model)
+            if card:
+                torch.cuda.synchronize()
+            launches = {"flash_attention": fl.flash_attention.launches,
+                        "decode_attention": fl.decode_attention.launches}
+            seconds = time.monotonic() - t0
+            s1 = router.stats()
+            admitted = sum(m.scheduler_stats()["admitted"]
+                           for m in models) - admitted0
+            lengths = list(prefills)
+            streams = _router_view_streams(router, seen, first_handoff)
+            absorbed = {k: s1[k] - s0[k] for k in (
+                "handoffs", "failovers", "resumed_streams", "shed")}
+            log(_router_view_line(arm, row, smi))
+            log("router view {}: {:.1f} s; launches {}; {} admissions, "
+                "prefill lengths {}; the router absorbed {} over the run; "
+                "{} streams recorded".format(
+                    arm, seconds, json.dumps(launches), admitted,
+                    sorted(set(lengths)), json.dumps(absorbed),
+                    len(streams)))
+            _router_view_checks(arm, row, text, absorbed, cfg, launches
+                                if card else None, lengths, admitted)
+            arms[arm] = {"row": row, "launches": launches,
+                         "streams": streams, "absorbed": absorbed,
+                         "seconds": seconds}
+        # every handed-off stream against the plain arm's tokens for its
+        # prompt: up to its first handoff the same path produced them
+        # (required), after it a re-prefill of prompt + history did
+        # (reported: a bf16 re-prefill can flip near-ties); a failover
+        # before the first token hands off at 0
+        plain = {}
+        for prompt, tokens, _ in arms["plain"]["streams"].values():
+            if len(tokens) > len(plain.get(prompt, ())):
+                plain[prompt] = tokens
+        handed = [s for s in arms["sever"]["streams"].values()
+                  if s[2] is not None]
+        budget = int(args[args.index("--max-tokens") + 1])
+        for prompt in {s[0] for s in handed} - set(plain):
+            # a prompt the plain arm did not finish: one undisturbed
+            # stream of it now
+            plain[prompt] = [
+                int(out["data"][0])
+                for event in chaos_campaign.generate_stream(
+                    [router.url], "llama_generate", list(prompt), budget)
+                for out in event.get("outputs", [])
+                if out["name"] == "TOKEN"]
+        _router_view_agreement(handed, plain)
+    finally:
+        fault_points.clear("http.generate_stream")
+        if router is not None:
+            router.stop()
+        for h in https:
+            h.stop()
+        for core in cores:
+            core.close()
+    return {arm: arms[arm]["launches"] for arm in arms}
+
+
+def _router_view_fleet(smi, device):
+    """Phase 19 (b): a FleetSupervisor over two ``python -m
+    tpuserver_torch.serve --models fixtures`` replica processes, one
+    SIGKILLed inside the window of a perf_analyzer process through the
+    supervisor's router; its seconds."""
+    import signal
+    import tempfile
+
+    from tpuserver_torch import fleetmanifest
+    from tpuserver_torch.fleet import FleetSupervisor
+
+    t0 = time.monotonic()
+    command = [sys.executable, "-m", "tpuserver_torch.serve", "--device",
+               device, "--models", "fixtures", "--port", "{port}",
+               "--fault-scope", "{scope}"]
+    supervisor = FleetSupervisor(
+        command, replicas=2, min_replicas=2, max_replicas=2,
+        probe_interval_s=0.15, probe_timeout_s=5.0, unhealthy_after=20,
+        start_timeout_s=180.0, drain_grace_s=5.0, max_restarts=6,
+        restart_window_s=3600.0, restart_backoff_s=0.05,
+        scope_prefix="router-view-r",
+        router_kwargs={"probe_interval_s": 0.1},
+        env={"PYTHONPATH": os.path.join(HERE, "src", "python")}).start()
+    pids = set()
+    proc = None
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "perf.log")
+        try:
+            if not supervisor.wait_ready(timeout_s=180):
+                fail("router view (b): the supervised fleet never turned "
+                     "ready: {}".format(supervisor.stats()))
+            pids = {r["pid"] for r in supervisor.stats()["replicas"]}
+            restarts0 = supervisor.stats()["replica_restarts"]
+            with open(path, "w") as out:
+                proc = subprocess.Popen(
+                    [sys.executable, "-m", "tpuserver_torch.perf_analyzer",
+                     "--backend", "http", "-u", supervisor.router.url]
+                    + list(ROUTER_VIEW_FLEET_ARGS),
+                    stdout=out, stderr=subprocess.STDOUT,
+                    env=dict(_port_env(), PYTHONUNBUFFERED="1"), cwd=HERE)
+            # the kill lands inside the level's windows: once the first
+            # window is printed
+            deadline = time.monotonic() + 120
+            while True:
+                with open(path) as fh:
+                    if "trial  1:" in fh.read():
+                        break
+                if proc.poll() is not None or time.monotonic() > deadline:
+                    fail("router view (b): perf_analyzer never measured")
+                time.sleep(0.02)
+            ups = [r for r in supervisor.stats()["replicas"]
+                   if r["state"] == "up" and r["pid"]]
+            victim = ups[-1]["pid"]
+            os.kill(victim, signal.SIGKILL)
+            killed_at = time.monotonic()
+            rc = proc.wait(timeout=300)
+            deadline = time.monotonic() + 180
+            while supervisor.stats()["replica_restarts"] <= restarts0:
+                if time.monotonic() > deadline:
+                    fail("router view (b): the SIGKILL was not healed: {}"
+                         .format(supervisor.stats()))
+                time.sleep(0.1)
+            if not supervisor.wait_ready(timeout_s=180):
+                fail("router view (b): the fleet did not heal back to 2")
+            healed_s = time.monotonic() - killed_at
+            stats = supervisor.stats()
+            pids |= {r["pid"] for r in stats["replicas"]}
+        finally:
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+            supervisor.stop()
+        with open(path) as fh:
+            text = fh.read()
+    log(text.rstrip())
+    left = [pid for pid in pids
+            if pid and fleetmanifest.process_start_token(pid) is not None]
+    rows = [json.loads(ln) for ln in text.splitlines()
+            if ln.startswith('{"')]
+    row = rows[0] if len(rows) == 1 else {}
+    keys = ("supervisor_replica_restarts", "supervisor_scale_up_events",
+            "supervisor_scale_down_events", "supervisor_retired_replicas")
+    log("router view (b): perf_analyzer exit {}; {} infer/s, p50 {} us, "
+        "p99 {} us, {} errors; supervisor deltas {}; router deltas {}; "
+        "replica restarts {} (healed in {:.1f} s), retired {}; children "
+        "left {}; {}".format(
+            rc, row.get("value"), row.get("p50_usec"), row.get("p99_usec"),
+            row.get("errors"), json.dumps({k: row.get(k) for k in keys}),
+            json.dumps({k: v for k, v in row.items()
+                        if k.startswith("router_")}, sort_keys=True),
+            stats["replica_restarts"], healed_s, stats["retired_replicas"],
+            left, smi))
+    if rc != 0 or len(rows) != 1:
+        fail("router view (b): perf_analyzer exited {} with {} rows".format(
+            rc, len(rows)))
+    if any(not isinstance(row.get(k), int) for k in keys) or \
+            "supervisor restarts=" not in text:
+        fail("router view (b): the supervisor keys or footer missing: {}"
+             .format(row))
+    if row["supervisor_replica_restarts"] < 1:
+        fail("router view (b): the level's row missed the restart its "
+             "window held: {}".format(row))
+    if stats["replica_restarts"] < 1 or stats["retired_replicas"]:
+        fail("router view (b): restarts {}, retired {}".format(
+            stats["replica_restarts"], stats["retired_replicas"]))
+    if left:
+        fail("router view (b): children left: {}".format(left))
+    return time.monotonic() - t0
+
+
+def phase_router_view(torch, cfg, params, smi, device="cuda"):
+    """Phase 19: the perf analyzer's fleet-router view, (a) generation
+    through the port's FleetRouter over two replicas here, plain and with
+    the replicas' streams severed, then (b) a supervised fleet's healing
+    counters after a SIGKILL; returns (a)'s launches by arm.
+    ``device="cpu"`` rehearses it on the CPU, without the card's launch
+    checks."""
+    from tpuserver_torch import fleet_router
+
+    card = device == "cuda"
+    t_start = _tools_phase_start(torch, card, "router view")
+    first_handoff = {}
+    with _swapped(fleet_router._Generation,
+                  _first_handoffs(fleet_router, first_handoff)):
+        launches = _router_view_generation(torch, cfg, params, smi, device,
+                                           first_handoff)
+    generation_s = time.monotonic() - t_start
+    _release(torch, card)
+    fleet_s = _router_view_fleet(smi, device)
+    _tools_phase_end(torch, card, "router view: phase 19", t_start,
+                     {"generation arms": generation_s,
+                      "supervised fleet": fleet_s}, smi, launches)
+    log("router view: phase 19 {} its {:.0f} s budget".format(
+        "within" if time.monotonic() - t_start <= ROUTER_VIEW_BUDGET_S
+        else "OVER", ROUTER_VIEW_BUDGET_S))
+    return launches
+
+
+def _router_view_kernel_rows(rows, decode_row, launches):
+    """The kernels line's rows for phase 19: both arms' flash and decode
+    launches (the ``router_view`` column) beside flash at its 512-token
+    prefill (phase 3) and decode at the served step."""
+    total = {k: sum(arm[k] for arm in launches.values())
+             for k in ("flash_attention", "decode_attention")}
+    return [
+        _kernel_row("flash_attention", "router_view",
+                    total["flash_attention"],
+                    rows["max_err"]["flash_attention"],
+                    rows["timed"]["flash_attention"], "flash_attention"),
+        _kernel_row("decode_attention", "router_view",
+                    total["decode_attention"],
+                    max(rows["max_err"]["decode_attention"],
+                        decode_row["max_abs_err"]), decode_row,
+                    "decode_attention_router_view: {} rows of {} keys, "
+                    "lengths {}".format(len(ROUTER_VIEW_DECODE_LENGTHS),
+                                        ROUTER_VIEW_SEQ,
+                                        list(ROUTER_VIEW_DECODE_LENGTHS)))]
+
+
 # -- main --------------------------------------------------------------------
 
 
@@ -8102,6 +8602,35 @@ def main():
         log("prefix-cache-only: done")
         log(smi)
         return 1
+    if sys.argv[1:] == ["--router-view-only"]:
+        # phases 1-3 and 19 alone, phase 19 on weights drawn from the
+        # seed; prints the phase's kernels line and the result line
+        from tpuserver_torch.models import llama
+        from tpuserver_torch.models.llama_serving import LlamaGenerateModel
+
+        started = time.monotonic()
+        name, smi = phase_device(torch)
+        log("nvidia-smi:", smi)
+        phase_build()
+        rows = phase_kernels(torch)
+        decode_row = _router_view_timed(torch)
+        drawn = LlamaGenerateModel(cfg=llama.llama3_8b(), seed=SEED,
+                                   device="cuda")
+        cfg, params = drawn._cfg, drawn._ensure_params()
+        del drawn
+        launches = phase_router_view(torch, cfg, params, smi)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        log("router-view-only: done in {:.1f} s".format(
+            time.monotonic() - started))
+        log(smi)
+        print(json.dumps({"kernels": _router_view_kernel_rows(
+            rows, decode_row, launches)}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name,
+            "count": torch.cuda.device_count()}}))
+        return 0
     if sys.argv[1:] == ["--vision-only"]:
         # phases 1, 2 and 8 alone, for work on the vision path; prints no
         # result line

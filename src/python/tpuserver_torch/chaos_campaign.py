@@ -33,6 +33,18 @@ The streams are read by the port's stdlib resumable SSE reader
 which reconnects with ``Last-Event-ID`` and rotates through the router
 urls as the client library's does.  ``--quick`` shrinks everything to a <=10s single-cycle
 smoke.
+
+``--proof OUT_JSON`` measures under the campaign instead: ``python -m
+tpuserver_torch.perf_analyzer --workers N --generation`` (the
+distributed perf analyzer, ``--concurrency`` streams a worker) runs
+through the active router while each cycle's faults fire, and the run
+writes one BENCH row whose ``error_budget`` is the perf side's stream
+errors plus the campaign's user-visible violations; it exits 0 only
+when no invariant was violated.
+
+    PYTHONPATH=src/python python -m tpuserver_torch.chaos_campaign \
+        --proof proof_row.json --seed 10 --cycles 2 \
+        --faults prefill_sigkill,replica_sigkill,gray_slow,stream_sever
 """
 
 import argparse
@@ -99,6 +111,16 @@ def build_parser():
     ap.add_argument("--quick", action="store_true",
                     help="one short cycle against a minimal fleet "
                          "(<=10s)")
+    ap.add_argument("--proof", default=None, metavar="OUT_JSON",
+                    help="run the distributed-generation perf proof "
+                         "under the campaign and write its BENCH row "
+                         "here")
+    ap.add_argument("--workers", type=int, default=2,
+                    help="--proof: perf_analyzer worker processes "
+                         "(default 2)")
+    ap.add_argument("--concurrency", type=int, default=32,
+                    help="--proof: generation streams per worker "
+                         "(default 32 => 64 total)")
     ap.add_argument("--spec-tokens", type=int, default=0,
                     help="run the stub replicas' speculative-decoding "
                          "twin at this draft budget (0 = off); token "
@@ -688,6 +710,164 @@ def run_campaign(args, schedule):
     return recorder, summary
 
 
+# -- the proof run -----------------------------------------------------------
+
+
+def run_proof(args, schedule):
+    """BENCH proof: ``perf_analyzer --workers N --generation`` through
+    the coordinator against the supervised disagg fleet behind the
+    active router, while the composed campaign fires.  Zero
+    user-visible errors (perf-side AND campaign-side) is the bar."""
+    import subprocess
+
+    perf_json = args.proof + ".perf.tmp"
+    if os.path.exists(perf_json):
+        os.remove(perf_json)
+
+    baseline_threads = chaoslib.thread_baseline()
+
+    def sink(violation):
+        print("INVARIANT VIOLATED: {}".format(violation.message),
+              file=sys.stderr, flush=True)
+
+    recorder = chaoslib.InvariantRecorder(sink)
+    supervisor = start_fleet(
+        args.cycles, spec_tokens=args.spec_tokens,
+        active_routers=(2 if "active_router_sigkill" in schedule.kinds
+                        else 1))
+    injectors = FleetInjectors(supervisor)
+    runner = chaoslib.CampaignRunner(
+        schedule, injectors.registry(), recorder)
+    perf_row = None
+    proc = None
+    try:
+        if not supervisor.wait_ready(timeout_s=60.0):
+            recorder.record("fleet_convergence",
+                            "proof: stub fleet never became ready")
+            return 1
+        if not wait_converged(supervisor, recorder, "proof start"):
+            return 1
+        urls = supervisor.router_urls()
+        active = supervisor.active_router_url()
+        metrics_check = chaoslib.MetricsMonotonicityCheck(
+            active, "proof", recorder, require_prefix=False)
+        reference, _ = run_stream(
+            urls, recorder, "proof reference", args.budget)
+        if reference is None:
+            return 1
+        env = dict(os.environ, PYTHONPATH=SRC_PYTHON)
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "tpuserver_torch.perf_analyzer",
+             "--backend", "http",
+             "--workers", str(args.workers), "--generation",
+             "-m", "stubgen",
+             "--concurrency-range", str(args.concurrency),
+             "-u", active, "--windows", "3",
+             "--measurement-interval", "1000",
+             "--prompt-len", "8", "--shared-prefix-tokens", "4",
+             "--max-tokens", str(args.budget),
+             "--warmup", "0.5", "--seed", str(args.seed),
+             "--json", perf_json],
+            env=env)
+        # composed campaign cycles while the perf run measures; each
+        # cycle also samples streams whose tokens must stay identical
+        for cycle in range(args.cycles):
+            context = "proof cycle {}".format(cycle)
+            if proc.poll() is not None:
+                break
+            takeovers_before = supervisor.stats().get(
+                "router_takeovers", 0)
+            sampled = []
+            runner.run_cycle(cycle)
+            for i in range(3):
+                tokens, seqs = run_stream(
+                    supervisor.router_urls(), recorder,
+                    "{} sample {}".format(context, i), args.budget)
+                if tokens is not None:
+                    sampled.append((tokens, seqs))
+            for i, (tokens, seqs) in enumerate(sampled):
+                ctx = "{} sample {}".format(context, i)
+                chaoslib.check_token_identity(
+                    recorder, reference, tokens, context=ctx)
+                chaoslib.check_seq_continuity(
+                    recorder, seqs, args.budget, context=ctx)
+            injectors.heal_grays()
+            wait_converged(supervisor, recorder, context)
+            takeovers = wait_router_takeovers(
+                supervisor, takeovers_before,
+                sum(1 for e in schedule.for_cycle(cycle)
+                    if e.kind in ROUTER_FAULTS))
+            if takeovers > takeovers_before:
+                active_now = supervisor.active_router_url()
+                if active_now:
+                    metrics_check.rebind(active_now)
+            settle_metrics_target(supervisor, metrics_check)
+            metrics_check.check(cycle)
+            chaoslib.check_journal_single_writer(
+                recorder, supervisor.stats().get("routers", []),
+                context=context)
+            print("{} ok (perf running={})".format(
+                context, proc.poll() is None), flush=True)
+        rc = proc.wait(timeout=600)
+        if rc != 0:
+            recorder.record(
+                "user_visible_error",
+                "proof: perf_analyzer exited {}".format(rc))
+    finally:
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        supervisor.stop()
+    chaoslib.check_no_thread_leaks(
+        recorder, baseline_threads, grace_s=5.0, context="proof end")
+    if os.path.exists(perf_json):
+        with open(perf_json) as fh:
+            rows = [json.loads(line) for line in fh if line.strip()]
+        os.remove(perf_json)
+        perf_row = rows[0] if rows else None
+    if perf_row is None:
+        recorder.record("user_visible_error",
+                        "proof: perf_analyzer produced no report row")
+        return 1
+    perf_errors = int(perf_row.get("errors") or 0)
+    if perf_errors:
+        recorder.record(
+            "user_visible_error",
+            "proof: {} perf-side stream errors under the campaign "
+            "(error budget is ZERO)".format(perf_errors))
+    error_budget = perf_errors + sum(
+        1 for v in recorder.violations
+        if v.invariant == "user_visible_error")
+    row = {
+        "config": "chaos_campaign_proof",
+        "metric": "stubgen_campaign_gen_streams{}".format(
+            perf_row.get("level")),
+        "value": perf_row.get("value"),
+        "unit": "tokens/sec",
+        "vs_baseline": None,
+        "workers": args.workers,
+        "streams": perf_row.get("level"),
+        "fault_kinds": list(schedule.kinds),
+        "seed": args.seed,
+        "cycles": args.cycles,
+        "ttft_p50_ms": perf_row.get("ttft_p50_ms"),
+        "ttft_p99_ms": perf_row.get("ttft_p99_ms"),
+        "itl_p50_ms": perf_row.get("itl_p50_ms"),
+        "itl_p99_ms": perf_row.get("itl_p99_ms"),
+        "gen_per_sec": perf_row.get("gen_per_sec"),
+        "prefix_hit_pct": perf_row.get("prefix_hit_pct"),
+        "resumed_streams": perf_row.get("resumed_streams"),
+        "resume_events": perf_row.get("resume_events"),
+        "error_budget": error_budget,
+    }
+    with open(args.proof, "w") as fh:
+        json.dump(row, fh, indent=1, sort_keys=True)
+        fh.write("\n")
+    print("proof row -> {}: {}".format(args.proof, json.dumps(row)),
+          flush=True)
+    return 0 if recorder.ok else 1
+
+
 # -- entry -------------------------------------------------------------------
 
 
@@ -710,6 +890,8 @@ def main(argv=None):
     if args.print_schedule:
         print(schedule.describe())
         return 0
+    if args.proof:
+        return run_proof(args, schedule)
 
     t0 = time.monotonic()
     recorder, summary = run_campaign(args, schedule)

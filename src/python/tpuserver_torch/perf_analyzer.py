@@ -15,6 +15,15 @@ in-process core, and CUDA regions, live on the card unless ``--device
 cpu`` is given; without a card and without it the run fails
 (RuntimeError).
 
+An http ``-u`` may be the port's fleet router (``python -m
+tpuserver_torch.router_cli``, or a supervised fleet's): each level then
+carries the router's counter deltas under the window (``router_*``, and
+``supervisor_*`` and ``disagg_*`` where the router has them; see
+``tpuserver_torch.perfanalyzer.metrics.attach_router_delta``), and the
+table ends with one ``level N: router failovers= handoffs= ...`` line
+per level.  A plain replica answers ``/router/stats`` with a 404 once
+and is not asked again.
+
 Examples:
 
     # the fixture models, on the CPU
@@ -109,7 +118,12 @@ def build_parser():
                     help="client backend: the port's core in-process "
                          "(default), or a live server over HTTP or gRPC")
     ap.add_argument("-u", "--url", default="127.0.0.1:8000",
-                    help="server host:port (http/grpc backends)")
+                    help="server host:port (http/grpc backends); an "
+                         "http target may be a fleet router "
+                         "(python -m tpuserver_torch.router_cli), in "
+                         "which case per-level router "
+                         "failover/handoff/shed counters land in the "
+                         "report")
     ap.add_argument("--device", default=None,
                     help="device of the in-process server and of CUDA "
                          "regions (default: the card; 'cpu' for a CPU run)")

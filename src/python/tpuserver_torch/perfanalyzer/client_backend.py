@@ -108,6 +108,15 @@ class ClientBackend:
 
         return server_stats_snapshot(self.server_statistics(model), model)
 
+    def router_snapshot(self):
+        """Cumulative fleet-router counters (``failovers``,
+        ``handoffs``, ``resumed_streams``, ``shed``) when the target is
+        a ``tpuserver_torch.fleet_router.FleetRouter``, else None.  Only
+        transports that can reach ``/router/stats`` override this — the
+        profiler diffs the snapshot per load level so router-absorbed
+        faults surface in the report next to ``resumed_streams``."""
+        return None
+
     def prefix_cache_snapshot(self):
         """Cumulative radix prefix-cache counters ``{"hits": tokens,
         "misses": tokens}``, or None when the target has none."""
@@ -397,9 +406,12 @@ class InProcessBackend(ClientBackend):
 
 
 def _split_url(url):
-    """``(host, port)`` of a ``host:port`` url."""
+    """``(host, port)`` of a ``host:port`` url; a bare host is HTTP's
+    port 80."""
     host, sep, port = url.rpartition(":")
-    if not sep or not port.isdigit():
+    if not sep:
+        return url, 80
+    if not port.isdigit():
         raise ValueError("url must be host:port (got {!r})".format(url))
     return host, int(port)
 
@@ -545,6 +557,9 @@ class HttpBackend(_TritonClientShmMixin, ClientBackend):
         self._conns_lock = threading.Lock()
         self._declared = {}  # guarded-by: _declared_lock
         self._declared_lock = threading.Lock()
+        # tri-state: None = not yet probed, False = target is a plain
+        # replica (the 404 verdict is cached), True = fleet router
+        self._is_router = None
 
     # -- transport --------------------------------------------------------
 
@@ -604,6 +619,65 @@ class HttpBackend(_TritonClientShmMixin, ClientBackend):
 
     def server_statistics(self, model):
         return self._get_json(self._model_path(model) + "/stats")
+
+    def router_snapshot(self):
+        """``/router/stats`` counters when the url fronts a
+        FleetRouter; a plain replica answers 404 once and is never
+        probed again."""
+        if self._is_router is False:
+            return None
+        if ":" not in self.url:
+            # a port-less url can never reach a router: latch
+            self._is_router = False
+            return None
+        try:
+            status, _, data = self._call("GET", "/router/stats")
+        except BackendError:
+            # a transport error is transient: do not latch the verdict
+            return None
+        if status != 200:
+            self._is_router = False
+            return None
+        try:
+            snap = json.loads(data)
+        except ValueError:
+            return None
+        self._is_router = True
+        out = {
+            "failovers": _coerce_int(snap.get("failovers")),
+            "handoffs": _coerce_int(snap.get("handoffs")),
+            "resumed_streams": _coerce_int(snap.get("resumed_streams")),
+            "shed": _coerce_int(snap.get("shed")),
+        }
+        # tail-latency defense + router-HA counters: present only on
+        # routers that carry them, so the delta attach can tell "zero
+        # events" from "router predates the counters"
+        for key in ("ejections", "hedges", "takeovers",
+                    "recovered_generations"):
+            if key in snap:
+                out[key] = _coerce_int(snap.get(key))
+        supervisor = snap.get("supervisor")
+        if isinstance(supervisor, dict):
+            # the router fronts a supervised fleet: its process-level
+            # healing/scaling counters window-diff exactly like the
+            # router's own, each presence-guarded so a supervisor
+            # predating one never fabricates a delta
+            from tpuserver_torch.perfanalyzer.metrics import (
+                SUPERVISOR_COUNTERS,
+            )
+
+            for key in SUPERVISOR_COUNTERS:
+                name = key[len("supervisor_"):]
+                if name in supervisor:
+                    out[key] = _coerce_int(supervisor[name])
+        if isinstance(snap.get("disagg"), dict):
+            # the phase-split plane's counters, nested as the router
+            # serves them: metrics.attach_router_delta diffs them into
+            # the generation report's prefill-queue and KV-transfer
+            # columns (JAX's HTTP backend drops this dict, so those
+            # columns stay empty there)
+            out["disagg"] = snap["disagg"]
+        return out
 
     def _metrics_counters(self, names):
         """The target's ``/metrics`` counters ``{key: family}`` summed

@@ -3,19 +3,21 @@
 The serving-side scheduler exists to lift sustained generation
 throughput; these are the client-side numbers that prove it: TTFT
 (time-to-first-token), ITL (inter-token latency) percentiles, and
-aggregate tokens/sec, measured against the in-process core.
+aggregate tokens/sec, measured over ``/generate_stream`` SSE, decoupled
+gRPC streams, or the in-process core — whatever the backend speaks.
 
 Same window/stability machinery as the scalar profiler: tokens are
 counted the moment they ARRIVE (throughput is arrival-rate, not
 completion-rate), while TTFT/ITL samples are attributed to the window
 their generation completes in.
 
-The port's copy of ``perfanalyzer/generation.py``, less the fleet-router
-counter deltas (a router target only), plus one count the JAX module
-does not keep: :attr:`GenerationProfiler.stream_tokens`, the tokens of
-each completed stream by load level, so a run shows that every stream
-returned what it asked for.  It stays out of the report rows, which keep
-the JAX tool's keys.
+The port's copy of ``perfanalyzer/generation.py``: against a fleet
+router each level also carries the router's counter deltas, as in
+JAX's.  It keeps one count the JAX module does not:
+:attr:`GenerationProfiler.stream_tokens`, the tokens of each completed
+stream by load level, so a run shows that every stream returned what it
+asked for.  It stays out of the report rows, which keep the JAX tool's
+keys.
 """
 
 import collections
@@ -262,6 +264,7 @@ class GenerationProfiler:
         detector = StabilityDetector(
             self.stability_pct, self.stability_windows,
             check_latency=False)
+        router_before = self.backend.router_snapshot()
         # radix prefix-cache counters: the level delta becomes the
         # report's hit-rate column — post-warmup, so the first
         # admissions stay out of the rate
@@ -314,6 +317,8 @@ class GenerationProfiler:
             resume_events=sum(w["resume_events"] for w in merged),
             duration_s=duration,
         )
+        metrics.attach_router_delta(result, router_before,
+                                    self.backend.router_snapshot())
         prefix_after = self.backend.prefix_cache_snapshot()
         if prefix_before is not None and prefix_after is not None:
             # counters are cumulative; max() guards a scheduler rebuilt

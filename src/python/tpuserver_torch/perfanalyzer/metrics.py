@@ -7,10 +7,10 @@ MergePerfStatusReports at inference_profiler.cc:948).  Everything here
 is deterministic and clock-free so the unit tests can drive it with
 synthetic numbers.
 
-The port's copy of ``perfanalyzer/metrics.py``, less the fleet-router
-deltas (``attach_router_delta``), which only a router target reaches,
-and the per-replica pairing of multi-replica snapshots: the in-process
-backend drives one core.
+The port's copy of ``perfanalyzer/metrics.py``, the fleet-router
+deltas (:func:`attach_router_delta`) included, less the per-replica
+pairing of multi-replica snapshots (``zero_snapshot``), which only the
+client library's endpoint-pool backend uses.
 
 Execution counts differ from the JAX package's: the port's core counts
 one execution per model call, so a dynamic batch counts once however
@@ -165,3 +165,83 @@ def merge_window_records(windows):
         "errors": errors,
         "duration_s": total_s,
     }
+
+
+#: Fleet-supervisor counters relayed through ``/router/stats`` when a
+#: supervisor is attached — the process-level twin of the router's own
+#: failover/handoff counters.
+SUPERVISOR_COUNTERS = (
+    "supervisor_replica_restarts",
+    "supervisor_scale_up_events",
+    "supervisor_scale_down_events",
+    "supervisor_retired_replicas",
+    # crash durability: a nonzero per-window adoption delta
+    # means the SUPERVISOR itself restarted under this level and the
+    # fleet kept serving through it
+    "supervisor_adoptions",
+    "supervisor_clean_handovers",
+    "supervisor_stale_children_reaped",
+    "supervisor_manifest_records",
+)
+
+
+def attach_router_delta(result, before, after):
+    """Fold a load level's fleet-router counter deltas into a
+    :class:`~tpuserver_torch.perfanalyzer.profiler.ProfileResult` as
+    ``router_*`` fields.
+
+    Only set when the backend target IS a router (both snapshots
+    non-None; see ``ClientBackend.router_snapshot``).  Level-scoped on
+    purpose — a router absorbs faults *between* the client and the
+    fleet, so its failover/handoff counters are the server-side twin of
+    the client-side ``resumed_streams``: nonzero means replicas were
+    dying or shedding under this level even though every request still
+    succeeded.
+
+    When the router fronts a supervised fleet (``tpuserver_torch.fleet``)
+    the snapshot also carries the supervisor's process-level healing
+    counters (``supervisor_replica_restarts`` etc.); those diff the
+    same way — a nonzero per-window delta means whole replica
+    PROCESSES died, scaled, or retired under this level."""
+    if before is None or after is None:
+        return
+    for key in ("failovers", "handoffs", "resumed_streams", "shed"):
+        result["router_" + key] = after[key] - before[key]
+    # tail-latency defense (gray-failure soft-ejections, hedge fires)
+    # and router-HA (standby takeovers, journal-recovered generations)
+    # counters diff the same way — guarded presence-in-both like the
+    # supervisor counters so a snapshot from a router predating them
+    # never fabricates a delta.  A nonzero takeover delta means the
+    # FRONT TIER failed over under this level and every request still
+    # in the window rode it out.
+    for key in ("ejections", "hedges", "takeovers",
+                "recovered_generations"):
+        if key in before and key in after:
+            result["router_" + key] = after[key] - before[key]
+    for key in SUPERVISOR_COUNTERS:
+        if key in before and key in after:
+            result[key] = after[key] - before[key]
+    # disaggregated prefill/decode: the phase-split orchestrator's
+    # counters ride the snapshot as a nested dict.  Diff the cumulative
+    # members and derive the per-phase averages the generation report
+    # renders (prefill-queue ms per split, KV-transfer ms per
+    # transfer) — all presence-guarded, so a router predating the
+    # split plane never fabricates a column.
+    disagg_before, disagg_after = before.get("disagg"), after.get("disagg")
+    if isinstance(disagg_before, dict) and isinstance(disagg_after, dict):
+        for key in ("splits", "transfers", "transfer_bytes",
+                    "transfer_ms_total", "prefill_queue_ms_total"):
+            if key in disagg_before and key in disagg_after:
+                result["disagg_" + key] = (
+                    disagg_after[key] - disagg_before[key])
+        result["disagg_fallbacks"] = (
+            sum((disagg_after.get("fallbacks") or {}).values())
+            - sum((disagg_before.get("fallbacks") or {}).values()))
+        splits = result.get("disagg_splits")
+        if splits:
+            result["prefill_queue_ms"] = (
+                result["disagg_prefill_queue_ms_total"] / splits)
+        transfers = result.get("disagg_transfers")
+        if transfers:
+            result["kv_transfer_ms"] = (
+                result["disagg_transfer_ms_total"] / transfers)

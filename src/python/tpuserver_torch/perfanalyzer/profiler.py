@@ -9,8 +9,9 @@ windows into one reported sample with client-side percentiles and a
 server-side queue/compute breakdown diffed from
 the server's statistics.
 
-The port's copy of ``perfanalyzer/profiler.py``, less the fleet-router
-counter deltas (a router target only).
+The port's copy of ``perfanalyzer/profiler.py``; against a fleet router
+each level also carries the router's counter deltas
+(:func:`~tpuserver_torch.perfanalyzer.metrics.attach_router_delta`).
 """
 
 import time
@@ -120,6 +121,7 @@ class InferenceProfiler:
         detector = StabilityDetector(
             self.stability_pct, self.stability_windows,
             check_latency=self.check_latency_stability)
+        router_before = self.backend.router_snapshot()
         windows = []  # (duration, latencies, errors, server_delta)
         stable = False
         interrupted = False
@@ -169,6 +171,8 @@ class InferenceProfiler:
         )
         result.update(latency)
         result.update(breakdown)
+        metrics.attach_router_delta(result, router_before,
+                                    self.backend.router_snapshot())
         return result
 
     # -- the sweep ---------------------------------------------------------

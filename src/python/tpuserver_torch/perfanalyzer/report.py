@@ -9,9 +9,9 @@ the existing bench history unmodified.
 
 The port's copy of ``perfanalyzer/report.py``: the same table columns,
 CSV header and JSON row keys, so a benchmark reads the port's rows as it
-reads the JAX tool's, and the distributed mode's per-window CSV.  Left
-out: the fleet-router footer of the table, which only a router target's
-counters fill.
+reads the JAX tool's, the distributed mode's per-window CSV, and the
+table's fleet-router footer, which a router target's counter deltas
+fill.
 """
 
 import csv
@@ -56,9 +56,9 @@ _GEN_COLUMNS = [
     # acceptance rate; absent on pre-speculation targets
     ("spec_accept_per_step", "{:.2f}"),
     ("spec_hit_pct", "{:.1f}"),
-    # per-phase columns of a disaggregated fleet behind a router (the
-    # JAX tool's; no in-process run sets them, and absent fields render
-    # "-", never 0)
+    # per-phase columns from the router's disagg counters (set by
+    # attach_router_delta only when the target router runs the
+    # phase-split plane; absent fields render "-", never 0)
     ("prefill_queue_ms", "{:.2f}"),
     ("kv_transfer_ms", "{:.2f}"),
     ("errors", "{:d}"),
@@ -173,6 +173,57 @@ class ReportWriter:
             "perf_analyzer", self.model, self.backend_kind, mode),
             file=file)
         print(self.table(results), file=file, flush=True)
+        if any(r.get("router_handoffs") is not None for r in results):
+            # the target is a fleet router: its per-level resilience
+            # counters sit next to the client-side resumed_streams —
+            # nonzero means replicas died or shed under this level even
+            # when every request above still succeeded
+            for r in results:
+                if r.get("router_handoffs") is None:
+                    continue  # this level's snapshot transiently failed
+                line = ("  level {}: router failovers={} handoffs={} "
+                        "resumed_streams={} shed={}".format(
+                            r.get("level"),
+                            r.get("router_failovers"),
+                            r.get("router_handoffs"),
+                            r.get("router_resumed_streams"),
+                            r.get("router_shed")))
+                if r.get("router_ejections") is not None:
+                    # tail-latency defense: gray-failure soft-ejections
+                    # and hedge fires under this level — nonzero
+                    # ejections with flat errors means the router
+                    # routed around a slow replica without the client
+                    # noticing
+                    line += " ejections={} hedges={}".format(
+                        r.get("router_ejections"),
+                        r.get("router_hedges"))
+                if r.get("router_takeovers") is not None:
+                    # router HA: a nonzero takeover delta means the
+                    # FRONT TIER itself failed over (standby promoted)
+                    # under this level; recovered counts the
+                    # generations the journal rebuilt for resumes
+                    line += " takeovers={} recovered={}".format(
+                        r.get("router_takeovers"),
+                        r.get("router_recovered_generations"))
+                if r.get("supervisor_replica_restarts") is not None:
+                    # a supervised fleet sits behind the router: its
+                    # per-window process-healing counters ride along —
+                    # nonzero means whole replica processes died or
+                    # scaled under this level
+                    line += (" | supervisor restarts={} scale_up={} "
+                             "scale_down={} retired={}".format(
+                                 r.get("supervisor_replica_restarts"),
+                                 r.get("supervisor_scale_up_events"),
+                                 r.get("supervisor_scale_down_events"),
+                                 r.get("supervisor_retired_replicas")))
+                if r.get("supervisor_adoptions") is not None:
+                    # crash durability: a nonzero adoption delta means
+                    # the SUPERVISOR itself restarted under this level
+                    # and adopted its children instead of respawning
+                    # them — serving never flinched
+                    line += " adoptions={}".format(
+                        r.get("supervisor_adoptions"))
+                print(line, file=file, flush=True)
 
     def write_csv(self, path, results):
         """Reference-style CSV: one row per load level."""
