@@ -14,7 +14,12 @@ Phases, in order; any failure exits non-zero and prints no result line:
    also against the
    plain model of its split-K), and timed beside its bound, its plain
    version and one PyTorch library call (for single-row decode also SDPA
-   over the live prefix alone);
+   over the live prefix alone); then, untimed, every route the main path
+   does not run (``phase_route_checks``: flash's and decode's float32 and
+   other-head-dim "simt" routes, decode past 8 query heads a kv head on
+   both routes, the W8A16 product's float32 route) against its plain
+   version at small shapes with a planted fault, the route each launched
+   on counted;
 4. serve: ``tpuserver_torch``'s server and HTTP front end serving
    ``llama3_8b`` (full width and depth, random weights from a seed,
    ``max_seq`` 4096) three ``/generate_stream`` requests over a socket,
@@ -476,8 +481,46 @@ Phases, in order; any failure exits non-zero and prints no result line:
    rows of 520-544 keys in a 1024-key cache; phase 3 holds flash at T
    512); both arms' launches make the ``router_view`` rows.
 
+20. kernel domain, in ``python3 chip_smoke.py --kernel-domain-only``
+   alone, which runs phases 1-3 and 20 and prints the phase's ``{"kernels":
+   [...]}`` line, the card's name and power limit and the result line; the
+   full script does not run it.  TF32 off for the phase.  (a) Each route
+   beyond the bf16 tensor-core ones against its plain version and timed
+   (CUDA events, L2 flushed) beside its bound, the plain version and one
+   library call at the same dtype (masked SDPA; for decode also SDPA over
+   the live prefix; for the W8A16 product a float32 ``torch.matmul`` over
+   the dequantized weight): flash float32 at ``llama3_8b`` and
+   ``llama3_1b`` (T 512), bf16 at D 8 (``tiny``), bf16 and float32 at D 96
+   and 256 over one kv head; decode bf16 at H 128 over Hkv 8 (length 4096
+   of 8192), float32 multi-query (H 32, Hkv 1), bf16 at D 96 and 256, and
+   at (b)'s and (c)'s served steps; the W8A16 float32 route at M 1 and 8
+   over ``llama3_8b``'s weights (one decode step's products) and one ragged
+   shape.  (b) ``llama3_8b`` drawn in float32 from the seed, served
+   through ``InferenceServer`` and ``LlamaGenerateModel`` over HTTP at one
+   slot and at ``KD_SLOTS`` (the paged scheduler): a 512-token prompt
+   (and a second at ``KD_SLOTS``), 32 greedy tokens; flash's and decode's
+   float32 routes launched; the same weights at ``attn_impl="dense"``: the
+   prefill's last-row logits within ``KD_LOGITS_TOL`` row-relative, the
+   tokens side by side, a difference failing unless the dense arm's top-2
+   gap there is a near tie (``KD_GAP_TOL``).  (d) the same tree quantized
+   (int8 weights, float32 activations), one stream: the W8A16 float32
+   route launched; one decode step's logits within ``KD_INT8_LOGITS_TOL``
+   of the same step with ``quant.int8_matmul`` bound to its plain version
+   (put back after), a planted fault beyond it; the peak with both trees.
+   (c) ``tiny`` (vocab 128) and a narrow multi-query model (H 16, Hkv 1,
+   D 96, 2 layers), bf16 at ``attn_impl="kernel"``: JAX's
+   ``test_llama_decode_pallas_matches_xla`` (a 128-token prompt, 12
+   tokens in chunks of 4, ``max_seq`` 256): tokens identical to the dense
+   arm's, the other-head-dim routes launched.  The rows of the line: each
+   path's kernels on their routes, and each timed route no path runs with
+   its 0 launches.
+
 The peaks of every bound come from ``tpuserver_torch.ops.perf`` by the
-card's name (phase 1 fails on a card the table does not know).  The line
+card's name (phase 1 fails on a card the table does not know).  Every
+row of a kernels line names the route (``kernel_route``) of the shape it
+is timed at; the full script's rows also name every route of their
+kernel with the largest row-relative error phase 3 held it to
+(``routes_held_in_phase3``).  The line
 before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -496,11 +539,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src", "python"))
 
 # the card's published peaks (HBM bytes/s, dense bf16 tensor-core
-# operations/s), read from tpuserver_torch.ops.perf by name in phase 1;
-# float32 outside the tensor cores is not in that table (H100 SXM, NVIDIA
-# data sheet)
+# operations/s, float32 FMA operations/s on the CUDA cores), read from
+# tpuserver_torch.ops.perf by name in phase 1
 SPEC = None
-F32_OPS_PER_S = 67e12
 
 # kernel vs plain tolerances on the card.  The measure is row-relative:
 # for each output row (one query head's D values) the largest |kernel -
@@ -800,7 +841,7 @@ def _flash_case(torch, F, fl, dev, gen, b, t, h, hkv, d, causal, dtype,
         nbytes = (2 * b * t * h * d + 2 * b * t * hkv * d) * isz
         row["bound_ms"], row["bound_by"] = _bound_ms(
             nbytes, 4 * pairs * d, SPEC.peak_bf16_flops
-            if dtype == torch.bfloat16 else F32_OPS_PER_S)
+            if dtype == torch.bfloat16 else SPEC.peak_fp32_flops)
     return row
 
 
@@ -941,7 +982,7 @@ def _decode_case(torch, F, fl, dev, gen, lengths, s, h, hkv, d, dtype, timed,
         nbytes = (2 * live * hkv * d + 2 * b * h * d) * isz + 4 * b
         row["bound_ms"], row["bound_by"] = _bound_ms(
             nbytes, 4 * live * h * d, SPEC.peak_bf16_flops
-            if dtype == torch.bfloat16 else F32_OPS_PER_S)
+            if dtype == torch.bfloat16 else SPEC.peak_fp32_flops)
     return row
 
 
@@ -1124,12 +1165,228 @@ def phase_kernels(torch):
         fail("a planted fault passes the tolerance: {}".format(blind))
     del flush
     torch.cuda.empty_cache()
+    rows += phase_route_checks(torch)
     max_err = {}
     for row in rows:
         max_err[row["kernel"]] = max(max_err.get(row["kernel"], 0.0),
                                      row["max_abs_err"])
     return {"timed": timed, "max_err": max_err,
+            "route_err": _route_errors(rows + list(int8_tp4.values())),
             "flash_lengths": set(prefill_ts)}
+
+
+def _route_errors(rows):
+    """{kernel: {route: the largest row-relative error against its plain
+    version}} over phase 3's cases, each under the route its shape
+    took."""
+    out = {}
+    for row in rows:
+        by_route = out.setdefault(row["kernel"], {})
+        route = _route_of(row["kernel"], row)
+        by_route[route] = max(by_route.get(route, 0.0), row["row_rel_err"])
+    return out
+
+
+# phase 3's check of the kernels' routes beyond the bf16 tensor-core ones
+# the main path runs (the float32 and other-head-dim "simt" routes, and
+# the decode kernel past 8 query heads a kv head, where its blocks take
+# the heads in groups of 8), each against its plain version at a small
+# shape with a planted fault; correctness only (phase 20 times them).
+# flash: (b, t, h, hkv, d, causal, dtype); t is no multiple of the simt
+# route's 32-key tile where it can be
+ROUTE_FLASH_CASES = (
+    (2, 200, 8, 2, 128, True, "float32"),     # llama3_8b's heads, float32
+    (1, 128, 8, 4, 8, True, "bfloat16"),      # tiny's
+    (1, 160, 16, 1, 96, True, "bfloat16"),    # multi-query, D 96
+    (1, 96, 4, 1, 256, False, "float32"),
+    (1, 72, 4, 2, 256, True, "bfloat16"),
+    (1, 72, 6, 3, 24, False, "float32"),
+    (2, 136, 8, 2, 64, True, "float32"))      # llama3_1b's head dim
+# decode: (lengths, s, h, hkv, d, dtype)
+ROUTE_DECODE_CASES = (
+    ((0, 1, 300, 512), 512, 128, 8, 128, "bfloat16"),  # mma, 2 groups a kv head
+    ((9, 200), 256, 40, 4, 64, "bfloat16"),            # mma, groups of 8 and 2
+    ((576,), 4096, 32, 1, 128, "float32"),             # simt, 4 groups
+    ((0, 77, 512), 512, 16, 1, 96, "bfloat16"),        # simt, 12-lane teams of 16
+    ((33, 256), 256, 8, 2, 256, "bfloat16"),
+    ((40, 17, 64), 64, 12, 1, 24, "float32"))
+# the W8A16 product's float32 route: (m, k, n); 4099 x 1005 and 37 x 29
+# take its byte loads (N no multiple of 4), 14336 x 4096 its split K
+ROUTE_INT8_CASES = ((1, 4096, 4096), (3, 37, 29), (8, 14336, 4096),
+                    (13, 1040, 200), (5, 4096 + 3, 1000 + 5))
+
+
+def _route_counts():
+    """Each kernel wrapper's launches by route."""
+    from tpuserver_torch.ops import flash as fl
+    from tpuserver_torch.ops import quant
+
+    return {"flash_attention": dict(fl.flash_attention.route_launches),
+            "decode_attention": dict(fl.decode_attention.route_launches),
+            "int8_matmul": dict(quant.int8_matmul.route_launches)}
+
+
+def _route_launched(kname, route, before, n):
+    """Fail unless ``kname`` launched ``n`` times on ``route`` since the
+    counts ``before``, and on no other route."""
+    after = _route_counts()[kname]
+    moved = {r: after[r] - before[kname][r] for r in after}
+    if moved != {r: (n if r == route else 0) for r in after}:
+        fail("{} launched {} by route (want {} on {})".format(
+            kname, moved, n, route))
+
+
+def _route_of(kname, row):
+    """The route the shape of a timed ``row`` takes: its own
+    ``kernel_route``, else the one ``tpuserver_torch.ops``' route tables
+    give its dtype and head dim (a row without a dtype is bf16); None for
+    an attention row that names no head dim."""
+    import torch
+
+    from tpuserver_torch.ops import flash as fl
+    from tpuserver_torch.ops import quant
+
+    if "kernel_route" in row:
+        return row["kernel_route"]
+    if kname != "int8_matmul" and "d" not in row:
+        return None
+    dtype = {"float32": torch.float32, "bfloat16": torch.bfloat16}[
+        row.get("dtype", "bfloat16")]
+    if kname == "flash_attention":
+        return fl.flash_route(dtype, row["d"])
+    if kname == "decode_attention":
+        return fl.decode_route(dtype, row["d"], row["h"] // row["hkv"])
+    return quant.int8_route(dtype)
+
+
+def _skipped_keys_reference(fl, q, k, v, causal, keys):
+    """Flash's plain version with every key at or past ``keys`` dropped
+    (the rows before ``keys`` causal as they are)."""
+    if not causal:
+        return fl.flash_attention_reference(q, k[:, :keys], v[:, :keys],
+                                            causal=False)
+    import torch
+
+    return torch.cat([
+        fl.flash_attention_reference(q[:, :keys], k[:, :keys], v[:, :keys],
+                                     causal=True),
+        fl.flash_attention_reference(q[:, keys:], k[:, :keys], v[:, :keys],
+                                     causal=False)], dim=1)
+
+
+def phase_route_checks(torch):
+    """Phase 3, the routes: every case of ``ROUTE_*_CASES`` through its
+    wrapper on the card (two calls the same bits, the route the table
+    names launched once a call) against its plain version within ``TOL``
+    row-relative, and planted faults the limit must see (the last 32 keys
+    dropped or a length shortened by 32; a rolled kv head where there are
+    two; the last 32 weight rows zeroed); returns the rows (untimed)."""
+    from tpuserver_torch.ops import flash as fl
+    from tpuserver_torch.ops import quant
+
+    t0 = time.monotonic()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 25)
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    rows = []
+
+    def twice(kname, route, fn):
+        before = _route_counts()
+        out, again = fn(), fn()
+        torch.cuda.synchronize()
+        _route_launched(kname, route, before, 2)
+        if not torch.equal(out, again):
+            fail("{} ({}): two calls on the same inputs differ".format(
+                kname, route))
+        return out
+
+    for b, t, h, hkv, d, causal, dt in ROUTE_FLASH_CASES:
+        dtype = dtypes[dt]
+        q, k, v = (torch.randn(b, t, hh, d, device=dev, generator=gen).to(
+            dtype) for hh in (h, hkv, hkv))
+        route = fl.flash_route(dtype, d)
+        out = twice("flash_attention", route, lambda: fl.flash_attention(
+            q, k, v, causal=causal, block_q=t, block_k=t))
+        ref = fl.flash_attention_reference(q, k, v, causal=causal)
+        faults = {"skipped_keys": _skipped_keys_reference(
+            fl, q, k, v, causal, t - 32)}
+        if hkv > 1:
+            faults["wrong_kv_head"] = fl.flash_attention_reference(
+                q, k.roll(1, dims=2), v.roll(1, dims=2), causal=causal)
+        rows.append({"kernel": "flash_attention", "kernel_route": route,
+                     "b": b, "t": t, "h": h, "hkv": hkv, "d": d,
+                     "causal": causal, "dtype": dt,
+                     "max_abs_err": (out.float() - ref.float()).abs().max()
+                     .item(), "row_rel_err": row_rel_err(out, ref),
+                     "planted_fault_err": {n: row_rel_err(f, ref)
+                                           for n, f in faults.items()}})
+    for lengths, ss, h, hkv, d, dt in ROUTE_DECODE_CASES:
+        dtype = dtypes[dt]
+        bb = len(lengths)
+        q = torch.randn(bb, h, d, device=dev, generator=gen).to(dtype)
+        kc, vc = (torch.randn(bb, ss, hkv, d, device=dev, generator=gen).to(
+            dtype) for _ in range(2))
+        lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        route = fl.decode_route(dtype, d, h // hkv)
+        out = twice("decode_attention", route,
+                    lambda: fl.decode_attention(q, kc, vc, lens))
+        ref = fl.decode_attention_reference(q, kc, vc, lens)
+        n_split = fl.decode_splits(bb, hkv, ss, fl._sm_count(dev))
+        split_ref = fl.decode_attention_split_reference(q, kc, vc, lens,
+                                                        n_split)
+        for i, n in enumerate(lengths):
+            if n == 0 and out[i].abs().max().item() != 0.0:
+                fail("decode_attention ({}): a length-0 row is not "
+                     "zeros".format(route))
+        faults = {"shortened": fl.decode_attention_reference(
+            q, kc, vc, (lens - 32).clamp_min(0))}
+        if hkv > 1:
+            faults["wrong_kv_head"] = fl.decode_attention_reference(
+                q, kc.roll(1, dims=2), vc.roll(1, dims=2), lens)
+        rows.append({"kernel": "decode_attention", "kernel_route": route,
+                     "lengths": list(lengths), "s": ss, "h": h, "hkv": hkv,
+                     "d": d, "dtype": dt, "n_split": n_split,
+                     "max_abs_err": (out.float() - ref.float()).abs().max()
+                     .item(), "row_rel_err": max(
+                         row_rel_err(out, ref), row_rel_err(out, split_ref)),
+                     "planted_fault_err": {n: row_rel_err(f, ref)
+                                           for n, f in faults.items()}})
+    for m, k, n in ROUTE_INT8_CASES:
+        w = torch.randn(k, n, device=dev, generator=gen) / k ** 0.5
+        qw = quant.quantize_int8(w)
+        x = torch.randn(m, k, device=dev, generator=gen)
+        route = quant.int8_route(x.dtype)
+        out = twice("int8_matmul", route,
+                    lambda: quant.int8_matmul(x, qw["q"], qw["s"]))
+        if not torch.equal(out[:1], quant.int8_matmul(x[:1], qw["q"],
+                                                      qw["s"])):
+            fail("int8_matmul ({}): a row differs from itself computed "
+                 "alone".format(route))
+        ref = quant.int8_matmul_reference(x, qw["q"], qw["s"])
+        cut = qw["q"].clone()
+        cut[-32:] = 0
+        rows.append({"kernel": "int8_matmul", "kernel_route": route, "m": m,
+                     "k": k, "n": n, "dtype": "float32",
+                     "max_abs_err": (out - ref).abs().max().item(),
+                     "row_rel_err": row_rel_err(out, ref),
+                     "planted_fault_err": {"skipped_rows": row_rel_err(
+                         quant.int8_matmul_reference(x, cut, qw["s"]),
+                         ref)}})
+    bad = [r for r in rows if not r["row_rel_err"] <= TOL[r["dtype"]]]
+    blind = [r for r in rows if any(not e > TOL[r["dtype"]] for e in
+                                    r["planted_fault_err"].values())]
+    for row in rows:
+        log("route_case:", json.dumps(row))
+    torch.cuda.empty_cache()
+    routes = sorted({(r["kernel"], r["kernel_route"]) for r in rows})
+    log("phase 3 (routes): {} cases, routes {} held in {:.1f} s".format(
+        len(rows), ["{}/{}".format(*kr) for kr in routes],
+        time.monotonic() - t0))
+    if bad:
+        fail("routes disagree with their plain versions: {}".format(bad))
+    if blind:
+        fail("a planted fault passes a route's tolerance: {}".format(blind))
+    return rows
 
 
 def phase_flash_lengths(torch, rows, lengths, timed_as=None):
@@ -3628,18 +3885,19 @@ def _int8_cases(torch, quant, perf, dev, gen, k, n, flush,
     return rows
 
 
-def _int8_step_sum(cases, m, n_layers, weights=INT8_WEIGHTS):
+def _int8_step_sum(cases, m, n_layers, weights=INT8_WEIGHTS,
+                   keys=("ms", "plain_ms", "bound_ms", "bf16_matmul_ms",
+                         "library_ms")):
     """One decode step's W8A16 work at ``m`` rows from the timed shapes
     (``weights``: the model's, or one tp rank's shards): every layer's
-    seven products and the lm_head's, summed."""
+    seven products and the lm_head's, summed (each of ``keys``)."""
     uses = {}
     for name, k, n in weights:
         uses[(k, n)] = uses.get((k, n), 0) + (1 if name == "lm_head"
                                               else n_layers)
     out = {"m": m, "shape": "{} layers x (wq, wk, wv, wo, w_gate, w_up, "
            "w_down) + lm_head".format(n_layers)}
-    for key in ("ms", "plain_ms", "bound_ms", "bf16_matmul_ms",
-                "library_ms"):
+    for key in keys:
         vals = [(c, cases[(m,) + kn][key]) for kn, c in uses.items()]
         out[key] = (None if any(v is None for _, v in vals)
                     else sum(c * v for c, v in vals))
@@ -7004,6 +7262,7 @@ def _kernel_row(kname, path, launches, max_err, row, timed_as):
     ``path`` beside its time ``row`` at the ``timed_as`` shape."""
     return {
         "name": kname, "route": "cuda", "source": KERNEL_SRC.format(kname),
+        "kernel_route": _route_of(kname, row),
         "replaces": KERNEL_TPU[kname], "path": path, "launches": launches,
         "max_abs_err": max_err, "ms": row["ms"], "plain_ms": row["plain_ms"],
         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
@@ -8381,6 +8640,604 @@ def _router_view_kernel_rows(rows, decode_row, launches):
                                         list(ROUTER_VIEW_DECODE_LENGTHS)))]
 
 
+# -- phase 20: the kernels' whole reference domain --------------------------
+
+# (a) the routes timed, each against its plain version: flash (label, b, t,
+# h, hkv, d, causal, dtype), decode (label, lengths, s, h, hkv, d, dtype),
+# the W8A16 product's float32 route at one decode step's products at M 1
+# and 8 (llama3_8b's weights, INT8_WEIGHTS) and one ragged shape
+KD_FLASH_CASES = (
+    ("f32_8b", 1, 512, 32, 8, 128, True, "float32"),     # llama3_8b
+    ("f32_1b", 1, 512, 32, 8, 64, True, "float32"),      # llama3_1b
+    ("bf16_d8", 1, 128, 8, 4, 8, True, "bfloat16"),      # tiny
+    ("bf16_d96", 1, 512, 16, 1, 96, True, "bfloat16"),
+    ("f32_d96", 1, 512, 16, 1, 96, False, "float32"),
+    ("bf16_d256", 1, 512, 16, 1, 256, True, "bfloat16"),
+    ("f32_d256", 1, 512, 16, 1, 256, True, "float32"))
+KD_DECODE_CASES = (
+    ("bf16_h128", (4096,), 8192, 128, 8, 128, "bfloat16"),  # 405B's heads
+    ("f32_mqa", (576,), 4096, 32, 1, 128, "float32"),
+    ("bf16_d96", (576,), 4096, 16, 1, 96, "bfloat16"),
+    ("bf16_d256", (576,), 4096, 8, 2, 256, "bfloat16"),
+    # (b)'s served steps: one stream, and four slots, of llama3_8b float32
+    ("f32_8b", (544,), 1024, 32, 8, 128, "float32"),
+    ("f32_8b_batched", (544, 543, 542, 541), 1024, 32, 8, 128, "float32"),
+    # (c)'s steps: tiny and the narrow D 96 model, a 128-token prompt and
+    # 12 tokens in a 256-key cache
+    ("bf16_tiny", (139,), 256, 8, 4, 8, "bfloat16"),
+    ("bf16_narrow", (139,), 256, 16, 1, 96, "bfloat16"))
+KD_INT8_ROWS = (1, 8)
+KD_INT8_RAGGED = (4096 + 3, 1000 + 5)
+# (b) and (d): llama3_8b in float32 (TF32 off) behind max_seq KD_SEQ, a
+# KD_PROMPT-token prompt (a flash length) and KD_TOKENS greedy tokens, at
+# one slot and at KD_SLOTS; (d) serves KD_INT8_TOKENS
+KD_SEQ = 1024
+KD_PROMPT = 512
+KD_TOKENS = 32
+KD_SLOTS = 4
+KD_INT8_TOKENS = 8
+# the CPU rehearsal's (b) and (d): float32 tiny at vocab 512, a 128-token
+# prompt, 8 tokens, max_seq 256
+KD_CPU = {"vocab": 512, "seq": 256, "prompt": 128, "tokens": 8}
+# (b): the kernel arm's prefill logits against the dense arm's (the same
+# weights at attn_impl="dense"), row-relative: both float32, the flash
+# route's sums in another order (float32 round-off, about 1e-6 of a logit,
+# carried through 32 layers); a difference of greedy tokens fails unless
+# the dense arm's top-2 gap at the first differing position is under
+# KD_GAP_TOL of that row's largest |logit| (a near tie)
+KD_LOGITS_TOL = 1e-3
+KD_GAP_TOL = 1e-3
+# (d): one decode step's logits with the W8A16 float32 route against the
+# same step with the plain product bound in its place (both float32, the
+# products' sums in another order)
+KD_INT8_LOGITS_TOL = 1e-3
+# (c): tiny (vocab 128) and a narrow multi-query model (H 16, Hkv 1, D 96,
+# 2 layers), bf16, attn_impl="kernel", decode_impl="auto", against their
+# dense arms: JAX's test_llama_decode_pallas_matches_xla (max_seq 256, a
+# 128-token prompt, 12 tokens in chunks of 4; tokens identical, the last
+# logits within 5e-2)
+KD_SMALL_SEQ = 256
+KD_SMALL_PROMPT = 128
+KD_SMALL_TOKENS = 12
+KD_SMALL_CHUNK = 4
+KD_SMALL_LOGITS_TOL = 5e-2
+KD_NARROW = {"d_model": 1536, "n_layers": 2, "n_heads": 16, "n_kv_heads": 1,
+             "d_ff": 4096}
+# the phase's share of a run: reported, not enforced
+KD_BUDGET_S = 300.0
+
+
+def kd_routes_launched(label, counts, want):
+    """Fail unless each route ``want`` names ({kernel: route}) launched
+    on the path ``label``; ``counts`` as ``_route_counts`` gives them."""
+    missing = ["{}/{}".format(k, r) for k, r in want.items()
+               if not counts.get(k, {}).get(r)]
+    if missing:
+        fail("kernel domain {}: routes never launched: {} (launches "
+             "{})".format(label, missing, json.dumps(counts)))
+
+
+def kd_token_rule(label, got, want, gap_at):
+    """The kernel arm's greedy tokens ``got`` against the dense arm's
+    ``want``: equal, or the first position where they differ is a near
+    tie of the dense arm: ``gap_at(j)`` gives (top-2 gap, largest |logit|)
+    of the dense logits that chose ``want[j]``, and the gap must be under
+    ``KD_GAP_TOL`` of it.  Fails otherwise; returns the record it logs."""
+    got, want = list(got), list(want)
+    first = next((j for j, (a, b) in enumerate(zip(got, want)) if a != b),
+                 None)
+    if first is None and len(got) != len(want):
+        fail("kernel domain {}: {} tokens against the dense arm's "
+             "{}".format(label, len(got), len(want)))
+    rec = {"agree": sum(a == b for a, b in zip(got, want)),
+           "of": len(want), "first_diff": first}
+    if first is not None:
+        gap, top = gap_at(first)
+        rec.update(top2_gap=gap, largest_logit=top,
+                   near_tie=bool(gap < KD_GAP_TOL * top))
+    log("kernel domain {}: tokens kernel {} | dense {}; {}".format(
+        label, got, want, json.dumps(rec)))
+    if first is not None and not rec["near_tie"]:
+        fail("kernel domain {}: tokens differ from the dense arm's at {} "
+             "where its top-2 gap {} is no near tie (largest |logit| "
+             "{})".format(label, first, rec["top2_gap"], rec["largest_logit"]))
+    return rec
+
+
+@contextlib.contextmanager
+def kd_plain_int8(quant, product=None):
+    """``quant.int8_matmul`` (the name the model calls) bound to
+    ``product`` (default: its plain version), and put back however the
+    block ends."""
+    kernel = quant.int8_matmul
+    quant.int8_matmul = product or quant.int8_matmul_reference
+    try:
+        yield
+    finally:
+        quant.int8_matmul = kernel
+
+
+def _kd_gap_at(torch, llama, params, cfg, prompt, tokens, device):
+    """``gap_at`` for ``kd_token_rule``: the dense forward of prompt +
+    tokens; position j's row is the one that chose ``tokens[j]``."""
+    ids = torch.tensor([[int(t) for t in prompt] + list(tokens)[:-1]],
+                       device=device)
+    with torch.inference_mode():
+        logits = llama.forward(params, ids, cfg)[0, len(prompt) - 1:].float()
+
+    def gap_at(j):
+        top2 = logits[j].topk(2)
+        return ((top2.values[0] - top2.values[1]).item(),
+                logits[j].abs().max().item())
+
+    return gap_at
+
+
+def _kd_flash_case(torch, F, fl, dev, gen, case, flush):
+    label, b, t, h, hkv, d, causal, dt = case
+    dtype = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dt]
+    before = _route_counts()
+    row = _flash_case(torch, F, fl, dev, gen, b, t, h, hkv, d, causal, dtype,
+                      True, flush)
+    row.update(kernel="flash_attention", label=label,
+               kernel_route=fl.flash_route(dtype, d))
+    if not _route_counts()["flash_attention"][row["kernel_route"]] > \
+            before["flash_attention"][row["kernel_route"]]:
+        fail("flash_attention {}: the {} route did not launch".format(
+            label, row["kernel_route"]))
+    if hkv == 1:  # a rolled kv head is the same head
+        row["planted_fault_err"].pop("wrong_kv_head")
+    return row
+
+
+def _kd_decode_case(torch, F, fl, dev, gen, case, flush):
+    label, lengths, s, h, hkv, d, dt = case
+    dtype = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dt]
+    before = _route_counts()
+    row = _decode_case(torch, F, fl, dev, gen, lengths, s, h, hkv, d, dtype,
+                       True, flush)
+    route = fl.decode_route(dtype, d, h // hkv)
+    row.update(kernel="decode_attention", label=label, kernel_route=route)
+    if not _route_counts()["decode_attention"][route] > \
+            before["decode_attention"][route]:
+        fail("decode_attention {}: the {} route did not launch".format(
+            label, route))
+    # the planted fault every case takes: each length shortened by 32
+    # keys, on the same inputs (drawn again from the case's seed)
+    g2 = torch.Generator(device=dev).manual_seed(SEED + 20 + s + h + d)
+    q = torch.randn(len(lengths), h, d, device=dev, generator=g2).to(dtype)
+    kc, vc = (torch.randn(len(lengths), s, hkv, d, device=dev,
+                          generator=g2).to(dtype) for _ in range(2))
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    out = fl.decode_attention(q, kc, vc, lens)
+    ref = fl.decode_attention_reference(q, kc, vc, lens)
+    row["row_rel_err"] = max(row["row_rel_err"], row_rel_err(out, ref))
+    row.setdefault("planted_fault_err", {})["shortened"] = row_rel_err(
+        fl.decode_attention_reference(q, kc, vc, (lens - 32).clamp_min(0)),
+        ref)
+    return row
+
+
+def _kd_int8_cases(torch, quant, dev, gen, k, n, flush, m_rows):
+    """The W8A16 float32 route against its plain version at (k, n) and
+    each of ``m_rows`` rows: two calls equal, rows equal to the rows
+    computed alone, a planted fault (the last 32 weight rows zeroed), and
+    the times of the kernel, the plain version and the library's float32
+    ``torch.matmul`` over the dequantized weight, beside the bound."""
+    w = torch.randn(k, n, device=dev, generator=gen) / k ** 0.5
+    qw = quant.quantize_int8(w)
+    q, s = qw["q"], qw["s"]
+    deq = q.float() * s
+    x = torch.randn(max(m_rows), k, device=dev, generator=gen)
+    alone = torch.cat([quant.int8_matmul(x[i:i + 1], q, s)
+                       for i in range(len(x))])
+    cut = q.clone()
+    cut[-32:] = 0
+    rows = {}
+    for m in m_rows:
+        xm = x[:m]
+        before = _route_counts()
+        out, again = quant.int8_matmul(xm, q, s), quant.int8_matmul(xm, q, s)
+        torch.cuda.synchronize()
+        _route_launched("int8_matmul", "simt", before, 2)
+        if not torch.equal(out, again) or not torch.equal(out, alone[:m]):
+            fail("int8_matmul float32 at ({}, {}), M {}: calls or rows "
+                 "alone differ".format(k, n, m))
+        ref = quant.int8_matmul_reference(xm, q, s)
+        row = {"kernel": "int8_matmul", "kernel_route": "simt", "m": m,
+               "k": k, "n": n, "dtype": "float32",
+               "max_abs_err": (out - ref).abs().max().item(),
+               "row_rel_err": row_rel_err(out, ref),
+               "planted_fault_err": {"skipped_rows": row_rel_err(
+                   quant.int8_matmul_reference(xm, cut, s), ref)},
+               "ms": _time_ms(torch, lambda: quant.int8_matmul(xm, q, s),
+                              50, flush),
+               "plain_ms": _time_ms(
+                   torch, lambda: quant.int8_matmul_reference(xm, q, s), 10,
+                   flush),
+               "library_ms": _time_ms(torch, lambda: xm @ deq, 50, flush),
+               "library": "float32 torch.matmul over the dequantized weight"}
+        nbytes = k * n + 4 * n + 4 * m * k + 4 * m * n
+        row["bound_ms"], row["bound_by"] = _bound_ms(
+            nbytes, 2 * m * k * n, SPEC.peak_fp32_flops)
+        rows[(m, k, n)] = row
+    return rows
+
+
+def _kernel_domain_timed(torch):
+    """(a) Every route of ``KD_*_CASES`` against its plain version and
+    timed (CUDA events, L2 flushed) beside its bound, the plain version
+    and the library call; returns the rows by label (the W8A16 rows by
+    (m, k, n), and its decode-step sums as ``int8_f32_step_m<M>``)."""
+    import torch.nn.functional as F
+
+    from tpuserver_torch.ops import flash as fl
+    from tpuserver_torch.ops import quant
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 20)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    rows = {}
+    for case in KD_FLASH_CASES:
+        rows["flash_" + case[0]] = _kd_flash_case(torch, F, fl, dev, gen,
+                                                  case, flush)
+    for case in KD_DECODE_CASES:
+        rows["decode_" + case[0]] = _kd_decode_case(torch, F, fl, dev, gen,
+                                                    case, flush)
+    int8 = {}
+    for k, n in sorted({(k, n) for _, k, n in INT8_WEIGHTS}
+                       | {KD_INT8_RAGGED}):
+        int8.update(_kd_int8_cases(torch, quant, dev, gen, k, n, flush,
+                                   KD_INT8_ROWS))
+    del flush
+    torch.cuda.empty_cache()
+    for m in KD_INT8_ROWS:
+        step = _int8_step_sum(int8, m, 32, keys=(
+            "ms", "plain_ms", "bound_ms", "library_ms"))
+        step.update(kernel="int8_matmul", kernel_route="simt",
+                    dtype="float32", max_abs_err=max(
+                        r["max_abs_err"] for r in int8.values()))
+        rows["int8_f32_step_m{}".format(m)] = step
+    m, k, n = 8, *KD_INT8_RAGGED
+    rows["int8_f32_ragged"] = int8[(m, k, n)]
+    bad, blind = [], []
+    for key, row in list(rows.items()) + [
+            ("int8 {}".format(kmn), r) for kmn, r in int8.items()]:
+        log("kernel_domain_case: {} {}".format(key, json.dumps(
+            row, default=str)))
+        tol = TOL[row["dtype"]]
+        if "row_rel_err" in row and not row["row_rel_err"] <= tol:
+            bad.append(key)
+        if any(not e > tol for e in row.get("planted_fault_err",
+                                            {}).values()):
+            blind.append(key)
+    for key, row in rows.items():
+        log("kernel domain (a): {} {} ms, bound {} ms ({}), plain {} ms, "
+            "library {} ms".format(key, row["ms"], row["bound_ms"],
+                                   row["bound_by"], row["plain_ms"],
+                                   row["library_ms"]))
+    if bad:
+        fail("kernel domain (a): routes disagree with their plain "
+             "versions: {}".format(bad))
+    if blind:
+        fail("kernel domain (a): a planted fault passes the tolerance: "
+             "{}".format(blind))
+    return rows
+
+
+def _kd_serve(torch, cfg, params, device, max_slots, prompts, n_tokens,
+              max_seq, **kwargs):
+    """``prompts`` through an ``InferenceServer`` with a
+    ``LlamaGenerateModel`` on ``params`` behind the port's HTTP server
+    (all at once when there are several); returns (each prompt's
+    streamed tokens, the launches by route, the model)."""
+    from tpuserver_torch import ops
+    from tpuserver_torch.core import InferenceServer
+    from tpuserver_torch.http_server import HttpServer
+    from tpuserver_torch.models.llama_serving import LlamaGenerateModel
+
+    model = LlamaGenerateModel(cfg=cfg, max_seq=max_seq, max_slots=max_slots,
+                               params=params, device=device, **kwargs)
+    model.warmup()
+    core = InferenceServer([model])
+    http = HttpServer(core, port=0).start()
+    try:
+        ops.reset_launch_counts()
+        results, _ = _batched_round(http.port, prompts,
+                                    [n_tokens] * len(prompts),
+                                    range(len(prompts)))
+        if device == "cuda":
+            torch.cuda.synchronize()
+        counts = _route_counts()
+    finally:
+        http.stop()
+        core.close()
+    tokens = [results[i][0] for i in range(len(prompts))]
+    if any(len(t) != n_tokens or not results[i][3]
+           for i, t in enumerate(tokens)):
+        fail("kernel domain: a stream ended short: {}".format(
+            [len(t) for t in tokens]))
+    return tokens, counts, model
+
+
+def _kd_prefill_logits(torch, llama, params, cfg, prompt, max_seq, device):
+    tokens = torch.tensor([[int(t) for t in prompt]], device=device)
+    with torch.inference_mode():
+        cache = llama.init_kv_cache(cfg, 1, max_seq, device)
+        logits, cache = llama.prefill(params, cache, tokens, cfg)
+    return logits.float(), cache
+
+
+def _kernel_domain_f32(torch, np, smi, device):
+    """(b) and (d): llama3_8b in float32 (float32 tiny on the CPU) served
+    with the kernels at one slot and at ``KD_SLOTS`` against its dense
+    arm, then quantized (int8 weights, float32 activations) against its
+    own step with the plain W8A16 product; returns the launches by path."""
+    from tpuserver_torch.models import llama
+    from tpuserver_torch.models.llama_serving import LlamaGenerateModel
+    from tpuserver_torch.ops import quant
+
+    card = device == "cuda"
+    if card:
+        cfg = dataclasses.replace(llama.llama3_8b(), dtype=torch.float32)
+        seq, n_prompt, n_tokens = KD_SEQ, KD_PROMPT, KD_TOKENS
+    else:
+        cfg = dataclasses.replace(llama.tiny(vocab=KD_CPU["vocab"]),
+                                  dtype=torch.float32, attn_impl="kernel")
+        seq, n_prompt, n_tokens = (KD_CPU["seq"], KD_CPU["prompt"],
+                                   KD_CPU["tokens"])
+    dense = dataclasses.replace(cfg, attn_impl="dense", decode_impl="dense")
+    t0 = time.monotonic()
+    params = LlamaGenerateModel(cfg=cfg, seed=SEED,
+                                device=device)._ensure_params()
+    if card:
+        torch.cuda.synchronize()
+    log("kernel domain (b): {} float32 weights drawn in {:.1f} s, {:.3f} "
+        "GiB allocated".format("llama3_8b" if card else "tiny",
+                               time.monotonic() - t0,
+                               torch.cuda.memory_allocated() / 2 ** 30
+                               if card else 0.0))
+    rng = np.random.RandomState(SEED + 20)
+    prompts = [rng.randint(0, cfg.vocab, n_prompt) for _ in range(2)]
+    launches = {}
+    single, launches["f32_serve"], _ = _kd_serve(
+        torch, cfg, params, device, 1, prompts[:1], n_tokens, seq)
+    batched, launches["f32_serve_batched"], _ = _kd_serve(
+        torch, cfg, params, device, KD_SLOTS, prompts, n_tokens, seq)
+    plain, dense_counts, _ = _kd_serve(torch, dense, params, device, 1,
+                                       prompts[:1], n_tokens, seq)
+    log("kernel domain (b): launches by route: single {}, batched {}, "
+        "dense arm {}".format(json.dumps(launches["f32_serve"]),
+                              json.dumps(launches["f32_serve_batched"]),
+                              json.dumps(dense_counts)))
+    if card:
+        for path in ("f32_serve", "f32_serve_batched"):
+            kd_routes_launched(path, launches[path], {
+                "flash_attention": "simt", "decode_attention": "simt"})
+        if any(n for by_route in dense_counts.values()
+               for n in by_route.values()):
+            fail("kernel domain (b): the dense arm launched a kernel")
+    lk, _ = _kd_prefill_logits(torch, llama, params, cfg, prompts[0], seq,
+                               device)
+    ld, _ = _kd_prefill_logits(torch, llama, params, dense, prompts[0], seq,
+                               device)
+    err = row_rel_err(lk, ld)
+    log("kernel domain (b): prefill last-row logits, kernel arm against "
+        "dense arm, row-relative {} (limit {}), {}".format(
+            err, KD_LOGITS_TOL, smi))
+    if not err <= KD_LOGITS_TOL:
+        fail("kernel domain (b): prefill logits {} from the dense arm's "
+             "(limit {})".format(err, KD_LOGITS_TOL))
+    gap_at = _kd_gap_at(torch, llama, params, dense, prompts[0], plain[0],
+                        device)
+    agreement = {
+        "single": kd_token_rule("(b) one slot", single[0], plain[0], gap_at),
+        "batched": kd_token_rule("(b) {} slots".format(KD_SLOTS), batched[0],
+                                 plain[0], gap_at)}
+
+    # (d) int8 weights, float32 activations, one stream
+    if card:
+        torch.cuda.reset_peak_memory_stats()
+    qtokens, launches["f32_int8_serve"], qmodel = _kd_serve(
+        torch, cfg, params, device, 1, prompts[:1], KD_INT8_TOKENS, seq,
+        quantize=True)
+    qparams = qmodel._ensure_params()
+    if card:
+        kd_routes_launched("f32_int8_serve", launches["f32_int8_serve"], {
+            "flash_attention": "simt", "decode_attention": "simt",
+            "int8_matmul": "simt"})
+        if launches["f32_int8_serve"]["int8_matmul"]["mma"]:
+            fail("kernel domain (d): the bf16 W8A16 route ran on float32 "
+                 "activations")
+    first, cache = _kd_prefill_logits(torch, llama, qparams, cfg, prompts[0],
+                                      seq, device)
+    tok = torch.argmax(first, dim=-1)
+    steps = {}
+    with torch.inference_mode():
+        steps["kernel"], _ = llama.decode_step(qparams, cache, tok, n_prompt,
+                                               cfg)
+        with kd_plain_int8(quant):
+            steps["plain"], _ = llama.decode_step(qparams, cache, tok,
+                                                  n_prompt, cfg)
+        # the planted fault: each product without its last 32 input rows
+        with kd_plain_int8(quant, lambda x, q, s:
+                           quant.int8_matmul_reference(x[..., :-32],
+                                                       q[:-32], s)):
+            steps["fault"], _ = llama.decode_step(qparams, cache, tok,
+                                                  n_prompt, cfg)
+    int8_err = row_rel_err(steps["kernel"], steps["plain"])
+    fault_err = row_rel_err(steps["fault"], steps["plain"])
+    log("kernel domain (d): one decode step's logits, W8A16 float32 route "
+        "against the plain product: row-relative {} (limit {}), planted "
+        "fault {}; tokens {}; peak {:.3f} GiB allocated (float32 tree and "
+        "int8 tree together), launches {}, {}".format(
+            int8_err, KD_INT8_LOGITS_TOL, fault_err, qtokens[0],
+            torch.cuda.max_memory_allocated() / 2 ** 30 if card else 0.0,
+            json.dumps(launches["f32_int8_serve"]), smi))
+    if not int8_err <= KD_INT8_LOGITS_TOL:
+        fail("kernel domain (d): the W8A16 float32 route's step {} from "
+             "the plain product's".format(int8_err))
+    if not fault_err > KD_INT8_LOGITS_TOL:
+        fail("kernel domain (d): the planted fault passes the limit "
+             "({})".format(fault_err))
+    del cache, qmodel, qparams, params
+    return launches, {"logits_err": err, "int8_step_err": int8_err,
+                      "agreement": agreement}
+
+
+def _kd_generate(torch, llama, params, cfg, prompt, device):
+    """JAX's test_llama_decode_pallas_matches_xla generation: prefill,
+    then ``KD_SMALL_TOKENS`` greedy tokens in chunks of
+    ``KD_SMALL_CHUNK``; returns (tokens, the last logits)."""
+    tokens = torch.tensor([[int(t) for t in prompt]], device=device)
+    out, pos = [], len(prompt)
+    with torch.inference_mode():
+        cache = llama.init_kv_cache(cfg, 1, KD_SMALL_SEQ, device)
+        logits, cache = llama.prefill(params, cache, tokens, cfg)
+        for _ in range(KD_SMALL_TOKENS // KD_SMALL_CHUNK):
+            toks, _, logits, cache = llama.decode_chunk(
+                params, cache, logits, pos, cfg, KD_SMALL_CHUNK)
+            out += toks[:, 0].tolist()
+            pos += KD_SMALL_CHUNK
+    return out, logits.float()
+
+
+def _kernel_domain_small(torch, np, device):
+    """(c) tiny (vocab 128) and the narrow D 96 multi-query model, bf16,
+    with the kernels against their dense arms: tokens identical, the last
+    logits within ``KD_SMALL_LOGITS_TOL``; returns the launches by model."""
+    from tpuserver_torch import ops
+    from tpuserver_torch.models import llama
+    from tpuserver_torch.models.llama_serving import LlamaGenerateModel
+
+    card = device == "cuda"
+    tiny = dataclasses.replace(llama.tiny(vocab=128), attn_impl="kernel",
+                               decode_impl="auto")
+    narrow = dataclasses.replace(tiny, **KD_NARROW)
+    launches = {}
+    for path, cfg in (("tiny_kernel", tiny), ("narrow_d96", narrow)):
+        params = LlamaGenerateModel(cfg=cfg, seed=SEED + 5,
+                                    device=device)._ensure_params()
+        prompt = np.random.RandomState(9).randint(0, cfg.vocab,
+                                                  KD_SMALL_PROMPT)
+        ops.reset_launch_counts()
+        got, lk = _kd_generate(torch, llama, params, cfg, prompt, device)
+        if card:
+            torch.cuda.synchronize()
+        launches[path] = _route_counts()
+        dense = dataclasses.replace(cfg, attn_impl="dense",
+                                    decode_impl="dense")
+        want, ld = _kd_generate(torch, llama, params, dense, prompt, device)
+        err = (lk - ld).abs().max().item()
+        log("kernel domain (c) {} (H {}, Hkv {}, D {}): tokens kernel {} | "
+            "dense {}; last logits max |kernel - dense| {} (limit {}); "
+            "launches {}".format(path, cfg.n_heads, cfg.n_kv_heads,
+                                 cfg.head_dim, got, want, err,
+                                 KD_SMALL_LOGITS_TOL,
+                                 json.dumps(launches[path])))
+        if got != want:
+            fail("kernel domain (c) {}: tokens differ from the dense "
+                 "arm's".format(path))
+        if not err <= KD_SMALL_LOGITS_TOL:
+            fail("kernel domain (c) {}: last logits {} from the dense "
+                 "arm's".format(path, err))
+        if card:
+            kd_routes_launched(path, launches[path], {
+                "flash_attention": "simt", "decode_attention": "simt"})
+    return launches
+
+
+def phase_kernel_domain(torch, np, smi, device="cuda"):
+    """Phase 20: (a) every route timed against its plain version; (b)
+    llama3_8b in float32 served through the flash and decode kernels'
+    float32 routes, one slot and ``KD_SLOTS``, against its dense arm; (d)
+    its int8 form through the W8A16 float32 route; (c) tiny and the
+    narrow D 96 model through the other-head-dim routes.  TF32 off for
+    the phase and restored after.  Returns (the timed rows, the launches
+    by path).  ``device="cpu"`` rehearses (b)-(d) on the CPU at float32
+    tiny, without (a) and the card's launch checks."""
+    card = device == "cuda"
+    t_start = _tools_phase_start(torch, card, "kernel domain")
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    seconds = {}
+    try:
+        timed = _kernel_domain_timed(torch) if card else {}
+        seconds["(a)"] = time.monotonic() - t_start
+        t0 = time.monotonic()
+        launches, checks = _kernel_domain_f32(torch, np, smi, device)
+        seconds["(b), (d)"] = time.monotonic() - t0
+        _release(torch, card)
+        t0 = time.monotonic()
+        launches.update(_kernel_domain_small(torch, np, device))
+        seconds["(c)"] = time.monotonic() - t0
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = tf32
+    _tools_phase_end(torch, card, "kernel domain: phase 20", t_start,
+                     seconds, smi, launches)
+    log("kernel domain: phase 20 {} its {:.0f} s budget; checks {}".format(
+        "within" if time.monotonic() - t_start <= KD_BUDGET_S else "OVER",
+        KD_BUDGET_S, json.dumps(checks)))
+    return timed, launches
+
+
+#: phase 20's paths: the kernels each runs and the (a) row each is timed
+#: as, by kernel
+KD_PATHS = {
+    "f32_serve": {"flash_attention": "flash_f32_8b",
+                  "decode_attention": "decode_f32_8b"},
+    "f32_serve_batched": {"flash_attention": "flash_f32_8b",
+                          "decode_attention": "decode_f32_8b_batched"},
+    "f32_int8_serve": {"flash_attention": "flash_f32_8b",
+                       "decode_attention": "decode_f32_8b",
+                       "int8_matmul": "int8_f32_step_m1"},
+    "tiny_kernel": {"flash_attention": "flash_bf16_d8",
+                    "decode_attention": "decode_bf16_tiny"},
+    "narrow_d96": {"flash_attention": "flash_bf16_d96",
+                   "decode_attention": "decode_bf16_narrow"}}
+KD_INT8_SRC = ("src/python/tpuserver_torch/csrc/int8_matmul.cu",
+               "src/python/tpuserver/ops/quant.py:68")
+
+
+def _kd_row(kname, path, counts, row, timed_as):
+    """A kernels-line row of phase 20: ``kname``'s launches on its timed
+    route on ``path`` (every route's beside them) and its time there."""
+    src, replaces = ((KD_INT8_SRC[0], KD_INT8_SRC[1])
+                     if kname == "int8_matmul"
+                     else (KERNEL_SRC.format(kname), KERNEL_TPU[kname]))
+    route = row["kernel_route"]
+    return {
+        "name": kname, "route": "cuda", "source": src, "replaces": replaces,
+        "path": path, "kernel_route": route,
+        "launches": counts.get(route, 0) if counts is not None else 0,
+        "route_launches": counts, "max_abs_err": row["max_abs_err"],
+        "ms": row["ms"], "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+        "library_ms": row["library_ms"],
+        "library_live_ms": row.get("library_live_ms"), "timed_as": timed_as}
+
+
+def kernel_domain_rows(timed, launches):
+    """The kernels line's rows for phase 20: each path's kernels on their
+    routes (launched there), then every other timed route with the 0
+    launches of a shape no path of the phase runs."""
+    out, used = [], set()
+    for path, kernels in KD_PATHS.items():
+        for kname, key in kernels.items():
+            out.append(_kd_row(kname, path, launches[path][kname],
+                               timed[key], key))
+            used.add(key)
+    for key, row in timed.items():
+        if key not in used:
+            r = _kd_row(row["kernel"], "timed_only", None, row, key)
+            r["expected_launches"] = 0
+            out.append(r)
+    return out
+
+
 # -- main --------------------------------------------------------------------
 
 
@@ -8631,6 +9488,24 @@ def main():
             "platform": "gpu", "kind": name,
             "count": torch.cuda.device_count()}}))
         return 0
+    if sys.argv[1:] == ["--kernel-domain-only"]:
+        # phases 1-3 and 20 alone; prints the phase's kernels line and
+        # the result line
+        started = time.monotonic()
+        name, smi = phase_device(torch)
+        log("nvidia-smi:", smi)
+        phase_build()
+        phase_kernels(torch)
+        _phase_done(started, "kernels (3)")
+        timed, launches = phase_kernel_domain(torch, np, smi)
+        log("kernel-domain-only: done in {:.1f} s".format(
+            time.monotonic() - started))
+        log(smi)
+        print(json.dumps({"kernels": kernel_domain_rows(timed, launches)}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name,
+            "count": torch.cuda.device_count()}}))
+        return 0
     if sys.argv[1:] == ["--vision-only"]:
         # phases 1, 2 and 8 alone, for work on the vision path; prints no
         # result line
@@ -8826,6 +9701,7 @@ def main():
         row = rows["timed"][timed_as]
         kernels.append({
             "name": kname, "route": "cuda", "source": src,
+            "kernel_route": _route_of(kname, row),
             "replaces": replaces, "path": path, "launches": counts[kname],
             "max_abs_err": rows["max_err"][kname],
             "ms": row["ms"], "plain_ms": row["plain_ms"],
@@ -8842,6 +9718,7 @@ def main():
         step = int8_steps[m]
         kernels.append({
             "name": "int8_matmul", "route": "cuda",
+            "kernel_route": _route_of("int8_matmul", step),
             "source": "src/python/tpuserver_torch/csrc/int8_matmul.cu",
             "replaces": "src/python/tpuserver/ops/quant.py:68",
             "path": path,
@@ -8883,6 +9760,7 @@ def main():
         by_rank = tp_launches[path][kname]
         kernels.append({
             "name": kname, "route": "cuda", "source": src,
+            "kernel_route": _route_of(kname, row),
             "replaces": replaces, "path": path, "launches": sum(by_rank),
             "launches_by_rank": by_rank,
             "max_abs_err": (row["max_abs_err"] if kname == "int8_matmul"
@@ -8900,6 +9778,7 @@ def main():
     row = rows["timed"]["flash_attention"]
     kernels.append({
         "name": "flash_attention", "route": "cuda", "source": flash_src,
+        "kernel_route": _route_of("flash_attention", row),
         "replaces": flash_tpu, "path": "train_reference_forward",
         "launches": train["reference_launches"]["flash_attention"],
         "max_abs_err": rows["max_err"]["flash_attention"],
@@ -8910,6 +9789,7 @@ def main():
     row = rows["timed"]["flash_attention"]
     kernels.append({
         "name": "flash_attention", "route": "cuda", "source": flash_src,
+        "kernel_route": _route_of("flash_attention", row),
         "replaces": flash_tpu, "path": "chaos",
         "launches": chaos_launches["flash_attention"],
         "expected_launches": 0,
@@ -8917,6 +9797,9 @@ def main():
         "ms": row["ms"], "plain_ms": row["plain_ms"],
         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
         "library_ms": row["library_ms"]})
+    # every route of each kernel by name, with the error phase 3 held it to
+    for k in kernels:
+        k["routes_held_in_phase3"] = rows["route_err"][k["name"]]
     idle = [(k["name"], k["path"]) for k in kernels
             if "expected_launches" not in k and (
                 not k["launches"]

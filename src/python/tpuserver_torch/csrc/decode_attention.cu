@@ -15,18 +15,21 @@
 // one 8B stream, 8 of 132 SMs.
 //
 // What the design does about it:
-// - grid (n_split, Hkv, B): the wrapper picks n_split from B, Hkv, S and the
-//   SM count only (about two blocks per SM, at least 64 cache keys a split),
-//   never from `lengths`, which stay on the device.  Each block cuts
+// - grid (n_split, Hkv x G, B): the wrapper picks n_split from B, Hkv, S and
+//   the SM count only (about two blocks per SM, at least 64 cache keys a
+//   split), never from `lengths`, which stay on the device.  A block takes
+//   up to 8 of the n_rep = H / Hkv query heads of its kv head: G =
+//   ceil(n_rep / 8) groups (G is 1 for every Llama-3 preset; Llama-3.1-405B's
+//   H 128 over Hkv 8 has G 2, multi-query attention over Hkv 1 with H 32 has
+//   G 4), and each group re-reads its kv head's cache.  Each block cuts
 //   [0, lengths[b]) itself into n_split near-equal ranges aligned to 16 keys,
 //   so every split has work at any length up to its share; a block whose
 //   range is empty writes m = -inf, l = 0 and a zero accumulator;
 // - inside a block, K/V tiles stream through a 3-stage shared-memory ring
 //   filled with cp.async: two tiles are in flight while one is scored, and
 //   each tile costs one block-wide barrier;
-// - the n_rep = H / Hkv query heads that share a kv head read each K/V row
-//   once from shared memory, so GQA is never expanded; no key at or past
-//   lengths[b] is read;
+// - the query heads of a block read each K/V row once from shared memory,
+//   so GQA is never expanded; no key at or past lengths[b] is read;
 // - bf16 with D 64 or 128 (every Llama-3 preset) runs on the tensor cores:
 //   each of 4 warps takes 16 keys of a 64-key tile, S = Q K^T and P V are
 //   mma.sync m16n8k16 with the kv head's query heads as the MMA rows and
@@ -35,14 +38,17 @@
 //   P as two bf16 terms (hi + lo), so P.V keeps about 16 bits of P.
 //   Without this the per-key arithmetic (a dot product reduced
 //   across lanes by shuffles) took longer than the loads it waited on;
-// - float32 and other head dims take a SIMT kernel: a team of D / 8 lanes
-//   per key row, each team with its own online-softmax state, folding 8
-//   keys at a time;
+// - float32, and bf16 at other head dims (any multiple of 8 up to 256),
+//   take a SIMT kernel: a team of lanes per key row, 8 elements a lane (D / 8
+//   lanes rounded up to a power of two, the lanes past D idle, so that teams
+//   never straddle a warp), each team with its own online-softmax state,
+//   folding 8 keys at a time;
 // - the warps' (or teams') states merge in a fixed order at the end of the
 //   block;
 // - the splits' fp32 partials (acc [B, Hkv, n_split, n_rep, D], m and l
-//   [B, Hkv, n_split, n_rep]) are combined by a second small kernel in split
-//   order, launched by the same C call.  With n_split == 1 the main kernel
+//   [B, Hkv, n_split, n_rep], each group writing its heads' rows) are
+//   combined by a second small kernel in split order, launched by the same C
+//   call.  With n_split == 1 the main kernel
 //   writes the output itself and the combine is not launched.
 // Left for later work: reading a page table in-kernel, and a persistent
 // schedule that would not need the partials.
@@ -110,16 +116,16 @@ __device__ __forceinline__ void split_range(const int* lengths, int b, int S,
 }
 
 // Merge the block's n_parts online-softmax states, in part order: m_t and
-// l_t [n_parts][R], a_t [n_parts][R][D] (unnormalised outputs).  With one
-// split the result is normalised into out; otherwise it is this split's
-// partial (acc, m, l).
+// l_t [n_parts][R], a_t [n_parts][R][D] (unnormalised outputs) of the nh
+// query heads h0 .. h0 + nh - 1 of kv head kvh.  With one split the result
+// is normalised into out; otherwise it is this split's partial (acc, m, l).
 template <typename T, int R>
 __device__ __forceinline__ void merge_store(
     const float* m_t, const float* l_t, const float* a_t, int n_parts, int D,
-    int n_rep, int b, int kvh, int Hkv, int split, int n_split, T* out,
-    long long o_sb, long long o_sh, float* part) {
+    int n_rep, int h0, int nh, int b, int kvh, int Hkv, int split,
+    int n_split, T* out, long long o_sb, long long o_sh, float* part) {
   const size_t row = ((size_t)b * Hkv + kvh) * n_split + split;
-  for (int idx = threadIdx.x; idx < n_rep * D; idx += kThreads) {
+  for (int idx = threadIdx.x; idx < nh * D; idx += kThreads) {
     const int h = idx / D;
     const int dd = idx - h * D;
     float mx = -INFINITY;
@@ -133,25 +139,52 @@ __device__ __forceinline__ void merge_store(
     }
     if (n_split == 1) {
       const float ll = sum_l == 0.f ? 1.f : sum_l;
-      tt_store(out + b * o_sb + (long long)(kvh * n_rep + h) * o_sh + dd,
+      tt_store(out + b * o_sb + (long long)(kvh * n_rep + h0 + h) * o_sh + dd,
                sum_a / ll);
     } else {
       const size_t n_rows = (size_t)gridDim.z * Hkv * n_split * n_rep;
-      part[(row * n_rep + h) * D + dd] = sum_a;
+      part[(row * n_rep + h0 + h) * D + dd] = sum_a;
       if (dd == 0) {
         float* ml = part + n_rows * D;
-        ml[row * n_rep + h] = mx;
-        ml[n_rows + row * n_rep + h] = sum_l;
+        ml[row * n_rep + h0 + h] = mx;
+        ml[n_rows + row * n_rep + h0 + h] = sum_l;
       }
     }
   }
 }
 
-// Thread layout: a key row of D elements is read by a team of D / 8
-// consecutive lanes, 8 elements each (D is a power of two, 8..256, so teams
-// never straddle a warp); the block's kThreads / (D / 8) teams take a tile's
-// keys in turn.  Each lane keeps its 8-dim slice of every head's query and
-// output accumulator in registers.  R >= n_rep is the compiled head count.
+// A block's query heads: blockIdx.y is kvh * G + g, and the block takes the
+// nh = min(kMaxRep, n_rep - h0) heads from h0 = g * kMaxRep of kv head kvh.
+constexpr int kMaxRep = 8;
+
+struct HeadGroup {
+  int kvh, h0, nh;
+};
+
+__device__ __forceinline__ HeadGroup head_group(int n_rep) {
+  const int groups = (n_rep + kMaxRep - 1) / kMaxRep;
+  const int g = blockIdx.y % groups;
+  HeadGroup hg;
+  hg.kvh = blockIdx.y / groups;
+  hg.h0 = g * kMaxRep;
+  hg.nh = min(kMaxRep, n_rep - hg.h0);
+  return hg;
+}
+
+// Lanes of a SIMT team: D / 8 rounded up to a power of two (at most 32,
+// since D <= 256), so that a team never straddles a warp.
+__host__ __device__ __forceinline__ int team_lanes(int D) {
+  int team = 1;
+  while (team * 8 < D) team <<= 1;
+  return team;
+}
+
+// Thread layout: a key row of D elements is read by a team of team_lanes(D)
+// consecutive lanes, 8 elements each (lanes whose 8 elements start at or
+// past D are idle: they load zeros and store nothing); the block's kThreads
+// / team teams take a tile's keys in turn.  Each lane keeps its 8-dim slice
+// of every head's query and output accumulator in registers.  R >= nh is
+// the compiled head count.
 template <typename T, int R>
 __global__ void __launch_bounds__(kThreads) decode_attention_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
@@ -161,11 +194,13 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(
     long long k_sh, long long v_sb, long long v_ss, long long v_sh,
     long long o_sb, long long o_sh, float scale) {
   const int split = blockIdx.x;
-  const int kvh = blockIdx.y;
+  const HeadGroup hg = head_group(n_rep);
+  const int kvh = hg.kvh;
   const int b = blockIdx.z;
   const int tid = threadIdx.x;
-  const int team = D >> 3;         // lanes per key row
+  const int team = team_lanes(D);  // lanes per key row
   const int c = tid & (team - 1);  // this lane's 8-dim slice
+  const bool active = c * 8 < D;   // the slice lies inside the row
   const int r = tid / team;        // this lane's team
   const int teams = kThreads / team;
   const int tk = tile_keys<T>(D);
@@ -195,14 +230,15 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(
   float qr[R][8];
   float acc[R][8];
   float m[R], l[R];
-  const T* qb = q + b * q_sb + (long long)kvh * n_rep * q_sh + c * 8;
+  const T* qb =
+      q + b * q_sb + (long long)(kvh * n_rep + hg.h0) * q_sh + c * 8;
 #pragma unroll
   for (int h = 0; h < R; ++h) {
     m[h] = -INFINITY;
     l[h] = 0.f;
 #pragma unroll
     for (int e = 0; e < 8; ++e) qr[h][e] = acc[h][e] = 0.f;
-    if (h < n_rep) {
+    if (h < hg.nh && active) {
       tt_load8(qb + h * q_sh, qr[h]);
 #pragma unroll
       for (int e = 0; e < 8; ++e) qr[h][e] *= scale;
@@ -231,7 +267,7 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(
       for (int u = 0; u < kGroup; ++u) {
         const int j = r + (i0 + u) * teams;
         float kv[8];
-        if (j < live) {
+        if (j < live && active) {
           tt_load8(ks + j * D + c * 8, kv);
         } else {
 #pragma unroll
@@ -276,7 +312,7 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(
 #pragma unroll
       for (int u = 0; u < kGroup; ++u) {
         const int j = r + (i0 + u) * teams;
-        if (j < live) {
+        if (j < live && active) {
           float vv[8];
           tt_load8(vs + j * D + c * 8, vv);
 #pragma unroll
@@ -302,12 +338,15 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(
       m_t[r * R + h] = m[h];
       l_t[r * R + h] = l[h];
     }
+    if (active) {
 #pragma unroll
-    for (int e = 0; e < 8; ++e) a_t[(r * R + h) * D + c * 8 + e] = acc[h][e];
+      for (int e = 0; e < 8; ++e)
+        a_t[(r * R + h) * D + c * 8 + e] = acc[h][e];
+    }
   }
   __syncthreads();
-  merge_store<T, R>(m_t, l_t, a_t, teams, D, n_rep, b, kvh, Hkv, split,
-                    n_split, out, o_sb, o_sh, part);
+  merge_store<T, R>(m_t, l_t, a_t, teams, D, n_rep, hg.h0, hg.nh, b, kvh,
+                    Hkv, split, n_split, out, o_sb, o_sh, part);
 }
 
 // -- tensor-core path: bf16, D 64 or 128 -----------------------------------
@@ -346,8 +385,8 @@ constexpr int kMmaKeys = 64;  // keys per tile: 16 for each of the 4 warps
 
 // The same function on the tensor cores (mma.sync m16n8k16, bf16 in, fp32
 // accumulate).  Each warp takes 16 keys of every 64-key tile and keeps its
-// own softmax state; the 16 rows of the MMA are the kv head's n_rep <= 8
-// query heads (rows past n_rep, and rows 8..15, are zero).  S = Q K^T reads
+// own softmax state; the 16 rows of the MMA are the block's nh <= 8 query
+// heads (rows past nh, and rows 8..15, are zero).  S = Q K^T reads
 // K fragments with ldmatrix; P V reads V fragments with ldmatrix.trans, P
 // entering as two bf16 terms (hi + lo).  Shared rows are padded by 16
 // bytes, so the 8 rows of an ldmatrix fall in distinct banks.
@@ -362,9 +401,10 @@ __global__ void __launch_bounds__(kThreads) decode_attention_mma_kernel(
     float scale_log2) {
   constexpr int kLd = D + 8;
   constexpr int tk = kMmaKeys;
-  constexpr int kR = 8;  // MMA rows that can hold a query head
+  constexpr int kR = kMaxRep;  // MMA rows that can hold a query head
   const int split = blockIdx.x;
-  const int kvh = blockIdx.y;
+  const HeadGroup hg = head_group(n_rep);
+  const int kvh = hg.kvh;
   const int b = blockIdx.z;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
@@ -395,13 +435,14 @@ __global__ void __launch_bounds__(kThreads) decode_attention_mma_kernel(
   const int hq = lane >> 2;
   uint32_t qa[D / 16][2];
   const __nv_bfloat16* qrow =
-      q + b * q_sb + (long long)(kvh * n_rep + hq) * q_sh + (lane & 3) * 2;
+      q + b * q_sb + (long long)(kvh * n_rep + hg.h0 + hq) * q_sh +
+      (lane & 3) * 2;
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
-    qa[kk][0] = hq < n_rep
+    qa[kk][0] = hq < hg.nh
                     ? *reinterpret_cast<const uint32_t*>(qrow + kk * 16)
                     : 0u;
-    qa[kk][1] = hq < n_rep
+    qa[kk][1] = hq < hg.nh
                     ? *reinterpret_cast<const uint32_t*>(qrow + kk * 16 + 8)
                     : 0u;
   }
@@ -511,9 +552,9 @@ __global__ void __launch_bounds__(kThreads) decode_attention_mma_kernel(
   // m is in log2 units here; the partials carry natural-log maxima
   if (tid < (kThreads / 32) * kR) m_t[tid] *= 0.6931471805599453f;
   __syncthreads();
-  merge_store<__nv_bfloat16, kR>(m_t, l_t, a_t, kThreads / 32, D, n_rep, b,
-                                 kvh, Hkv, split, n_split, out, o_sb, o_sh,
-                                 part);
+  merge_store<__nv_bfloat16, kR>(m_t, l_t, a_t, kThreads / 32, D, n_rep,
+                                 hg.h0, hg.nh, b, kvh, Hkv, split, n_split,
+                                 out, o_sb, o_sh, part);
 }
 
 // out[b, h] from the n_split partials of (b, h // n_rep), in split order.
@@ -587,7 +628,7 @@ int launch_simt(const void* q, const void* k, const void* v,
                 const int* lengths, void* out, float* part, int B, int H,
                 int Hkv, int S, int D, int n_split, const long long* st,
                 float scale, cudaStream_t stream) {
-  const int teams = kThreads / (D / 8);
+  const int teams = kThreads / team_lanes(D);
   const size_t ring =
       (size_t)kStages * 2 * tile_keys<T>(D) * D * sizeof(T);
   const size_t merge = sizeof(float) * (size_t)teams * R * (D + 2);
@@ -600,7 +641,7 @@ int launch_simt(const void* q, const void* k, const void* v,
     if (e != cudaSuccess) return (int)e;
     attr_set = true;
   }
-  dim3 grid(n_split, Hkv, B);
+  dim3 grid(n_split, Hkv * ((H / Hkv + kMaxRep - 1) / kMaxRep), B);
   decode_attention_kernel<T, R><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), lengths, static_cast<T*>(out), part, S, D,
@@ -627,7 +668,7 @@ int launch_mma(const void* q, const void* k, const void* v,
     if (e != cudaSuccess) return (int)e;
     attr_set = true;
   }
-  dim3 grid(n_split, Hkv, B);
+  dim3 grid(n_split, Hkv * ((H / Hkv + kMaxRep - 1) / kMaxRep), B);
   decode_attention_mma_kernel<D><<<grid, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
@@ -646,7 +687,8 @@ int dispatch(const void* q, const void* k, const void* v, const int* lengths,
              void* out, float* part, int B, int H, int Hkv, int S, int D,
              int n_split, const long long* st, float scale,
              cudaStream_t stream) {
-  const int n_rep = H / Hkv;
+  // a block takes up to kMaxRep heads: the compiled count covers its group
+  const int n_rep = min(H / Hkv, kMaxRep);
   if (n_rep <= 1)
     return launch_simt<T, 1>(q, k, v, lengths, out, part, B, H, Hkv, S, D,
                              n_split, st, scale, stream);
@@ -662,27 +704,35 @@ int dispatch(const void* q, const void* k, const void* v, const int* lengths,
 
 }  // namespace
 
-// Shapes and strides (in elements) are checked by the Python wrapper:
-// H % Hkv == 0, H / Hkv <= 8, D a power of two in [8, 256], 16-byte
-// aligned rows, 1 <= n_split <= 64.  `strides` holds q (batch, head), k and
+// Routes, as tpuserver_torch/ops/flash.py::decode_route numbers them.
+enum { TT_DECODE_MMA = 0, TT_DECODE_SIMT = 1 };
+
+// Shapes and strides (in elements) are checked by the Python wrapper, which
+// picks the route: `mma` takes bf16 with D 64 or 128, `simt` float32 or
+// bf16 with D a multiple of 8 from 8 to 256; a route given anything else
+// returns cudaErrorInvalidValue before any launch.  H % Hkv == 0 (any
+// ratio), 16-byte aligned rows, 1 <= n_split <= 64.  `strides` holds q (batch, head), k and
 // v (batch, seq, head) and out (batch, head).  `part` holds
 // B * Hkv * n_split * n_rep * (D + 2) floats (acc, then m, then l) and is
 // unused when n_split == 1.
-extern "C" int tt_decode_attention(int dtype, const void* q, const void* k,
-                                   const void* v, const int* lengths,
-                                   void* out, void* part, int B, int H,
-                                   int Hkv, int S, int D, int n_split,
-                                   const long long* strides, float scale,
-                                   void* stream) {
+extern "C" int tt_decode_attention(int dtype, int route, const void* q,
+                                   const void* k, const void* v,
+                                   const int* lengths, void* out, void* part,
+                                   int B, int H, int Hkv, int S, int D,
+                                   int n_split, const long long* strides,
+                                   float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (n_split < 1 || n_split > kMaxSplit) return (int)cudaErrorInvalidValue;
+  if (n_split < 1 || n_split > kMaxSplit || Hkv < 1 || H % Hkv)
+    return (int)cudaErrorInvalidValue;
   float* p = static_cast<float*>(part);
-  if (dtype == TT_BF16 && D == 128)
+  if (route == TT_DECODE_MMA && dtype == TT_BF16 && D == 128)
     return launch_mma<128>(q, k, v, lengths, out, p, B, H, Hkv, S, n_split,
                            strides, scale, st);
-  if (dtype == TT_BF16 && D == 64)
+  if (route == TT_DECODE_MMA && dtype == TT_BF16 && D == 64)
     return launch_mma<64>(q, k, v, lengths, out, p, B, H, Hkv, S, n_split,
                           strides, scale, st);
+  if (route != TT_DECODE_SIMT || D < 8 || D % 8 || D > 256)
+    return (int)cudaErrorInvalidValue;
   if (dtype == TT_BF16)
     return dispatch<__nv_bfloat16>(q, k, v, lengths, out, p, B, H, Hkv, S, D,
                                    n_split, strides, scale, st);

@@ -42,8 +42,21 @@
 // - GQA is native: the block reads kv head h / (H / Hkv), so the caller
 //   never expands K/V in memory (the TPU path expanded them first);
 // - rows past T and keys past Tk arrive as zeros from TMA and are masked;
-// - operands are bf16 with D 64 or 128, the head dims of every Llama-3
-//   preset; the wrapper raises for anything else on the card.
+// - this route (`wgmma`) takes bf16 with D 64 or 128, the head dims of
+//   every Llama-3 preset.
+//
+// Everything else the TPU kernel takes (float32 at any head dim, bf16 at
+// any other multiple of 8 up to 256) runs on a second kernel, the `simt`
+// route (flash_attention_simt_kernel, below): the same online softmax on
+// the CUDA cores, every product and sum a float32 FMA (no TF32, no tensor
+// core), so float32 sums stay float32 as the port's float32 runs (TF32
+// off) rely on.  Its bound is operations: at Llama-3-8B prefill shapes in
+// float32 (T 512) the 2.15 GFLOP of a layer take about 32 us at the card's
+// 67 TFLOP/s of float32 FMA, against about 6 us for the 21 MB.  The
+// wrapper (tpuserver_torch/ops/flash.py::flash_route) picks the route from
+// (dtype, D) before the launch and raises only for what neither takes: a
+// dtype other than float32 or bf16, D not a multiple of 8 or above 256,
+// rows that are not 16-byte aligned.
 // Left for later work: fewer exp2 on the special-function unit (part of
 // them as polynomials on the FMA units), a persistent schedule, loading
 // each K/V tile once for the n_rep heads that share it, and a TMA store of
@@ -537,6 +550,256 @@ __global__ void __launch_bounds__(128) wgmma_tile_kernel(
           (i & 1)] = o[i];
 }
 
+// -- the simt route: float32, and bf16 at head dims other than 64 and 128 ----
+//
+// One block of 4 warps per (query tile, head, batch); warp w owns R query
+// rows.  A K/V tile is 32 keys, one a lane, in a 2-stage shared-memory ring
+// filled by cp.async (keys past Tk are zeroed), so the next tile is in
+// flight while this one is computed.  S = Q K^T: lane j scores key j
+// against the warp's R rows, reading its key row 16 bytes at a time once
+// for all of them, the rows' Q (float32, scaled into log2 units when
+// staged) as broadcasts.  The fold: each row's max over the warp
+// (shuffles), a finite shift while the row is fully masked, and each lane's
+// own share of the row sum, added over the warp at the end.  P passes
+// through shared memory ([R][32] a warp), rounded to bf16 first for bf16
+// operands as the TPU kernel rounds it (the row sum keeps the float32 P, as
+// there); O += P V: lane l owns output columns l, l + 32, ... (NC =
+// ceil(D / 32) of them), and each V element it reads serves all R rows.
+// Every product and sum is a float32 FMA in a fixed order, so a repeated
+// call gives the same bits.
+
+constexpr int kSimtWarps = 4;
+constexpr int kSimtThreads = 32 * kSimtWarps;
+constexpr int kSimtBk = 32;  // keys a tile, one a lane
+
+// query rows a warp: 16, or 8 where a lane's NC output columns are more
+// than 4 (D above 128), to keep R x NC accumulators in registers
+template <int NC>
+struct SimtRows {
+  static constexpr int R = NC <= 4 ? 16 : 8;
+  static constexpr int Bq = kSimtWarps * R;
+};
+
+// Row stride (elements) of a K/V tile row in shared memory: an odd number
+// of 16-byte chunks, so that each phase of 8 lanes reading 16 bytes of 8
+// different key rows falls on distinct banks.
+template <typename T>
+__host__ __device__ constexpr int simt_ld(int D) {
+  return (((D * (int)sizeof(T) / 16) | 1) * 16) / (int)sizeof(T);
+}
+
+// Dynamic shared memory of the simt kernel: Q [Bq][D] float32, the K/V
+// ring [2 stages][K, V][32][ld], P [warps][R][32] float32.
+template <typename T>
+__host__ __device__ constexpr size_t simt_smem(int D, int R) {
+  return (size_t)kSimtWarps * R * D * 4 +
+         (size_t)2 * 2 * kSimtBk * simt_ld<T>(D) * sizeof(T) +
+         (size_t)kSimtWarps * R * kSimtBk * 4;
+}
+
+__device__ __forceinline__ float tt_to_float(float x) { return x; }
+__device__ __forceinline__ float tt_to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+// P as the P.V product takes it: float32 as it is, bf16-rounded for bf16
+// operands.
+__device__ __forceinline__ float p_operand(float p, const float*) {
+  return p;
+}
+__device__ __forceinline__ float p_operand(float p, const __nv_bfloat16*) {
+  return __bfloat162float(__float2bfloat16(p));
+}
+
+template <typename T, int NC>
+__global__ void __launch_bounds__(kSimtThreads) flash_attention_simt_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    T* __restrict__ out, int T_len, int Tk, int D, int n_rep, int causal,
+    long long q_sb, long long q_st, long long q_sh, long long k_sb,
+    long long k_st, long long k_sh, long long v_sb, long long v_st,
+    long long v_sh, long long o_sb, long long o_st, long long o_sh,
+    float scale_log2) {
+  constexpr int R = SimtRows<NC>::R;
+  constexpr int Bq = SimtRows<NC>::Bq;
+  constexpr int E = 16 / (int)sizeof(T);  // elements of a 16-byte chunk
+  const int ld = simt_ld<T>(D);
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * Bq;  // longest tiles first
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kvh = h / n_rep;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* qs = reinterpret_cast<float*>(smem_raw);  // [Bq][D]
+  T* kvs = reinterpret_cast<T*>(qs + Bq * D);      // [2][2][kSimtBk][ld]
+  float* ps = reinterpret_cast<float*>(kvs + 2 * 2 * kSimtBk * ld);
+
+  int n_kt = (Tk + kSimtBk - 1) / kSimtBk;
+  if (causal) n_kt = min(n_kt, (q0 + Bq - 1) / kSimtBk + 1);
+
+  const T* kb = k + b * k_sb + kvh * k_sh;
+  const T* vb = v + b * v_sb + kvh * v_sh;
+  const int chunks = D / E;  // 16-byte chunks of a row
+  // tile t's K and V rows into ring stage t % 2; rows past Tk as zeros
+  auto issue = [&](int t) {
+    T* ks = kvs + (t & 1) * 2 * kSimtBk * ld;
+    T* vs = ks + kSimtBk * ld;
+    for (int i = tid; i < kSimtBk * chunks; i += kSimtThreads) {
+      const int r = i / chunks;
+      const int c = (i - r * chunks) * E;
+      const int key = t * kSimtBk + r;
+      if (key < Tk) {
+        tt_cp_async16(ks + r * ld + c, kb + key * k_st + c);
+        tt_cp_async16(vs + r * ld + c, vb + key * v_st + c);
+      } else {
+        *reinterpret_cast<uint4*>(ks + r * ld + c) = make_uint4(0, 0, 0, 0);
+        *reinterpret_cast<uint4*>(vs + r * ld + c) = make_uint4(0, 0, 0, 0);
+      }
+    }
+  };
+  if (n_kt > 0) issue(0);
+  tt_cp_async_commit();
+
+  // the block's query rows as float32 in log2 units; rows past T are zeros
+  const T* qb = q + b * q_sb + h * q_sh;
+  for (int i = tid; i < Bq * (D / 8); i += kSimtThreads) {
+    const int r = i / (D / 8);
+    const int c = (i - r * (D / 8)) * 8;
+    float x[8];
+    if (q0 + r < T_len) {
+      tt_load8(qb + (q0 + r) * q_st + c, x);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) x[e] = 0.f;
+    }
+#pragma unroll
+    for (int e = 0; e < 8; ++e) qs[r * D + c + e] = x[e] * scale_log2;
+  }
+
+  const int row0 = q0 + warp * R;  // this warp's first query row
+  const float* qw = qs + warp * R * D;
+  float* pw = ps + warp * R * kSimtBk;
+  float o[R][NC];
+  float m[R], l[R];  // l: this lane's share of the row sum
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    m[r] = -INFINITY;
+    l[r] = 0.f;
+#pragma unroll
+    for (int i = 0; i < NC; ++i) o[r][i] = 0.f;
+  }
+
+  for (int t = 0; t < n_kt; ++t) {
+    // tile t + 1 goes out; tile t has landed once at most that group is
+    // pending, and the barrier makes every thread's copies visible
+    if (t + 1 < n_kt) issue(t + 1);
+    tt_cp_async_commit();
+    tt_cp_async_wait<1>();
+    __syncthreads();
+    const T* ks = kvs + (t & 1) * 2 * kSimtBk * ld;
+    const T* vs = ks + kSimtBk * ld;
+    const int k0 = t * kSimtBk;
+    // causal: a warp whose rows all lie before this tile's first key
+    // skips it (warp-uniform)
+    if (!causal || k0 <= row0 + R - 1) {
+      float s[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) s[r] = 0.f;
+      const T* krow = ks + lane * ld;
+      for (int c = 0; c < D; c += 8) {
+        float kv[8];
+        tt_load8(krow + c, kv);
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const float4 a = *reinterpret_cast<const float4*>(qw + r * D + c);
+          const float4 z = *reinterpret_cast<const float4*>(qw + r * D + c +
+                                                            4);
+          float acc = s[r];
+          acc = fmaf(a.x, kv[0], acc);
+          acc = fmaf(a.y, kv[1], acc);
+          acc = fmaf(a.z, kv[2], acc);
+          acc = fmaf(a.w, kv[3], acc);
+          acc = fmaf(z.x, kv[4], acc);
+          acc = fmaf(z.y, kv[5], acc);
+          acc = fmaf(z.z, kv[6], acc);
+          acc = fmaf(z.w, kv[7], acc);
+          s[r] = acc;
+        }
+      }
+      const int key = k0 + lane;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float x =
+            (key >= Tk || (causal && key > row0 + r)) ? -INFINITY : s[r];
+        float mx = x;
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+        const float m_new = fmaxf(m[r], mx);
+        const float shift = tt_shift(m_new);
+        const float alpha = isfinite(m[r]) ? exp2f(m[r] - shift) : 0.f;
+        const float p = exp2f(x - shift);
+        m[r] = m_new;
+        l[r] = l[r] * alpha + p;
+#pragma unroll
+        for (int i = 0; i < NC; ++i) o[r][i] *= alpha;
+        pw[r * kSimtBk + lane] = p_operand(p, q);
+      }
+      __syncwarp();
+      for (int j = 0; j < kSimtBk; j += 4) {
+        float vv[4][NC];
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+          for (int i = 0; i < NC; ++i) {
+            const int col = lane + 32 * i;
+            vv[jj][i] = col < D ? tt_to_float(vs[(j + jj) * ld + col]) : 0.f;
+          }
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const float4 p4 =
+              *reinterpret_cast<const float4*>(pw + r * kSimtBk + j);
+#pragma unroll
+          for (int i = 0; i < NC; ++i) {
+            float acc = o[r][i];
+            acc = fmaf(p4.x, vv[0][i], acc);
+            acc = fmaf(p4.y, vv[1][i], acc);
+            acc = fmaf(p4.z, vv[2][i], acc);
+            acc = fmaf(p4.w, vv[3][i], acc);
+            o[r][i] = acc;
+          }
+        }
+      }
+    }
+    // every warp is done with stage t % 2 (and its P) before the next
+    // iteration issues tile t + 2 into it
+    __syncthreads();
+  }
+  tt_cp_async_wait<0>();
+
+  // the row sums over the warp, normalise, store
+  T* ob = out + b * o_sb + h * o_sh;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    float lt = l[r];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      lt += __shfl_xor_sync(0xffffffffu, lt, off);
+    lt = lt == 0.f ? 1.f : lt;
+    const int row = row0 + r;
+    if (row < T_len) {
+      T* orow = ob + row * o_st;
+#pragma unroll
+      for (int i = 0; i < NC; ++i) {
+        const int col = lane + 32 * i;
+        if (col < D) tt_store(orow + col, o[r][i] / lt);
+      }
+    }
+  }
+}
+
 // -- host side ---------------------------------------------------------------
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -611,24 +874,99 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   return (int)cudaGetLastError();
 }
 
+template <typename T, int NC>
+int launch_simt(const void* q, const void* k, const void* v, void* out,
+                int B, int Tq, int Tk, int H, int Hkv, int D, int causal,
+                const long long* st, float scale, cudaStream_t stream) {
+  constexpr int R = SimtRows<NC>::R;
+  constexpr int Bq = SimtRows<NC>::Bq;
+  static bool attr_set = false;
+  if (!attr_set) {
+    // the most this instance takes: D = 32 NC
+    cudaError_t e = cudaFuncSetAttribute(
+        flash_attention_simt_kernel<T, NC>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)simt_smem<T>(32 * NC, R));
+    if (e != cudaSuccess) return (int)e;
+    attr_set = true;
+  }
+  dim3 grid((Tq + Bq - 1) / Bq, H, B);
+  flash_attention_simt_kernel<T, NC>
+      <<<grid, kSimtThreads, simt_smem<T>(D, R), stream>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), static_cast<T*>(out), Tq, Tk, D, H / Hkv,
+          causal, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
+          st[8], st[9], st[10], st[11], scale * 1.4426950408889634f);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int dispatch_simt(const void* q, const void* k, const void* v, void* out,
+                  int B, int Tq, int Tk, int H, int Hkv, int D, int causal,
+                  const long long* st, float scale, cudaStream_t stream) {
+  switch ((D + 31) / 32) {
+    case 1:
+      return launch_simt<T, 1>(q, k, v, out, B, Tq, Tk, H, Hkv, D, causal, st,
+                               scale, stream);
+    case 2:
+      return launch_simt<T, 2>(q, k, v, out, B, Tq, Tk, H, Hkv, D, causal, st,
+                               scale, stream);
+    case 3:
+      return launch_simt<T, 3>(q, k, v, out, B, Tq, Tk, H, Hkv, D, causal, st,
+                               scale, stream);
+    case 4:
+      return launch_simt<T, 4>(q, k, v, out, B, Tq, Tk, H, Hkv, D, causal, st,
+                               scale, stream);
+    case 5:
+      return launch_simt<T, 5>(q, k, v, out, B, Tq, Tk, H, Hkv, D, causal, st,
+                               scale, stream);
+    case 6:
+      return launch_simt<T, 6>(q, k, v, out, B, Tq, Tk, H, Hkv, D, causal, st,
+                               scale, stream);
+    case 7:
+      return launch_simt<T, 7>(q, k, v, out, B, Tq, Tk, H, Hkv, D, causal, st,
+                               scale, stream);
+    case 8:
+      return launch_simt<T, 8>(q, k, v, out, B, Tq, Tk, H, Hkv, D, causal, st,
+                               scale, stream);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-// Shapes and strides (in elements) are checked by the Python wrapper:
-// bf16 operands, D in {64, 128}, H % Hkv == 0, 16-byte aligned rows.
-// `strides` holds q, k, v, out as (batch, time, head) triples.
-extern "C" int tt_flash_attention(int dtype, const void* q, const void* k,
-                                  const void* v, void* out, int B, int T,
-                                  int Tk, int H, int Hkv, int D, int causal,
-                                  const long long* strides, float scale,
-                                  void* stream) {
+// Routes, as tpuserver_torch/ops/flash.py::flash_route numbers them.
+enum { TT_FLASH_WGMMA = 0, TT_FLASH_SIMT = 1 };
+
+// Shapes and strides (in elements) are checked by the Python wrapper, which
+// picks the route: `wgmma` takes bf16 with D 64 or 128, `simt` float32 or
+// bf16 with D a multiple of 8 from 8 to 256; a route given anything else
+// returns cudaErrorInvalidValue before any launch.  H % Hkv == 0, 16-byte
+// aligned rows.  `strides` holds q, k, v, out as (batch, time, head)
+// triples.
+extern "C" int tt_flash_attention(int dtype, int route, const void* q,
+                                  const void* k, const void* v, void* out,
+                                  int B, int T, int Tk, int H, int Hkv, int D,
+                                  int causal, const long long* strides,
+                                  float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype != TT_BF16) return (int)cudaErrorInvalidValue;
-  if (D == 64)
-    return launch<64>(q, k, v, out, B, T, Tk, H, Hkv, causal, strides, scale,
-                      st);
-  if (D == 128)
-    return launch<128>(q, k, v, out, B, T, Tk, H, Hkv, causal, strides,
-                       scale, st);
+  if (route == TT_FLASH_WGMMA && dtype == TT_BF16) {
+    if (D == 64)
+      return launch<64>(q, k, v, out, B, T, Tk, H, Hkv, causal, strides,
+                        scale, st);
+    if (D == 128)
+      return launch<128>(q, k, v, out, B, T, Tk, H, Hkv, causal, strides,
+                         scale, st);
+    return (int)cudaErrorInvalidValue;
+  }
+  if (route != TT_FLASH_SIMT || D < 8 || D % 8 || D > 256)
+    return (int)cudaErrorInvalidValue;
+  if (dtype == TT_F32)
+    return dispatch_simt<float>(q, k, v, out, B, T, Tk, H, Hkv, D, causal,
+                                strides, scale, st);
+  if (dtype == TT_BF16)
+    return dispatch_simt<__nv_bfloat16>(q, k, v, out, B, T, Tk, H, Hkv, D,
+                                        causal, strides, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,7 +1,15 @@
-// W8A16 product for sm_90a: y[M, N] = bf16( bf16(sum_k x[m,k] q[k,n]) *
-// bf16(s[n]) ), x bf16 [M, K] (row stride ldx), q int8 [K, N] row-major
-// (N contiguous, the reference's [in, out] layout), s float32 [N], the sum
-// accumulated in float32.
+// W8A16 product for sm_90a, in two routes chosen by the activation dtype
+// (tpuserver_torch/ops/quant.py::int8_route), q int8 [K, N] row-major (N
+// contiguous, the reference's [in, out] layout) and s float32 [N] in both:
+// - `mma` (tt_int8_matmul, the tensor cores): x bf16 [M, K] (row stride
+//   ldx), y[M, N] = bf16( bf16(sum_k x[m,k] q[k,n]) * bf16(s[n]) ), the sum
+//   accumulated in float32;
+// - `simt` (tt_int8_matmul_f32, below the first): x float32, y[M, N] =
+//   (sum_k x[m,k] q[k,n]) * s[n] in float32, every product and sum an FMA
+//   on the CUDA cores.
+// Anything else (another activation dtype, a weight that is not contiguous
+// and 16-byte aligned) the wrapper refuses before any launch.  The notes
+// below are the `mma` route's; the `simt` route's stand beside its kernel.
 //
 // Replaces: no Pallas kernel.  The JAX package's weight-only int8 product
 // (tpuserver/ops/quant.py::matmul, decode-scale regime) is
@@ -445,6 +453,120 @@ __global__ void __launch_bounds__(kThreads, NT == 1 ? 4 : NT == 2 ? 3 : 1)
   if (ct == 0) *ticket = 0u;  // zeroed for the next launch on the stream
 }
 
+// -- the simt route: float32 activations -------------------------------------
+//
+// y[M, N] = (sum_k x[m, k] q[k, n]) * s[n] with x float32 [M, K] (row stride
+// ldx): every product and sum a float32 FMA on the CUDA cores (no TF32, no
+// bf16 rounding of x), then the scale, in the JAX package's order (`x @
+// q.astype(x.dtype) * s`: the product, then the scale).  A block of 4 warps
+// owns 128 columns, up to 8 token rows and one split of K (int8_splits'
+// cut, as the bf16 form); each lane owns 4 adjacent columns and reads their
+// 4 weight bytes of a k row as one word (a warp reads 128 contiguous bytes
+// of a row), 8 rows' words loaded ahead, and warp w sums the w-th quarter
+// of the split's rows in order.  The warps' sums are added in warp order
+// through shared memory; with more than one split the partial sums go to
+// `part` and a second kernel adds the splits in split order and scales.
+// Every element's order of summation is fixed by (K, N) alone, so a row's
+// bits do not depend on the rows beside it.  Bound: bytes, as the bf16
+// form's (K * N weight bytes for 2 * M * K * N operations at M <= 8).
+
+constexpr int kF32Rows = 8;      // token rows a block
+constexpr int kF32Ahead = 8;     // weight rows a lane loads ahead
+
+// the 4 weight bytes of row k at columns n .. n + 3 (zeros past N); kWord:
+// N % 4 == 0, so the 4 bytes are one aligned word
+template <bool kWord>
+__device__ __forceinline__ uint32_t weight_word(const int8_t* q, int k, int N,
+                                                int n) {
+  const int8_t* row = q + (long long)k * N;
+  if (kWord)
+    return n < N ? __ldcs(reinterpret_cast<const unsigned int*>(row + n))
+                 : 0u;
+  uint32_t w = 0u;
+#pragma unroll
+  for (int b = 0; b < 4; ++b)
+    if (n + b < N) w |= (uint32_t)(uint8_t)__ldcs(row + n + b) << (8 * b);
+  return w;
+}
+
+template <bool kWord>
+__global__ void __launch_bounds__(32 * kWarps) w8a32_kernel(
+    const float* __restrict__ x, long long ldx, const int8_t* __restrict__ q,
+    const float* __restrict__ s, float* __restrict__ y,
+    float* __restrict__ part, int M, int N, int K, int split_rows) {
+  __shared__ __align__(16) float red[kWarps][kF32Rows][kBlockN];
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int n0 = blockIdx.x * kBlockN;
+  const int split = blockIdx.y, n_split = gridDim.y;
+  const int m0 = blockIdx.z * kF32Rows;
+  const int rows = min(kF32Rows, M - m0);
+  const int quarter = split_rows / kWarps;
+  const int kbeg = split * split_rows + warp * quarter;
+  const int kend = min(kbeg + quarter, K);
+  const int nl = n0 + 4 * lane;  // this lane's first column
+  const float* xb = x + (long long)m0 * ldx;
+
+  float acc[kF32Rows][4];
+#pragma unroll
+  for (int m = 0; m < kF32Rows; ++m)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[m][j] = 0.f;
+
+  for (int k0 = kbeg; k0 < kend; k0 += kF32Ahead) {
+    uint32_t w[kF32Ahead];
+#pragma unroll
+    for (int u = 0; u < kF32Ahead; ++u)
+      w[u] = k0 + u < kend ? weight_word<kWord>(q, k0 + u, N, nl) : 0u;
+#pragma unroll
+    for (int u = 0; u < kF32Ahead; ++u) {
+      const int k = k0 + u;
+      if (k >= kend) break;
+      const uint32_t biased = w[u] ^ 0x80808080u;
+      float f[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) f[j] = i8_to_f32(biased, j);
+#pragma unroll
+      for (int m = 0; m < kF32Rows; ++m) {
+        if (m < rows) {
+          const float xv = __ldg(xb + m * ldx + k);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[m][j] = fmaf(xv, f[j], acc[m][j]);
+        }
+      }
+    }
+  }
+
+  // the warps' sums in warp order: thread t takes column n0 + t
+#pragma unroll
+  for (int m = 0; m < kF32Rows; ++m)
+    *reinterpret_cast<float4*>(&red[warp][m][4 * lane]) =
+        make_float4(acc[m][0], acc[m][1], acc[m][2], acc[m][3]);
+  __syncthreads();
+  const int n = n0 + t;
+  if (n >= N) return;
+  for (int m = 0; m < rows; ++m) {
+    float sum = red[0][m][t];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) sum += red[w][m][t];
+    if (n_split == 1)
+      y[(long long)(m0 + m) * N + n] = sum * s[n];
+    else
+      part[((long long)split * M + m0 + m) * N + n] = sum;
+  }
+}
+
+// y = (the splits' partial sums, added in split order) * s
+__global__ void __launch_bounds__(256) w8a32_combine_kernel(
+    const float* __restrict__ part, const float* __restrict__ s,
+    float* __restrict__ y, int M, int N, int n_split) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long mn = (long long)M * N;
+  if (i >= mn) return;
+  float sum = part[i];
+  for (int j = 1; j < n_split; ++j) sum += part[j * mn + i];
+  y[i] = sum * s[i % N];
+}
+
 // -- host side ---------------------------------------------------------------
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -594,4 +716,40 @@ extern "C" int tt_int8_matmul(const void* x, long long ldx, const void* q,
                      split_rows, xvec, st);
   return launch<kMaxTiles>(x, ldx, q, s, y, part, tickets, M, N, K, n_split,
                            split_rows, xvec, st);
+}
+
+// y [M, N] float32 (contiguous) = (x [M, K] float32 with row stride ldx, as
+// int8 q [K, N] contiguous and 16-byte aligned) * s [N] float32, every sum a
+// float32 FMA; K cut into n_split splits of split_rows rows (a multiple of
+// 256, at most 1024), as tt_int8_matmul cuts it; with more than one split,
+// part is a float32 [n_split, M, N] scratch.  Returns the launches'
+// cudaError_t.
+extern "C" int tt_int8_matmul_f32(const void* x, long long ldx, const void* q,
+                                  const void* s, void* y, void* part, int M,
+                                  int N, int K, int n_split, int split_rows,
+                                  void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (M < 1 || N < 1 || K < 1 || n_split < 1 || split_rows % 256 ||
+      split_rows > kMaxSplitRows || (long long)n_split * split_rows < K ||
+      (n_split > 1 && part == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((N + kBlockN - 1) / kBlockN, n_split,
+                  (M + kF32Rows - 1) / kF32Rows);
+  const float* xf = static_cast<const float*>(x);
+  const int8_t* qi = static_cast<const int8_t*>(q);
+  const float* sf = static_cast<const float*>(s);
+  float* yf = static_cast<float*>(y);
+  float* pf = static_cast<float*>(part);
+  if (N % 4 == 0)
+    w8a32_kernel<true><<<grid, 32 * kWarps, 0, st>>>(
+        xf, ldx, qi, sf, yf, pf, M, N, K, split_rows);
+  else
+    w8a32_kernel<false><<<grid, 32 * kWarps, 0, st>>>(
+        xf, ldx, qi, sf, yf, pf, M, N, K, split_rows);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || n_split == 1) return (int)e;
+  const long long mn = (long long)M * N;
+  w8a32_combine_kernel<<<(unsigned)((mn + 255) / 256), 256, 0, st>>>(
+      pf, sf, yf, M, N, n_split);
+  return (int)cudaGetLastError();
 }

@@ -114,12 +114,13 @@ def load_library():
     """The built kernel library, with every entry point's C signature
     declared (pointers and the stream as ``void*``, strides as int64)."""
     lib = ctypes.CDLL(str(build()))
+    # (dtype, route, ...): the route as ops/flash.py's route tables number it
     lib.tt_decode_attention.argtypes = (
-        [_int, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr] + [_int] * 6
+        [_int, _int, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr] + [_int] * 6
         + [ctypes.POINTER(_i64), ctypes.c_float, _ptr])
     lib.tt_decode_attention.restype = _int
     lib.tt_flash_attention.argtypes = (
-        [_int, _ptr, _ptr, _ptr, _ptr] + [_int] * 7
+        [_int, _int, _ptr, _ptr, _ptr, _ptr] + [_int] * 7
         + [ctypes.POINTER(_i64), ctypes.c_float, _ptr])
     lib.tt_flash_attention.restype = _int
     lib.tt_flash_tile_product.argtypes = [_ptr] * 6
@@ -127,6 +128,9 @@ def load_library():
     lib.tt_int8_matmul.argtypes = ([_ptr, _i64] + [_ptr] * 5 + [_int] * 5
                                    + [_ptr])
     lib.tt_int8_matmul.restype = _int
+    lib.tt_int8_matmul_f32.argtypes = ([_ptr, _i64] + [_ptr] * 4
+                                       + [_int] * 5 + [_ptr])
+    lib.tt_int8_matmul_f32.restype = _int
     # CUDA IPC of the shared-memory regions (csrc/cuda_ipc.cu)
     lib.tt_ipc_malloc.argtypes = [ctypes.c_size_t, _int,
                                   ctypes.POINTER(_ptr)]

@@ -6,6 +6,14 @@ A wrapper runs the plain version only for tensors that lie on the CPU
 (the tests hold it against the JAX package there).  For CUDA tensors it
 launches the kernel or raises; it never falls back.  Each wrapper counts
 its launches in ``<wrapper>.launches``.
+
+Each kernel has two routes, chosen from the operands' dtype and head dim
+before the launch (:func:`flash_route`, :func:`decode_route`): the tensor
+cores for bfloat16 at head dim 64 or 128 (every Llama-3 preset), and a
+float32-FMA kernel on the CUDA cores for the rest of the JAX kernels'
+domain (float32 at any head dim, bfloat16 at the others; any multiple of
+8 up to 256, any number of query heads per kv head).  Launches are also
+counted by route, in ``<wrapper>.route_launches``.
 """
 
 import ctypes
@@ -16,8 +24,12 @@ import torch
 from tpuserver_torch.ops import _build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_FLASH_HEAD_DIMS = (64, 128)  # flash kernel: the Llama-3 presets' head dims
-_MAX_REP = 8  # decode kernel: query heads per kv head
+# the routes, in the order csrc/flash_attention.cu and
+# csrc/decode_attention.cu number them
+FLASH_ROUTES = ("wgmma", "simt")
+DECODE_ROUTES = ("mma", "simt")
+# head dims of the tensor-core routes (bfloat16): every Llama-3 preset's
+_TENSOR_CORE_HEAD_DIMS = (64, 128)
 _MAX_HEAD_DIM = 256
 _MAX_SPLIT = 64  # decode kernel: key-range splits per (row, kv head)
 
@@ -122,16 +134,54 @@ def decode_attention_split_reference(q, k_cache, v_cache, lengths, n_split,
 # -- kernel launches ---------------------------------------------------------
 
 
+def _check_domain(name, dtype, d):
+    """Raise ValueError for what no route of the kernels takes: a dtype
+    other than float32 or bfloat16, a head dim that is not a multiple of
+    8 from 8 to 256."""
+    if dtype not in _DTYPE_CODES:
+        raise ValueError("{}: dtype {} is outside the kernels' domain "
+                         "(float32 or bfloat16)".format(name, dtype))
+    if d < 8 or d % 8 or d > _MAX_HEAD_DIM:
+        raise ValueError("{}: head dim {} is outside the kernels' domain "
+                         "(a multiple of 8 from 8 to {})".format(
+                             name, d, _MAX_HEAD_DIM))
+
+
+def flash_route(dtype, d):
+    """The flash kernel's route for operands of ``dtype`` with head dim
+    ``d``: ``"wgmma"`` (the tensor cores) for bfloat16 at 64 or 128,
+    ``"simt"`` (float32 FMA on the CUDA cores) for float32 at any head
+    dim and bfloat16 at the others.  ValueError for what neither takes."""
+    _check_domain("flash_attention", dtype, d)
+    if dtype == torch.bfloat16 and d in _TENSOR_CORE_HEAD_DIMS:
+        return "wgmma"
+    return "simt"
+
+
+def decode_route(dtype, d, n_rep):
+    """The decode kernel's route for operands of ``dtype``, head dim
+    ``d`` and ``n_rep`` query heads per kv head (any, a block taking up
+    to 8 of them): ``"mma"`` (the tensor cores) for bfloat16 at 64 or
+    128, ``"simt"`` (the CUDA cores) for the rest.  ValueError for what
+    neither takes."""
+    if n_rep < 1:
+        raise ValueError("decode_attention: {} query heads per kv head "
+                         "(want at least 1)".format(n_rep))
+    _check_domain("decode_attention", dtype, d)
+    if dtype == torch.bfloat16 and d in _TENSOR_CORE_HEAD_DIMS:
+        return "mma"
+    return "simt"
+
+
 def _check_cuda(name, dtype, *tensors):
     """Raise unless every tensor is a CUDA tensor of ``dtype`` on one
-    device, with unit last-dim stride and 16-byte aligned rows."""
+    device, with unit last-dim stride and 16-byte aligned rows, and a
+    dtype and head dim in the kernels' domain."""
     dev = tensors[0].device
     if dev.type != "cuda":
         raise ValueError("{}: tensors on {} (expected cpu or cuda)".format(
             name, dev))
-    if dtype not in _DTYPE_CODES:
-        raise ValueError("{}: dtype {} not supported by the kernel "
-                         "(float32 or bfloat16)".format(name, dtype))
+    _check_domain(name, dtype, tensors[0].shape[-1])
     itemsize = torch.empty((), dtype=dtype).element_size()
     for t in tensors:
         if t.device != dev or t.dtype != dtype:
@@ -142,10 +192,6 @@ def _check_cuda(name, dtype, *tensors):
                 (s * itemsize) % 16 for s in t.stride()[:-1]):
             raise ValueError("{}: operands need a unit last-dim stride and "
                              "16-byte aligned rows".format(name))
-    d = tensors[0].shape[-1]
-    if d % 8 or d > _MAX_HEAD_DIM:
-        raise ValueError("{}: head dim {} must be a multiple of 8 and at "
-                         "most {}".format(name, d, _MAX_HEAD_DIM))
 
 
 def _stream(device):
@@ -181,8 +227,9 @@ def flash_attention(q, k, v, causal=True, scale=None, block_q=128,
     ``h // (H // Hkv)``).  ``block_q``/``block_k`` keep the JAX
     signature's divisibility contract (T and Tk must divide by them,
     else ValueError); the CUDA kernel picks its own tiles.  On the card
-    the kernel takes bfloat16 with head dim 64 or 128 and raises
-    ValueError for anything else.
+    :func:`flash_route` picks the kernel from the dtype and head dim;
+    ValueError for what stays outside the kernels' domain (see
+    ``_check_cuda``).
     """
     b, t, h, d = q.shape
     t_kv, h_kv = k.shape[1], k.shape[2]
@@ -200,24 +247,23 @@ def flash_attention(q, k, v, causal=True, scale=None, block_q=128,
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, causal=causal, scale=scale)
     _check_cuda("flash_attention", q.dtype, q, k, v)
-    if q.dtype != torch.bfloat16 or d not in _FLASH_HEAD_DIMS:
-        raise ValueError("flash_attention: kernel takes bfloat16 operands "
-                         "with head dim in {} (got {} and {})".format(
-                             _FLASH_HEAD_DIMS, q.dtype, d))
+    route = flash_route(q.dtype, d)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     strides = (ctypes.c_int64 * 12)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
     lib = _build.load_library()
     rc = lib.tt_flash_attention(
-        _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), b, t, t_kv, h, h_kv, d, int(bool(causal)), strides,
-        float(scale), _stream(q.device))
+        _DTYPE_CODES[q.dtype], FLASH_ROUTES.index(route), q.data_ptr(),
+        k.data_ptr(), v.data_ptr(), out.data_ptr(), b, t, t_kv, h, h_kv, d,
+        int(bool(causal)), strides, float(scale), _stream(q.device))
     _raise_on(rc, "flash_attention")
     flash_attention.launches += 1
+    flash_attention.route_launches[route] += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.route_launches = dict.fromkeys(FLASH_ROUTES, 0)
 
 
 def flash_tile_product(q, k, v):
@@ -257,8 +303,10 @@ def decode_attention(q, k_cache, v_cache, lengths, scale=None, block_k=256):
     signature's contract (S must divide by it).  Returns [B, H, D].
 
     On the card the key range is split across ``decode_splits(...)``
-    blocks per (row, kv head), whose partials a second kernel combines
-    in split order (``decode_attention_split_reference`` models it).
+    blocks per (row, kv head) (each kv head's query heads in groups of
+    up to 8, a block each), whose partials a second kernel combines in
+    split order (``decode_attention_split_reference`` models it);
+    :func:`decode_route` picks the kernel from the dtype and head dim.
     """
     b, h, d = q.shape
     s, h_kv = k_cache.shape[1], k_cache.shape[2]
@@ -275,10 +323,7 @@ def decode_attention(q, k_cache, v_cache, lengths, scale=None, block_k=256):
         return decode_attention_reference(q, k_cache, v_cache, lengths,
                                           scale=scale)
     _check_cuda("decode_attention", q.dtype, q, k_cache, v_cache)
-    if h // h_kv > _MAX_REP or d & (d - 1):
-        raise ValueError("decode_attention: kernel takes at most {} query "
-                         "heads per kv head and a power-of-two head dim "
-                         "(got {} and {})".format(_MAX_REP, h // h_kv, d))
+    route = decode_route(q.dtype, d, h // h_kv)
     lengths = lengths.to(device=q.device, dtype=torch.int32).contiguous()
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     n_split = decode_splits(b, h_kv, s, _sm_count(q.device))
@@ -291,21 +336,28 @@ def decode_attention(q, k_cache, v_cache, lengths, scale=None, block_k=256):
         *out.stride()[:2])
     lib = _build.load_library()
     rc = lib.tt_decode_attention(
-        _DTYPE_CODES[q.dtype], q.data_ptr(), k_cache.data_ptr(),
-        v_cache.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        None if part is None else part.data_ptr(), b, h, h_kv, s, d,
-        n_split, strides, float(scale), _stream(q.device))
+        _DTYPE_CODES[q.dtype], DECODE_ROUTES.index(route), q.data_ptr(),
+        k_cache.data_ptr(), v_cache.data_ptr(), lengths.data_ptr(),
+        out.data_ptr(), None if part is None else part.data_ptr(), b, h,
+        h_kv, s, d, n_split, strides, float(scale), _stream(q.device))
     _raise_on(rc, "decode_attention")
     decode_attention.launches += 1
+    decode_attention.route_launches[route] += 1
     return out
 
 
 decode_attention.launches = 0
+decode_attention.route_launches = dict.fromkeys(DECODE_ROUTES, 0)
 
 
 def reset_launch_counts():
-    """Set every kernel wrapper's launch count to 0."""
+    """Set every kernel wrapper's launch counts (total and by route) to
+    0."""
     flash_attention.launches = 0
     decode_attention.launches = 0
     flash_tile_product.launches = 0
+    for counts in (flash_attention.route_launches,
+                   decode_attention.route_launches):
+        for route in counts:
+            counts[route] = 0
 

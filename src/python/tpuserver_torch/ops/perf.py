@@ -5,7 +5,8 @@ over the card's peak) and MBU (achieved device-memory bytes/s over its
 peak bandwidth) beside bare tokens/s.
 
 Peaks are the published per-card specs (NVIDIA's data sheet: dense bf16
-tensor-core rate and HBM bandwidth, at the card's full power limit).  MFU
+tensor-core rate, float32 rate outside the tensor cores and HBM
+bandwidth, at the card's full power limit).  MFU
 counts only algorithmic matmul and attention FLOPs (2*m*n*k a matmul).
 The counters read the port's ``LlamaConfig``.
 """
@@ -19,11 +20,17 @@ class ChipSpec:
     peak_bf16_flops: float  # FLOP/s
     hbm_bandwidth: float    # bytes/s
     hbm_bytes: int
+    # FLOP/s of float32 FMA on the CUDA cores (no TF32): the bound of the
+    # kernels' float32 routes; None where the table has no figure
+    peak_fp32_flops: float = None
 
 
-# published single-card specs, keyed by torch.cuda.get_device_name
+# published single-card specs, keyed by torch.cuda.get_device_name (H100
+# SXM: NVIDIA's H100 data sheet, dense rates, 700 W: 989 TFLOP/s bf16, 67
+# TFLOP/s float32, 3.35 TB/s)
 CHIP_SPECS = {
-    "NVIDIA H100 80GB HBM3": ChipSpec("h100-sxm", 989e12, 3.35e12, 80 << 30),
+    "NVIDIA H100 80GB HBM3": ChipSpec("h100-sxm", 989e12, 3.35e12, 80 << 30,
+                                      67e12),
 }
 
 

@@ -2,7 +2,8 @@
 ``tpuserver/ops/quant.py``).
 
 Weights are stored int8 with per-output-channel symmetric scales (about
-half the bytes of bf16), activations stay bf16.  The JAX package leaves
+half the bytes of bf16), activations stay in the model's dtype (bf16, or
+float32).  The JAX package leaves
 the weight-only product to XLA, which fuses the int8 -> bf16 ``convert``
 into the dot so that HBM traffic is the int8 bytes.  PyTorch has no such
 fusion: ``x @ q.to(x.dtype)`` writes a bf16 copy of the weight and reads
@@ -37,6 +38,10 @@ _SPLIT_TARGET_BLOCKS = 512
 # each stream's zeroed ticket counters of the kernel's split tiles (every
 # launch leaves them zeroed again)
 _tickets = {}
+# the W8A16 kernel's routes: "mma" (csrc/int8_matmul.cu's tensor-core
+# kernel, bf16 activations), "simt" (its float32-FMA kernel, float32
+# activations)
+INT8_ROUTES = ("mma", "simt")
 
 
 def quantize_int8(w, axis=0):
@@ -195,6 +200,18 @@ def _ticket_counters(device, need):
     return buf
 
 
+def int8_route(dtype):
+    """The W8A16 kernel's route for activations of ``dtype``: ``"mma"``
+    (the tensor cores) for bfloat16, ``"simt"`` (float32 FMA on the CUDA
+    cores) for float32.  ValueError for any other dtype."""
+    if dtype == torch.bfloat16:
+        return "mma"
+    if dtype == torch.float32:
+        return "simt"
+    raise ValueError("int8_matmul: activation dtype {} is outside the "
+                     "kernel's domain (bfloat16 or float32)".format(dtype))
+
+
 def int8_matmul_reference(x, q, s):
     """Plain PyTorch weight-only product: ``(x @ q.to(x.dtype)) *
     s.to(x.dtype)``, cast to ``x.dtype``, in that order of roundings.  x
@@ -204,14 +221,16 @@ def int8_matmul_reference(x, q, s):
 
 
 def int8_matmul(x, q, s):
-    """The weight-only product ``bf16(bf16(x @ q) * bf16(s))``: x bf16
-    [..., K], q int8 [K, N] (row-major, N contiguous), s float32 [N] ->
-    bf16 [..., N], the sum accumulated in float32.
+    """The weight-only product ``(x @ q) * s`` in ``x.dtype``: x [..., K],
+    q int8 [K, N] (row-major, N contiguous), s float32 [N] -> [..., N].
+    For bf16 x it is ``bf16(bf16(x @ q) * bf16(s))``, the sum accumulated
+    in float32; for float32 x every product and sum is float32.
 
     For CPU tensors the plain version runs.  On the card the W8A16 kernel
-    (``csrc/int8_matmul.cu``) launches, or this raises ValueError for
-    what it does not take (an activation other than bf16, a q that is
-    not contiguous and 16-byte aligned); it never falls back.  Each row's
+    (``csrc/int8_matmul.cu``) launches on the route :func:`int8_route`
+    picks from x's dtype, or this raises ValueError for what it does not
+    take (an activation other than bf16 or float32, a q that is not
+    contiguous and 16-byte aligned); it never falls back.  Each row's
     sum over K runs in one fixed order whatever the number of rows (K's
     splits, :func:`int8_splits`, follow the weight's shape alone), so a
     row's bits do not depend on the rows beside it."""
@@ -227,9 +246,7 @@ def int8_matmul(x, q, s):
         raise ValueError("int8_matmul: operands on {}, {}, {} (expected "
                          "one cuda device, or cpu)".format(
                              x.device, q.device, s.device))
-    if x.dtype != torch.bfloat16:
-        raise ValueError("int8_matmul: the kernel takes bfloat16 "
-                         "activations (got {})".format(x.dtype))
+    route = int8_route(x.dtype)
     if q.dtype != torch.int8 or not q.is_contiguous() or q.data_ptr() % 16:
         raise ValueError("int8_matmul: the kernel takes a contiguous, "
                          "16-byte aligned int8 weight")
@@ -238,27 +255,39 @@ def int8_matmul(x, q, s):
     if x2.stride(-1) != 1:
         x2 = x2.contiguous()
     m = x2.shape[0]
-    y = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
+    y = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if m:
         n_split, split_rows, part_shape, n_tickets = int8_scratch(m, k, n)
         part = tickets = None
         if part_shape is not None:
             part = torch.empty(part_shape, dtype=torch.float32,
                                device=x.device)
-            tickets = _ticket_counters(x.device, n_tickets)
-        rc = _build.load_library().tt_int8_matmul(
-            x2.data_ptr(), x2.stride(0), q.data_ptr(), s.data_ptr(),
-            y.data_ptr(), None if part is None else part.data_ptr(),
-            None if tickets is None else tickets.data_ptr(), m, n, k,
-            n_split, split_rows, _stream(x.device))
+        lib = _build.load_library()
+        if route == "mma":
+            if part is not None:
+                tickets = _ticket_counters(x.device, n_tickets)
+            rc = lib.tt_int8_matmul(
+                x2.data_ptr(), x2.stride(0), q.data_ptr(), s.data_ptr(),
+                y.data_ptr(), None if part is None else part.data_ptr(),
+                None if tickets is None else tickets.data_ptr(), m, n, k,
+                n_split, split_rows, _stream(x.device))
+        else:
+            rc = lib.tt_int8_matmul_f32(
+                x2.data_ptr(), x2.stride(0), q.data_ptr(), s.data_ptr(),
+                y.data_ptr(), None if part is None else part.data_ptr(), m,
+                n, k, n_split, split_rows, _stream(x.device))
         _raise_on(rc, "int8_matmul")
         int8_matmul.launches += 1
+        int8_matmul.route_launches[route] += 1
     return y.reshape(*x.shape[:-1], n)
 
 
 int8_matmul.launches = 0
+int8_matmul.route_launches = dict.fromkeys(INT8_ROUTES, 0)
 
 
 def reset_launch_counts():
-    """Set the W8A16 wrapper's launch count to 0."""
+    """Set the W8A16 wrapper's launch counts (total and by route) to 0."""
     int8_matmul.launches = 0
+    for route in int8_matmul.route_launches:
+        int8_matmul.route_launches[route] = 0

@@ -60,12 +60,138 @@ def test_flash_kernel_matches_plain_on_card(cuda, t, d, causal):
     assert _row_rel_err(wrong, ref) > CARD_TOL[torch.bfloat16]
 
 
-@pytest.mark.parametrize("dtype,d", [(torch.float32, 128), (torch.bfloat16, 8),
-                                     (torch.bfloat16, 96)])
-def test_flash_kernel_rejects_what_it_does_not_take(cuda, dtype, d):
+@pytest.mark.parametrize("dtype,d,match", [
+    (torch.float16, 128, "dtype .* outside the kernels' domain"),
+    (torch.bfloat16, 4, "head dim 4 is outside the kernels' domain"),
+    (torch.bfloat16, 264, "head dim 264 is outside the kernels' domain"),
+    (torch.float32, 12, "head dim 12 is outside the kernels' domain")])
+def test_flash_kernel_rejects_what_it_does_not_take(cuda, dtype, d, match):
+    """Only what neither route takes: float32 and bf16 at every multiple
+    of 8 up to 256 have a kernel (the cases below)."""
     q = torch.zeros(1, 64, 4, d, device=cuda, dtype=dtype)
-    with pytest.raises(ValueError, match="bfloat16 operands with head dim"):
+    before = tflash.flash_attention.launches
+    with pytest.raises(ValueError, match=match):
         tflash.flash_attention(q, q, q)
+    # rows that are not 16-byte aligned: head dim 8 of float32 every 40
+    # bytes
+    wide = torch.zeros(1, 64, 4, 10, device=cuda)[..., :8]
+    with pytest.raises(ValueError, match="16-byte aligned rows"):
+        tflash.flash_attention(wide, wide, wide)
+    assert tflash.flash_attention.launches == before
+
+
+@pytest.mark.parametrize("dtype,d,match", [
+    (torch.float16, 128, "dtype .* outside the kernels' domain"),
+    (torch.bfloat16, 4, "head dim 4 is outside the kernels' domain"),
+    (torch.float32, 264, "head dim 264 is outside the kernels' domain")])
+def test_decode_kernel_rejects_what_it_does_not_take(cuda, dtype, d, match):
+    q = torch.zeros(1, 16, d, device=cuda, dtype=dtype)
+    kc = torch.zeros(1, 64, 1, d, device=cuda, dtype=dtype)
+    lens = torch.ones(1, dtype=torch.int32, device=cuda)
+    before = tflash.decode_attention.launches
+    with pytest.raises(ValueError, match=match):
+        tflash.decode_attention(q, kc, kc, lens)
+    wide = torch.zeros(1, 64, 1, 10, device=cuda)[..., :8]
+    with pytest.raises(ValueError, match="16-byte aligned rows"):
+        tflash.decode_attention(torch.zeros(1, 16, 8, device=cuda), wide,
+                                wide, lens)
+    assert tflash.decode_attention.launches == before
+
+
+# the routes beyond the bf16 tensor-core ones: float32 at any head dim,
+# bf16 at the head dims other than 64 and 128, over one kv head or several
+@pytest.mark.parametrize("dtype,d,hkv,causal", [
+    (torch.float32, 128, 2, True), (torch.float32, 64, 2, False),
+    (torch.bfloat16, 8, 4, True), (torch.bfloat16, 96, 1, True),
+    (torch.float32, 96, 1, False), (torch.bfloat16, 256, 1, True),
+    (torch.float32, 256, 2, False), (torch.float32, 24, 4, True)])
+def test_flash_simt_route_matches_plain_on_card(cuda, dtype, d, hkv, causal):
+    gen = torch.Generator(device=cuda).manual_seed(21)
+    t = 200  # no multiple of the route's 32-key tile
+    q, k, v = (torch.randn(2, t, hh, d, device=cuda, generator=gen).to(
+        dtype) for hh in (8, hkv, hkv))
+    assert tflash.flash_route(dtype, d) == "simt"
+    before = dict(tflash.flash_attention.route_launches)
+    out = tflash.flash_attention(q, k, v, causal=causal, block_q=8,
+                                 block_k=8)
+    again = tflash.flash_attention(q, k, v, causal=causal, block_q=8,
+                                   block_k=8)
+    torch.cuda.synchronize()
+    assert tflash.flash_attention.route_launches["simt"] == \
+        before["simt"] + 2
+    assert tflash.flash_attention.route_launches["wgmma"] == before["wgmma"]
+    assert torch.equal(out, again)
+    ref = tflash.flash_attention_reference(q, k, v, causal=causal)
+    assert _row_rel_err(out, ref) <= CARD_TOL[dtype]
+    # the limit sees the last 32 keys dropped
+    keys = t - 32
+    if causal:
+        short = torch.cat([tflash.flash_attention_reference(
+            q[:, :keys], k[:, :keys], v[:, :keys], causal=True),
+            tflash.flash_attention_reference(
+                q[:, keys:], k[:, :keys], v[:, :keys], causal=False)], dim=1)
+    else:
+        short = tflash.flash_attention_reference(q, k[:, :keys],
+                                                 v[:, :keys], causal=False)
+    assert _row_rel_err(short, ref) > CARD_TOL[dtype]
+
+
+# the decode kernel at more than 8 query heads per kv head (groups of 8 on
+# the grid, on both routes) and at head dims that are no power of two
+@pytest.mark.parametrize("dtype,h,hkv,d,route", [
+    (torch.bfloat16, 128, 8, 128, "mma"), (torch.bfloat16, 40, 4, 64, "mma"),
+    (torch.float32, 32, 1, 128, "simt"), (torch.bfloat16, 16, 1, 96, "simt"),
+    (torch.bfloat16, 8, 2, 256, "simt"), (torch.float32, 40, 4, 24, "simt"),
+    (torch.float32, 36, 2, 200, "simt")])
+def test_decode_kernel_domain_matches_plain_on_card(cuda, dtype, h, hkv, d,
+                                                    route):
+    gen = torch.Generator(device=cuda).manual_seed(22)
+    lengths = torch.tensor([0, 1, 300, 512], dtype=torch.int32, device=cuda)
+    q = torch.randn(4, h, d, device=cuda, generator=gen).to(dtype)
+    kc = torch.randn(4, 512, hkv, d, device=cuda, generator=gen).to(dtype)
+    vc = torch.randn(4, 512, hkv, d, device=cuda, generator=gen).to(dtype)
+    assert tflash.decode_route(dtype, d, h // hkv) == route
+    before = dict(tflash.decode_attention.route_launches)
+    out = tflash.decode_attention(q, kc, vc, lengths)
+    again = tflash.decode_attention(q, kc, vc, lengths)
+    torch.cuda.synchronize()
+    assert tflash.decode_attention.route_launches[route] == \
+        before[route] + 2
+    assert torch.equal(out, again)
+    n_split = tflash.decode_splits(4, hkv, 512, tflash._sm_count(q.device))
+    for ref in (tflash.decode_attention_reference(q, kc, vc, lengths),
+                tflash.decode_attention_split_reference(q, kc, vc, lengths,
+                                                        n_split)):
+        assert _row_rel_err(out, ref) <= CARD_TOL[dtype]
+    assert not out[0].any()
+    ref = tflash.decode_attention_reference(q, kc, vc, lengths)
+    # the limit sees the last 256-key tile skipped
+    short = tflash.decode_attention_reference(
+        q, kc, vc, torch.where(lengths > 256, lengths - 256, lengths))
+    assert _row_rel_err(short, ref) > CARD_TOL[dtype]
+
+
+def test_a_failed_launch_on_a_route_raises_on_card(cuda, monkeypatch):
+    """No silent fallback on the routes: a route the kernel library
+    refuses for the operands (the tensor-core routes given float32) comes
+    back as a CUDA error, which the wrapper raises, counting no launch."""
+    q = torch.zeros(1, 64, 4, 128, device=cuda)
+    lens = torch.ones(1, dtype=torch.int32, device=cuda)
+    monkeypatch.setattr(tflash, "flash_route", lambda dtype, d: "wgmma")
+    monkeypatch.setattr(tflash, "decode_route",
+                        lambda dtype, d, n_rep: "mma")
+    before = (tflash.flash_attention.launches,
+              tflash.decode_attention.launches,
+              dict(tflash.flash_attention.route_launches),
+              dict(tflash.decode_attention.route_launches))
+    with pytest.raises(RuntimeError, match="kernel launch failed"):
+        tflash.flash_attention(q, q, q)
+    with pytest.raises(RuntimeError, match="kernel launch failed"):
+        tflash.decode_attention(q[:, 0], q, q, lens)
+    assert before == (tflash.flash_attention.launches,
+                      tflash.decode_attention.launches,
+                      dict(tflash.flash_attention.route_launches),
+                      dict(tflash.decode_attention.route_launches))
 
 
 @pytest.mark.parametrize("dtype,h,hkv,d", [
@@ -586,12 +712,67 @@ def test_int8_kernel_rejects_what_it_does_not_take(cuda):
     from tpuserver_torch.ops import quant
 
     x, q, s = _int8_inputs(cuda, 12, 2, 64, 32)
-    with pytest.raises(ValueError, match="bfloat16"):
-        quant.int8_matmul(x.float(), q, s)
+    with pytest.raises(ValueError, match="outside the kernel's domain"):
+        quant.int8_matmul(x.half(), q, s)
     with pytest.raises(ValueError, match="contiguous"):
         quant.int8_matmul(x, q.t().contiguous().t(), s)
     with pytest.raises(ValueError, match="do not match"):
         quant.int8_matmul(x[:, :63], q, s)
+
+
+# the float32 route: tiny's, odd (byte loads), ragged and Llama-3-8B's
+# shapes at 1 to 13 rows
+INT8_F32_SHAPES = [(64, 128), (37, 29), (1040, 200), (4096 + 3, 1000 + 5),
+                   (4096, 1024), (14336, 4096)]
+
+
+@pytest.mark.parametrize("k,n", INT8_F32_SHAPES)
+@pytest.mark.parametrize("m", [1, 3, 8, 13])
+def test_int8_float32_route_matches_plain_on_card(cuda, m, k, n):
+    from tpuserver_torch.ops import quant
+
+    gen = torch.Generator(device=cuda).manual_seed(23)
+    x = torch.randn(m, k, device=cuda, generator=gen)
+    qw = quant.quantize_int8(torch.randn(k, n, device=cuda, generator=gen)
+                             / k ** 0.5)
+    q, s = qw["q"], qw["s"]
+    before = dict(quant.int8_matmul.route_launches)
+    out = quant.int8_matmul(x, q, s)
+    torch.cuda.synchronize()
+    assert quant.int8_matmul.route_launches["simt"] == before["simt"] + 1
+    assert quant.int8_matmul.route_launches["mma"] == before["mma"]
+    assert out.shape == (m, n) and out.dtype == torch.float32
+    ref = quant.int8_matmul_reference(x, q, s)
+    assert _row_rel_err(out, ref) <= CARD_TOL[torch.float32]
+    # each row's bits do not depend on the rows beside it
+    assert torch.equal(out[-1:], quant.int8_matmul(x[-1:], q, s))
+    # the limit sees the last 32 input rows of the weight skipped
+    cut = q.clone()
+    cut[-32:] = 0
+    assert _row_rel_err(quant.int8_matmul_reference(x, cut, s), ref) > \
+        CARD_TOL[torch.float32]
+
+
+def test_int8_float32_route_failed_launch_raises_on_card(cuda, monkeypatch):
+    """A launch error of the float32 route comes back as an exception
+    (a stub library that answers cudaErrorInvalidValue), with no launch
+    counted."""
+    from tpuserver_torch.ops import quant
+
+    class Refusing:
+        @staticmethod
+        def tt_int8_matmul_f32(*args):
+            return 1
+
+    x = torch.randn(2, 64, device=cuda)
+    qw = quant.quantize_int8(torch.randn(64, 32, device=cuda))
+    monkeypatch.setattr(_build, "load_library", lambda: Refusing)
+    before = (quant.int8_matmul.launches,
+              dict(quant.int8_matmul.route_launches))
+    with pytest.raises(RuntimeError, match="CUDA error 1"):
+        quant.int8_matmul(x, qw["q"], qw["s"])
+    assert before == (quant.int8_matmul.launches,
+                      dict(quant.int8_matmul.route_launches))
 
 
 def test_int8_wrapper_raises_without_a_library(cuda, monkeypatch, tmp_path):

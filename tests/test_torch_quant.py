@@ -205,9 +205,9 @@ class _KernelReached(Exception):
 
 def test_int8_matmul_raises_on_cuda_tensors_without_a_card(monkeypatch):
     """CUDA tensors (fake ones: this machine has no card) never take the
-    CPU path: a float32 activation or a transposed weight is a
-    ValueError, and bf16 operands go for the kernel library (here a stub
-    that raises)."""
+    CPU path: a float16 activation (outside the kernel's domain) or a
+    transposed weight is a ValueError, and bf16 and float32 operands go
+    for the kernel library (here a stub that raises)."""
     def no_library():
         raise _KernelReached()
 
@@ -216,15 +216,16 @@ def test_int8_matmul_raises_on_cuda_tensors_without_a_card(monkeypatch):
         x = torch.empty(3, K, device="cuda", dtype=torch.bfloat16)
         q = torch.empty(K, N, device="cuda", dtype=torch.int8)
         s = torch.empty(N, device="cuda")
-        with pytest.raises(ValueError, match="bfloat16"):
-            tq.int8_matmul(x.float(), q, s)
+        with pytest.raises(ValueError, match="outside the kernel's domain"):
+            tq.int8_matmul(x.half(), q, s)
         with pytest.raises(ValueError, match="contiguous"):
             tq.int8_matmul(x, torch.empty(N, K, device="cuda",
                                           dtype=torch.int8).t(), s)
         with warnings.catch_warnings():
             warnings.simplefilter("ignore")  # a fake tensor's data_ptr
-            with pytest.raises(_KernelReached):
-                tq.int8_matmul(x, q, s)
+            for xx in (x, x.float()):
+                with pytest.raises(_KernelReached):
+                    tq.int8_matmul(xx, q, s)
     with pytest.raises(ValueError, match="do not match"):
         tq.int8_matmul(torch.zeros(2, K + 1), torch.zeros(K, N,
                                                           dtype=torch.int8),

@@ -133,7 +133,7 @@ def main():
     lib = ctypes.CDLL(build())
     i64, cint, ptr = ctypes.c_int64, ctypes.c_int, ctypes.c_void_p
     lib.tt_flash_attention.argtypes = (
-        [cint, ptr, ptr, ptr, ptr] + [cint] * 7
+        [cint, cint, ptr, ptr, ptr, ptr] + [cint] * 7
         + [ctypes.POINTER(i64), ctypes.c_float, ptr])
     lib.tt_flash_attention.restype = cint
     lib.tt_flash_phase_clocks.argtypes = [ptr]
