@@ -15,9 +15,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
    plain model of its split-K), and timed beside its bound, its plain
    version and one PyTorch library call (for single-row decode also SDPA
    over the live prefix alone); then, untimed, every route the main path
-   does not run (``phase_route_checks``: flash's and decode's float32 and
-   other-head-dim "simt" routes, decode past 8 query heads a kv head on
-   both routes, the W8A16 product's float32 route) against its plain
+   does not run (``phase_route_checks``: flash's and decode's bf16
+   tensor-core routes at head dims other than 64 and 128, their float32
+   "simt" routes, decode past 8 query heads a kv head on both routes, the
+   W8A16 product's float32 route; a bf16 case on "simt" or a float32 one
+   on a tensor-core route fails) against its plain
    version at small shapes with a planted fault, the route each launched
    on counted;
 4. serve: ``tpuserver_torch``'s server and HTTP front end serving
@@ -485,9 +487,12 @@ Phases, in order; any failure exits non-zero and prints no result line:
    alone, which runs phases 1-3 and 20 and prints the phase's ``{"kernels":
    [...]}`` line, the card's name and power limit and the result line; the
    full script does not run it.  TF32 off for the phase.  (a) Each route
-   beyond the bf16 tensor-core ones against its plain version and timed
-   (CUDA events, L2 flushed) beside its bound, the plain version and one
-   library call at the same dtype (masked SDPA; for decode also SDPA over
+   at the shapes beyond the main path's (bf16 on the tensor cores at head
+   dims other than 64 and 128, float32 on "simt") against its plain
+   version and timed (CUDA events, L2 flushed) beside its bound, the plain
+   version, ``ptxas``' registers and spilled bytes of the kernel instance
+   the shape launches, and one library call at the same dtype (masked
+   SDPA; for decode also SDPA over
    the live prefix; for the W8A16 product a float32 ``torch.matmul`` over
    the dequantized weight): flash float32 at ``llama3_8b`` and
    ``llama3_1b`` (T 512), bf16 at D 8 (``tiny``), bf16 and float32 at D 96
@@ -511,7 +516,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
    D 96, 2 layers), bf16 at ``attn_impl="kernel"``: JAX's
    ``test_llama_decode_pallas_matches_xla`` (a 128-token prompt, 12
    tokens in chunks of 4, ``max_seq`` 256): tokens identical to the dense
-   arm's, the other-head-dim routes launched.  The rows of the line: each
+   arm's, the tensor-core routes launched and "simt" never.  The rows of
+   the line: each
    path's kernels on their routes, and each timed route no path runs with
    its 0 launches.
 
@@ -531,6 +537,7 @@ import gc
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -746,6 +753,65 @@ def phase_build():
             if any(k in line for k in ("registers", "spill", "C7518")) or \
                     line.startswith("=="):
                 log("  ptxas:", line.strip())
+
+
+def ptxas_instances(text):
+    """{kernel entry (mangled name): {"registers", "spill_stores",
+    "spill_loads"}} from an nvcc log written with ``-Xptxas -v``."""
+    out, name, spill = {}, None, (0, 0)
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name, spill = m.group(1), (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name is not None:
+            out[name] = {"registers": int(m.group(1)),
+                         "spill_stores": spill[0], "spill_loads": spill[1]}
+            name = None
+    return out
+
+
+def _padded_head_dim(d):
+    """The head dim an attention tensor-core instance runs at (csrc's
+    D_p): 64, 128, 192 or 256."""
+    return next(p for p in (64, 128, 192, 256) if d <= p)
+
+
+def kernel_instance(kname, route, d=None, n_rep=1):
+    """The fragment of the mangled name of the kernel instance that a
+    row of ``kname`` on ``route`` at head dim ``d`` and ``n_rep`` query
+    heads a kv head launches (the templates of ``csrc/*.cu``)."""
+    if kname == "flash_attention":
+        return ("flash_attention_kernelILi{}E".format(_padded_head_dim(d))
+                if route == "wgmma" else
+                "flash_attention_simt_kernelILi{}E".format(1 if d <= 128
+                                                           else 2))
+    if kname == "decode_attention":
+        if route == "mma":
+            dp = _padded_head_dim(d)
+            return "decode_attention_mma_kernelILi{}ELi{}ELb{}E".format(
+                dp, 8 if n_rep <= 8 and dp < 256 else 16,
+                int(d in (64, 128)))
+        rep = next(r for r in (1, 2, 4, 8) if min(n_rep, 8) <= r)
+        return "decode_attention_kernelIfLi{}E".format(rep)
+    return "w8a32_kernel" if route == "simt" else "w8a16_mma_kernel"
+
+
+def ptxas_of(instances, fragment):
+    """The registers and spilled bytes of the instances whose name holds
+    ``fragment`` (the most of each over them, and how many matched)."""
+    hits = [v for k, v in instances.items() if fragment in k]
+    if not hits:
+        return None
+    return {"instances": len(hits),
+            **{key: max(h[key] for h in hits)
+               for key in ("registers", "spill_stores", "spill_loads")}}
 
 
 # -- phase 3: kernels against their plain versions ---------------------------
@@ -1187,28 +1253,32 @@ def _route_errors(rows):
     return out
 
 
-# phase 3's check of the kernels' routes beyond the bf16 tensor-core ones
-# the main path runs (the float32 and other-head-dim "simt" routes, and
-# the decode kernel past 8 query heads a kv head, where its blocks take
-# the heads in groups of 8), each against its plain version at a small
-# shape with a planted fault; correctness only (phase 20 times them).
-# flash: (b, t, h, hkv, d, causal, dtype); t is no multiple of the simt
-# route's 32-key tile where it can be
+# phase 3's check of the kernels' routes beyond the shapes the main path
+# runs (bf16 on the tensor cores at head dims other than 64 and 128, the
+# head dim padded inside the kernel; the float32 "simt" routes; the decode
+# kernel past 8 query heads a kv head, where its blocks take the heads in
+# groups of 16 on "mma" and 8 on "simt"), each against its plain version
+# at a small shape with a planted fault; correctness only (phase 20 times
+# them).  flash: (b, t, h, hkv, d, causal, dtype); t is no multiple of the
+# routes' 32- and 64-key tiles where it can be
 ROUTE_FLASH_CASES = (
-    (2, 200, 8, 2, 128, True, "float32"),     # llama3_8b's heads, float32
-    (1, 128, 8, 4, 8, True, "bfloat16"),      # tiny's
-    (1, 160, 16, 1, 96, True, "bfloat16"),    # multi-query, D 96
+    (2, 200, 8, 2, 128, True, "float32"),     # llama3_8b's heads, simt
+    (1, 128, 8, 4, 8, True, "bfloat16"),      # tiny's: wgmma at D_p 64
+    (1, 160, 16, 1, 96, True, "bfloat16"),    # multi-query, D 96: D_p 128
     (1, 96, 4, 1, 256, False, "float32"),
-    (1, 72, 4, 2, 256, True, "bfloat16"),
+    (1, 72, 4, 2, 256, True, "bfloat16"),     # D_p 256, one warpgroup
+    (1, 200, 8, 2, 192, True, "bfloat16"),    # D_p 192
     (1, 72, 6, 3, 24, False, "float32"),
     (2, 136, 8, 2, 64, True, "float32"))      # llama3_1b's head dim
 # decode: (lengths, s, h, hkv, d, dtype)
 ROUTE_DECODE_CASES = (
-    ((0, 1, 300, 512), 512, 128, 8, 128, "bfloat16"),  # mma, 2 groups a kv head
-    ((9, 200), 256, 40, 4, 64, "bfloat16"),            # mma, groups of 8 and 2
-    ((576,), 4096, 32, 1, 128, "float32"),             # simt, 4 groups
-    ((0, 77, 512), 512, 16, 1, 96, "bfloat16"),        # simt, 12-lane teams of 16
-    ((33, 256), 256, 8, 2, 256, "bfloat16"),
+    ((0, 1, 300, 512), 512, 128, 8, 128, "bfloat16"),  # mma, 1 group of 16
+    ((9, 200), 256, 40, 4, 64, "bfloat16"),            # mma, 1 group of 10
+    ((576,), 4096, 32, 1, 128, "float32"),             # simt, 4 groups of 8
+    ((0, 77, 512), 512, 16, 1, 96, "bfloat16"),        # mma, D_p 128
+    ((33, 256), 256, 8, 2, 256, "bfloat16"),           # mma, D_p 256
+    ((0, 139, 512), 512, 16, 1, 24, "bfloat16"),       # mma, n_rep 16, D 24
+    ((1, 300), 512, 34, 2, 8, "bfloat16"),             # mma, groups 16 + 1
     ((40, 17, 64), 64, 12, 1, 24, "float32"))
 # the W8A16 product's float32 route: (m, k, n); 4099 x 1005 and 37 x 29
 # take its byte loads (N no multiple of 4), 14336 x 4096 its split K
@@ -1300,11 +1370,22 @@ def phase_route_checks(torch):
                 kname, route))
         return out
 
+    tensor_cores = {"flash_attention": "wgmma", "decode_attention": "mma"}
+
+    def route_for(kname, dt, route):
+        """``route``, which must be the tensor-core one for bf16 and
+        "simt" for float32."""
+        want = tensor_cores[kname] if dt == "bfloat16" else "simt"
+        if route != want:
+            fail("{} takes {} on {} (want {})".format(kname, dt, route,
+                                                      want))
+        return route
+
     for b, t, h, hkv, d, causal, dt in ROUTE_FLASH_CASES:
         dtype = dtypes[dt]
         q, k, v = (torch.randn(b, t, hh, d, device=dev, generator=gen).to(
             dtype) for hh in (h, hkv, hkv))
-        route = fl.flash_route(dtype, d)
+        route = route_for("flash_attention", dt, fl.flash_route(dtype, d))
         out = twice("flash_attention", route, lambda: fl.flash_attention(
             q, k, v, causal=causal, block_q=t, block_k=t))
         ref = fl.flash_attention_reference(q, k, v, causal=causal)
@@ -1327,7 +1408,8 @@ def phase_route_checks(torch):
         kc, vc = (torch.randn(bb, ss, hkv, d, device=dev, generator=gen).to(
             dtype) for _ in range(2))
         lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
-        route = fl.decode_route(dtype, d, h // hkv)
+        route = route_for("decode_attention", dt,
+                          fl.decode_route(dtype, d, h // hkv))
         out = twice("decode_attention", route,
                     lambda: fl.decode_attention(q, kc, vc, lens))
         ref = fl.decode_attention_reference(q, kc, vc, lens)
@@ -8871,6 +8953,7 @@ def _kernel_domain_timed(torch):
     (m, k, n), and its decode-step sums as ``int8_f32_step_m<M>``)."""
     import torch.nn.functional as F
 
+    from tpuserver_torch.ops import _build
     from tpuserver_torch.ops import flash as fl
     from tpuserver_torch.ops import quant
 
@@ -8900,6 +8983,12 @@ def _kernel_domain_timed(torch):
         rows["int8_f32_step_m{}".format(m)] = step
     m, k, n = 8, *KD_INT8_RAGGED
     rows["int8_f32_ragged"] = int8[(m, k, n)]
+    nvlog = _build.BUILD_DIR / "nvcc.log"
+    instances = ptxas_instances(nvlog.read_text()) if nvlog.exists() else {}
+    for row in rows.values():
+        row["ptxas"] = ptxas_of(instances, kernel_instance(
+            row["kernel"], row["kernel_route"], row.get("d"),
+            row.get("h", 1) // row.get("hkv", 1)))
     bad, blind = [], []
     for key, row in list(rows.items()) + [
             ("int8 {}".format(kmn), r) for kmn, r in int8.items()]:
@@ -8912,10 +9001,14 @@ def _kernel_domain_timed(torch):
                                             {}).values()):
             blind.append(key)
     for key, row in rows.items():
-        log("kernel domain (a): {} {} ms, bound {} ms ({}), plain {} ms, "
-            "library {} ms".format(key, row["ms"], row["bound_ms"],
-                                   row["bound_by"], row["plain_ms"],
-                                   row["library_ms"]))
+        ptx = row["ptxas"] or {}
+        log("kernel domain (a): {} ({}) {} ms, bound {} ms ({}), plain {} "
+            "ms, library {} ms; ptxas {} registers, {} / {} bytes spilled "
+            "(stores / loads)".format(
+                key, row["kernel_route"], row["ms"], row["bound_ms"],
+                row["bound_by"], row["plain_ms"], row["library_ms"],
+                ptx.get("registers"), ptx.get("spill_stores"),
+                ptx.get("spill_loads")))
     if bad:
         fail("kernel domain (a): routes disagree with their plain "
              "versions: {}".format(bad))
@@ -9014,6 +9107,11 @@ def _kernel_domain_f32(torch, np, smi, device):
         for path in ("f32_serve", "f32_serve_batched"):
             kd_routes_launched(path, launches[path], {
                 "flash_attention": "simt", "decode_attention": "simt"})
+            if launches[path]["flash_attention"]["wgmma"] or \
+                    launches[path]["decode_attention"]["mma"]:
+                fail("kernel domain (b) {}: a float32 call launched a "
+                     "tensor-core route: {}".format(
+                         path, json.dumps(launches[path])))
         if any(n for by_route in dense_counts.values()
                for n in by_route.values()):
             fail("kernel domain (b): the dense arm launched a kernel")
@@ -9143,7 +9241,11 @@ def _kernel_domain_small(torch, np, device):
                  "arm's".format(path, err))
         if card:
             kd_routes_launched(path, launches[path], {
-                "flash_attention": "simt", "decode_attention": "simt"})
+                "flash_attention": "wgmma", "decode_attention": "mma"})
+            if any(launches[path][k]["simt"] for k in (
+                    "flash_attention", "decode_attention")):
+                fail("kernel domain (c) {}: a bf16 call launched a simt "
+                     "route: {}".format(path, json.dumps(launches[path])))
     return launches
 
 
@@ -9217,7 +9319,8 @@ def _kd_row(kname, path, counts, row, timed_as):
         "ms": row["ms"], "plain_ms": row["plain_ms"],
         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
         "library_ms": row["library_ms"],
-        "library_live_ms": row.get("library_live_ms"), "timed_as": timed_as}
+        "library_live_ms": row.get("library_live_ms"), "timed_as": timed_as,
+        "ptxas": row.get("ptxas")}
 
 
 def kernel_domain_rows(timed, launches):

@@ -18,31 +18,41 @@
 // - grid (n_split, Hkv x G, B): the wrapper picks n_split from B, Hkv, S and
 //   the SM count only (about two blocks per SM, at least 64 cache keys a
 //   split), never from `lengths`, which stay on the device.  A block takes
-//   up to 8 of the n_rep = H / Hkv query heads of its kv head: G =
-//   ceil(n_rep / 8) groups (G is 1 for every Llama-3 preset; Llama-3.1-405B's
-//   H 128 over Hkv 8 has G 2, multi-query attention over Hkv 1 with H 32 has
-//   G 4), and each group re-reads its kv head's cache.  Each block cuts
-//   [0, lengths[b]) itself into n_split near-equal ranges aligned to 16 keys,
-//   so every split has work at any length up to its share; a block whose
-//   range is empty writes m = -inf, l = 0 and a zero accumulator;
+//   a group of up to kMmaRep = 16 (`mma` route) or kSimtRep = 8 (`simt`)
+//   of the n_rep = H / Hkv query heads of its kv head: G = ceil(n_rep /
+//   group) groups, each re-reading its kv head's cache.  On the `mma` route
+//   G is 1 for every Llama-3 preset, for Llama-3.1-405B's H 128 over Hkv 8
+//   and for multi-query attention up to 16 heads; H 32 over Hkv 1 has G 2.
+//   Each block cuts [0, lengths[b]) itself into n_split near-equal ranges
+//   aligned to 16 keys, so every split has work at any length up to its
+//   share; a block whose range is empty writes m = -inf, l = 0 and a zero
+//   accumulator;
 // - inside a block, K/V tiles stream through a 3-stage shared-memory ring
 //   filled with cp.async: two tiles are in flight while one is scored, and
 //   each tile costs one block-wide barrier;
 // - the query heads of a block read each K/V row once from shared memory,
 //   so GQA is never expanded; no key at or past lengths[b] is read;
-// - bf16 with D 64 or 128 (every Llama-3 preset) runs on the tensor cores:
-//   each of 4 warps takes 16 keys of a 64-key tile, S = Q K^T and P V are
-//   mma.sync m16n8k16 with the kv head's query heads as the MMA rows and
-//   ldmatrix(.trans) fragments, and each warp keeps its own online-softmax
-//   state.  Q and K enter as they are (their products are exact in fp32),
-//   P as two bf16 terms (hi + lo), so P.V keeps about 16 bits of P.
-//   Without this the per-key arithmetic (a dot product reduced
-//   across lanes by shuffles) took longer than the loads it waited on;
-// - float32, and bf16 at other head dims (any multiple of 8 up to 256),
-//   take a SIMT kernel: a team of lanes per key row, 8 elements a lane (D / 8
-//   lanes rounded up to a power of two, the lanes past D idle, so that teams
+// - the `mma` route takes bf16 at every head dim of the domain (a multiple
+//   of 8 from 8 to 256) on the tensor cores: each of 4 warps takes 16 keys
+//   of a 64-key tile, S = Q K^T and P V are mma.sync m16n8k16 with the
+//   group's query heads as the 16 MMA rows (an instance for groups of at
+//   most 8 heads folds only rows 0 .. 7) and ldmatrix(.trans) fragments,
+//   and each warp keeps its own online-softmax state.  The head dim runs at
+//   a padded D_p of 64, 128, 192 or 256: cp.async copies the D columns of
+//   each cache row, and columns D .. D_p - 1 of every ring stage are zeroed
+//   once, so QK^T and P V run over D_p (the zero columns add nothing; P V
+//   writes zeros there, which are not stored).  Q and K enter
+//   as they are (their products are exact in fp32), P as two bf16 terms (hi
+//   + lo), so P.V keeps about 16 bits of P.  Without the tensor cores the
+//   per-key arithmetic (a dot product reduced across lanes by shuffles)
+//   took longer than the loads it waited on, and more so for bf16 at head
+//   dims that are no power of two (idle lanes in a team);
+// - the `simt` route takes float32 (no tensor core, so float32 sums stay
+//   float32): a team of lanes per key row, 8 elements a lane (D / 8 lanes
+//   rounded up to a power of two, the lanes past D idle, so that teams
 //   never straddle a warp), each team with its own online-softmax state,
-//   folding 8 keys at a time;
+//   folding 8 keys at a time.  At float32 shapes it beats live SDPA
+//   (PERF.md), so it stays as it is;
 // - the warps' (or teams') states merge in a fixed order at the end of the
 //   block;
 // - the splits' fp32 partials (acc [B, Hkv, n_split, n_rep, D], m and l
@@ -50,8 +60,9 @@
 //   combined by a second small kernel in split order, launched by the same C
 //   call.  With n_split == 1 the main kernel
 //   writes the output itself and the combine is not launched.
-// Left for later work: reading a page table in-kernel, and a persistent
-// schedule that would not need the partials.
+// Left for later work: reading a page table in-kernel, a persistent
+// schedule that would not need the partials, and a group that spans two kv
+// heads when n_rep is small (rows past n_rep are idle MMA rows).
 //
 // The softmax state is fp32, as in the TPU kernel; every fold keeps a finite
 // shift for rows whose max is still -inf and maps l == 0 to 1, so a row with
@@ -78,14 +89,12 @@ __host__ __device__ constexpr int tile_keys(int D) {
 }
 
 // Copy keys [k0, k0 + rows) of one kv head's K and V into a ring stage of
-// `tk` rows, `ld` elements apart.  With kZeroTail the V rows past `rows`
-// are zeroed, for a reader that multiplies them by a zero probability
-// (stale shared memory may hold any bits, NaN among them).
-template <bool kZeroTail, typename T>
+// rows `ld` elements apart (the `simt` route's).
+template <typename T>
 __device__ __forceinline__ void issue_tile(T* ks, T* vs, const T* kb,
                                            const T* vb, long long k_ss,
                                            long long v_ss, int k0, int rows,
-                                           int tk, int D, int ld, int tid) {
+                                           int D, int ld, int tid) {
   constexpr int kE = 16 / sizeof(T);  // elements per 16-byte chunk
   const int vecs = D / kE;
   for (int i = tid; i < rows * vecs; i += kThreads) {
@@ -93,13 +102,6 @@ __device__ __forceinline__ void issue_tile(T* ks, T* vs, const T* kb,
     const int c = (i - r * vecs) * kE;
     tt_cp_async16(ks + r * ld + c, kb + (k0 + r) * k_ss + c);
     tt_cp_async16(vs + r * ld + c, vb + (k0 + r) * v_ss + c);
-  }
-  if (kZeroTail) {
-    for (int i = tid; i < (tk - rows) * vecs; i += kThreads) {
-      const int r = rows + i / vecs;
-      const int c = (i % vecs) * kE;
-      *reinterpret_cast<uint4*>(vs + r * ld + c) = make_uint4(0, 0, 0, 0);
-    }
   }
 }
 
@@ -153,21 +155,26 @@ __device__ __forceinline__ void merge_store(
   }
 }
 
-// A block's query heads: blockIdx.y is kvh * G + g, and the block takes the
-// nh = min(kMaxRep, n_rep - h0) heads from h0 = g * kMaxRep of kv head kvh.
-constexpr int kMaxRep = 8;
+// The query heads a block takes: up to kMmaRep (the MMA's 16 rows) on the
+// `mma` route, kSimtRep on the `simt` route, as ops/flash.py's
+// DECODE_GROUP_HEADS says.
+constexpr int kMmaRep = 16;
+constexpr int kSimtRep = 8;
 
+// A block's query heads: blockIdx.y is kvh * G + g, and the block takes the
+// nh = min(kRep, n_rep - h0) heads from h0 = g * kRep of kv head kvh.
 struct HeadGroup {
   int kvh, h0, nh;
 };
 
+template <int kRep>
 __device__ __forceinline__ HeadGroup head_group(int n_rep) {
-  const int groups = (n_rep + kMaxRep - 1) / kMaxRep;
+  const int groups = (n_rep + kRep - 1) / kRep;
   const int g = blockIdx.y % groups;
   HeadGroup hg;
   hg.kvh = blockIdx.y / groups;
-  hg.h0 = g * kMaxRep;
-  hg.nh = min(kMaxRep, n_rep - hg.h0);
+  hg.h0 = g * kRep;
+  hg.nh = min(kRep, n_rep - hg.h0);
   return hg;
 }
 
@@ -194,7 +201,7 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(
     long long k_sh, long long v_sb, long long v_ss, long long v_sh,
     long long o_sb, long long o_sh, float scale) {
   const int split = blockIdx.x;
-  const HeadGroup hg = head_group(n_rep);
+  const HeadGroup hg = head_group<kSimtRep>(n_rep);
   const int kvh = hg.kvh;
   const int b = blockIdx.z;
   const int tid = threadIdx.x;
@@ -221,8 +228,8 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(
   for (int t = 0; t < kStages - 1; ++t) {
     if (t < n_tiles) {
       T* ks = ring + (size_t)t * 2 * tk * D;
-      issue_tile<false>(ks, ks + tk * D, kb, vb, k_ss, v_ss, lo + t * tk,
-                        min(tk, hi - lo - t * tk), tk, D, D, tid);
+      issue_tile(ks, ks + tk * D, kb, vb, k_ss, v_ss, lo + t * tk,
+                 min(tk, hi - lo - t * tk), D, D, tid);
     }
     tt_cp_async_commit();
   }
@@ -253,8 +260,8 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(
     if (t + kStages - 1 < n_tiles) {
       const int tn = t + kStages - 1;
       T* ks = ring + (size_t)(tn % kStages) * 2 * tk * D;
-      issue_tile<false>(ks, ks + tk * D, kb, vb, k_ss, v_ss, lo + tn * tk,
-                        min(tk, hi - lo - tn * tk), tk, D, D, tid);
+      issue_tile(ks, ks + tk * D, kb, vb, k_ss, v_ss, lo + tn * tk,
+                 min(tk, hi - lo - tn * tk), D, D, tid);
     }
     tt_cp_async_commit();
 
@@ -383,27 +390,62 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 constexpr int kMmaKeys = 64;  // keys per tile: 16 for each of the 4 warps
 
-// The same function on the tensor cores (mma.sync m16n8k16, bf16 in, fp32
-// accumulate).  Each warp takes 16 keys of every 64-key tile and keeps its
-// own softmax state; the 16 rows of the MMA are the block's nh <= 8 query
-// heads (rows past nh, and rows 8..15, are zero).  S = Q K^T reads
-// K fragments with ldmatrix; P V reads V fragments with ldmatrix.trans, P
-// entering as two bf16 terms (hi + lo).  Shared rows are padded by 16
-// bytes, so the 8 rows of an ldmatrix fall in distinct banks.
+// Copy keys [k0, k0 + rows) of one kv head's K and V (d columns) into a
+// ring stage of rows D + 8 elements apart; the V rows past `rows` are
+// zeroed (a zero probability times stale bits may be NaN).  The chunk
+// count of a row is the compile-time D / 8, so the loop divides by a
+// constant; chunks at or past d are skipped.
 template <int D>
+__device__ __forceinline__ void issue_mma_tile(
+    __nv_bfloat16* ks, __nv_bfloat16* vs, const __nv_bfloat16* kb,
+    const __nv_bfloat16* vb, long long k_ss, long long v_ss, int k0,
+    int rows, int d, int tid) {
+  constexpr int kLd = D + 8;
+  constexpr int kC = D / 8;  // 16-byte chunks of a padded row
+  for (int i = tid; i < rows * kC; i += kThreads) {
+    const int r = i / kC;
+    const int c = (i - r * kC) * 8;
+    if (c < d) {
+      tt_cp_async16(ks + r * kLd + c, kb + (k0 + r) * k_ss + c);
+      tt_cp_async16(vs + r * kLd + c, vb + (k0 + r) * v_ss + c);
+    }
+  }
+  for (int i = tid; i < (kMmaKeys - rows) * kC; i += kThreads) {
+    const int r = rows + i / kC;
+    *reinterpret_cast<uint4*>(vs + r * kLd + (i % kC) * 8) =
+        make_uint4(0, 0, 0, 0);
+  }
+}
+
+// The same function on the tensor cores (mma.sync m16n8k16, bf16 in, fp32
+// accumulate) for bf16 at any head dim d <= D, D the padded head dim (64,
+// 128, 192 or 256).  Each warp takes 16 keys of every 64-key tile and keeps
+// its own softmax state; the 16 rows of the MMA are the block's nh <= 16
+// query heads (rows past nh are zero).  A lane holds rows lane / 4 and
+// lane / 4 + 8; the kRows = 8 instance, for groups of at most 8 heads,
+// compiles rows 8 .. 15 as zeros and folds one row a lane.  S = Q K^T
+// reads K fragments with ldmatrix; P V reads V fragments with
+// ldmatrix.trans, P entering as two bf16 terms (hi + lo).
+// Shared rows are D + 8 elements apart (padded by 16 bytes), so the 8 rows
+// of an ldmatrix fall in distinct banks; columns d .. D - 1 are zeros.  The
+// kExact instances (d == D: 64 and 128, every Llama-3 preset) fold d into
+// the code.
+template <int D, int kRows, bool kExact>
 __global__ void __launch_bounds__(kThreads) decode_attention_mma_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const int* __restrict__ lengths,
     __nv_bfloat16* __restrict__ out, float* __restrict__ part, int S,
-    int Hkv, int n_rep, int n_split, long long q_sb, long long q_sh,
+    int d_arg, int Hkv, int n_rep, int n_split, long long q_sb, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh, long long v_sb,
     long long v_ss, long long v_sh, long long o_sb, long long o_sh,
     float scale_log2) {
   constexpr int kLd = D + 8;
   constexpr int tk = kMmaKeys;
-  constexpr int kR = kMaxRep;  // MMA rows that can hold a query head
+  constexpr int kR = kRows;         // MMA rows that may hold a query head
+  constexpr bool kTwo = kRows > 8;  // rows 8 .. 15 may hold heads
+  const int d = kExact ? D : d_arg;
   const int split = blockIdx.x;
-  const HeadGroup hg = head_group(n_rep);
+  const HeadGroup hg = head_group<kMmaRep>(n_rep);
   const int kvh = hg.kvh;
   const int b = blockIdx.z;
   const int tid = threadIdx.x;
@@ -424,33 +466,48 @@ __global__ void __launch_bounds__(kThreads) decode_attention_mma_kernel(
   for (int t = 0; t < kStages - 1; ++t) {
     if (t < n_tiles) {
       __nv_bfloat16* ks = ring + (size_t)t * 2 * tk * kLd;
-      issue_tile<true>(ks, ks + tk * kLd, kb, vb, k_ss, v_ss, lo + t * tk,
-                       min(tk, hi - lo - t * tk), tk, D, kLd, tid);
+      issue_mma_tile<D>(ks, ks + tk * kLd, kb, vb, k_ss, v_ss, lo + t * tk,
+                        min(tk, hi - lo - t * tk), d, tid);
     }
     tt_cp_async_commit();
   }
+  // columns d .. D - 1 of every stage's K and V rows: zeros, once (no copy
+  // writes them; the loop's first barrier orders these stores)
+  if (d < D) {
+    for (int i = tid; i < kStages * 2 * tk * (D / 8); i += kThreads) {
+      const int c = (i % (D / 8)) * 8;
+      if (c >= d)
+        *reinterpret_cast<uint4*>(ring + (size_t)(i / (D / 8)) * kLd + c) =
+            make_uint4(0, 0, 0, 0);
+    }
+  }
 
-  // this lane's query head (MMA row lane / 4) as A fragments, one pair of
-  // registers per 16-wide slice of D (rows 8..15 are zero)
+  // this lane's query heads (MMA rows lane / 4 and lane / 4 + 8) as A
+  // fragments, four registers per 16-wide slice of D: (row, cols 2c ..),
+  // (row + 8, 2c ..), (row, 2c + 8 ..), (row + 8, 2c + 8 ..); heads past nh
+  // and columns past d are zero
   const int hq = lane >> 2;
-  uint32_t qa[D / 16][2];
+  const int c2 = (lane & 3) * 2;
+  uint32_t qa[D / 16][4];
   const __nv_bfloat16* qrow =
-      q + b * q_sb + (long long)(kvh * n_rep + hg.h0 + hq) * q_sh +
-      (lane & 3) * 2;
+      q + b * q_sb + (long long)(kvh * n_rep + hg.h0 + hq) * q_sh + c2;
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
-    qa[kk][0] = hq < hg.nh
-                    ? *reinterpret_cast<const uint32_t*>(qrow + kk * 16)
-                    : 0u;
-    qa[kk][1] = hq < hg.nh
-                    ? *reinterpret_cast<const uint32_t*>(qrow + kk * 16 + 8)
-                    : 0u;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = hq + (i & 1) * 8;
+      const int col = kk * 16 + (i >> 1) * 8 + c2;
+      qa[kk][i] = (kTwo || !(i & 1)) && row < hg.nh && col < d
+                      ? *reinterpret_cast<const uint32_t*>(
+                            qrow + (i & 1) * 8 * q_sh + col - c2)
+                      : 0u;
+    }
   }
   float o[D / 8][4];
 #pragma unroll
   for (int i = 0; i < D / 8; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
-  float m = -INFINITY;  // row hq's running max (log2 units)
-  float l = 0.f;        // this lane's share of row hq's sum
+  float m[2] = {-INFINITY, -INFINITY};  // rows hq, hq + 8 (log2 units)
+  float l[2] = {0.f, 0.f};              // this lane's share of their sums
 
   for (int t = 0; t < n_tiles; ++t) {
     tt_cp_async_wait<kStages - 2>();
@@ -458,8 +515,8 @@ __global__ void __launch_bounds__(kThreads) decode_attention_mma_kernel(
     if (t + kStages - 1 < n_tiles) {
       const int tn = t + kStages - 1;
       __nv_bfloat16* ks = ring + (size_t)(tn % kStages) * 2 * tk * kLd;
-      issue_tile<true>(ks, ks + tk * kLd, kb, vb, k_ss, v_ss, lo + tn * tk,
-                       min(tk, hi - lo - tn * tk), tk, D, kLd, tid);
+      issue_mma_tile<D>(ks, ks + tk * kLd, kb, vb, k_ss, v_ss, lo + tn * tk,
+                        min(tk, hi - lo - tn * tk), d, tid);
     }
     tt_cp_async_commit();
 
@@ -469,7 +526,8 @@ __global__ void __launch_bounds__(kThreads) decode_attention_mma_kernel(
     const int w0 = warp * 16;  // this warp's first key of the tile
     if (w0 >= live) continue;
 
-    // S = Q K^T for the warp's 16 keys (two 8-key column tiles)
+    // S = Q K^T for the warp's 16 keys (two 8-key column tiles); columns
+    // d .. D - 1 are zeros in Q and K and add nothing
     float sc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
     const __nv_bfloat16* krow =
         ks + (w0 + (lane & 7) + ((lane >> 4) << 3)) * kLd +
@@ -478,44 +536,67 @@ __global__ void __launch_bounds__(kThreads) decode_attention_mma_kernel(
     for (int kk = 0; kk < D / 16; ++kk) {
       uint32_t kf[4];
       ldsm_x4(kf, krow + kk * 16);
-      const uint32_t a[4] = {qa[kk][0], 0u, qa[kk][1], 0u};
-      mma_bf16_16816(sc[0], a, kf[0], kf[1]);
-      mma_bf16_16816(sc[1], a, kf[2], kf[3]);
+      mma_bf16_16816(sc[0], qa[kk], kf[0], kf[1]);
+      mma_bf16_16816(sc[1], qa[kk], kf[2], kf[3]);
     }
 
-    // fold: scale into log2 units, mask keys past the range, the row max
-    // over the quad, then this warp's running state
-    float x[4];
+    // fold: scale into log2 units, mask keys past the range, each row's
+    // max over the quad, then this warp's running state.  x[r][i]: row hq
+    // + 8 r, key 8 (i >> 1) + c2 + (i & 1).  Rows 8 .. 15 hold heads only
+    // in a group of more than 8 (warp-uniform); otherwise their P is 0.
+    float x[2][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int key = w0 + (i >> 1) * 8 + (lane & 3) * 2 + (i & 1);
-      x[i] = key < live ? sc[i >> 1][i & 1] * scale_log2 : -INFINITY;
-    }
-    float mx = fmaxf(fmaxf(x[0], x[1]), fmaxf(x[2], x[3]));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-    const float m_new = fmaxf(m, mx);
-    const float shift = tt_shift(m_new);
-    const float alpha = isfinite(m) ? exp2f(m - shift) : 0.f;
-    m = m_new;
+      const int key = w0 + (i >> 1) * 8 + c2 + (i & 1);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) x[i] = exp2f(x[i] - shift);
-    l = l * alpha + (x[0] + x[1]) + (x[2] + x[3]);
+      for (int r = 0; r < 2; ++r)
+        x[r][i] = key < live ? sc[i >> 1][2 * r + (i & 1)] * scale_log2
+                             : -INFINITY;
+    }
+    const int rows = kTwo && hg.nh > 8 ? 2 : 1;
+    float alpha[2] = {1.f, 1.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (r < rows) {
+        float mx = fmaxf(fmaxf(x[r][0], x[r][1]), fmaxf(x[r][2], x[r][3]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m[r], mx);
+        const float shift = tt_shift(m_new);
+        alpha[r] = isfinite(m[r]) ? exp2f(m[r] - shift) : 0.f;
+        m[r] = m_new;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) x[r][i] = exp2f(x[r][i] - shift);
+        l[r] = l[r] * alpha[r] + (x[r][0] + x[r][1]) + (x[r][2] + x[r][3]);
+      } else {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) x[r][i] = 0.f;
+      }
+    }
 #pragma unroll
     for (int i = 0; i < D / 8; ++i) {
-      o[i][0] *= alpha;
-      o[i][1] *= alpha;
+      o[i][0] *= alpha[0];
+      o[i][1] *= alpha[0];
+    }
+    if (rows == 2) {
+#pragma unroll
+      for (int i = 0; i < D / 8; ++i) {
+        o[i][2] *= alpha[1];
+        o[i][3] *= alpha[1];
+      }
     }
 
     // O += P V, P as the A fragments of the warp's 16 keys, in two bf16
     // terms (hi + lo), so the product keeps about 16 bits of P
-    uint32_t pa[4] = {0u, 0u, 0u, 0u}, pb[4] = {0u, 0u, 0u, 0u};
+    uint32_t pa[4], pb[4];
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const __nv_bfloat162 hi = __floats2bfloat162_rn(x[2 * i], x[2 * i + 1]);
-      const float2 hf = __bfloat1622float2(hi);
-      pa[2 * i] = *reinterpret_cast<const uint32_t*>(&hi);
-      pb[2 * i] = pack_bf16(x[2 * i] - hf.x, x[2 * i + 1] - hf.y);
+    for (int i = 0; i < 4; ++i) {
+      // register i: row hq + 8 (i & 1), keys 8 (i >> 1) + c2 ..
+      const float* xr = x[i & 1] + 2 * (i >> 1);
+      const __nv_bfloat162 hi2 = __floats2bfloat162_rn(xr[0], xr[1]);
+      const float2 hf = __bfloat1622float2(hi2);
+      pa[i] = *reinterpret_cast<const uint32_t*>(&hi2);
+      pb[i] = pack_bf16(xr[0] - hf.x, xr[1] - hf.y);
     }
     const __nv_bfloat16* vrow =
         vs + (w0 + (lane & 7) + ((lane >> 3) & 1) * 8) * kLd + (lane >> 4) * 8;
@@ -531,28 +612,39 @@ __global__ void __launch_bounds__(kThreads) decode_attention_mma_kernel(
   }
 
   // merge the warps' states in warp order
-  l += __shfl_xor_sync(0xffffffffu, l, 1);
-  l += __shfl_xor_sync(0xffffffffu, l, 2);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
   tt_cp_async_wait<0>();
   __syncthreads();
   float* m_t = reinterpret_cast<float*>(smem_raw);  // [warps][kR]
   float* l_t = m_t + (kThreads / 32) * kR;          // [warps][kR]
-  float* a_t = l_t + (kThreads / 32) * kR;          // [warps][kR][D]
+  float* a_t = l_t + (kThreads / 32) * kR;          // [warps][kR][d]
   if ((lane & 3) == 0) {
-    m_t[warp * kR + hq] = m;
-    l_t[warp * kR + hq] = l;
+#pragma unroll
+    for (int r = 0; r < (kTwo ? 2 : 1); ++r) {
+      m_t[warp * kR + hq + 8 * r] = m[r];
+      l_t[warp * kR + hq + 8 * r] = l[r];
+    }
   }
 #pragma unroll
   for (int i = 0; i < D / 8; ++i) {
-    float* dst = a_t + (warp * kR + hq) * D + i * 8 + (lane & 3) * 2;
-    dst[0] = o[i][0];
-    dst[1] = o[i][1];
+    if (i * 8 < d) {
+#pragma unroll
+      for (int r = 0; r < (kTwo ? 2 : 1); ++r) {
+        float* dst = a_t + (warp * kR + hq + 8 * r) * d + i * 8 + c2;
+        dst[0] = o[i][2 * r];
+        dst[1] = o[i][2 * r + 1];
+      }
+    }
   }
   __syncthreads();
   // m is in log2 units here; the partials carry natural-log maxima
   if (tid < (kThreads / 32) * kR) m_t[tid] *= 0.6931471805599453f;
   __syncthreads();
-  merge_store<__nv_bfloat16, kR>(m_t, l_t, a_t, kThreads / 32, D, n_rep,
+  merge_store<__nv_bfloat16, kR>(m_t, l_t, a_t, kThreads / 32, d, n_rep,
                                  hg.h0, hg.nh, b, kvh, Hkv, split, n_split,
                                  out, o_sb, o_sh, part);
 }
@@ -623,83 +715,114 @@ int combine(const float* part, void* out, int B, int H, int Hkv, int D,
                                  H / Hkv, n_split, st[8], st[9]);
 }
 
-template <typename T, int R>
+template <int R>
 int launch_simt(const void* q, const void* k, const void* v,
                 const int* lengths, void* out, float* part, int B, int H,
                 int Hkv, int S, int D, int n_split, const long long* st,
                 float scale, cudaStream_t stream) {
   const int teams = kThreads / team_lanes(D);
   const size_t ring =
-      (size_t)kStages * 2 * tile_keys<T>(D) * D * sizeof(T);
+      (size_t)kStages * 2 * tile_keys<float>(D) * D * sizeof(float);
   const size_t merge = sizeof(float) * (size_t)teams * R * (D + 2);
   const size_t smem = ring > merge ? ring : merge;
   static bool attr_set = false;
   if (!attr_set) {
     cudaError_t e = cudaFuncSetAttribute(
-        decode_attention_kernel<T, R>,
+        decode_attention_kernel<float, R>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, 100 * 1024);
     if (e != cudaSuccess) return (int)e;
     attr_set = true;
   }
-  dim3 grid(n_split, Hkv * ((H / Hkv + kMaxRep - 1) / kMaxRep), B);
-  decode_attention_kernel<T, R><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), lengths, static_cast<T*>(out), part, S, D,
-      Hkv, H / Hkv, n_split, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
-      st[7], st[8], st[9], scale);
+  dim3 grid(n_split, Hkv * ((H / Hkv + kSimtRep - 1) / kSimtRep), B);
+  decode_attention_kernel<float, R><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), lengths, static_cast<float*>(out), part,
+      S, D, Hkv, H / Hkv, n_split, st[0], st[1], st[2], st[3], st[4], st[5],
+      st[6], st[7], st[8], st[9], scale);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || n_split == 1) return (int)e;
-  return combine<T>(part, out, B, H, Hkv, D, n_split, st, stream);
+  return combine<float>(part, out, B, H, Hkv, D, n_split, st, stream);
 }
 
-template <int D>
+// D: the padded head dim (64, 128, 192, 256) of the instance; d the
+// operands' own (a multiple of 8, d <= D; kExact: d == D); kRows 8 where a
+// group holds at most 8 heads, else 16.
+template <int D, int kRows, bool kExact>
 int launch_mma(const void* q, const void* k, const void* v,
                const int* lengths, void* out, float* part, int B, int H,
-               int Hkv, int S, int n_split, const long long* st, float scale,
-               cudaStream_t stream) {
+               int Hkv, int S, int d, int n_split, const long long* st,
+               float scale, cudaStream_t stream) {
   constexpr size_t smem = (size_t)kStages * 2 * kMmaKeys * (D + 8) * 2;
-  static_assert(smem >= sizeof(float) * (kThreads / 32) * 8 * (D + 2),
+  static_assert(smem >= sizeof(float) * (kThreads / 32) * kRows * (D + 2),
                 "the merge reuses the ring");
   static bool attr_set = false;
   if (!attr_set) {
     cudaError_t e = cudaFuncSetAttribute(
-        decode_attention_mma_kernel<D>,
+        decode_attention_mma_kernel<D, kRows, kExact>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
     attr_set = true;
   }
-  dim3 grid(n_split, Hkv * ((H / Hkv + kMaxRep - 1) / kMaxRep), B);
-  decode_attention_mma_kernel<D><<<grid, kThreads, smem, stream>>>(
+  dim3 grid(n_split, Hkv * ((H / Hkv + kMmaRep - 1) / kMmaRep), B);
+  decode_attention_mma_kernel<D, kRows, kExact>
+      <<<grid, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), lengths,
-      static_cast<__nv_bfloat16*>(out), part, S, Hkv, H / Hkv, n_split,
+      static_cast<__nv_bfloat16*>(out), part, S, d, Hkv, H / Hkv, n_split,
       st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9],
       scale * 1.4426950408889634f);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || n_split == 1) return (int)e;
-  return combine<__nv_bfloat16>(part, out, B, H, Hkv, D, n_split, st,
+  return combine<__nv_bfloat16>(part, out, B, H, Hkv, d, n_split, st,
                                 stream);
 }
 
-template <typename T>
-int dispatch(const void* q, const void* k, const void* v, const int* lengths,
-             void* out, float* part, int B, int H, int Hkv, int S, int D,
-             int n_split, const long long* st, float scale,
-             cudaStream_t stream) {
-  // a block takes up to kMaxRep heads: the compiled count covers its group
-  const int n_rep = min(H / Hkv, kMaxRep);
+// the instance of the padded head dim that covers D (at D_p 256 the
+// 16-row one: the 8-row instance spilled there)
+template <int kRows>
+int dispatch_mma(const void* q, const void* k, const void* v,
+                 const int* lengths, void* out, float* p, int B, int H,
+                 int Hkv, int S, int D, int n_split, const long long* st,
+                 float scale, cudaStream_t stream) {
+  if (D == 64)
+    return launch_mma<64, kRows, true>(q, k, v, lengths, out, p, B, H, Hkv,
+                                       S, D, n_split, st, scale, stream);
+  if (D == 128)
+    return launch_mma<128, kRows, true>(q, k, v, lengths, out, p, B, H, Hkv,
+                                        S, D, n_split, st, scale, stream);
+  if (D < 64)
+    return launch_mma<64, kRows, false>(q, k, v, lengths, out, p, B, H, Hkv,
+                                        S, D, n_split, st, scale, stream);
+  if (D < 128)
+    return launch_mma<128, kRows, false>(q, k, v, lengths, out, p, B, H,
+                                         Hkv, S, D, n_split, st, scale,
+                                         stream);
+  if (D <= 192)
+    return launch_mma<192, kRows, false>(q, k, v, lengths, out, p, B, H,
+                                         Hkv, S, D, n_split, st, scale,
+                                         stream);
+  return launch_mma<256, 16, false>(q, k, v, lengths, out, p, B, H, Hkv, S,
+                                    D, n_split, st, scale, stream);
+}
+
+int dispatch_simt(const void* q, const void* k, const void* v,
+                  const int* lengths, void* out, float* part, int B, int H,
+                  int Hkv, int S, int D, int n_split, const long long* st,
+                  float scale, cudaStream_t stream) {
+  // a block takes up to kSimtRep heads: the compiled count covers its group
+  const int n_rep = min(H / Hkv, kSimtRep);
   if (n_rep <= 1)
-    return launch_simt<T, 1>(q, k, v, lengths, out, part, B, H, Hkv, S, D,
-                             n_split, st, scale, stream);
+    return launch_simt<1>(q, k, v, lengths, out, part, B, H, Hkv, S, D,
+                          n_split, st, scale, stream);
   if (n_rep <= 2)
-    return launch_simt<T, 2>(q, k, v, lengths, out, part, B, H, Hkv, S, D,
-                             n_split, st, scale, stream);
+    return launch_simt<2>(q, k, v, lengths, out, part, B, H, Hkv, S, D,
+                          n_split, st, scale, stream);
   if (n_rep <= 4)
-    return launch_simt<T, 4>(q, k, v, lengths, out, part, B, H, Hkv, S, D,
-                             n_split, st, scale, stream);
-  return launch_simt<T, 8>(q, k, v, lengths, out, part, B, H, Hkv, S, D,
-                           n_split, st, scale, stream);
+    return launch_simt<4>(q, k, v, lengths, out, part, B, H, Hkv, S, D,
+                          n_split, st, scale, stream);
+  return launch_simt<8>(q, k, v, lengths, out, part, B, H, Hkv, S, D,
+                        n_split, st, scale, stream);
 }
 
 }  // namespace
@@ -708,11 +831,11 @@ int dispatch(const void* q, const void* k, const void* v, const int* lengths,
 enum { TT_DECODE_MMA = 0, TT_DECODE_SIMT = 1 };
 
 // Shapes and strides (in elements) are checked by the Python wrapper, which
-// picks the route: `mma` takes bf16 with D 64 or 128, `simt` float32 or
-// bf16 with D a multiple of 8 from 8 to 256; a route given anything else
-// returns cudaErrorInvalidValue before any launch.  H % Hkv == 0 (any
-// ratio), 16-byte aligned rows, 1 <= n_split <= 64.  `strides` holds q (batch, head), k and
-// v (batch, seq, head) and out (batch, head).  `part` holds
+// picks the route: `mma` takes bf16, `simt` float32, each with D a multiple
+// of 8 from 8 to 256; a route given anything else returns
+// cudaErrorInvalidValue before any launch.  H % Hkv == 0 (any ratio),
+// 16-byte aligned rows, 1 <= n_split <= 64.  `strides` holds q (batch,
+// head), k and v (batch, seq, head) and out (batch, head).  `part` holds
 // B * Hkv * n_split * n_rep * (D + 2) floats (acc, then m, then l) and is
 // unused when n_split == 1.
 extern "C" int tt_decode_attention(int dtype, int route, const void* q,
@@ -722,22 +845,18 @@ extern "C" int tt_decode_attention(int dtype, int route, const void* q,
                                    int n_split, const long long* strides,
                                    float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (n_split < 1 || n_split > kMaxSplit || Hkv < 1 || H % Hkv)
+  if (n_split < 1 || n_split > kMaxSplit || Hkv < 1 || H % Hkv || D < 8 ||
+      D % 8 || D > 256)
     return (int)cudaErrorInvalidValue;
   float* p = static_cast<float*>(part);
-  if (route == TT_DECODE_MMA && dtype == TT_BF16 && D == 128)
-    return launch_mma<128>(q, k, v, lengths, out, p, B, H, Hkv, S, n_split,
-                           strides, scale, st);
-  if (route == TT_DECODE_MMA && dtype == TT_BF16 && D == 64)
-    return launch_mma<64>(q, k, v, lengths, out, p, B, H, Hkv, S, n_split,
-                          strides, scale, st);
-  if (route != TT_DECODE_SIMT || D < 8 || D % 8 || D > 256)
-    return (int)cudaErrorInvalidValue;
-  if (dtype == TT_BF16)
-    return dispatch<__nv_bfloat16>(q, k, v, lengths, out, p, B, H, Hkv, S, D,
-                                   n_split, strides, scale, st);
-  if (dtype == TT_F32)
-    return dispatch<float>(q, k, v, lengths, out, p, B, H, Hkv, S, D,
-                           n_split, strides, scale, st);
+  if (route == TT_DECODE_MMA && dtype == TT_BF16)
+    return H / Hkv <= 8 ? dispatch_mma<8>(q, k, v, lengths, out, p, B, H, Hkv,
+                                          S, D, n_split, strides, scale, st)
+                        : dispatch_mma<16>(q, k, v, lengths, out, p, B, H,
+                                           Hkv, S, D, n_split, strides,
+                                           scale, st);
+  if (route == TT_DECODE_SIMT && dtype == TT_F32)
+    return dispatch_simt(q, k, v, lengths, out, p, B, H, Hkv, S, D, n_split,
+                         strides, scale, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -5,14 +5,18 @@
 //
 //   q [B, T, H, D], k/v [B, Tk, Hkv, D] -> out [B, T, H, D]
 //
-// Bound on the H100: bytes at the main path's prompt length, operations
-// beyond it.  Causal attention at Llama-3-8B prefill shapes (T 512, H 32,
-// Hkv 8, D 128, bf16, GQA read natively) does about 2.15 GFLOP per layer
-// against 10.5 MB of q/k/v/out: about 205 operations per byte, below the
-// ~295 where the tensor cores would limit.  So the least time is the
-// bytes', about 3.1 us at 3.35 TB/s (2.2 us for the operations at 989
-// TFLOP/s).  At T 2048 the same layer does 34.4 GFLOP on 42 MB and is
-// operation-bound (about 35 us).
+// Two routes, picked by the wrapper (tpuserver_torch/ops/flash.py::
+// flash_route) from the dtype alone: `wgmma` for bf16 at every head dim of
+// the domain (a multiple of 8 from 8 to 256), `simt` for float32.
+//
+// The `wgmma` route (flash_attention_kernel).  Bound on the H100: bytes at
+// the main path's prompt length, operations beyond it.  Causal attention at
+// Llama-3-8B prefill shapes (T 512, H 32, Hkv 8, D 128, bf16, GQA read
+// natively) does about 2.15 GFLOP per layer against 10.5 MB of q/k/v/out:
+// about 205 operations per byte, below the ~295 where the tensor cores
+// would limit.  So the least time is the bytes', about 3.1 us at 3.35 TB/s
+// (2.2 us for the operations at 989 TFLOP/s).  At T 2048 the same layer does
+// 34.4 GFLOP on 42 MB and is operation-bound (about 35 us).
 //
 // What the design does about it:
 // - one block per (head, batch, 128-query tile): two consumer warpgroups of
@@ -23,12 +27,21 @@
 //   current one is computed;
 // - S = Q K^T runs on wgmma.mma_async m64n64k16 with Q and K read from
 //   shared memory through K-major descriptors; O += P V runs on
-//   wgmma.mma_async m64nDk16 with P (rounded to bf16, as the TPU kernel
-//   does) from registers and V read from shared memory through a transposed
-//   (MN-major) descriptor.  Scores, probabilities and the output accumulator
-//   stay in registers, with the softmax state in fp32.  Each warpgroup
-//   runs S, softmax and P V in turn; the other warpgroup's work fills the
-//   gaps;
+//   wgmma.mma_async m64nNk16 (N 64 or 128 a column block pair) with P
+//   (rounded to bf16, as the TPU kernel does) from registers and V read from
+//   shared memory through a transposed (MN-major) descriptor.  Scores,
+//   probabilities and the output accumulator stay in registers, with the
+//   softmax state in fp32.  Each warpgroup runs S, softmax and P V in turn;
+//   the other warpgroup's work fills the gaps;
+// - every head dim D runs at a padded D_p of 64, 128, 192 or 256: the tensor
+//   maps keep D as their innermost extent, so TMA's out-of-bounds fill
+//   writes zeros into columns D .. D_p - 1 of Q, K and V in shared memory.
+//   S = Q K^T sums over D_p (the zero columns add nothing; at most 8x idle
+//   MMA at D 8, 1.33x at D 96, both at shapes bound by bytes), O = P V runs
+//   at N = D_p and only D columns are stored.  D 64 and 128 are their own
+//   D_p and keep the code paths they had.  At D_p 256 the block holds Q (64
+//   KB) and two 64-key K/V stages (64 KB each), 193 KB of shared memory,
+//   and a consumer thread 128 output accumulators;
 // - the softmax, not the MMA, is the longest phase on the H100
 //   (tools/torch_flash_clocks.py), bound by the 16 exp2 a clock of an SM,
 //   so it is kept short: exp2 is one ex2.approx, only tiles that cross Tk
@@ -41,31 +54,38 @@
 //   wholly above its own diagonal;
 // - GQA is native: the block reads kv head h / (H / Hkv), so the caller
 //   never expands K/V in memory (the TPU path expanded them first);
-// - rows past T and keys past Tk arrive as zeros from TMA and are masked;
-// - this route (`wgmma`) takes bf16 with D 64 or 128, the head dims of
-//   every Llama-3 preset.
-//
-// Everything else the TPU kernel takes (float32 at any head dim, bf16 at
-// any other multiple of 8 up to 256) runs on a second kernel, the `simt`
-// route (flash_attention_simt_kernel, below): the same online softmax on
-// the CUDA cores, every product and sum a float32 FMA (no TF32, no tensor
-// core), so float32 sums stay float32 as the port's float32 runs (TF32
-// off) rely on.  Its bound is operations: at Llama-3-8B prefill shapes in
-// float32 (T 512) the 2.15 GFLOP of a layer take about 32 us at the card's
-// 67 TFLOP/s of float32 FMA, against about 6 us for the 21 MB.  The
-// wrapper (tpuserver_torch/ops/flash.py::flash_route) picks the route from
-// (dtype, D) before the launch and raises only for what neither takes: a
-// dtype other than float32 or bf16, D not a multiple of 8 or above 256,
-// rows that are not 16-byte aligned.
+// - rows past T and keys past Tk arrive as zeros from TMA and are masked.
 // Left for later work: fewer exp2 on the special-function unit (part of
 // them as polynomials on the FMA units), a persistent schedule, loading
-// each K/V tile once for the n_rep heads that share it, and a TMA store of
-// the output.
+// each K/V tile once for the n_rep heads that share it, a TMA store of
+// the output, and QK^T over D rounded up to 16 instead of D_p at the small
+// head dims.
 //
-// The fold keeps a finite shift for rows that are still fully masked and
-// maps l == 0 to 1.  The tensor maps are encoded on the host with
-// cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint, so the
-// library needs no link against the driver library.
+// The `simt` route (flash_attention_simt_kernel, below) takes float32 at
+// every head dim of the domain: the same online softmax on the CUDA cores,
+// every product and sum a float32 FMA (no TF32, no tensor core), so float32
+// sums stay float32 as the port's float32 runs (TF32 off) rely on.  Its
+// bound is operations: at Llama-3-8B prefill shapes in float32 (T 512) the
+// 2.15 GFLOP of a layer take about 32 us at the card's 67 TFLOP/s of
+// float32 FMA, against about 6 us for the 21 MB.  An FMA needs its operands
+// in registers, and shared memory feeds an SM's 128 FMA lanes far less than
+// one float each a clock, so the design is register tiling: a thread owns a
+// micro-tile of S (4 rows by 4 keys) and of O (8 rows by 4 or 8 columns),
+// fed by 16-byte loads, 64 FMAs for 8 loads in S and 128 or 256 for 12 or
+// 16 in P V.  Eight warps a block keep two on each of the SM's schedulers
+// at any head dim (4 warps of 16 rows measured 1.06-1.44x slower at D 64 to
+// 128, PERF.md).  P passes through shared memory once a tile; K and V have
+// buffers of their own, filled by cp.async, each loaded while the other is
+// read.  Left for later work: a load-balanced causal schedule (the longest
+// query tiles set the time at T 512), K/V shared by the query heads of one
+// kv head, and larger micro-tiles of S (shared memory caps the key tile).
+//
+// The wrapper raises only for what neither route takes: a dtype other than
+// float32 or bf16, D not a multiple of 8 or above 256, rows that are not
+// 16-byte aligned.  The fold keeps a finite shift for rows that are still
+// fully masked and maps l == 0 to 1.  The tensor maps are encoded on the
+// host with cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint,
+// so the library needs no link against the driver library.
 
 #include <cuda.h>  // CUtensorMap and its enums (types only)
 
@@ -73,16 +93,22 @@
 
 namespace {
 
-constexpr int kBq = 128;  // query rows per block
 constexpr int kBk = 64;   // keys per tile
 constexpr int kStages = 2;
-constexpr int kConsumers = 256;  // two warpgroups
-constexpr int kThreads = kConsumers + 32;  // and one producer warp
 constexpr int kBox = 64 * 64 * 2;  // bytes of one 64 x 64 bf16 TMA box
 
+// D: the padded head dim (64, 128, 192 or 256).  Two consumer warpgroups
+// of 64 query rows each, one at D 256: with the producer warp, nine warps
+// put three on one of the SM's four register files, whose 16384 registers
+// then cap a thread at 168, below the 128 output accumulators and the
+// scores; five warps leave it 255.
 template <int D>
 struct Layout {
-  static constexpr int kQ = kBq * D * 2;   // [2 halves][D / 64][64][64]
+  static constexpr int kWarpgroups = D == 256 ? 1 : 2;
+  static constexpr int kBq = 64 * kWarpgroups;  // query rows per block
+  static constexpr int kConsumers = 128 * kWarpgroups;
+  static constexpr int kThreads = kConsumers + 32;  // and one producer warp
+  static constexpr int kQ = kBq * D * 2;   // [warpgroups][D / 64][64][64]
   static constexpr int kKV = kBk * D * 2;  // one K or V tile: [D / 64][64][64]
   static constexpr int kBars = 2 * kStages + 1;
   static constexpr int kBytes = 1024 + kQ + kStages * 2 * kKV + 8 * kBars;
@@ -293,18 +319,24 @@ __device__ __forceinline__ void qk_issue(float* sc, uint32_t q_addr,
 // Issue O[64 x D] += P[64 x 64] . V[64 x D] for one warpgroup (committed,
 // not waited for), P as bf16 A fragments (four 16-key steps), V as D / 64
 // swizzled 64 x 64 boxes read transposed: a 16-key step moves 16 rows (2048
-// bytes), the next 64-wide column block is one box (kBox bytes) on.
+// bytes), the next 64-wide column block is one box (kBox bytes) on.  Each
+// pair of column blocks is one N 128 product (accumulators 64 cb .. on), a
+// last odd block an N 64 one.
 template <int D>
 __device__ __forceinline__ void pv_issue(float* o, const uint32_t (*pa)[4],
                                          uint32_t v_addr) {
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < kBk / 16; ++kk) {
-    const uint64_t desc = smem_desc(v_addr + kk * 16 * 128, kBox);
-    if constexpr (D == 128) {
-      wgmma_rs_n128(o, pa[kk], desc);
-    } else {
-      wgmma_rs_n64(o, pa[kk], desc);
+#pragma unroll
+    for (int cb = 0; cb < D / 64; cb += 2) {
+      const uint64_t desc =
+          smem_desc(v_addr + cb * kBox + kk * 16 * 128, kBox);
+      if (cb + 1 < D / 64) {
+        wgmma_rs_n128(o + 32 * cb, pa[kk], desc);
+      } else {
+        wgmma_rs_n64(o + 32 * cb, pa[kk], desc);
+      }
     }
   }
   wgmma_commit();
@@ -324,14 +356,18 @@ __device__ __forceinline__ void pack_p(const float* sc, uint32_t (*pa)[4]) {
   }
 }
 
+// D is the padded head dim D_p; d_out (<= D) the columns stored.
 template <int D>
-__global__ void __launch_bounds__(kThreads, 1) flash_attention_kernel(
+__global__ void __launch_bounds__(Layout<D>::kThreads, 1)
+    flash_attention_kernel(
     const __grid_constant__ CUtensorMap tm_q,
     const __grid_constant__ CUtensorMap tm_k,
     const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ out,
-    int T, int Tk, int n_rep, int causal, long long o_sb, long long o_st,
-    long long o_sh, float scale_log2) {
+    int T, int Tk, int d_out, int n_rep, int causal, long long o_sb,
+    long long o_st, long long o_sh, float scale_log2) {
   using L = Layout<D>;
+  constexpr int kBq = L::kBq;
+  constexpr int kConsumers = L::kConsumers;
   constexpr int kCb = D / 64;  // 64-wide column blocks
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base =
@@ -367,7 +403,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_kernel(
     // producer: Q once, then K/V tiles into the ring
     if (lane == 0) {
       mbar_expect_tx(qbar, L::kQ);
-      for (int half = 0; half < 2; ++half)
+      for (int half = 0; half < L::kWarpgroups; ++half)
         for (int cb = 0; cb < kCb; ++cb)
           tma_load(qs + (half * kCb + cb) * kBox, &tm_q, cb * 64,
                    q0 + half * 64, h, b, qbar);
@@ -487,8 +523,9 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_kernel(
     const float inv = 1.f / l_row[r];
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
-      *reinterpret_cast<uint32_t*>(orow + j * 8) =
-          pack_bf16(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+      if (j * 8 < d_out)
+        *reinterpret_cast<uint32_t*>(orow + j * 8) =
+            pack_bf16(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
     }
   }
 }
@@ -550,251 +587,275 @@ __global__ void __launch_bounds__(128) wgmma_tile_kernel(
           (i & 1)] = o[i];
 }
 
-// -- the simt route: float32, and bf16 at head dims other than 64 and 128 ----
+// -- the simt route: float32 --------------------------------------------------
 //
-// One block of 4 warps per (query tile, head, batch); warp w owns R query
-// rows.  A K/V tile is 32 keys, one a lane, in a 2-stage shared-memory ring
-// filled by cp.async (keys past Tk are zeroed), so the next tile is in
-// flight while this one is computed.  S = Q K^T: lane j scores key j
-// against the warp's R rows, reading its key row 16 bytes at a time once
-// for all of them, the rows' Q (float32, scaled into log2 units when
-// staged) as broadcasts.  The fold: each row's max over the warp
-// (shuffles), a finite shift while the row is fully masked, and each lane's
-// own share of the row sum, added over the warp at the end.  P passes
-// through shared memory ([R][32] a warp), rounded to bf16 first for bf16
-// operands as the TPU kernel rounds it (the row sum keeps the float32 P, as
-// there); O += P V: lane l owns output columns l, l + 32, ... (NC =
-// ceil(D / 32) of them), and each V element it reads serves all R rows.
-// Every product and sum is a float32 FMA in a fixed order, so a repeated
-// call gives the same bits.
+// One block of 8 warps per (head, batch, 64-query tile); warp w owns 8
+// query rows.  A tile is 64 keys.  S = Q K^T: lane (rg, kg) = (lane / 16,
+// lane % 16) scores rows rg, rg + 2, rg + 4, rg + 6 of its warp against keys
+// kg, kg + 16, kg + 32, kg + 48 (a 4 x 4 micro-tile), stepping through D
+// four floats at a time: 4 16-byte loads of Q and 4 of K feed 64 FMAs.  The
+// fold per row: the max over the 16 lanes of a row group (shuffles), a
+// finite shift while the row is fully masked, each lane's own share of the
+// row sum, added over the group at the end.  P goes to shared memory once a
+// tile, with each row's rescale; O += P V: every lane owns all 8 rows of its
+// warp and columns 4 lane + 128 i .. + 3 (i < C4, 1 up to D 128, else 2),
+// so 8 16-byte loads of P (broadcast) and 4 C4 of V feed 128 C4 FMAs.  Q
+// (float32, scaled into log2 units when staged), K and V rows are D + 4
+// floats apart, an odd number of 16-byte chunks, so the rows a warp load
+// touches fall on distinct banks.  K and V have a buffer each, filled by
+// cp.async: V of tile t lands while S of tile t is computed, K of tile t +
+// 1 while P V of tile t is (keys past Tk are zeros).  Every product and sum
+// is a float32 FMA in a fixed order, so a repeated call gives the same
+// bits.
 
-constexpr int kSimtWarps = 4;
+constexpr int kSimtWarps = 8;
 constexpr int kSimtThreads = 32 * kSimtWarps;
-constexpr int kSimtBk = 32;  // keys a tile, one a lane
+constexpr int kSimtWR = 8;                       // query rows a warp
+constexpr int kSimtBq = kSimtWarps * kSimtWR;    // query rows a block: 64
+constexpr int kSimtBk = 64;                      // keys a tile
+constexpr int kSimtSR = 4;                       // rows a lane scores
+constexpr int kSimtSK = 4;                       // keys a lane scores
+constexpr int kSimtPld = kSimtBk + 16;  // P row stride: 2 rows on distinct
+                                        // banks
 
-// query rows a warp: 16, or 8 where a lane's NC output columns are more
-// than 4 (D above 128), to keep R x NC accumulators in registers
-template <int NC>
-struct SimtRows {
-  static constexpr int R = NC <= 4 ? 16 : 8;
-  static constexpr int Bq = kSimtWarps * R;
-};
-
-// Row stride (elements) of a K/V tile row in shared memory: an odd number
-// of 16-byte chunks, so that each phase of 8 lanes reading 16 bytes of 8
-// different key rows falls on distinct banks.
-template <typename T>
-__host__ __device__ constexpr int simt_ld(int D) {
-  return (((D * (int)sizeof(T) / 16) | 1) * 16) / (int)sizeof(T);
+// Dynamic shared memory of the simt kernel: Q [Bq][D + 4], K and V
+// [Bk][D + 4], P [Bq][kSimtPld], each row's rescale and sum [2][Bq], all
+// float32.
+__host__ __device__ constexpr size_t simt_smem(int D) {
+  return ((size_t)(kSimtBq + 2 * kSimtBk) * (D + 4) +
+          (size_t)kSimtBq * (kSimtPld + 2)) *
+         sizeof(float);
 }
 
-// Dynamic shared memory of the simt kernel: Q [Bq][D] float32, the K/V
-// ring [2 stages][K, V][32][ld], P [warps][R][32] float32.
-template <typename T>
-__host__ __device__ constexpr size_t simt_smem(int D, int R) {
-  return (size_t)kSimtWarps * R * D * 4 +
-         (size_t)2 * 2 * kSimtBk * simt_ld<T>(D) * sizeof(T) +
-         (size_t)kSimtWarps * R * kSimtBk * 4;
+__device__ __forceinline__ float f4_at(const float4& v, int i) {
+  return i == 0 ? v.x : (i == 1 ? v.y : (i == 2 ? v.z : v.w));
 }
 
-__device__ __forceinline__ float tt_to_float(float x) { return x; }
-__device__ __forceinline__ float tt_to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-// P as the P.V product takes it: float32 as it is, bf16-rounded for bf16
-// operands.
-__device__ __forceinline__ float p_operand(float p, const float*) {
-  return p;
-}
-__device__ __forceinline__ float p_operand(float p, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16(p));
-}
-
-template <typename T, int NC>
-__global__ void __launch_bounds__(kSimtThreads) flash_attention_simt_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ out, int T_len, int Tk, int D, int n_rep, int causal,
-    long long q_sb, long long q_st, long long q_sh, long long k_sb,
-    long long k_st, long long k_sh, long long v_sb, long long v_st,
-    long long v_sh, long long o_sb, long long o_st, long long o_sh,
-    float scale_log2) {
-  constexpr int R = SimtRows<NC>::R;
-  constexpr int Bq = SimtRows<NC>::Bq;
-  constexpr int E = 16 / (int)sizeof(T);  // elements of a 16-byte chunk
-  const int ld = simt_ld<T>(D);
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * Bq;  // longest tiles first
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+// C4: the 4-column groups of P V a lane owns; the instance takes D up to
+// 128 C4.
+template <int C4>
+__global__ void __launch_bounds__(kSimtThreads, 1)
+    flash_attention_simt_kernel(
+        const float* __restrict__ q, const float* __restrict__ k,
+        const float* __restrict__ v, float* __restrict__ out, int T_len,
+        int Tk, int D, int n_rep, int causal, long long q_sb, long long q_st,
+        long long q_sh, long long k_sb, long long k_st, long long k_sh,
+        long long v_sb, long long v_st, long long v_sh, long long o_sb,
+        long long o_st, long long o_sh, float scale_log2) {
+  constexpr int Bq = kSimtBq;
+  constexpr int Bk = kSimtBk;
+  const int ld = D + 4;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * Bq;  // longest tiles first
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
   const int kvh = h / n_rep;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
+  const int rg = lane >> 4;  // S: row lane (rows rg + 2 r)
+  const int kg = lane & 15;  // S: key lane (keys kg + 16 j)
 
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* qs = reinterpret_cast<float*>(smem_raw);  // [Bq][D]
-  T* kvs = reinterpret_cast<T*>(qs + Bq * D);      // [2][2][kSimtBk][ld]
-  float* ps = reinterpret_cast<float*>(kvs + 2 * 2 * kSimtBk * ld);
+  extern __shared__ __align__(16) float smem_f[];
+  float* qs = smem_f;                  // [Bq][ld]
+  float* ks = qs + Bq * ld;            // [Bk][ld]
+  float* vs = ks + Bk * ld;            // [Bk][ld]
+  float* ps = vs + Bk * ld;            // [Bq][kSimtPld]
+  float* alpha_s = ps + Bq * kSimtPld;  // [Bq]
+  float* l_s = alpha_s + Bq;            // [Bq]
 
-  int n_kt = (Tk + kSimtBk - 1) / kSimtBk;
-  if (causal) n_kt = min(n_kt, (q0 + Bq - 1) / kSimtBk + 1);
+  int n_kt = (Tk + Bk - 1) / Bk;
+  if (causal) n_kt = min(n_kt, (q0 + Bq - 1) / Bk + 1);
 
-  const T* kb = k + b * k_sb + kvh * k_sh;
-  const T* vb = v + b * v_sb + kvh * v_sh;
-  const int chunks = D / E;  // 16-byte chunks of a row
-  // tile t's K and V rows into ring stage t % 2; rows past Tk as zeros
-  auto issue = [&](int t) {
-    T* ks = kvs + (t & 1) * 2 * kSimtBk * ld;
-    T* vs = ks + kSimtBk * ld;
-    for (int i = tid; i < kSimtBk * chunks; i += kSimtThreads) {
+  const float* kb = k + b * k_sb + kvh * k_sh;
+  const float* vb = v + b * v_sb + kvh * v_sh;
+  const int chunks = D / 4;  // 16-byte chunks of a row
+  // tile t's rows of src (K or V) into dst; rows past Tk as zeros
+  auto issue = [&](float* dst, const float* src, long long st, int t) {
+    for (int i = tid; i < Bk * chunks; i += kSimtThreads) {
       const int r = i / chunks;
-      const int c = (i - r * chunks) * E;
-      const int key = t * kSimtBk + r;
+      const int c = (i - r * chunks) * 4;
+      const int key = t * Bk + r;
       if (key < Tk) {
-        tt_cp_async16(ks + r * ld + c, kb + key * k_st + c);
-        tt_cp_async16(vs + r * ld + c, vb + key * v_st + c);
+        tt_cp_async16(dst + r * ld + c, src + key * st + c);
       } else {
-        *reinterpret_cast<uint4*>(ks + r * ld + c) = make_uint4(0, 0, 0, 0);
-        *reinterpret_cast<uint4*>(vs + r * ld + c) = make_uint4(0, 0, 0, 0);
+        *reinterpret_cast<float4*>(dst + r * ld + c) =
+            make_float4(0.f, 0.f, 0.f, 0.f);
       }
     }
   };
-  if (n_kt > 0) issue(0);
+  if (n_kt > 0) issue(ks, kb, k_st, 0);
   tt_cp_async_commit();
 
-  // the block's query rows as float32 in log2 units; rows past T are zeros
-  const T* qb = q + b * q_sb + h * q_sh;
-  for (int i = tid; i < Bq * (D / 8); i += kSimtThreads) {
-    const int r = i / (D / 8);
-    const int c = (i - r * (D / 8)) * 8;
-    float x[8];
-    if (q0 + r < T_len) {
-      tt_load8(qb + (q0 + r) * q_st + c, x);
-    } else {
-#pragma unroll
-      for (int e = 0; e < 8; ++e) x[e] = 0.f;
-    }
-#pragma unroll
-    for (int e = 0; e < 8; ++e) qs[r * D + c + e] = x[e] * scale_log2;
+  // the block's query rows in log2 units; rows past T are zeros
+  const float* qb = q + b * q_sb + h * q_sh;
+  for (int i = tid; i < Bq * chunks; i += kSimtThreads) {
+    const int r = i / chunks;
+    const int c = (i - r * chunks) * 4;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (q0 + r < T_len)
+      x = *reinterpret_cast<const float4*>(qb + (q0 + r) * q_st + c);
+    x.x *= scale_log2;
+    x.y *= scale_log2;
+    x.z *= scale_log2;
+    x.w *= scale_log2;
+    *reinterpret_cast<float4*>(qs + r * ld + c) = x;
   }
 
-  const int row0 = q0 + warp * R;  // this warp's first query row
-  const float* qw = qs + warp * R * D;
-  float* pw = ps + warp * R * kSimtBk;
-  float o[R][NC];
-  float m[R], l[R];  // l: this lane's share of the row sum
+  const int wr0 = warp * kSimtWR;  // this warp's first row in the block
+  const int wrow0 = q0 + wr0;      // ... and in the sequence
+  const float* qw = qs + (wr0 + rg) * ld;     // S row r: + 2 r ld
+  float* pw = ps + (wr0 + rg) * kSimtPld;     // S row r: + 2 r kSimtPld
+  const float* pv_w = ps + wr0 * kSimtPld;    // P V row r: + r kSimtPld
+  float o[kSimtWR][C4][4];
+  float m[kSimtSR], l[kSimtSR];  // l: this lane's share of the row sum
 #pragma unroll
-  for (int r = 0; r < R; ++r) {
+  for (int r = 0; r < kSimtSR; ++r) {
     m[r] = -INFINITY;
     l[r] = 0.f;
-#pragma unroll
-    for (int i = 0; i < NC; ++i) o[r][i] = 0.f;
   }
+#pragma unroll
+  for (int r = 0; r < kSimtWR; ++r)
+#pragma unroll
+    for (int i = 0; i < C4; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[r][i][e] = 0.f;
 
   for (int t = 0; t < n_kt; ++t) {
-    // tile t + 1 goes out; tile t has landed once at most that group is
-    // pending, and the barrier makes every thread's copies visible
-    if (t + 1 < n_kt) issue(t + 1);
-    tt_cp_async_commit();
-    tt_cp_async_wait<1>();
+    // K of tile t has landed and is visible; every warp is done with V of
+    // tile t - 1, whose buffer V of tile t now fills
+    tt_cp_async_wait<0>();
     __syncthreads();
-    const T* ks = kvs + (t & 1) * 2 * kSimtBk * ld;
-    const T* vs = ks + kSimtBk * ld;
-    const int k0 = t * kSimtBk;
+    issue(vs, vb, v_st, t);
+    tt_cp_async_commit();
+    const int k0 = t * Bk;
     // causal: a warp whose rows all lie before this tile's first key
     // skips it (warp-uniform)
-    if (!causal || k0 <= row0 + R - 1) {
-      float s[R];
+    const bool live = !causal || k0 <= wrow0 + kSimtWR - 1;
+    if (live) {
+      float s[kSimtSR][kSimtSK];
 #pragma unroll
-      for (int r = 0; r < R; ++r) s[r] = 0.f;
-      const T* krow = ks + lane * ld;
-      for (int c = 0; c < D; c += 8) {
-        float kv[8];
-        tt_load8(krow + c, kv);
+      for (int r = 0; r < kSimtSR; ++r)
 #pragma unroll
-        for (int r = 0; r < R; ++r) {
-          const float4 a = *reinterpret_cast<const float4*>(qw + r * D + c);
-          const float4 z = *reinterpret_cast<const float4*>(qw + r * D + c +
-                                                            4);
-          float acc = s[r];
-          acc = fmaf(a.x, kv[0], acc);
-          acc = fmaf(a.y, kv[1], acc);
-          acc = fmaf(a.z, kv[2], acc);
-          acc = fmaf(a.w, kv[3], acc);
-          acc = fmaf(z.x, kv[4], acc);
-          acc = fmaf(z.y, kv[5], acc);
-          acc = fmaf(z.z, kv[6], acc);
-          acc = fmaf(z.w, kv[7], acc);
-          s[r] = acc;
+        for (int j = 0; j < kSimtSK; ++j) s[r][j] = 0.f;
+#pragma unroll 2
+      for (int d = 0; d < D; d += 4) {
+        float4 qv[kSimtSR];
+#pragma unroll
+        for (int r = 0; r < kSimtSR; ++r)
+          qv[r] = *reinterpret_cast<const float4*>(qw + 2 * r * ld + d);
+#pragma unroll
+        for (int j = 0; j < kSimtSK; ++j) {
+          const float4 kv =
+              *reinterpret_cast<const float4*>(ks + (kg + 16 * j) * ld + d);
+#pragma unroll
+          for (int r = 0; r < kSimtSR; ++r) {
+            float acc = s[r][j];
+            acc = fmaf(qv[r].x, kv.x, acc);
+            acc = fmaf(qv[r].y, kv.y, acc);
+            acc = fmaf(qv[r].z, kv.z, acc);
+            acc = fmaf(qv[r].w, kv.w, acc);
+            s[r][j] = acc;
+          }
         }
       }
-      const int key = k0 + lane;
 #pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const float x =
-            (key >= Tk || (causal && key > row0 + r)) ? -INFINITY : s[r];
-        float mx = x;
+      for (int r = 0; r < kSimtSR; ++r) {
+        const int row = wrow0 + rg + 2 * r;
+        float mx = -INFINITY;
 #pragma unroll
-        for (int off = 16; off > 0; off >>= 1)
+        for (int j = 0; j < kSimtSK; ++j) {
+          const int key = k0 + kg + 16 * j;
+          if (key >= Tk || (causal && key > row)) s[r][j] = -INFINITY;
+          mx = fmaxf(mx, s[r][j]);
+        }
+#pragma unroll
+        for (int off = 8; off > 0; off >>= 1)
           mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
         const float m_new = fmaxf(m[r], mx);
         const float shift = tt_shift(m_new);
         const float alpha = isfinite(m[r]) ? exp2f(m[r] - shift) : 0.f;
-        const float p = exp2f(x - shift);
         m[r] = m_new;
-        l[r] = l[r] * alpha + p;
+        float sum = 0.f;
 #pragma unroll
-        for (int i = 0; i < NC; ++i) o[r][i] *= alpha;
-        pw[r * kSimtBk + lane] = p_operand(p, q);
+        for (int j = 0; j < kSimtSK; ++j) {
+          const float p = exp2f(s[r][j] - shift);
+          pw[2 * r * kSimtPld + kg + 16 * j] = p;
+          sum += p;
+        }
+        l[r] = l[r] * alpha + sum;
+        if (kg == 0) alpha_s[wr0 + rg + 2 * r] = alpha;
       }
       __syncwarp();
-      for (int j = 0; j < kSimtBk; j += 4) {
-        float vv[4][NC];
+    }
+    // V of tile t has landed and is visible; every warp is done with K of
+    // tile t, whose buffer K of tile t + 1 now fills
+    tt_cp_async_wait<0>();
+    __syncthreads();
+    if (t + 1 < n_kt) issue(ks, kb, k_st, t + 1);
+    tt_cp_async_commit();
+    if (live) {
 #pragma unroll
-        for (int jj = 0; jj < 4; ++jj)
+      for (int r = 0; r < kSimtWR; ++r) {
+        const float a = alpha_s[wr0 + r];
 #pragma unroll
-          for (int i = 0; i < NC; ++i) {
-            const int col = lane + 32 * i;
-            vv[jj][i] = col < D ? tt_to_float(vs[(j + jj) * ld + col]) : 0.f;
-          }
+        for (int i = 0; i < C4; ++i)
 #pragma unroll
-        for (int r = 0; r < R; ++r) {
-          const float4 p4 =
-              *reinterpret_cast<const float4*>(pw + r * kSimtBk + j);
+          for (int e = 0; e < 4; ++e) o[r][i][e] *= a;
+      }
+#pragma unroll 2
+      for (int j = 0; j < Bk; j += 4) {
+        float4 pv[kSimtWR];
 #pragma unroll
-          for (int i = 0; i < NC; ++i) {
-            float acc = o[r][i];
-            acc = fmaf(p4.x, vv[0][i], acc);
-            acc = fmaf(p4.y, vv[1][i], acc);
-            acc = fmaf(p4.z, vv[2][i], acc);
-            acc = fmaf(p4.w, vv[3][i], acc);
-            o[r][i] = acc;
+        for (int r = 0; r < kSimtWR; ++r)
+          pv[r] = *reinterpret_cast<const float4*>(pv_w + r * kSimtPld + j);
+#pragma unroll
+        for (int i = 0; i < C4; ++i) {
+          const int col = 4 * lane + 128 * i;
+          if (col < D) {
+#pragma unroll
+            for (int jj = 0; jj < 4; ++jj) {
+              const float4 vv =
+                  *reinterpret_cast<const float4*>(vs + (j + jj) * ld + col);
+#pragma unroll
+              for (int r = 0; r < kSimtWR; ++r) {
+                const float p = f4_at(pv[r], jj);
+                o[r][i][0] = fmaf(p, vv.x, o[r][i][0]);
+                o[r][i][1] = fmaf(p, vv.y, o[r][i][1]);
+                o[r][i][2] = fmaf(p, vv.z, o[r][i][2]);
+                o[r][i][3] = fmaf(p, vv.w, o[r][i][3]);
+              }
+            }
           }
         }
       }
     }
-    // every warp is done with stage t % 2 (and its P) before the next
-    // iteration issues tile t + 2 into it
-    __syncthreads();
   }
   tt_cp_async_wait<0>();
 
-  // the row sums over the warp, normalise, store
-  T* ob = out + b * o_sb + h * o_sh;
+  // the row sums over the row group, normalise, store
 #pragma unroll
-  for (int r = 0; r < R; ++r) {
+  for (int r = 0; r < kSimtSR; ++r) {
     float lt = l[r];
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
+    for (int off = 8; off > 0; off >>= 1)
       lt += __shfl_xor_sync(0xffffffffu, lt, off);
-    lt = lt == 0.f ? 1.f : lt;
-    const int row = row0 + r;
-    if (row < T_len) {
-      T* orow = ob + row * o_st;
+    if (kg == 0) l_s[wr0 + rg + 2 * r] = lt == 0.f ? 1.f : lt;
+  }
+  __syncwarp();
+  float* ob = out + b * o_sb + h * o_sh;
 #pragma unroll
-      for (int i = 0; i < NC; ++i) {
-        const int col = lane + 32 * i;
-        if (col < D) tt_store(orow + col, o[r][i] / lt);
+  for (int r = 0; r < kSimtWR; ++r) {
+    const float den = l_s[wr0 + r];
+    const int row = wrow0 + r;
+    if (row < T_len) {
+      float* orow = ob + row * o_st;
+#pragma unroll
+      for (int i = 0; i < C4; ++i) {
+        const int col = 4 * lane + 128 * i;
+        if (col < D)
+          *reinterpret_cast<float4*>(orow + col) =
+              make_float4(o[r][i][0] / den, o[r][i][1] / den,
+                          o[r][i][2] / den, o[r][i][3] / den);
       }
     }
   }
@@ -849,14 +910,16 @@ int make_map(CUtensorMap* map, const void* ptr, int B, int L, int H, int D,
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
+// D: the padded head dim (64, 128, 192, 256) of the instance; d the
+// operands' own (a multiple of 8, d <= D).
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int T, int Tk, int H, int Hkv, int causal, const long long* st,
-           float scale, cudaStream_t stream) {
+           int T, int Tk, int H, int Hkv, int d, int causal,
+           const long long* st, float scale, cudaStream_t stream) {
   CUtensorMap mq, mk, mv;
-  int rc = make_map(&mq, q, B, T, H, D, st[0], st[1], st[2]);
-  if (rc == 0) rc = make_map(&mk, k, B, Tk, Hkv, D, st[3], st[4], st[5]);
-  if (rc == 0) rc = make_map(&mv, v, B, Tk, Hkv, D, st[6], st[7], st[8]);
+  int rc = make_map(&mq, q, B, T, H, d, st[0], st[1], st[2]);
+  if (rc == 0) rc = make_map(&mk, k, B, Tk, Hkv, d, st[3], st[4], st[5]);
+  if (rc == 0) rc = make_map(&mv, v, B, Tk, Hkv, d, st[6], st[7], st[8]);
   if (rc != 0) return rc;
   constexpr int smem = Layout<D>::kBytes;
   static bool attr_set = false;
@@ -867,70 +930,35 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
     if (e != cudaSuccess) return (int)e;
     attr_set = true;
   }
-  dim3 grid(H, B, (T + kBq - 1) / kBq);
-  flash_attention_kernel<D><<<grid, kThreads, smem, stream>>>(
-      mq, mk, mv, static_cast<__nv_bfloat16*>(out), T, Tk, H / Hkv, causal,
-      st[9], st[10], st[11], scale * 1.4426950408889634f);
+  dim3 grid(H, B, (T + Layout<D>::kBq - 1) / Layout<D>::kBq);
+  flash_attention_kernel<D><<<grid, Layout<D>::kThreads, smem, stream>>>(
+      mq, mk, mv, static_cast<__nv_bfloat16*>(out), T, Tk, d, H / Hkv,
+      causal, st[9], st[10], st[11], scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int NC>
+template <int C4>
 int launch_simt(const void* q, const void* k, const void* v, void* out,
                 int B, int Tq, int Tk, int H, int Hkv, int D, int causal,
                 const long long* st, float scale, cudaStream_t stream) {
-  constexpr int R = SimtRows<NC>::R;
-  constexpr int Bq = SimtRows<NC>::Bq;
   static bool attr_set = false;
   if (!attr_set) {
-    // the most this instance takes: D = 32 NC
+    // the most this instance takes: D = 128 C4
     cudaError_t e = cudaFuncSetAttribute(
-        flash_attention_simt_kernel<T, NC>,
+        flash_attention_simt_kernel<C4>,
         cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)simt_smem<T>(32 * NC, R));
+        (int)simt_smem(128 * C4));
     if (e != cudaSuccess) return (int)e;
     attr_set = true;
   }
-  dim3 grid((Tq + Bq - 1) / Bq, H, B);
-  flash_attention_simt_kernel<T, NC>
-      <<<grid, kSimtThreads, simt_smem<T>(D, R), stream>>>(
-          static_cast<const T*>(q), static_cast<const T*>(k),
-          static_cast<const T*>(v), static_cast<T*>(out), Tq, Tk, D, H / Hkv,
-          causal, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
-          st[8], st[9], st[10], st[11], scale * 1.4426950408889634f);
+  dim3 grid(H, B, (Tq + kSimtBq - 1) / kSimtBq);
+  flash_attention_simt_kernel<C4>
+      <<<grid, kSimtThreads, simt_smem(D), stream>>>(
+          static_cast<const float*>(q), static_cast<const float*>(k),
+          static_cast<const float*>(v), static_cast<float*>(out), Tq, Tk, D,
+          H / Hkv, causal, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
+          st[7], st[8], st[9], st[10], st[11], scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
-}
-
-template <typename T>
-int dispatch_simt(const void* q, const void* k, const void* v, void* out,
-                  int B, int Tq, int Tk, int H, int Hkv, int D, int causal,
-                  const long long* st, float scale, cudaStream_t stream) {
-  switch ((D + 31) / 32) {
-    case 1:
-      return launch_simt<T, 1>(q, k, v, out, B, Tq, Tk, H, Hkv, D, causal, st,
-                               scale, stream);
-    case 2:
-      return launch_simt<T, 2>(q, k, v, out, B, Tq, Tk, H, Hkv, D, causal, st,
-                               scale, stream);
-    case 3:
-      return launch_simt<T, 3>(q, k, v, out, B, Tq, Tk, H, Hkv, D, causal, st,
-                               scale, stream);
-    case 4:
-      return launch_simt<T, 4>(q, k, v, out, B, Tq, Tk, H, Hkv, D, causal, st,
-                               scale, stream);
-    case 5:
-      return launch_simt<T, 5>(q, k, v, out, B, Tq, Tk, H, Hkv, D, causal, st,
-                               scale, stream);
-    case 6:
-      return launch_simt<T, 6>(q, k, v, out, B, Tq, Tk, H, Hkv, D, causal, st,
-                               scale, stream);
-    case 7:
-      return launch_simt<T, 7>(q, k, v, out, B, Tq, Tk, H, Hkv, D, causal, st,
-                               scale, stream);
-    case 8:
-      return launch_simt<T, 8>(q, k, v, out, B, Tq, Tk, H, Hkv, D, causal, st,
-                               scale, stream);
-  }
-  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -939,34 +967,37 @@ int dispatch_simt(const void* q, const void* k, const void* v, void* out,
 enum { TT_FLASH_WGMMA = 0, TT_FLASH_SIMT = 1 };
 
 // Shapes and strides (in elements) are checked by the Python wrapper, which
-// picks the route: `wgmma` takes bf16 with D 64 or 128, `simt` float32 or
-// bf16 with D a multiple of 8 from 8 to 256; a route given anything else
-// returns cudaErrorInvalidValue before any launch.  H % Hkv == 0, 16-byte
-// aligned rows.  `strides` holds q, k, v, out as (batch, time, head)
-// triples.
+// picks the route: `wgmma` takes bf16, `simt` float32, each with D a
+// multiple of 8 from 8 to 256; a route given anything else returns
+// cudaErrorInvalidValue before any launch.  H % Hkv == 0, 16-byte aligned
+// rows.  `strides` holds q, k, v, out as (batch, time, head) triples.
 extern "C" int tt_flash_attention(int dtype, int route, const void* q,
                                   const void* k, const void* v, void* out,
                                   int B, int T, int Tk, int H, int Hkv, int D,
                                   int causal, const long long* strides,
                                   float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D < 8 || D % 8 || D > 256) return (int)cudaErrorInvalidValue;
   if (route == TT_FLASH_WGMMA && dtype == TT_BF16) {
-    if (D == 64)
-      return launch<64>(q, k, v, out, B, T, Tk, H, Hkv, causal, strides,
+    if (D <= 64)
+      return launch<64>(q, k, v, out, B, T, Tk, H, Hkv, D, causal, strides,
                         scale, st);
-    if (D == 128)
-      return launch<128>(q, k, v, out, B, T, Tk, H, Hkv, causal, strides,
+    if (D <= 128)
+      return launch<128>(q, k, v, out, B, T, Tk, H, Hkv, D, causal, strides,
                          scale, st);
-    return (int)cudaErrorInvalidValue;
+    if (D <= 192)
+      return launch<192>(q, k, v, out, B, T, Tk, H, Hkv, D, causal, strides,
+                         scale, st);
+    return launch<256>(q, k, v, out, B, T, Tk, H, Hkv, D, causal, strides,
+                       scale, st);
   }
-  if (route != TT_FLASH_SIMT || D < 8 || D % 8 || D > 256)
-    return (int)cudaErrorInvalidValue;
-  if (dtype == TT_F32)
-    return dispatch_simt<float>(q, k, v, out, B, T, Tk, H, Hkv, D, causal,
-                                strides, scale, st);
-  if (dtype == TT_BF16)
-    return dispatch_simt<__nv_bfloat16>(q, k, v, out, B, T, Tk, H, Hkv, D,
-                                        causal, strides, scale, st);
+  if (route == TT_FLASH_SIMT && dtype == TT_F32) {
+    if (D <= 128)
+      return launch_simt<1>(q, k, v, out, B, T, Tk, H, Hkv, D, causal,
+                            strides, scale, st);
+    return launch_simt<2>(q, k, v, out, B, T, Tk, H, Hkv, D, causal, strides,
+                          scale, st);
+  }
   return (int)cudaErrorInvalidValue;
 }
 

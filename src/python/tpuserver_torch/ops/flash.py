@@ -7,13 +7,12 @@ A wrapper runs the plain version only for tensors that lie on the CPU
 launches the kernel or raises; it never falls back.  Each wrapper counts
 its launches in ``<wrapper>.launches``.
 
-Each kernel has two routes, chosen from the operands' dtype and head dim
-before the launch (:func:`flash_route`, :func:`decode_route`): the tensor
-cores for bfloat16 at head dim 64 or 128 (every Llama-3 preset), and a
-float32-FMA kernel on the CUDA cores for the rest of the JAX kernels'
-domain (float32 at any head dim, bfloat16 at the others; any multiple of
-8 up to 256, any number of query heads per kv head).  Launches are also
-counted by route, in ``<wrapper>.route_launches``.
+Each kernel has two routes, chosen from the operands' dtype before the
+launch (:func:`flash_route`, :func:`decode_route`): the tensor cores for
+bfloat16 and a float32-FMA kernel on the CUDA cores for float32, each at
+every head dim of the JAX kernels' domain (any multiple of 8 up to 256)
+and any number of query heads per kv head.  Launches are also counted by
+route, in ``<wrapper>.route_launches``.
 """
 
 import ctypes
@@ -28,8 +27,10 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # csrc/decode_attention.cu number them
 FLASH_ROUTES = ("wgmma", "simt")
 DECODE_ROUTES = ("mma", "simt")
-# head dims of the tensor-core routes (bfloat16): every Llama-3 preset's
-_TENSOR_CORE_HEAD_DIMS = (64, 128)
+# the query heads of one kv head that a decode block takes, by route: the
+# MMA's 16 rows on "mma", 8 on "simt" (csrc/decode_attention.cu's kMmaRep
+# and kSimtRep)
+DECODE_GROUP_HEADS = {"mma": 16, "simt": 8}
 _MAX_HEAD_DIM = 256
 _MAX_SPLIT = 64  # decode kernel: key-range splits per (row, kv head)
 
@@ -149,28 +150,34 @@ def _check_domain(name, dtype, d):
 
 def flash_route(dtype, d):
     """The flash kernel's route for operands of ``dtype`` with head dim
-    ``d``: ``"wgmma"`` (the tensor cores) for bfloat16 at 64 or 128,
-    ``"simt"`` (float32 FMA on the CUDA cores) for float32 at any head
-    dim and bfloat16 at the others.  ValueError for what neither takes."""
+    ``d``: ``"wgmma"`` (the tensor cores, the head dim padded to 64, 128,
+    192 or 256) for bfloat16, ``"simt"`` (float32 FMA on the CUDA cores,
+    register-tiled) for float32, at any head dim of the domain.
+    ValueError for what neither takes."""
     _check_domain("flash_attention", dtype, d)
-    if dtype == torch.bfloat16 and d in _TENSOR_CORE_HEAD_DIMS:
-        return "wgmma"
-    return "simt"
+    return "wgmma" if dtype == torch.bfloat16 else "simt"
 
 
 def decode_route(dtype, d, n_rep):
     """The decode kernel's route for operands of ``dtype``, head dim
-    ``d`` and ``n_rep`` query heads per kv head (any, a block taking up
-    to 8 of them): ``"mma"`` (the tensor cores) for bfloat16 at 64 or
-    128, ``"simt"`` (the CUDA cores) for the rest.  ValueError for what
-    neither takes."""
+    ``d`` and ``n_rep`` query heads per kv head (any;
+    :func:`decode_head_groups` says how many blocks share them):
+    ``"mma"`` (the tensor cores) for bfloat16, ``"simt"`` (the CUDA
+    cores) for float32, at any head dim of the domain.  ValueError for
+    what neither takes."""
     if n_rep < 1:
         raise ValueError("decode_attention: {} query heads per kv head "
                          "(want at least 1)".format(n_rep))
     _check_domain("decode_attention", dtype, d)
-    if dtype == torch.bfloat16 and d in _TENSOR_CORE_HEAD_DIMS:
-        return "mma"
-    return "simt"
+    return "mma" if dtype == torch.bfloat16 else "simt"
+
+
+def decode_head_groups(route, n_rep):
+    """The blocks each (row, kv head, split) of the decode kernel takes
+    on ``route``: its ``n_rep`` query heads in groups of
+    ``DECODE_GROUP_HEADS[route]`` (16 on ``"mma"``: 16 heads are one
+    group, 17 are two), each group re-reading the kv head's cache."""
+    return -(-n_rep // DECODE_GROUP_HEADS[route])
 
 
 def _check_cuda(name, dtype, *tensors):
@@ -227,7 +234,7 @@ def flash_attention(q, k, v, causal=True, scale=None, block_q=128,
     ``h // (H // Hkv)``).  ``block_q``/``block_k`` keep the JAX
     signature's divisibility contract (T and Tk must divide by them,
     else ValueError); the CUDA kernel picks its own tiles.  On the card
-    :func:`flash_route` picks the kernel from the dtype and head dim;
+    :func:`flash_route` picks the kernel from the dtype;
     ValueError for what stays outside the kernels' domain (see
     ``_check_cuda``).
     """
@@ -303,10 +310,11 @@ def decode_attention(q, k_cache, v_cache, lengths, scale=None, block_k=256):
     signature's contract (S must divide by it).  Returns [B, H, D].
 
     On the card the key range is split across ``decode_splits(...)``
-    blocks per (row, kv head) (each kv head's query heads in groups of
-    up to 8, a block each), whose partials a second kernel combines in
-    split order (``decode_attention_split_reference`` models it);
-    :func:`decode_route` picks the kernel from the dtype and head dim.
+    blocks per (row, kv head) (each kv head's query heads in
+    :func:`decode_head_groups` groups, a block each), whose partials a
+    second kernel combines in split order
+    (``decode_attention_split_reference`` models it); :func:`decode_route`
+    picks the kernel from the dtype.
     """
     b, h, d = q.shape
     s, h_kv = k_cache.shape[1], k_cache.shape[2]

@@ -98,12 +98,12 @@ def test_decode_kernel_rejects_what_it_does_not_take(cuda, dtype, d, match):
     assert tflash.decode_attention.launches == before
 
 
-# the routes beyond the bf16 tensor-core ones: float32 at any head dim,
-# bf16 at the head dims other than 64 and 128, over one kv head or several
+# the float32 route (register-tiled float32 FMA), over one kv head or
+# several, at head dims that are no multiple of its 32 columns as well
 @pytest.mark.parametrize("dtype,d,hkv,causal", [
     (torch.float32, 128, 2, True), (torch.float32, 64, 2, False),
-    (torch.bfloat16, 8, 4, True), (torch.bfloat16, 96, 1, True),
-    (torch.float32, 96, 1, False), (torch.bfloat16, 256, 1, True),
+    (torch.float32, 8, 4, True), (torch.float32, 96, 1, True),
+    (torch.float32, 96, 1, False), (torch.float32, 200, 1, True),
     (torch.float32, 256, 2, False), (torch.float32, 24, 4, True)])
 def test_flash_simt_route_matches_plain_on_card(cuda, dtype, d, hkv, causal):
     gen = torch.Generator(device=cuda).manual_seed(21)
@@ -124,25 +124,79 @@ def test_flash_simt_route_matches_plain_on_card(cuda, dtype, d, hkv, causal):
     ref = tflash.flash_attention_reference(q, k, v, causal=causal)
     assert _row_rel_err(out, ref) <= CARD_TOL[dtype]
     # the limit sees the last 32 keys dropped
-    keys = t - 32
-    if causal:
-        short = torch.cat([tflash.flash_attention_reference(
-            q[:, :keys], k[:, :keys], v[:, :keys], causal=True),
-            tflash.flash_attention_reference(
-                q[:, keys:], k[:, :keys], v[:, :keys], causal=False)], dim=1)
-    else:
-        short = tflash.flash_attention_reference(q, k[:, :keys],
-                                                 v[:, :keys], causal=False)
+    short = _dropped_keys_reference(q, k, v, causal, t - 32)
     assert _row_rel_err(short, ref) > CARD_TOL[dtype]
 
 
-# the decode kernel at more than 8 query heads per kv head (groups of 8 on
-# the grid, on both routes) and at head dims that are no power of two
+def _dropped_keys_reference(q, k, v, causal, keys):
+    """The plain version with every key at or past ``keys`` dropped."""
+    if not causal:
+        return tflash.flash_attention_reference(q, k[:, :keys], v[:, :keys],
+                                                causal=False)
+    return torch.cat([tflash.flash_attention_reference(
+        q[:, :keys], k[:, :keys], v[:, :keys], causal=True),
+        tflash.flash_attention_reference(
+            q[:, keys:], k[:, :keys], v[:, :keys], causal=False)], dim=1)
+
+
+# bf16 on the tensor cores at head dims other than 64 and 128: the head
+# dim padded to 64, 128, 192 or 256 inside the kernel, only D columns
+# stored
+@pytest.mark.parametrize("d,hkv,causal", [
+    (8, 4, True), (24, 2, False), (96, 1, True), (96, 2, False),
+    (192, 2, True), (256, 1, True), (256, 2, False), (136, 1, True)])
+def test_flash_wgmma_route_at_every_head_dim_matches_plain_on_card(
+        cuda, d, hkv, causal):
+    gen = torch.Generator(device=cuda).manual_seed(26)
+    t = 200  # no multiple of the route's 64-key tile
+    q, k, v = (torch.randn(2, t, hh, d, device=cuda, generator=gen).to(
+        torch.bfloat16) for hh in (8, hkv, hkv))
+    assert tflash.flash_route(torch.bfloat16, d) == "wgmma"
+    before = dict(tflash.flash_attention.route_launches)
+    out = tflash.flash_attention(q, k, v, causal=causal, block_q=8,
+                                 block_k=8)
+    again = tflash.flash_attention(q, k, v, causal=causal, block_q=8,
+                                   block_k=8)
+    torch.cuda.synchronize()
+    assert tflash.flash_attention.route_launches["wgmma"] == \
+        before["wgmma"] + 2
+    assert tflash.flash_attention.route_launches["simt"] == before["simt"]
+    assert torch.equal(out, again)
+    ref = tflash.flash_attention_reference(q, k, v, causal=causal)
+    assert _row_rel_err(out, ref) <= CARD_TOL[torch.bfloat16]
+    # the limit sees the keys past the route's second 64-key tile dropped
+    short = _dropped_keys_reference(q, k, v, causal, 128)
+    assert _row_rel_err(short, ref) > CARD_TOL[torch.bfloat16]
+
+
+def test_simt_routes_refuse_bf16_on_card(cuda, monkeypatch):
+    """After the tensor-core routes took every bf16 head dim, the C entry
+    points refuse bf16 on the simt routes: the wrapper raises and counts
+    no launch."""
+    q = torch.zeros(1, 64, 4, 96, device=cuda, dtype=torch.bfloat16)
+    lens = torch.ones(1, dtype=torch.int32, device=cuda)
+    monkeypatch.setattr(tflash, "flash_route", lambda dtype, d: "simt")
+    monkeypatch.setattr(tflash, "decode_route",
+                        lambda dtype, d, n_rep: "simt")
+    before = (dict(tflash.flash_attention.route_launches),
+              dict(tflash.decode_attention.route_launches))
+    with pytest.raises(RuntimeError, match="kernel launch failed"):
+        tflash.flash_attention(q, q, q)
+    with pytest.raises(RuntimeError, match="kernel launch failed"):
+        tflash.decode_attention(q[:, 0], q, q, lens)
+    assert before == (dict(tflash.flash_attention.route_launches),
+                      dict(tflash.decode_attention.route_launches))
+
+
+# the decode kernel at more than 8 query heads per kv head (groups of 16
+# on "mma", 8 on "simt") and at head dims that are no power of two
 @pytest.mark.parametrize("dtype,h,hkv,d,route", [
     (torch.bfloat16, 128, 8, 128, "mma"), (torch.bfloat16, 40, 4, 64, "mma"),
-    (torch.float32, 32, 1, 128, "simt"), (torch.bfloat16, 16, 1, 96, "simt"),
-    (torch.bfloat16, 8, 2, 256, "simt"), (torch.float32, 40, 4, 24, "simt"),
-    (torch.float32, 36, 2, 200, "simt")])
+    (torch.float32, 32, 1, 128, "simt"), (torch.bfloat16, 16, 1, 96, "mma"),
+    (torch.bfloat16, 8, 2, 256, "mma"), (torch.float32, 40, 4, 24, "simt"),
+    (torch.float32, 36, 2, 200, "simt"), (torch.bfloat16, 16, 1, 8, "mma"),
+    (torch.bfloat16, 16, 1, 24, "mma"), (torch.bfloat16, 16, 1, 256, "mma"),
+    (torch.bfloat16, 17, 1, 96, "mma"), (torch.bfloat16, 34, 2, 200, "mma")])
 def test_decode_kernel_domain_matches_plain_on_card(cuda, dtype, h, hkv, d,
                                                     route):
     gen = torch.Generator(device=cuda).manual_seed(22)

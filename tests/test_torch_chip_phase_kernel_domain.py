@@ -193,10 +193,85 @@ def test_phase3_errors_name_every_route(chip_smoke):
          "h": 128, "hkv": 8, "row_rel_err": 0.002},
         {"kernel": "decode_attention", "dtype": "bfloat16", "d": 96, "h": 16,
          "hkv": 1, "row_rel_err": 0.0004},
+        {"kernel": "decode_attention", "dtype": "float32", "d": 96, "h": 16,
+         "hkv": 1, "row_rel_err": 3e-6},
         {"kernel": "int8_matmul", "dtype": "bfloat16", "row_rel_err": 0.007},
         {"kernel": "int8_matmul", "kernel_route": "simt", "dtype": "float32",
          "row_rel_err": 1e-6}]
     assert chip_smoke._route_errors(rows) == {
-        "flash_attention": {"wgmma": 0.004, "simt": 0.01},
-        "decode_attention": {"mma": 0.002, "simt": 0.0004},
+        "flash_attention": {"wgmma": 0.01, "simt": 2e-6},
+        "decode_attention": {"mma": 0.002, "simt": 3e-6},
         "int8_matmul": {"mma": 0.007, "simt": 1e-6}}
+
+
+# ptxas -v lines of nvcc's log as the card's toolkit writes them (the
+# mangled names of the port's kernel instances)
+NVCC_LOG = """== decode_attention.cu
+ptxas info    : Compiling entry function '_ZN52_GLOBAL__N__0fc03474_19_decode_attention_cu_ecef93b327decode_attention_mma_kernelILi128ELi16ELb1EEEvPK13__nv_bfloat16S3_S3_PKiPS1_Pfiiiiixxxxxxxxxxf' for 'sm_90a'
+ptxas info    : Function properties for _ZN52_GLOBAL__N__0fc03474_19_decode_attention_cu_ecef93b327decode_attention_mma_kernelILi128ELi16ELb1EEEvPK13__nv_bfloat16S3_S3_PKiPS1_Pfiiiiixxxxxxxxxxf
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 150 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN52_GLOBAL__N__0fc03474_19_decode_attention_cu_ecef93b323decode_attention_kernelIfLi8EEEvPKT_S3_S3_PKiPS1_Pfiiiiixxxxxxxxxxf' for 'sm_90a'
+ptxas info    : Function properties for _ZN52_GLOBAL__N__0fc03474_19_decode_attention_cu_ecef93b323decode_attention_kernelIfLi8EEEvPKT_S3_S3_PKiPS1_Pfiiiiixxxxxxxxxxf
+    8 bytes stack frame, 4 bytes spill stores, 12 bytes spill loads
+ptxas info    : Used 255 registers, used 1 barriers, 8 bytes cumulative stack size
+== flash_attention.cu
+ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__74ca5886_18_flash_attention_cu_feabeab022flash_attention_kernelILi192EEEv14CUtensorMap_stS1_S1_P13__nv_bfloat16iiiiixxxf' for 'sm_90a'
+ptxas info    : Function properties for _ZN51_GLOBAL__N__74ca5886_18_flash_attention_cu_feabeab022flash_attention_kernelILi192EEEv14CUtensorMap_stS1_S1_P13__nv_bfloat16iiiiixxxf
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 164 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__74ca5886_18_flash_attention_cu_feabeab027flash_attention_simt_kernelILi1EEEvPKfS2_S2_Pfiiiiixxxxxxxxxxxxf' for 'sm_90a'
+ptxas info    : Function properties for _ZN51_GLOBAL__N__74ca5886_18_flash_attention_cu_feabeab027flash_attention_simt_kernelILi1EEEvPKfS2_S2_Pfiiiiixxxxxxxxxxxxf
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers
+"""
+
+
+def test_ptxas_numbers_of_a_rows_kernel_instance(chip_smoke):
+    """Phase 20 (a) prints beside each route's time the registers and
+    spilled bytes ptxas gave the kernel instance the row's shape
+    launches: the head dim padded to 64, 128, 192 or 256 on the tensor
+    cores, with decode's MMA rows (8 where a group holds at most 8
+    heads below D_p 256, else 16) and whether the head dim is D_p itself
+    (64 or 128); on flash's float32 route the column groups of P V (1 up
+    to D 128, else 2), on decode's the compiled head count."""
+    inst = chip_smoke.ptxas_instances(NVCC_LOG)
+    assert len(inst) == 4
+    ki = chip_smoke.kernel_instance
+    assert ki("flash_attention", "wgmma", 136) == \
+        "flash_attention_kernelILi192E"
+    assert ki("flash_attention", "wgmma", 8) == "flash_attention_kernelILi64E"
+    assert ki("flash_attention", "simt", 96) == \
+        "flash_attention_simt_kernelILi1E"
+    assert ki("flash_attention", "simt", 136) == \
+        "flash_attention_simt_kernelILi2E"
+    assert ki("decode_attention", "mma", 96, 16) == \
+        "decode_attention_mma_kernelILi128ELi16ELb0E"
+    assert ki("decode_attention", "mma", 128, 4) == \
+        "decode_attention_mma_kernelILi128ELi8ELb1E"
+    assert ki("decode_attention", "mma", 256, 4) == \
+        "decode_attention_mma_kernelILi256ELi16ELb0E"
+    assert ki("decode_attention", "simt", 128, 32) == \
+        "decode_attention_kernelIfLi8E"
+    assert ki("decode_attention", "simt", 128, 3) == \
+        "decode_attention_kernelIfLi4E"
+    assert chip_smoke.ptxas_of(inst, ki("flash_attention", "wgmma", 192)) == {
+        "instances": 1, "registers": 164, "spill_stores": 0,
+        "spill_loads": 0}
+    assert chip_smoke.ptxas_of(inst, ki("flash_attention", "simt", 72)) == {
+        "instances": 1, "registers": 168, "spill_stores": 0,
+        "spill_loads": 0}
+    assert chip_smoke.ptxas_of(inst, ki("decode_attention", "simt", 64, 8)) \
+        == {"instances": 1, "registers": 255, "spill_stores": 4,
+            "spill_loads": 12}
+    assert chip_smoke.ptxas_of(inst, ki("decode_attention", "mma", 128,
+                                        16)) == {
+        "instances": 1, "registers": 150, "spill_stores": 0,
+        "spill_loads": 0}
+    assert chip_smoke.ptxas_of(inst, ki("decode_attention", "mma", 128)) \
+        is None
+    # an instance the log does not hold, and the flash wgmma name that is
+    # no prefix of the simt one
+    assert chip_smoke.ptxas_of(inst, ki("flash_attention", "wgmma", 256)) \
+        is None
+    assert chip_smoke.ptxas_of(inst, "flash_attention_kernelILi3E") is None

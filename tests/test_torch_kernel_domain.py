@@ -1,10 +1,9 @@
 """The kernels' whole reference domain: the JAX package's Pallas kernels
 (tpuserver.ops.flash, in interpret mode as tests/test_torch_flash.py runs
 them) against the port's plain versions at the shapes the port's kernels
-take since their float32 and any-head-dim routes: flash at head dims 96
-and 256 over one kv head, float32 and bf16, causal and not; decode at 16
-and 32 query heads per kv head, head dim 96 (also through the model of
-the kernel's split-K).  The same numpy inputs feed both; on the CPU the
+take at every head dim: flash at head dims 96 and 256 over one kv head,
+float32 and bf16, causal and not; decode at 16 and 32 query heads per kv
+head, head dim 96 (also through the model of the kernel's split-K).  The same numpy inputs feed both; on the CPU the
 port's wrappers run their plain versions.  The kernels themselves are
 held against those plain versions on the card (tests/test_torch_card.py,
 chip_smoke.py phases 3 and 20).  The weight-only product in float32 at
@@ -13,8 +12,9 @@ chip_smoke.py phases 3 and 20).  The weight-only product in float32 at
 
 Also the route tables as plain functions: every (dtype, head dim, query
 heads per kv head) of the JAX kernels' domain that the card's rule on
-rows takes has a route, and what stays outside raises ValueError with
-the reason.
+rows takes has a route (the tensor cores for bf16, "simt" for float32),
+the decode kernel's head groups by route, and what stays outside raises
+ValueError with the reason.
 
 Tolerances (tests/test_torch_flash.py's): 2e-4 in float32 (both sides sum
 in float32, in another order), 5e-2 in bfloat16 (the JAX kernel rounds
@@ -75,8 +75,9 @@ def test_flash_at_other_head_dims_over_one_kv_head_matches_jax(d, dtype,
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_decode_at_many_heads_per_kv_head_matches_jax(n_rep, h_kv, dtype):
     """More than 8 query heads per kv head (the kernel puts them in
-    groups of 8 on the grid), head dim 96 (its SIMT team of 12 lanes
-    rounded up to 16); ragged lengths, one of them 0."""
+    groups of 16 on "mma", 8 on "simt"), head dim 96 (padded to 128 on
+    "mma"; a SIMT team of 12 lanes rounded up to 16 on "simt"); ragged
+    lengths, one of them 0."""
     rng = np.random.RandomState(n_rep + h_kv)
     b, s, d = 2, 64, 96
     h = n_rep * h_kv
@@ -119,13 +120,32 @@ HEAD_DIMS = range(8, 257, 8)
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_every_head_dim_of_the_domain_has_a_route(dtype):
+    """bf16 takes the tensor cores at every head dim of the domain,
+    float32 the CUDA cores' float32 FMA ("simt")."""
+    tensor_cores = dtype == torch.bfloat16
     for d in HEAD_DIMS:
-        tensor_cores = dtype == torch.bfloat16 and d in (64, 128)
         assert tflash.flash_route(dtype, d) == (
             "wgmma" if tensor_cores else "simt"), d
-        for n_rep in (1, 2, 3, 4, 5, 8, 9, 16, 32, 128):
+        for n_rep in (1, 2, 3, 4, 5, 8, 9, 16, 17, 32, 128):
             assert tflash.decode_route(dtype, d, n_rep) == (
                 "mma" if tensor_cores else "simt"), (d, n_rep)
+
+
+@pytest.mark.parametrize("route,group", [("mma", 16), ("simt", 8)])
+def test_decode_groups_hold_up_to_their_routes_heads(route, group):
+    """A decode block takes up to 16 query heads of a kv head on "mma"
+    (the MMA's rows), 8 on "simt": 16 heads are one group on "mma", 17
+    are two; multi-query at 32 heads is two groups, Llama-3.1-405B's 16
+    heads a kv head one."""
+    assert tflash.DECODE_GROUP_HEADS[route] == group
+    for n_rep in range(1, 130):
+        groups = tflash.decode_head_groups(route, n_rep)
+        assert (groups - 1) * group < n_rep <= groups * group, n_rep
+    assert tflash.decode_head_groups(route, group) == 1
+    assert tflash.decode_head_groups(route, group + 1) == 2
+    if route == "mma":
+        assert tflash.decode_head_groups("mma", 32) == 2
+        assert tflash.decode_head_groups("mma", 128 // 8) == 1
 
 
 def test_routes_name_the_kernels_routes():
